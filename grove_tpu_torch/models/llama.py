@@ -1,0 +1,268 @@
+"""Llama-family decoder as plain PyTorch functions over a params dict.
+
+The params dict keeps the JAX package's key names and layouts: layers are
+stacked on axis 0 (``wq`` is [L, d, h, hd]), so weights convert key for key
+(grove_tpu_torch/convert.py). The JAX ``lax.scan`` over layers is a Python
+loop over the L axis here, and the KV cache is updated in place.
+
+Products take the working type's inputs: where the JAX code asks for an
+f32 result (``preferred_element_type``), the port multiplies the same
+values upcast to f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from grove_tpu_torch.device import resolve_device
+from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
+                                           pick_causal_attention)
+from grove_tpu_torch.ops.kvcache import KVCache, write_rows
+from grove_tpu_torch.ops.norms import rms_norm
+from grove_tpu_torch.ops.rope import apply_rope, rope_table
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 2048
+    n_layers: int = 16
+    n_heads: int = 16
+    n_kv_heads: int = 8
+    d_ff: int = 5632
+    head_dim: int = 128
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def params_bytes(self) -> int:
+        c = self
+        per_layer = (2 * c.d_model
+                     + c.d_model * c.n_heads * c.head_dim
+                     + 2 * c.d_model * c.n_kv_heads * c.head_dim
+                     + c.n_heads * c.head_dim * c.d_model
+                     + 3 * c.d_model * c.d_ff)
+        total = (2 * c.vocab_size * c.d_model + c.d_model
+                 + c.n_layers * per_layer)
+        return total * c.dtype.itemsize
+
+
+CONFIGS: dict[str, LlamaConfig] = {
+    # Tiny config for unit tests.
+    "test-tiny": LlamaConfig(vocab_size=256, d_model=64, n_layers=2,
+                             n_heads=8, n_kv_heads=4, d_ff=128, head_dim=8,
+                             max_seq_len=128),
+    # ~1.1B: the single-card serving model.
+    "llama-1b": LlamaConfig(vocab_size=32000, d_model=2048, n_layers=16,
+                            n_heads=16, n_kv_heads=8, d_ff=5632, head_dim=128,
+                            max_seq_len=2048),
+    # Llama-3-8B-shaped.
+    "llama-8b": LlamaConfig(vocab_size=128256, d_model=4096, n_layers=32,
+                            n_heads=32, n_kv_heads=8, d_ff=14336, head_dim=128,
+                            max_seq_len=8192),
+    # Llama-70B-shaped.
+    "llama-70b": LlamaConfig(vocab_size=128256, d_model=8192, n_layers=80,
+                             n_heads=64, n_kv_heads=8, d_ff=28672, head_dim=128,
+                             max_seq_len=8192),
+}
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
+                device: str | torch.device | None = None) -> Params:
+    """Random params (layers stacked on axis 0): normal(0, 1) * fan_in**-0.5
+    in f32, cast to ``cfg.dtype``; norms are ones. The numbers come from
+    ``generator`` (torch's RNG, so not the JAX package's numbers); it must
+    live on ``device``. ``device=None`` means the card."""
+    dev = resolve_device(device)
+    d, h, kv, hd, ff, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cfg.d_ff, cfg.n_layers)
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w * (fan_in ** -0.5)).to(cfg.dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+
+    layers = {
+        "attn_norm": ones((L, d)),
+        "mlp_norm": ones((L, d)),
+        "wq": dense((L, d, h, hd), d),
+        "wk": dense((L, d, kv, hd), d),
+        "wv": dense((L, d, kv, hd), d),
+        "wo": dense((L, h, hd, d), h * hd),
+        "w_gate": dense((L, d, ff), d),
+        "w_up": dense((L, d, ff), d),
+        "w_down": dense((L, ff, d), ff),
+    }
+    return {
+        "tok_embed": dense((cfg.vocab_size, d), d),
+        "lm_head": dense((d, cfg.vocab_size), d),
+        "final_norm": ones((d,)),
+        "layers": layers,
+    }
+
+
+@functools.lru_cache(maxsize=8)
+def _rope(max_seq_len: int, head_dim: int, theta: float,
+          device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rope tables on ``device``, built once per geometry (read-only)."""
+    return rope_table(max_seq_len, head_dim, theta, device=device)
+
+
+def layer_params(layers: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked layer dict (int8 leaves slice q and scale
+    together)."""
+    return {name: w[i] for name, w in layers.items()}
+
+
+def _w(w):
+    """A (possibly int8-quantized) weight as a dense tensor for a matmul.
+    For int8 weights this writes a working-type copy (the JAX package
+    leaves the upcast to XLA's fusion; a fused W8A16 kernel is later
+    work)."""
+    return w.materialize() if hasattr(w, "materialize") else w
+
+
+def _proj(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum(eq, x, _w(w))`` with JAX's type promotion: mixed inputs
+    (an f32 model over bf16 int8 scales) meet in the wider type."""
+    w = _w(w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum(eq, x.to(dt), w.to(dt))
+
+
+def _qkv(cfg: LlamaConfig, x, lp, cos, sin, positions):
+    """Pre-norm + QKV projections + rope. Shared by prefill and decode."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = _proj("bsd,dhk->bshk", h, lp["wq"])
+    k = _proj("bsd,dhk->bshk", h, lp["wk"])
+    v = _proj("bsd,dhk->bshk", h, lp["wv"])
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    return q, k, v
+
+
+def _attn_out(x, attn, lp):
+    out = _proj("bshk,hkd->bsd", attn, lp["wo"])
+    return x + out.to(x.dtype)
+
+
+def _mlp_block(cfg: LlamaConfig, x, lp):
+    """Pre-norm SwiGLU MLP with residual. Shared by prefill and decode."""
+    hm = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    gate = _proj("bsd,df->bsf", hm, lp["w_gate"])
+    up = _proj("bsd,df->bsf", hm, lp["w_up"])
+    out = _proj("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"])
+    return x + out.to(x.dtype)
+
+
+def _layer_prefill(cfg: LlamaConfig, x, lp, cos, sin, positions, q_offset,
+                   attn_fn=None):
+    """One decoder layer over a full sequence. x: [b, s, d_model].
+    ``attn_fn(q, k, v)`` overrides the attention (the flash kernel)."""
+    q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+    if attn_fn is None:
+        attn = causal_attention(q, k, v, q_offset=q_offset)
+    else:
+        attn = attn_fn(q, k, v)
+    x = _attn_out(x, attn, lp)
+    x = _mlp_block(cfg, x, lp)
+    return x, (k, v)
+
+
+def embed(cfg: LlamaConfig, params: Params,
+          tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding."""
+    te = params["tok_embed"]
+    if hasattr(te, "materialize"):  # int8: gather rows, then scale them
+        return (te.q[tokens].to(te.scale.dtype)
+                * te.scale[tokens]).to(cfg.dtype)
+    return te[tokens].to(cfg.dtype)
+
+
+def _logits(x: torch.Tensor, w) -> torch.Tensor:
+    """LM-head product with an f32 result: the working-type values upcast
+    to f32, as the JAX ``preferred_element_type=f32`` product."""
+    return x.to(torch.float32) @ _w(w).to(torch.float32)
+
+
+def head(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + LM head."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(x, params["lm_head"])
+
+
+def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            cache: KVCache, lengths: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, KVCache]:
+    """Prefill: run the prompt, fill the cache, return last-token logits.
+
+    tokens: [b, s], right-padded to a static s; ``lengths`` [b] gives the
+    true prompt length per lane (defaults to s). Cache lanes are
+    overwritten from position 0, in place. Pad positions >= length are
+    causally invisible to valid tokens and marked invalid by the returned
+    lengths; the logits are taken at each lane's last valid token.
+
+    Returns (logits [b, vocab] f32, ``cache`` with lengths set per lane).
+    """
+    b, s = tokens.shape
+    dev = tokens.device
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    x = embed(cfg, params, tokens)
+    # CUDA tensors and a fitting shape -> the flash kernel; else plain.
+    attn_fn = pick_causal_attention(s, cfg.head_dim, device=dev)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        x, (k, v) = _layer_prefill(cfg, x, layer_params(layers, i), cos, sin,
+                                   positions, 0, attn_fn=attn_fn)
+        write_rows(cache.k[i], k, 0)
+        write_rows(cache.v[i], v, 0)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    # Last valid token per lane (ragged batches: pad rows carry garbage).
+    last = (lengths.to(torch.long) - 1).clamp(0, s - 1)
+    x_last = x[torch.arange(b, device=dev), last]
+    cache.lengths = lengths.to(device=dev, dtype=torch.int32)
+    return _logits(x_last, params["lm_head"]), cache
+
+
+def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """One decode step. tokens: [b] (last sampled token per lane).
+
+    Returns (logits [b, vocab] f32, ``cache`` advanced by one in place).
+
+    Capacity: callers must not decode a lane past ``cache.max_len``: the
+    cache write clamps silently (see kvcache.write_row); check
+    ``cache.has_room()`` before stepping.
+    """
+    positions = cache.lengths[:, None]  # [b, 1]
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
+                     tokens.device)
+    x = embed(cfg, params, tokens[:, None])  # [b, 1, d]
+    new_lengths = cache.lengths + 1
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+        kc = write_rows(cache.k[i], k, cache.lengths)
+        vc = write_rows(cache.v[i], v, cache.lengths)
+        attn = decode_attention(q, kc, vc, new_lengths)
+        x = _attn_out(x, attn, lp)
+        x = _mlp_block(cfg, x, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    cache.lengths = new_lengths
+    return _logits(x[:, 0], params["lm_head"]), cache

@@ -1,0 +1,101 @@
+"""Weight-only int8 quantization for the serving path.
+
+Matmul weights are stored as int8 with per-output-channel bf16 scales
+(symmetric, scale = amax / 127). The model reads them through
+``llama._w``, which materializes a working-type copy: unlike the JAX
+package, where XLA fuses the upcast into the matmul's operand read, the
+plain ``materialize`` here writes that copy out, so the bytes saved on the
+weight read are spent again until a fused W8A16 kernel takes its place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass
+class QTensor:
+    q: torch.Tensor       # int8, same shape as the original weight
+    scale: torch.Tensor   # bf16, broadcastable (contracted axes kept as 1)
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def materialize(self) -> torch.Tensor:
+        """The dequantized weight, computed in the scale's type."""
+        return self.q.to(self.scale.dtype) * self.scale
+
+    def __getitem__(self, idx) -> "QTensor":
+        """Slice q and scale together (a layer of a stacked weight)."""
+        return QTensor(q=self.q[idx], scale=self.scale[idx])
+
+
+# Parameter leaf -> axes CONTRACTED by its matmul (the scale is per output
+# channel, i.e. reduced over exactly these axes). The leading L stacking
+# axis is counted where present.
+_CONTRACT_AXES: dict[str, tuple[int, ...]] = {
+    "wq": (1,), "wk": (1,), "wv": (1,),        # [L, d, h, hd] @ d
+    "wo": (1, 2),                              # [L, h, hd, d] @ (h, hd)
+    "w_gate": (1,), "w_up": (1,),              # [L, d, ff]    @ d
+    "w_down": (1,),                            # [L, ff, d]    @ ff
+    "lm_head": (0,),                           # [d, v]        @ d
+    "tok_embed": (1,),                         # [v, d] gather: per-row
+}
+
+
+def quantize_tensor(w: torch.Tensor, axes: tuple[int, ...]) -> QTensor:
+    """Symmetric per-channel int8: scale = amax/127 over ``axes``; values
+    are rounded half to even with the f32 scale and clipped to +-127; the
+    stored scale is bf16."""
+    wf = w.to(torch.float32)
+    amax = torch.amax(torch.abs(wf), dim=axes, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(wf / scale), -127, 127)
+    return QTensor(q=q.to(torch.int8), scale=scale.to(torch.bfloat16))
+
+
+def quantize_params(params: Any) -> Any:
+    """Quantize every known matmul leaf of a Llama params dict; norms and
+    unknown leaves pass through untouched."""
+    def walk(tree):
+        out = {}
+        for name, w in tree.items():
+            if isinstance(w, dict):
+                out[name] = walk(w)
+            elif name in _CONTRACT_AXES and isinstance(w, torch.Tensor):
+                out[name] = quantize_tensor(w, _CONTRACT_AXES[name])
+            else:
+                out[name] = w
+        return out
+    return walk(params)
+
+
+def kv_bytes_per_token_per_layer(cfg: Any, kv_quant: str = "off") -> int:
+    """Bytes one token's K+V occupy in one layer of the serving cache: int8
+    KV stores one int8 per element plus one f32 scale per (slot, head) for
+    each of K and V."""
+    if kv_quant == "int8":
+        return 2 * cfg.n_kv_heads * (cfg.head_dim + 4)
+    if kv_quant != "off":
+        raise ValueError(f"unknown KV quant mode {kv_quant!r}")
+    return 2 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, QTensor):
+        yield tree.q
+        yield tree.scale
+    else:
+        yield tree
+
+
+def params_bytes(params: Any) -> int:
+    """Actual bytes of a (possibly quantized) params dict."""
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
