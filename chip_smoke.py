@@ -5,7 +5,10 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile every kernel from grove_tpu_torch/csrc with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the serving shape and the parity shapes, with times;
+     the parity shapes (f32 and bf16, strided views among them), the
+     serving shape and a long prompt, with times, bounds and the library
+     call's time at the last two, and each build's registers, spills and
+     shared memory;
   4. serve: llama-1b at full width and depth (random weights from --seed)
      through make_engine(mode="lanes") with int8 weights: queued requests
      admitted through a PrefillWorker, then the bench posture
@@ -35,13 +38,20 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 SERVE_SHAPE = (32, 128, 16, 8, 128)       # b, s, h, n_kv, d of llama-1b prefill
+LONG_SHAPE = (2, 2048, 16, 8, 128)        # a long prompt: bound by operations
 PARITY_SHAPES = [                         # b, s, h, n_kv, d, dtype
     (2, 64, 4, 2, 32, "float32"),
     (1, 128, 8, 8, 16, "float32"),        # MHA
     (2, 32, 4, 1, 8, "float32"),          # MQA, one q tile
     (3, 200, 8, 1, 64, "float32"),        # ragged length, MQA
-    (2, 77, 12, 4, 128, "bfloat16"),      # ragged length, GQA
+    (2, 77, 12, 4, 128, "bfloat16"),      # ragged length, GQA (g = 3)
+    (2, 64, 4, 2, 8, "bfloat16"),         # d = 8 (test-tiny's head dim)
+    (2, 128, 8, 8, 64, "bfloat16"),       # MHA, d = 64
+    (3, 200, 8, 1, 64, "bfloat16"),       # MQA, ragged over 4 k tiles
+    (1, 300, 4, 1, 128, "bfloat16"),      # MQA, ragged over 5 k tiles
+    (2, 96, 4, 4, 32, "bfloat16"),        # MHA, d = 32
 ]
+STRIDED_SHAPE = (2, 160, 8, 2, 128)       # q, k, v as views of one tensor
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # f32: summation order; bf16: one output rounding
 
 
@@ -57,19 +67,46 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+SLEEP_CYCLES = 50_000_000  # about 25 ms of device spin at H100 clocks
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call: ``iters`` calls queued behind a spin kernel, so
+    that the window between the events holds device work only and not the
+    host's dispatch of each call. Logs when the spin did not cover the
+    dispatch (the window then holds host time too)."""
     import torch
     for _ in range(warmup):
         fn()
+    ready = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    ready.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
+    if ready.elapsed_time(start) < host_ms:
+        log(f"time: spin {ready.elapsed_time(start):.2f} ms did not cover "
+            f"{host_ms:.2f} ms of dispatch; the time below includes host")
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host microseconds per call of dispatch (the device may lag)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
 
 
 def flash_bound_ms(b, s, h, n_kv, d, dtype) -> tuple[float, str]:
@@ -94,62 +131,101 @@ def qkv(gen, b, s, h, n_kv, d, dtype):
     return q, k, v
 
 
-def phase_kernels(seed: int, card: str) -> dict:
+def check_flash(q, k, v, label: str, dt: str) -> float:
+    """The kernel against its plain version on the same inputs."""
     import torch
-    import torch.nn.functional as F
     from grove_tpu_torch.ops.flash import (flash_causal_attention,
                                            flash_causal_attention_ref)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    for (b, s, h, n_kv, d, dt) in PARITY_SHAPES:
-        q, k, v = qkv(gen, b, s, h, n_kv, d, getattr(torch, dt))
-        out = flash_causal_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = flash_causal_attention_ref(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float(), ref.float(), rtol=TOL[dt],
-                            atol=TOL[dt])
-        log(f"kernels: flash {dt} b={b} s={s} h={h} n_kv={n_kv} d={d} "
-            f"max_abs_err={err:.3e} tol={TOL[dt]} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash kernel disagrees at {(b, s, h, n_kv, d, dt)}")
-    # Row 0 attends only to itself: its output is v[0] exactly.
-    q, k, v = qkv(gen, 1, 16, 1, 1, 8, torch.float32)
-    out = flash_causal_attention(q, k, v)
-    err0 = (out[0, 0, 0] - v[0, 0, 0]).abs().max().item()
-    log(f"kernels: flash row-0 self-attention max_abs_err={err0:.3e}")
-    if err0 > 1e-5:
-        raise AssertionError("flash row 0 does not attend only to itself")
-
-    b, s, h, n_kv, d = SERVE_SHAPE
-    q, k, v = qkv(gen, b, s, h, n_kv, d, torch.bfloat16)
     out = flash_causal_attention(q, k, v)
     torch.cuda.synchronize()
     ref = flash_causal_attention_ref(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
-    ok = torch.allclose(out.float(), ref.float(), rtol=TOL["bfloat16"],
-                        atol=TOL["bfloat16"])
-    log(f"kernels: flash bfloat16 serving shape b={b} s={s} h={h} "
-        f"n_kv={n_kv} d={d} max_abs_err={err:.3e} tol={TOL['bfloat16']} "
+    ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
+        out.float(), ref.float(), rtol=TOL[dt], atol=TOL[dt])
+    log(f"kernels: flash {dt} {label} max_abs_err={err:.3e} tol={TOL[dt]} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("flash kernel disagrees at the serving shape")
+        raise AssertionError(f"flash kernel disagrees at {label} {dt}")
+    return err
 
+
+def time_flash(q, k, v, label: str, card: str) -> dict:
+    """Kernel, plain and library (scaled_dot_product_attention) device ms
+    per call, the bound, and the wrapper's host dispatch per call."""
+    import torch
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops.flash import (flash_causal_attention,
+                                           flash_causal_attention_ref)
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    flash_ms = time_ms(lambda: flash_causal_attention(q, k, v))
-    plain_ms = time_ms(lambda: flash_causal_attention_ref(q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bound_ms, bound_by = flash_bound_ms(b, s, h, n_kv, d, torch.bfloat16)
-    for name, val in (("flash_ms", flash_ms), ("plain_ms", plain_ms),
-                      ("bound_ms", bound_ms), ("library_ms", library_ms)):
-        log(f"kernels: {name}={val} at b={b} s={s} h={h} n_kv={n_kv} d={d} "
-            f"bf16 on {card}")
+    t = {"ms": time_ms(lambda: flash_causal_attention(q, k, v)),
+         "plain_ms": time_ms(lambda: flash_causal_attention_ref(q, k, v)),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True))}
+    t["bound_ms"], t["bound_by"] = flash_bound_ms(b, s, h, n_kv, d, q.dtype)
+    dispatch = host_us(lambda: flash_causal_attention(q, k, v))
+    for name in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        log(f"kernels: {label} {name}={t[name]} at b={b} s={s} h={h} "
+            f"n_kv={n_kv} d={d} bf16 on {card}")
+    log(f"kernels: {label} bound by {t['bound_by']}; kernel at "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound, "
+        f"{t['library_ms'] / t['ms']:.2f}x the library's speed; wrapper "
+        f"dispatch {dispatch:.1f} us per call on the host")
+    return t
+
+
+def phase_kernels(seed: int, card: str) -> dict:
+    import torch
+    from grove_tpu_torch.ops.flash import flash_causal_attention, kernel_info
+    for dt, d in (("float32", 128), ("bfloat16", 64), ("bfloat16", 128)):
+        info = kernel_info(getattr(torch, dt), d)
+        log(f"kernels: build {dt} d<={d}: {info['registers']} registers, "
+            f"{info['local_bytes']} bytes local (spill) per thread, "
+            f"{info['smem_bytes']} bytes dynamic shared memory per CTA")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for (b, s, h, n_kv, d, dt) in PARITY_SHAPES:
+        q, k, v = qkv(gen, b, s, h, n_kv, d, getattr(torch, dt))
+        check_flash(q, k, v, f"b={b} s={s} h={h} n_kv={n_kv} d={d}", dt)
+    # q, k, v as head slices of one [b, s, h + 2 n_kv, d] tensor (the
+    # kernel reads them through their strides).
+    b, s, h, n_kv, d = STRIDED_SHAPE
+    fused = torch.randn((b, s, h + 2 * n_kv, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    check_flash(fused[:, :, :h], fused[:, :, h:h + n_kv],
+                fused[:, :, h + n_kv:],
+                f"strided views b={b} s={s} h={h} n_kv={n_kv} d={d}",
+                "bfloat16")
+    # Row 0 attends only to itself: its output is v[0], up to the output
+    # rounding (exactly, since p = 1 and l = 1).
+    for dt, tol in (("float32", 1e-5), ("bfloat16", 2 ** -8)):
+        q, k, v = qkv(gen, 1, 16, 2, 1, 128, getattr(torch, dt))
+        out = flash_causal_attention(q, k, v)
+        ref0 = v[0, 0, 0].float()
+        err0 = (out[0, 0].float() - ref0).abs().max().item()
+        bound = tol * max(1.0, ref0.abs().max().item())
+        log(f"kernels: flash {dt} row-0 self-attention "
+            f"max_abs_err={err0:.3e} (bound {bound:.3e})")
+        if err0 > bound:
+            raise AssertionError(f"flash {dt} row 0 does not attend only "
+                                 f"to itself")
+
+    q, k, v = qkv(gen, *LONG_SHAPE, torch.bfloat16)
+    check_flash(q, k, v, "long prompt b={} s={} h={} n_kv={} d={}".format(
+        *LONG_SHAPE), "bfloat16")
+    time_flash(q, k, v, "long prompt", card)
+    del q, k, v
+
+    q, k, v = qkv(gen, *SERVE_SHAPE, torch.bfloat16)
+    err = check_flash(q, k, v, "serving shape b={} s={} h={} n_kv={} "
+                      "d={}".format(*SERVE_SHAPE), "bfloat16")
+    t = time_flash(q, k, v, "serving shape", card)
     return {"name": "flash_causal_attention", "route": "cuda",
             "source": "grove_tpu_torch/csrc/flash_attn.cu",
             "replaces": "grove_tpu/ops/pallas_flash.py:27",
-            "launches": 0, "max_abs_err": err, "ms": flash_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "launches": 0, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
 
 def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -303,6 +379,12 @@ def profile_path(eng, prompts, card: str, prefill_ms: float,
             log(f"profile: {name}:   {dev_us / 1e3:9.3f} ms "
                 f"{100 * dev_us / 1e3 / busy_ms:5.1f}% x{count:<5d} "
                 f"{key[:90]}")
+        flash_us = sum(r[0] for r in rows if "flash_fwd" in r[2])
+        flash_n = sum(r[1] for r in rows if "flash_fwd" in r[2])
+        log(f"profile: {name}: flash kernel {flash_us / 1e3:.3f} ms in "
+            f"{flash_n} launches, {100 * flash_us / 1e3 / busy_ms:.1f}% of "
+            f"device busy, {100 * flash_us / 1e3 / wall_ms:.1f}% of the "
+            f"unprofiled wall on {card}")
 
 
 def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -375,7 +457,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s ({build.seconds:.2f} s nvcc)")
     for stem, out in build.logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "error", "warning")):
                 log(f"build: {stem}: {line.strip()}")
 
     # 3. kernels vs plain

@@ -8,21 +8,22 @@ through a plain C entry point with ctypes.
 
 What bounds it on an H100. At the serving shape (b=32, s=128, h=16,
 n_kv=8, d=128, bf16) one call must move about 50 MB (q and out 16.8 MB
-each, k and v 8.4 MB each) and do about 2.1 GFLOP below the diagonal: at
+each, k and v 8.4 MB each) and do about 2.2 GFLOP below the diagonal: at
 the data sheet's 3.35 TB/s and 989 TFLOP/s bf16 it is bound by bytes, about
-15 us. The kernel does its arithmetic in f32 on the CUDA cores, as the TPU
-kernel upcasts before its dots, so the f32 rate (67 TFLOP/s, about 32 us
-for the same operations) is its real ceiling until the products move to
-the tensor cores.
+15 us. At a long prompt (s=2048) the operations bound it.
 
-What the design does about it. Every input byte is read from device memory
-once per CTA that needs it and the probabilities never leave the SM: one
-CTA per (64-row q tile, head, batch) keeps its q tile in shared memory and
-walks only the k tiles at or below its diagonal, so the causal half of the
-score matrix is never computed or stored. q/k/v are read in place through
-their [b, s, h, d] strides (the TPU kernel's head-major transposes existed
-only for its (8, 128) tiling). ``wgmma``, TMA and warp specialisation are
-later work.
+What the design does about it. bfloat16 inputs take a Hopper kernel: both
+products on the tensor cores (``wgmma``, f32 accumulation, P rounded to
+bf16 as the JAX package's MXU matmuls round it), every tile moved by TMA
+(K/V through a four-stage shared-memory ring), and persistent CTAs whose
+producer thread loads the next tile while two consumer warpgroups compute
+this one. A tile packs whole positions of all g query heads of a kv head,
+so each K/V tile is loaded once for all of them; the probabilities never
+leave the registers. float32 inputs take the f32 CUDA-core kernel, the
+TPU kernel's f32 semantics. Both read q/k/v in place through their
+[b, s, h, d] strides (the TPU kernel's head-major transposes existed only
+for its (8, 128) tiling) and walk only the k tiles at or below the
+diagonal. The source's header has the details.
 
 ``flash_causal_attention`` takes the kernel for CUDA tensors and the plain
 version for CPU tensors; there is no other route. ``launches`` on it counts
@@ -49,6 +50,10 @@ def flash_causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of the kernel's function: the same online
     softmax over k blocks of ``block_k`` keys, in f32, with the TPU
     kernel's NEG_INF rules. q: [b, s, h, d]; k/v: [b, s, n_kv, d].
+
+    The probabilities are rounded to the input type before the P.V product
+    (the kernel's bf16 tensor-core operand; a no-op for f32) while the row
+    sum ``l`` keeps the f32 ``p``.
 
     Skipping a k block wholly in a row's future (the kernels' causal skip)
     and processing it with every score masked give the same bits (p = 0,
@@ -80,7 +85,7 @@ def flash_causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
         corr = torch.exp(torch.where(m == NEG_INF, NEG_INF, m - m_new))
         m = m_new
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + p @ vb
+        acc = acc * corr[..., None] + p.to(q.dtype).to(torch.float32) @ vb
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
@@ -101,9 +106,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16-byte vectors along the head dim: it needs a unit
-    head-dim stride, other strides in whole vectors, and an aligned base.
-    A view that breaks this is made contiguous (same values)."""
+    """The kernels read 16-byte vectors along the head dim (the bf16
+    kernel's tensor maps need the same): a unit head-dim stride, other
+    strides in whole vectors, and an aligned base. A view that breaks this
+    is made contiguous (same values)."""
     vec = 16 // t.element_size()
     if (t.stride(-1) == 1 and all(st % vec == 0 for st in t.stride()[:-1])
             and t.data_ptr() % 16 == 0):
@@ -122,7 +128,24 @@ def _kernel():
     err_str = lib.grove_cuda_error_string
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
-    return fn, err_str
+    info = lib.grove_flash_attn_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info.restype = ctypes.c_int
+    return fn, err_str, info
+
+
+def kernel_info(dtype: torch.dtype, head_dim: int) -> dict[str, int]:
+    """What the built kernel for ``dtype`` and ``head_dim`` takes per
+    launch: registers per thread, local (spill) bytes per thread and
+    dynamic shared memory bytes per CTA (needs the card)."""
+    _, err_str, info = _kernel()
+    out = (ctypes.c_int * 3)()
+    err = info(_DTYPE_CODES[dtype], head_dim, out)
+    if err != 0:
+        raise RuntimeError(f"flash kernel info failed: "
+                           f"{err_str(err).decode()} ({err})")
+    return {"registers": out[0], "local_bytes": out[1],
+            "smem_bytes": out[2]}
 
 
 def _launch_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -138,7 +161,7 @@ def _launch_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("q, k, v must be on one device")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    fn, err_str = _kernel()
+    fn, err_str, _ = _kernel()
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):

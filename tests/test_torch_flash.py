@@ -31,10 +31,10 @@ def pallas_flash():
     jnp = pytest.importorskip("jax.numpy")
     pallas = pytest.importorskip("grove_tpu.ops.pallas_flash")
 
-    def run(q, k, v, bq, bk):
+    def run(q, k, v, bq, bk, dtype=None):
         return np.asarray(pallas.flash_causal_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=bq,
-            block_k=bk, interpret=True))
+            *(jnp.asarray(x, dtype=dtype) for x in (q, k, v)), block_q=bq,
+            block_k=bk, interpret=True).astype(jnp.float32))
     return run
 
 
@@ -81,6 +81,86 @@ def test_plain_flash_ragged_length_matches_dense():
     np.testing.assert_allclose(
         flash_causal_attention_ref(tq, tk, tv, block_k=32).numpy(),
         causal_attention(tq, tk, tv).numpy(), rtol=2e-5, atol=2e-5)
+
+
+# ---- bfloat16: the plain version is the bf16 kernel's function ----
+
+def _qkv_bf16(seed, b, s, h, n_kv, d):
+    """Inputs made with numpy and rounded to bf16 once, as f32 arrays that
+    both frameworks turn into the same bf16 values."""
+    return tuple(torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                 for x in _qkv(seed, b, s, h, n_kv, d))
+
+
+def _plain_bf16(q, k, v, **kw):
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out = flash_causal_attention_ref(tq, tk, tv, **kw)
+    assert out.dtype == torch.bfloat16
+    return out.float().numpy()
+
+
+@pytest.fixture(scope="module")
+def xla_attention():
+    """The JAX package's XLA causal attention on bf16 inputs."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_platforms", "cpu")
+    jnp = pytest.importorskip("jax.numpy")
+    attention = pytest.importorskip("grove_tpu.ops.attention")
+
+    def run(q, k, v):
+        return np.asarray(attention.causal_attention(
+            *(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+        ).astype(jnp.float32))
+    return run
+
+
+# Both outputs are rounded once to bf16 (one ulp is 2^-8 of the value), and
+# the plain version also rounds P to bf16 (2^-9) before the P.V product,
+# which the Pallas kernel's f32 product does not.
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("b,s,h,n_kv,d,bq,bk", [
+    (2, 64, 4, 2, 64, 32, 32),    # GQA, two q and two k blocks
+    (1, 64, 4, 4, 8, 32, 16),     # MHA, d = 8, four k blocks
+    (2, 32, 4, 1, 128, 32, 32),   # MQA, d = 128, one block
+])
+def test_plain_flash_bf16_matches_pallas_interpret(pallas_flash, b, s, h,
+                                                  n_kv, d, bq, bk):
+    q, k, v = _qkv_bf16(6, b, s, h, n_kv, d)
+    want = pallas_flash(q, k, v, bq, bk, dtype="bfloat16")
+    np.testing.assert_allclose(_plain_bf16(q, k, v, block_k=bk), want,
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,n_kv,d,bk", [
+    (2, 77, 6, 2, 64, 32),        # GQA, ragged over three k blocks
+    (1, 200, 4, 1, 128, 64),      # MQA, ragged over four k blocks
+    (2, 96, 4, 4, 8, 32),         # MHA, d = 8
+    (1, 130, 8, 2, 128, 128),     # GQA, ragged past one full block
+])
+def test_plain_flash_bf16_matches_xla(xla_attention, b, s, h, n_kv, d, bk):
+    """Against the XLA formulation, which also rounds q * d^-0.5 to bf16
+    before its f32-accumulated scores (a third rounding, within the same
+    tolerance)."""
+    q, k, v = _qkv_bf16(7, b, s, h, n_kv, d)
+    np.testing.assert_allclose(_plain_bf16(q, k, v, block_k=bk),
+                               xla_attention(q, k, v),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_plain_flash_rounds_p_once_to_bf16():
+    """P is rounded to bf16 for the P.V product while l keeps the f32 p:
+    with equal scores over two keys, p = 1 for both and the output is the
+    mean of the two v rows, rounded once."""
+    q = torch.zeros((1, 2, 1, 8), dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 1, 8), dtype=torch.bfloat16)
+    v = torch.tensor([[1.0, 2.0, 3.0, -1.0, 0.5, 0.25, 8.0, -4.0],
+                      [3.0, 2.0, 1.0, 1.0, 1.5, 0.75, 0.0, 4.0]],
+                     dtype=torch.bfloat16).reshape(1, 2, 1, 8)
+    out = flash_causal_attention_ref(q, k, v)
+    torch.testing.assert_close(out[0, 1, 0].float(),
+                               v[0].float().mean(dim=0)[0], rtol=0, atol=0)
 
 
 def test_cpu_call_never_counts_a_launch():
@@ -155,6 +235,9 @@ def test_flash_selected_prefill_matches_plain(flash_forced, monkeypatch):
     (2, 64, 4, 2, 32, torch.float32, 1e-4),
     (3, 200, 8, 1, 64, torch.float32, 1e-4),
     (4, 128, 16, 8, 128, torch.bfloat16, 2e-2),
+    (2, 128, 8, 8, 64, torch.bfloat16, 2e-2),    # MHA, d = 64
+    (2, 64, 4, 2, 8, torch.bfloat16, 2e-2),      # d = 8
+    (3, 200, 12, 4, 128, torch.bfloat16, 2e-2),  # ragged over 4 k tiles, g = 3
 ])
 def test_kernel_matches_plain_on_cuda(b, s, h, n_kv, d, dtype, tol):
     if not torch.cuda.is_available():
