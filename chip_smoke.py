@@ -4,20 +4,36 @@
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile every kernel from grove_tpu_torch/csrc with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the parity shapes (f32 and bf16, strided views among them), the
-     serving shape and a long prompt, with times, bounds and the library
-     call's time at the last two, and each build's registers, spills and
-     shared memory;
-  4. serve: llama-1b at full width and depth (random weights from --seed)
-     through make_engine(mode="lanes") with int8 weights: queued requests
-     admitted through a PrefillWorker, then the bench posture
-     (admit_prompts + run(64)); the kernel launch counts are read from
-     this phase alone; then a torch.profiler pass over one in-engine
-     prefill and one run(8) window gives the kernels by device time and
-     the device's busy share;
-  5. model: llama-1b prefill logits through the kernel vs the plain
-     attention formulation.
+  3. kernels: each kernel against its plain PyTorch version on the card
+     (f32 and bf16): the flash kernel at its parity shapes (strided views
+     among them), the serving shape and a long prompt, with times, bounds
+     and the library call's time at the last two, and each build's
+     registers, spills and shared memory; the paged decode and chunk
+     kernels at ragged lengths, GQA/MHA/MQA groups and chunk offsets, then
+     timed at the serving shapes beside their bounds, their plain versions
+     and a gather + scaled_dot_product_attention yardstick;
+  4. lanes serve: llama-1b at full width and depth (random weights from
+     --seed) through make_engine(mode="lanes") with int8 weights: queued
+     requests admitted through a PrefillWorker, then the bench posture
+     (admit_prompts + run(64)); the flash launch count is read from this
+     phase alone; then a torch.profiler pass over one in-engine prefill and
+     one run(8) window gives the kernels by device time and the device's
+     busy share;
+  5. model: llama-1b prefill logits through the flash kernel vs the plain
+     attention formulation;
+  6. paged parity: test-tiny f32 through the paged engine with the kernels
+     and CUDA graphs on: paged vs lanes, prefix cache on vs off, tight vs
+     roomy pool give equal tokens;
+  7. paged serve: llama-1b through the default make_engine (the paged
+     engine, int8 weights, batch 32, max_len 2048): graphs captured at
+     warmup, 64 requests (prompts 64-1024 tokens, half opening with one
+     shared 264-token prefix, 64 new tokens each) with no capture during
+     traffic, the paged kernels' launch counts read from this run alone;
+     a full-batch decode window with a profiler pass; the same traffic on
+     a quarter-size pool, then a full batch decoding past that pool's
+     capacity, which must preempt and still finish every request;
+  8. paged model: llama-1b bf16 decode_step_paged and prefill_chunk_paged
+     logits through the paged kernels vs their plain versions.
 The last two lines are the kernel table as JSON and the result object.
 
 Usage: python3 chip_smoke.py [--seed N]
@@ -344,47 +360,57 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
 
 
 def profile_path(eng, prompts, card: str, prefill_ms: float,
-                 step_ms: float, steps: int = 8, top: int = 10) -> None:
+                 step_ms: float, steps: int = 8) -> None:
     """Device time by kernel for one in-engine prefill and one decode window
-    of ``steps`` steps. The profiler slows the host, so each busy share is
-    taken against the unprofiled wall time of the same work
-    (``prefill_ms``, ``step_ms`` per decode step)."""
+    of ``steps`` steps of the lanes engine."""
+    profile_window("prefill", lambda: eng.admit_prompts(prompts),
+                   prefill_ms, card, ("flash_fwd",))
+    profile_window("decode", lambda: eng.run(steps), step_ms * steps, card,
+                   ("flash_fwd",))
+
+
+def profile_window(name: str, fn, wall_ms: float, card: str,
+                   kernels: tuple[str, ...], top: int = 10) -> None:
+    """Device time by kernel for one call of ``fn``. The profiler slows the
+    host, so the busy share is taken against ``wall_ms``, the unprofiled
+    wall time of the same work; ``kernels`` name the hand-written kernels
+    whose share is reported."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for name, fn, wall_ms in (
-            ("prefill", lambda: eng.admit_prompts(prompts), prefill_ms),
-            ("decode", lambda: eng.run(steps), step_ms * steps)):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = []  # kernel-level rows only (operator rows repeat them)
-        for e in prof.key_averages():
-            if str(e.device_type) != "DeviceType.CUDA":
-                continue
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            if dev_us > 0:
-                rows.append((dev_us, e.count, e.key))
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows) / 1e3
-        log(f"profile: {name}: device busy {busy_ms:.3f} ms in "
-            f"{sum(r[1] for r in rows)} kernels; unprofiled wall "
-            f"{wall_ms:.3f} ms; busy share {100 * busy_ms / wall_ms:.1f}% "
-            f"on {card}")
-        for dev_us, count, key in rows[:top]:
-            log(f"profile: {name}:   {dev_us / 1e3:9.3f} ms "
-                f"{100 * dev_us / 1e3 / busy_ms:5.1f}% x{count:<5d} "
-                f"{key[:90]}")
-        flash_us = sum(r[0] for r in rows if "flash_fwd" in r[2])
-        flash_n = sum(r[1] for r in rows if "flash_fwd" in r[2])
-        log(f"profile: {name}: flash kernel {flash_us / 1e3:.3f} ms in "
-            f"{flash_n} launches, {100 * flash_us / 1e3 / busy_ms:.1f}% of "
-            f"device busy, {100 * flash_us / 1e3 / wall_ms:.1f}% of the "
-            f"unprofiled wall on {card}")
+    rows = []  # kernel-level rows only (operator rows repeat them)
+    for e in prof.key_averages():
+        if str(e.device_type) != "DeviceType.CUDA":
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError(f"profile {name}: no device time traced")
+    log(f"profile: {name}: device busy {busy_ms:.3f} ms in "
+        f"{sum(r[1] for r in rows)} kernels; unprofiled wall "
+        f"{wall_ms:.3f} ms; busy share {100 * busy_ms / wall_ms:.1f}% "
+        f"on {card}")
+    for dev_us, count, key in rows[:top]:
+        log(f"profile: {name}:   {dev_us / 1e3:9.3f} ms "
+            f"{100 * dev_us / 1e3 / busy_ms:5.1f}% x{count:<5d} "
+            f"{key[:90]}")
+    for kernel in kernels:
+        k_us = sum(r[0] for r in rows if kernel in r[2])
+        k_n = sum(r[1] for r in rows if kernel in r[2])
+        log(f"profile: {name}: {kernel} {k_us / 1e3:.3f} ms in {k_n} "
+            f"launches, {100 * k_us / 1e3 / busy_ms:.1f}% of device busy, "
+            f"{100 * k_us / 1e3 / wall_ms:.1f}% of the unprofiled wall on "
+            f"{card}")
 
 
 def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -431,6 +457,593 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
         raise AssertionError("kernel and plain prefill disagree")
 
 
+# ---- the paged path (the default make_engine) ----
+
+PAGED_DECODE_CASES = [                    # B, W, n_kv, g, d
+    (1, 128, 8, 2, 128),                  # one sequence over a full W = 128 table
+    (5, 16, 4, 1, 64),                    # MHA (g = 1)
+    (5, 8, 2, 8, 128),                    # g = 8
+    (32, 64, 8, 2, 128),                  # llama-1b's heads
+    (32, 4, 1, 8, 64),                    # MQA, short tables
+]
+PAGED_CHUNK_CASES = [                     # offset, n_valid, n_kv, g, d
+    (0, 5, 8, 2, 128),                    # rows past the table's 16 keys clamp
+    (13, 20, 4, 1, 64),
+    (992, 7, 2, 8, 128),
+]
+PAGED_BS = 16                             # the engine's default block size
+PAGED_CHUNK = 32                          # the engine's default chunk
+SERVE_DECODE = (32, 64, 512, 1024)        # B, W, shortest and longest length
+SERVE_CHUNK_OFFSET = 992                  # b = 1, c = 32, W = 64
+
+
+def paged_pools(gen, lengths, W, n_kv, d, dtype, spare: int = 3):
+    """Pools of one layer holding ``lengths`` tokens per sequence in
+    distinct random blocks, and the [B, W] tables reaching them (NULL
+    past each sequence's blocks)."""
+    import torch
+    need = [-(-n // PAGED_BS) for n in lengths]
+    nb = 1 + sum(need) + spare
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        int(sum(lengths)))) + 1
+    tables = torch.zeros((len(lengths), W), dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+    k = torch.randn((nb, PAGED_BS, n_kv, d), generator=gen,
+                    device="cuda").to(dtype)
+    v = torch.randn((nb, PAGED_BS, n_kv, d), generator=gen,
+                    device="cuda").to(dtype)
+    return k, v, tables.cuda()
+
+
+def decode_lengths(rng, B, W):
+    """Ragged lengths in [1, W * bs], with 1, bs, bs + 1 and a full table
+    among them."""
+    import numpy as np
+    full = W * PAGED_BS
+    lengths = rng.integers(1, full + 1, size=B)
+    special = [full] if B == 1 else [1, PAGED_BS, PAGED_BS + 1, full]
+    lengths[:len(special)] = [min(x, full) for x in special][:B]
+    return lengths.astype(np.int32)
+
+
+def paged_bound_ms(kv_rows: int, q_rows: int, pairs: int, n_kv: int, h: int,
+                   d: int, dtype) -> tuple[float, str]:
+    """Least time for one call: the K/V rows the call needs (``kv_rows``
+    positions, all kv heads, K and V) read once, q read and the output
+    written once, at the memory rate; against 4 d operations per (query
+    head, visible key) pair at the input type's peak."""
+    import torch
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * kv_rows * n_kv + 2 * q_rows * h) * d * elt
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * pairs / PEAK_OPS_PER_S[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_paged(out, ref, label: str, dt: str) -> float:
+    import torch
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
+        out.float(), ref.float(), rtol=TOL[dt], atol=TOL[dt])
+    log(f"kernels: {label} {dt} max_abs_err={err:.3e} tol={TOL[dt]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} kernel disagrees ({dt})")
+    return err
+
+
+def gather_sdpa(q, k_pool, v_pool, idx, mask):
+    """The gather + attention yardstick: one ``index_select`` per pool,
+    then ``scaled_dot_product_attention`` over the gathered cache."""
+    import torch.nn.functional as F
+    b = q.shape[0]
+    nb, bs, n_kv, d = k_pool.shape
+    k = k_pool.index_select(0, idx).view(b, -1, n_kv, d).transpose(1, 2)
+    v = v_pool.index_select(0, idx).view(b, -1, n_kv, d).transpose(1, 2)
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                          attn_mask=mask, enable_gqa=True)
+
+
+def time_paged(label, kernel, plain, yard, bound, card: str) -> dict:
+    t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+         "two_call_ms": time_ms(yard)}
+    t["bound_ms"], t["bound_by"] = bound
+    dispatch = host_us(kernel)
+    for name in ("ms", "plain_ms", "bound_ms", "two_call_ms"):
+        log(f"kernels: {label} {name}={t[name]} on {card}")
+    log(f"kernels: {label} bound by {t['bound_by']}; kernel at "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound, "
+        f"{t['two_call_ms'] / t['ms']:.2f}x the gather+sdpa yardstick's "
+        f"speed (index_select per pool + scaled_dot_product_attention; no "
+        f"single PyTorch call attends through a block table); wrapper "
+        f"dispatch {dispatch:.1f} us per call on the host")
+    return t
+
+
+def phase_paged_kernels(seed: int, card: str) -> list[dict]:
+    """Both paged kernels against their plain versions at f32 and bf16,
+    then timed at the serving shapes. Returns their kernel-table rows."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.ops.paged import (kernel_info, paged_chunk_attention,
+                                           paged_chunk_attention_ref,
+                                           paged_decode_attention,
+                                           paged_decode_attention_ref)
+    for which in ("partial", "combine"):
+        for dt in ("float32", "bfloat16"):
+            info = kernel_info(which, getattr(torch, dt))
+            log(f"kernels: build paged {which} {dt}: {info['registers']} "
+                f"registers, {info['local_bytes']} bytes local per thread")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    rng = np.random.default_rng(seed + 7)
+    errs = {"decode": 0.0, "chunk": 0.0}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for (B, W, n_kv, g, d) in PAGED_DECODE_CASES:
+            lengths = decode_lengths(rng, B, W)
+            k, v, tables = paged_pools(gen, lengths, W, n_kv, d, dtype)
+            q = torch.randn((B, 1, n_kv * g, d), generator=gen,
+                            device="cuda").to(dtype)
+            lens = torch.from_numpy(lengths).cuda()
+            out = paged_decode_attention(q, k, v, tables, lens)
+            torch.cuda.synchronize()
+            ref = paged_decode_attention_ref(q, k, v, tables, lens)
+            errs["decode"] = max(errs["decode"], check_paged(
+                out, ref, f"paged decode B={B} W={W} n_kv={n_kv} g={g} "
+                f"d={d} lengths {lengths.min()}..{lengths.max()}", dt))
+        for (off, n_valid, n_kv, g, d) in PAGED_CHUNK_CASES:
+            backed = -(-(off + n_valid) // PAGED_BS)
+            W = 1 << (backed - 1).bit_length()
+            k, v, tables = paged_pools(gen, [off + n_valid] * 2, W, n_kv, d,
+                                       dtype)
+            q = torch.randn((2, PAGED_CHUNK, n_kv * g, d), generator=gen,
+                            device="cuda").to(dtype)
+            offs = torch.full((2,), off, dtype=torch.int32, device="cuda")
+            out = paged_chunk_attention(q, k, v, tables, offs)
+            torch.cuda.synchronize()
+            ref = paged_chunk_attention_ref(q, k, v, tables, offs)
+            errs["chunk"] = max(errs["chunk"], check_paged(
+                out, ref, f"paged chunk b=2 c={PAGED_CHUNK} offset={off} "
+                f"n_valid={n_valid} W={W} n_kv={n_kv} g={g} d={d}", dt))
+
+    rows = []
+    dtype = torch.bfloat16
+    B, W, lo, hi = SERVE_DECODE
+    n_kv, g, d = 8, 2, 128
+    h = n_kv * g
+    lengths = rng.integers(lo, hi + 1, size=B).astype(np.int32)
+    k, v, tables = paged_pools(gen, lengths, W, n_kv, d, dtype)
+    q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(dtype)
+    lens = torch.from_numpy(lengths).cuda()
+    idx = tables.reshape(-1).long()
+    mask = (torch.arange(W * PAGED_BS, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    label = (f"paged decode serving shape B={B} W={W} lengths {lo}..{hi} "
+             f"h={h} n_kv={n_kv} d={d} bf16")
+    err = check_paged(paged_decode_attention(q, k, v, tables, lens),
+                      paged_decode_attention_ref(q, k, v, tables, lens),
+                      label, "bfloat16")
+    total = int(lengths.sum())
+    t = time_paged(
+        label, lambda: paged_decode_attention(q, k, v, tables, lens),
+        lambda: paged_decode_attention_ref(q, k, v, tables, lens),
+        lambda: gather_sdpa(q, k, v, idx, mask),
+        paged_bound_ms(total, B, h * total, n_kv, h, d, dtype), card)
+    rows.append({"name": "paged_decode_attention", "route": "cuda",
+                 "source": "grove_tpu_torch/csrc/paged_attn.cu",
+                 "replaces": "grove_tpu/models/llama.py:637",
+                 "launches": 0, "max_abs_err": max(err, errs["decode"]),
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None, "two_call_ms": t["two_call_ms"]})
+    del k, v
+
+    off, c = SERVE_CHUNK_OFFSET, PAGED_CHUNK
+    k, v, tables = paged_pools(gen, [off + c], W, n_kv, d, dtype)
+    q = torch.randn((1, c, h, d), generator=gen, device="cuda").to(dtype)
+    offs = torch.full((1,), off, dtype=torch.int32, device="cuda")
+    idx = tables.reshape(-1).long()
+    mask = (torch.arange(W * PAGED_BS, device="cuda")[None, :]
+            <= off + torch.arange(c, device="cuda")[:, None])[None, None]
+    label = (f"paged chunk serving shape b=1 c={c} offset={off} W={W} "
+             f"h={h} n_kv={n_kv} d={d} bf16")
+    err = check_paged(paged_chunk_attention(q, k, v, tables, offs),
+                      paged_chunk_attention_ref(q, k, v, tables, offs),
+                      label, "bfloat16")
+    pairs = h * sum(off + i + 1 for i in range(c))
+    t = time_paged(
+        label, lambda: paged_chunk_attention(q, k, v, tables, offs),
+        lambda: paged_chunk_attention_ref(q, k, v, tables, offs),
+        lambda: gather_sdpa(q, k, v, idx, mask),
+        paged_bound_ms(off + c, c, pairs, n_kv, h, d, dtype), card)
+    rows.append({"name": "paged_chunk_attention", "route": "cuda",
+                 "source": "grove_tpu_torch/csrc/paged_attn.cu",
+                 "replaces": "grove_tpu/models/llama.py:710",
+                 "launches": 0, "max_abs_err": max(err, errs["chunk"]),
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None, "two_call_ms": t["two_call_ms"]})
+    return rows
+
+
+def drive_paged(eng, want: int, max_iters: int = 100_000) -> None:
+    for _ in range(max_iters):
+        eng.admit_from_queue()
+        if len(eng.completed) >= want:
+            break
+        if eng._sched.live:
+            eng.step()
+    eng.sync()
+    if len(eng.completed) < want:
+        raise AssertionError(f"{len(eng.completed)} of {want} requests "
+                             f"answered")
+
+
+def phase_paged_parity(seed: int, device: str = "cuda") -> None:
+    """test-tiny f32 through the paged engine with the kernels and graphs on
+    (the workloads of tests/test_paged_engine.py's parity tests): paged
+    against lanes, prefix cache on against off, a tight pool against a
+    roomy one; tokens must be equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                           paged_decode_attention)
+    from grove_tpu_torch.serving.engine import (DecodeEngine,
+                                                PagedDecodeEngine)
+    cfg = dataclasses.replace(CONFIGS["test-tiny"], dtype=torch.float32,
+                              max_seq_len=64)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    paged_decode_attention.launches = paged_chunk_attention.launches = 0
+    captured = 0
+
+    def paged(**kw):
+        return PagedDecodeEngine(cfg, params, device=device, **kw)
+
+    def finish(eng):
+        nonlocal captured
+        eng._alloc.check()
+        if eng._alloc.used_blocks:
+            raise AssertionError("blocks leaked")
+        captured += eng.graphs_captured
+        return {r.rid: r.generated for r in eng.completed}
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (6, 13, 4, 9)]
+    lanes = DecodeEngine(cfg, params, batch=len(prompts), max_len=48,
+                         device=device)
+    toks = np.zeros((len(prompts), 13), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    lanes.admit_prompts(torch.from_numpy(toks).to(device), max_new_tokens=8,
+                        lengths=torch.tensor([len(p) for p in prompts],
+                                             dtype=torch.int32,
+                                             device=device))
+    for _ in range(16):
+        lanes.step()
+    lanes.sync()
+    eng = paged(batch=4, max_len=48, block_size=8, prefill_chunk=8,
+                host_sync_interval=4)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8)
+    drive_paged(eng, len(prompts))
+    got = finish(eng)
+    want = {r.prompt_len: r.generated for r in lanes.completed}
+    same = all(got[i] == want[len(p)] for i, p in enumerate(prompts))
+    log(f"parity: test-tiny f32 paged vs lanes tokens "
+        f"{'equal' if same else 'DIFFER'} over {len(prompts)} requests")
+    if not same:
+        raise AssertionError("paged and lanes tokens differ")
+
+    rng = np.random.default_rng(41)
+    base = rng.integers(0, 256, size=19).astype(np.int32)
+    later = [base.copy(),
+             np.concatenate([base[:12],
+                             rng.integers(0, 256, size=7).astype(np.int32)]),
+             rng.integers(0, 256, size=7).astype(np.int32), base.copy()]
+    runs = {}
+    for on in (True, False):
+        eng = paged(batch=4, max_len=48, block_size=8, num_blocks=24,
+                    prefill_chunk=8, host_sync_interval=4, prefix_cache=on)
+        eng.submit(base, max_new_tokens=6)
+        drive_paged(eng, 1)
+        for p in later:
+            eng.submit(p, max_new_tokens=6)
+        drive_paged(eng, 1 + len(later))
+        runs[on] = (finish(eng), eng.cow_copies)
+    same = runs[True][0] == runs[False][0]
+    log(f"parity: test-tiny f32 prefix cache on vs off tokens "
+        f"{'equal' if same else 'DIFFER'} ({runs[True][1]} CoW copies on)")
+    if not same or runs[True][1] < 2:
+        raise AssertionError("prefix cache on/off tokens differ or no CoW")
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 256, size=6).astype(np.int32)
+               for _ in range(4)]
+    runs = {}
+    for nb in (48, 13):
+        eng = paged(batch=4, max_len=40, block_size=4, num_blocks=nb,
+                    prefill_chunk=4, host_sync_interval=2)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12)
+        drive_paged(eng, len(prompts))
+        runs[nb] = (finish(eng), eng._sched.preemptions_total)
+    same = runs[13][0] == runs[48][0]
+    log(f"parity: test-tiny f32 tight pool ({runs[13][1]} preemptions) vs "
+        f"roomy pool tokens {'equal' if same else 'DIFFER'}")
+    if not same or runs[13][1] == 0:
+        raise AssertionError("tight/roomy tokens differ or no preemption")
+    log(f"parity: {captured} graphs captured, paged decode kernel launched "
+        f"{paged_decode_attention.launches} times, chunk kernel "
+        f"{paged_chunk_attention.launches} times")
+    if device == "cuda" and not (captured and paged_decode_attention.launches
+                                 and paged_chunk_attention.launches):
+        raise AssertionError("the parity runs bypassed the graphs or kernels")
+
+
+def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
+                      n_requests: int = 64, batch: int = 32,
+                      max_len: int = 2048, new_tokens: int = 64,
+                      prompt_lo: int = 64, prompt_hi: int = 1024,
+                      shared: int = 264, bench_len: int = 512,
+                      bench_steps: int = 64) -> dict[str, int]:
+    """Serve through the default ``make_engine`` (the paged engine) with
+    int8 weights: ``n_requests`` requests with seeded prompt lengths in
+    [prompt_lo, prompt_hi], every other one opening with one shared
+    ``shared``-token prefix (diverging mid-block, so copy-on-write fires),
+    ``new_tokens`` each; then a decode window over a full batch, with a
+    profiler pass; then the same traffic on a pool of a quarter of the
+    default size, then a full batch decoding past that pool's capacity,
+    which must preempt. Returns the paged kernels' launch counts of the
+    first traffic run (zeroed at its start)."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                           paged_decode_attention)
+    from grove_tpu_torch.serving.engine import PagedDecodeEngine, make_engine
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    on_cuda = device == "cuda"
+    rng = np.random.default_rng(seed + 11)
+    lens = rng.integers(prompt_lo, prompt_hi + 1, size=n_requests)
+    prefix = rng.integers(0, cfg.vocab_size, size=shared)
+    prompts = []
+    for i, n in enumerate(lens):
+        if i % 2 == 0:
+            tail = rng.integers(0, cfg.vocab_size, size=max(int(n) - shared,
+                                                             16))
+            prompts.append(np.concatenate([prefix, tail]).astype(np.int32))
+        else:
+            prompts.append(rng.integers(0, cfg.vocab_size,
+                                        size=int(n)).astype(np.int32))
+    longest = max(len(p) for p in prompts) + new_tokens
+
+    chunks = [0]
+    chunk_fn = llama.prefill_chunk_paged
+
+    def counted_chunk(*a, **kw):
+        chunks[0] += 1
+        return chunk_fn(*a, **kw)
+
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=device)
+    eng = make_engine(cfg, params, batch=batch, max_len=max_len,
+                      quant="int8", device=device)
+    del params
+    if not isinstance(eng, PagedDecodeEngine):
+        raise AssertionError(f"make_engine built {type(eng).__name__}")
+    widths = eng.decode_width_buckets(prompt_lo, longest)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = eng.warmup(widths=widths, prefill_widths=[])
+    warm_s = time.perf_counter() - t0
+    log(f"paged: make_engine -> PagedDecodeEngine, {cfg.n_layers} layers, "
+        f"int8 weights, batch {batch}, max_len {max_len}, block "
+        f"{eng.block_size}, chunk {eng.prefill_chunk}, "
+        f"{eng.kv.num_blocks} blocks ({eng.kv.pool_bytes / 2**30:.3f} GiB "
+        f"pool), prefix cache {'on' if eng._prefix else 'off'}; set-up "
+        f"{setup_s:.2f} s")
+    log(f"paged: warmup captured {built} graphs (batches "
+        f"{eng._sched.batch_buckets} x widths {widths}) in {warm_s:.2f} s; "
+        f"captures {eng.graphs_captured} in {eng.capture_seconds:.2f} s, "
+        f"{eng.capture_bytes / 2**20:.1f} MiB of graph memory on {card}")
+
+    def serve(eng, label):
+        llama.prefill_chunk_paged = counted_chunk
+        try:
+            chunks[0] = 0
+            steps0, captured0 = eng.steps, eng.graphs_captured
+            paged_decode_attention.launches = 0
+            paged_chunk_attention.launches = 0
+            t = time.perf_counter()
+            rids = [eng.submit(p, max_new_tokens=new_tokens)
+                    for p in prompts]
+            drive_paged(eng, n_requests)
+            wall = time.perf_counter() - t
+        finally:
+            llama.prefill_chunk_paged = chunk_fn
+        counts = {"paged_decode_attention": paged_decode_attention.launches,
+                  "paged_chunk_attention": paged_chunk_attention.launches}
+        done = {r.rid: r for r in eng.completed}
+        if sorted(done) != rids:
+            raise AssertionError(f"{label}: {len(done)} of {n_requests} "
+                                 f"requests answered")
+        bad = [r.rid for r in done.values()
+               if len(r.generated) != new_tokens
+               or not all(0 <= x < cfg.vocab_size for x in r.generated)]
+        if bad:
+            raise AssertionError(f"{label}: requests {bad} have the wrong "
+                                 f"tokens")
+        steps = eng.steps - steps0
+        ttft = np.array([r.first_token_ts - r.enqueue_ts
+                         for r in done.values()]) * 1e3
+        n_tok = sum(len(r.generated) for r in done.values())
+        log(f"paged: {label}: {len(done)} requests, {n_tok} tokens "
+            f"generated in {wall:.3f} s ({n_tok / wall:.1f} tokens/s "
+            f"overall) over {steps} decode steps and {chunks[0]} prefill "
+            f"chunks on {card}")
+        log(f"paged: {label}: TTFT p50 {np.percentile(ttft, 50):.1f} ms, "
+            f"p90 {np.percentile(ttft, 90):.1f} ms; prefix hits "
+            f"{eng._prefix.hits if eng._prefix else 0}, tokens matched "
+            f"{eng._sched.prefix_tokens_skipped_total}, cow_copies "
+            f"{eng.cow_copies}, preemptions "
+            f"{eng._sched.preemptions_total}; allocator high water "
+            f"{eng._alloc.high_water} of {eng._alloc.capacity} blocks")
+        want_dec = cfg.n_layers * steps if on_cuda else 0
+        want_chunk = cfg.n_layers * chunks[0] if on_cuda else 0
+        log(f"paged: {label}: launches: paged decode "
+            f"{counts['paged_decode_attention']} ({cfg.n_layers} per decode "
+            f"step expected: {want_dec}), paged chunk "
+            f"{counts['paged_chunk_attention']} ({cfg.n_layers} per chunk "
+            f"expected: {want_chunk}); graphs captured during traffic: "
+            f"{eng.graphs_captured - captured0}")
+        if counts["paged_decode_attention"] != want_dec or \
+                counts["paged_chunk_attention"] != want_chunk:
+            raise AssertionError(f"{label}: kernel launches off the path")
+        if eng.graphs_captured != captured0:
+            raise AssertionError(f"{label}: graphs captured mid-traffic")
+        return counts
+
+    counts = serve(eng, "default pool")
+    if not (eng._prefix and eng._prefix.hits and eng.cow_copies):
+        raise AssertionError("the shared prefix did not hit or copy on "
+                             "write")
+
+    # A full batch decoding: the decode wall per step against its device
+    # work (the graphs' effect on the host share), then a profiled window.
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    bench = rng.integers(0, cfg.vocab_size,
+                         (batch, bench_len)).astype(np.int32)
+    eng.admit_prompts(bench, max_new_tokens=4 * bench_steps)
+    sync()
+    t = time.perf_counter()
+    eng.run(bench_steps)
+    sync()
+    decode_s = time.perf_counter() - t
+    log(f"paged: decode {batch * bench_steps / decode_s:.1f} tokens/s "
+        f"(batch {batch}, prompts of {bench_len}, run({bench_steps}) in "
+        f"{decode_s * 1e3:.1f} ms, {decode_s * 1e3 / bench_steps:.3f} ms "
+        f"per step) on {card}")
+    peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+    log(f"paged: peak torch.cuda.max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB on {card}")
+    if on_cuda:
+        profile_window("paged decode", lambda: eng.run(8),
+                       decode_s * 1e3 / bench_steps * 8, card,
+                       ("paged_partial", "paged_combine"))
+    params = eng.params
+    num_blocks = eng.kv.num_blocks // 4
+    del eng
+
+    small = make_engine(cfg, params, batch=batch, max_len=max_len,
+                        num_blocks=num_blocks, device=device)
+    small.warmup(widths=widths, prefill_widths=[])
+    captured = small.graphs_captured
+    serve(small, f"quarter pool ({num_blocks} blocks)")
+    # The traffic above prefills one chunk per tick, so few sequences
+    # decode at once and it may fit the quarter pool; a full batch
+    # decoding past the pool's capacity must preempt (by recompute) and
+    # still finish every request.
+    fill = (small._alloc.capacity * small.block_size) // batch
+    posture_len, posture_new = fill * 3 // 4, fill // 2
+    n0 = len(small.completed)
+    t = time.perf_counter()
+    small.admit_prompts(rng.integers(0, cfg.vocab_size,
+                                     (batch, posture_len)).astype(np.int32),
+                        max_new_tokens=posture_new)
+    drive_paged(small, n0 + batch)
+    wall = time.perf_counter() - t
+    done = small.completed[n0:]
+    log(f"paged: quarter pool, full batch of {batch} x {posture_len} "
+        f"prompt tokens decoding {posture_new} each: "
+        f"{small._sched.preemptions_total} preemptions, {len(done)} "
+        f"requests done in {wall:.3f} s, allocator high water "
+        f"{small._alloc.high_water} of {small._alloc.capacity} blocks on "
+        f"{card}")
+    if small._sched.preemptions_total == 0:
+        raise AssertionError("the quarter pool did not preempt")
+    if len(done) != batch or any(len(r.generated) != posture_new
+                                 for r in done):
+        raise AssertionError("the quarter pool lost tokens under "
+                             "preemption")
+    if small.graphs_captured != captured:
+        raise AssertionError("the quarter pool captured graphs after "
+                             "warmup")
+    return counts
+
+
+def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
+                      batch: int = 8, width: int = 64) -> None:
+    """llama-1b bf16 ``decode_step_paged`` and ``prefill_chunk_paged``
+    logits with the paged kernels vs their plain versions, on the same
+    pools (random K/V) and tables."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.ops import paged
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    params = init_params(cfg, gen, device=device)
+    rng = np.random.default_rng(seed + 2)
+    lengths = rng.integers(100, width * PAGED_BS, size=batch).astype(np.int32)
+    lengths[0] = SERVE_CHUNK_OFFSET
+    nb = 1 + batch * width
+    tables = torch.from_numpy((1 + np.arange(batch * width, dtype=np.int32)
+                               ).reshape(batch, width)).to(device)
+    shape = (cfg.n_layers, nb, PAGED_BS, cfg.n_kv_heads, cfg.head_dim)
+    k0 = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    v0 = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 1 + 32))
+                              .astype(np.int32)).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+
+    def run(plain: bool):
+        saved = (llama.paged_decode_attention, llama.paged_chunk_attention)
+        if plain:
+            llama.paged_decode_attention = paged.paged_decode_attention_ref
+            llama.paged_chunk_attention = paged.paged_chunk_attention_ref
+        try:
+            k, v = k0.clone(), v0.clone()
+            dec = llama.decode_step_paged(cfg, params, tokens[:, 0], k, v,
+                                          tables, lens)
+            k, v = k0.clone(), v0.clone()
+            chunk = llama.prefill_chunk_paged(
+                cfg, params, tokens[:1, 1:], k, v, tables[:1],
+                SERVE_CHUNK_OFFSET, 31, 32)
+            return dec.float(), chunk.float()
+        finally:
+            llama.paged_decode_attention, llama.paged_chunk_attention = saved
+
+    kernel, plain = run(False), run(True)
+    for name, kl, pl, need in (("decode_step_paged", kernel[0], plain[0],
+                                batch - 1),
+                               ("prefill_chunk_paged", kernel[1], plain[1],
+                                1)):
+        if not (torch.isfinite(kl).all() and torch.isfinite(pl).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+        diff = (kl - pl).abs().max().item()
+        bound = 5e-2 * pl.abs().max().item()
+        agree = int((kl.argmax(-1) == pl.argmax(-1)).sum().item())
+        log(f"model: {cfg.n_layers}-layer bf16 {name} logits, kernels vs "
+            f"plain: max abs diff {diff:.4e} (bound {bound:.4e}), argmax "
+            f"agrees on {agree}/{kl.shape[0]} rows (need >= {need})")
+        if diff > bound or agree < need:
+            raise AssertionError(f"{name}: kernels and plain disagree")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -463,11 +1076,22 @@ def main() -> int:
 
     # 3. kernels vs plain
     flash_row = phase_kernels(args.seed, card)
-    # 4. the main path; 5. the kernel through the model
+    paged_rows = phase_paged_kernels(args.seed, card)
+    # 4. the lanes path; 5. the flash kernel through the model
     flash_row["launches"] = phase_serve(args.seed, card)
     phase_model(args.seed, card)
+    # 6. paged parity; 7. the paged path (the default make_engine);
+    # 8. the paged kernels through the model
+    phase_paged_parity(args.seed)
+    launches = phase_paged_serve(args.seed, card)
+    for row in paged_rows:
+        row["launches"] = launches[row["name"]]
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 f"paged path")
+    phase_paged_model(args.seed, card)
 
-    print(json.dumps({"kernels": [flash_row]}), flush=True)
+    print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,6 +24,8 @@ from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
                                            pick_causal_attention)
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
 from grove_tpu_torch.ops.norms import rms_norm
+from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                       paged_decode_attention)
 from grove_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -266,3 +268,139 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache.lengths = new_lengths
     return _logits(x[:, 0], params["lm_head"]), cache
+
+
+# ---- paged (block-table) execution path ------------------------------
+# The continuous-batching engine's memory model (serving/kvcache.py): K/V
+# live in fixed-size blocks [layers, num_blocks, block_size, n_kv, d] and a
+# sequence's tokens are addressed through its block table. These functions
+# take the raw pool tensors and write them in place (the JAX package
+# donates them and returns new ones). Attention reads the pools through
+# the tables with the kernels of ops/paged.py on CUDA tensors and their
+# plain versions (the JAX composition: ``_paged_gather``, which is
+# ops/paged.py's ``paged_gather``, then dense attention) on CPU tensors.
+# int8 pools (_paged_scatter_q, _paged_gather_q,
+# paged_block_copy_q) are not ported yet (ROADMAP.md, queue 1).
+
+
+def _paged_scatter(cache_blocks: torch.Tensor, kv: torch.Tensor,
+                   tables: torch.Tensor, positions: torch.Tensor,
+                   valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Write ``kv`` [b, s, n_kv, d] at token ``positions`` [b, s] through
+    the block tables [b, w] (one flat index write into ``cache_blocks``
+    [nb, bs, n_kv, d], in place; returns it). Positions in a table's
+    padding resolve to the null block.
+
+    A position past the table's width also lands in the null block, at
+    slot ``positions % bs``: that is where the JAX package's write goes,
+    since its ``take_along_axis`` fills an out-of-range column with the
+    int32 minimum, which times an even block size wraps to block 0 (its
+    scatter drops the write for an odd one). ``valid`` [b, s] bool, when
+    given, reroutes masked-out rows to the same null-block slot: without
+    it a padded chunk tail past the table's backed capacity would write
+    into a live block. Rerouted rows are the only ones that can share an
+    index, and only inside the null block, so the order-undefined
+    duplicate write on CUDA lands nowhere live."""
+    nb, bs = cache_blocks.shape[0], cache_blocks.shape[1]
+    w = tables.shape[1]
+    col = torch.div(positions, bs, rounding_mode="floor")
+    block = torch.gather(tables, 1, col.clamp(0, w - 1).to(torch.long))
+    slot = positions % bs
+    flat_idx = block.to(positions.dtype) * bs + slot
+    inside = col < w
+    keep = inside if valid is None else inside & valid
+    flat_idx = torch.where(keep, flat_idx, slot)
+    flat = cache_blocks.view((nb * bs,) + tuple(cache_blocks.shape[2:]))
+    flat.index_copy_(0, flat_idx.reshape(-1).to(torch.long),
+                     kv.reshape((-1,) + tuple(kv.shape[2:])).to(flat.dtype))
+    return cache_blocks
+
+
+def paged_block_copy(dst_k: torch.Tensor, dst_v: torch.Tensor,
+                     src_k: torch.Tensor, src_v: torch.Tensor,
+                     src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Copy K/V block rows ``src`` of the source pools into blocks ``dst``
+    of the destination pools, in place (``[L, nb, bs, n_kv, d]`` each;
+    ``src``/``dst`` int64 id vectors of one length, padded with the null
+    block: a pad pair writes null-block garbage over the null block). The
+    source rows are read before any write lands, so a pool may be its own
+    source: the prefix cache's copy-on-write is this copy with one pool."""
+    k_rows = src_k.index_select(1, src)
+    v_rows = src_v.index_select(1, src)
+    dst_k.index_copy_(1, dst, k_rows)
+    dst_v.index_copy_(1, dst, v_rows)
+
+
+def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                      kv_k: torch.Tensor, kv_v: torch.Tensor,
+                      tables: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """One decode step over block tables. tokens: [b]; pools:
+    [layers, num_blocks, bs, n_kv, d]; tables: [b, w] int32; lengths: [b]
+    int32 = tokens already in cache (the new token writes at that
+    position). Writes the new K/V into the pools in place and returns the
+    logits [b, vocab] f32.
+
+    Everything stays on the device and nothing is read back to the host,
+    so the engine can capture the step in a CUDA graph: ``tables`` and
+    ``lengths`` are read by the kernels from device memory. Attention reads
+    only the w * bs window of the bucketed table width."""
+    positions = lengths[:, None]  # [b, 1]
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
+                     tokens.device)
+    x = embed(cfg, params, tokens[:, None])  # [b, 1, d]
+    new_lengths = lengths + 1
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+        kc, vc = kv_k[i], kv_v[i]
+        _paged_scatter(kc, k, tables, positions)
+        _paged_scatter(vc, v, tables, positions)
+        attn = paged_decode_attention(q, kc, vc, tables, new_lengths)
+        x = _attn_out(x, attn, lp)
+        x = _mlp_block(cfg, x, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(x[:, 0], params["lm_head"])
+
+
+def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
+                        tokens: torch.Tensor, kv_k: torch.Tensor,
+                        kv_v: torch.Tensor, tables: torch.Tensor,
+                        offset: int, logit_idx: int,
+                        n_valid: int | None = None) -> torch.Tensor:
+    """One chunked-prefill window over block tables, the pools written in
+    place.
+
+    tokens: [b, c] at absolute positions [offset, offset + c); ``n_valid``
+    (default c) counts the real tokens of the chunk: padded tail rows
+    scatter to the null block instead of clamping into the sequence's last
+    backed block (see ``_paged_scatter``; they are causally invisible to
+    the valid rows regardless). Attention is causal from ``offset`` over
+    the w * bs window the tables reach. Returns the logits [b, vocab] f32
+    at row ``logit_idx``: the caller passes the last valid row for the
+    chunk that completes the prompt. An index outside the chunk is clamped
+    into it (the JAX package's ``take`` returns NaN rows there instead;
+    no caller passes one)."""
+    b, c = tokens.shape
+    dev = tokens.device
+    positions = (offset + torch.arange(c, device=dev))[None, :].expand(b, c)
+    if n_valid is None:
+        n_valid = c
+    valid = (torch.arange(c, device=dev) < n_valid)[None, :].expand(b, c)
+    offsets = torch.full((b,), offset, dtype=torch.int32, device=dev)
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    x = embed(cfg, params, tokens)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+        kc, vc = kv_k[i], kv_v[i]
+        _paged_scatter(kc, k, tables, positions, valid=valid)
+        _paged_scatter(vc, v, tables, positions, valid=valid)
+        attn = paged_chunk_attention(q, kc, vc, tables, offsets)
+        x = _attn_out(x, attn, lp)
+        x = _mlp_block(cfg, x, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    row = x[:, min(max(int(logit_idx), 0), c - 1)]  # [b, d]
+    return _logits(row, params["lm_head"])

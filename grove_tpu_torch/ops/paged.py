@@ -1,0 +1,248 @@
+"""Attention through a paged KV cache's block tables: two CUDA kernels for
+Hopper and their plain PyTorch versions.
+
+The JAX package runs no Pallas kernel on its paged path:
+``decode_step_paged`` and ``prefill_chunk_paged``
+(``grove_tpu/models/llama.py``) gather each layer's block pool into a dense
+cache (``_paged_gather``) and hand it to XLA's ``decode_attention`` and
+``causal_attention``. Here those two compositions are kernels written by
+hand (``grove_tpu_torch/csrc/paged_attn.cu``, built by ``ops/_build.py``,
+bound through plain C entry points with ctypes) that follow the table
+entries to the pool's rows and never write the gathered cache:
+
+- ``paged_decode_attention(q, k_pool, v_pool, tables, lengths)``: one
+  query token per sequence over its first ``lengths`` positions;
+- ``paged_chunk_attention(q, k_pool, v_pool, tables, offsets)``: a chunk
+  of queries at absolute positions ``offsets[b] + i``, causal.
+
+What bounds them on an H100 is bytes (every live K/V row is read once per
+kv head; about one flop per byte at llama-1b), so the kernels are the
+simple kind: CUDA cores, f32 accumulation, 32-key tiles in shared memory.
+Both are split-K over fixed spans of ``SPLIT_KEYS`` positions from 0, one
+CTA per (span, group of query rows, sequence x kv head), then a combine
+pass; a row's numbers depend only on its position, never on the table
+width or the chunk's boundaries. The source's header has the details.
+
+Each wrapper takes its kernel for CUDA tensors and the plain version for
+CPU tensors; anything else raises. ``launches`` on each wrapper counts its
+launches (one per call: the split-K pass and its combine).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from grove_tpu_torch.ops import _build
+from grove_tpu_torch.ops.attention import causal_attention, decode_attention
+
+MAX_HEAD_DIM = 128
+MAX_GROUP = 16       # query heads per kv head the kernels hold per CTA
+SPLIT_KEYS = 256     # positions per key span (a multiple of 32)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_gather(cache_blocks: torch.Tensor,
+                 tables: torch.Tensor) -> torch.Tensor:
+    """Gather a batch's KV sequences out of the block pool.
+
+    cache_blocks: [num_blocks, bs, n_kv, d]; tables: [b, w] int32 ->
+    [b, w * bs, n_kv, d] in position order (table order is sequence order).
+    Table entries are clamped into the pool, as the JAX gather clamps them;
+    padded rows point at the null block and the attention mask discards
+    what lives there."""
+    b, w = tables.shape
+    nb, bs, n_kv, d = cache_blocks.shape
+    idx = tables.to(torch.long).clamp(0, nb - 1)
+    return cache_blocks[idx].reshape(b, w * bs, n_kv, d)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, tables: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``decode_attention`` over the gathered cache (the JAX
+    package's composition in ``decode_step_paged``). q: [b, 1, h, d];
+    pools: [nb, bs, n_kv, d]; tables: [b, w]; lengths: [b], counting the
+    new token."""
+    return decode_attention(q, paged_gather(k_pool, tables),
+                            paged_gather(v_pool, tables), lengths)
+
+
+def paged_chunk_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, tables: torch.Tensor,
+                              offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``causal_attention`` over the gathered cache with a
+    per-sequence q offset (``prefill_chunk_paged``'s composition). q:
+    [b, c, h, d]; pools: [nb, bs, n_kv, d]; tables: [b, w]; offsets: [b]
+    int32, the absolute position of each sequence's row 0."""
+    return causal_attention(q, paged_gather(k_pool, tables),
+                            paged_gather(v_pool, tables), q_offset=offsets)
+
+
+def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+           tables: torch.Tensor, per_seq: torch.Tensor, name: str) -> None:
+    if q.dim() != 4 or k_pool.dim() != 4 or tables.dim() != 2:
+        raise ValueError("q must be [b, s, h, d], pools [nb, bs, n_kv, d] "
+                         "and tables [b, w]")
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != q.shape[3]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k pool "
+                         f"{tuple(k_pool.shape)}, v pool "
+                         f"{tuple(v_pool.shape)}")
+    if q.shape[2] % k_pool.shape[2] != 0:
+        raise ValueError(f"{q.shape[2]} query heads do not group over "
+                         f"{k_pool.shape[2]} kv heads")
+    b = q.shape[0]
+    if tables.shape[0] != b or tuple(per_seq.shape) != (b,):
+        raise ValueError(f"tables {tuple(tables.shape)} and {name} "
+                         f"{tuple(per_seq.shape)} do not match a batch of "
+                         f"{b}")
+    if tables.dtype != torch.int32 or per_seq.dtype != torch.int32:
+        raise ValueError(f"tables and {name} must be int32")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise ValueError(f"dtype mismatch: {q.dtype}, {k_pool.dtype}, "
+                         f"{v_pool.dtype}")
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel():
+    """The C entry points and helpers, typed once."""
+    lib = _build.load("paged_attn")
+    decode = lib.grove_paged_decode
+    decode.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    decode.restype = ctypes.c_int
+    chunk = lib.grove_paged_chunk
+    chunk.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+        ctypes.c_float, ctypes.c_void_p]
+    chunk.restype = ctypes.c_int
+    err_str = lib.grove_paged_error_string
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    info = lib.grove_paged_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info.restype = ctypes.c_int
+    return decode, chunk, err_str, info
+
+
+def kernel_info(which: str, dtype: torch.dtype) -> dict[str, int]:
+    """Registers and local (spill) bytes per thread of the built
+    ``partial`` (pass 1) or ``combine`` (pass 2) kernel for ``dtype``
+    (needs the card)."""
+    _, _, err_str, info = _kernel()
+    out = (ctypes.c_int * 2)()
+    err = info({"partial": 0, "combine": 1}[which], _DTYPE_CODES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"paged kernel info failed: "
+                           f"{err_str(err).decode()} ({err})")
+    return {"registers": out[0], "local_bytes": out[1]}
+
+
+def _kernel_args(q, k_pool, v_pool, tables, per_seq):
+    """Validate what the kernels take; returns contiguous q, tables and the
+    per-sequence vector. The pools are never copied: a pool that is not
+    contiguous raises."""
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"paged kernels take float32 or bfloat16, not "
+                         f"{q.dtype}")
+    d = q.shape[3]
+    if d > MAX_HEAD_DIM or d % 8 != 0:
+        raise ValueError(f"paged kernels need head_dim <= {MAX_HEAD_DIM} "
+                         f"and head_dim % 8 == 0, got {d}")
+    if q.shape[2] // k_pool.shape[2] > MAX_GROUP:
+        raise ValueError(f"paged kernels hold at most {MAX_GROUP} query "
+                         f"heads per kv head")
+    devs = {t.device for t in (q, k_pool, v_pool, tables, per_seq)}
+    if len(devs) != 1:
+        raise ValueError(f"paged attention inputs span devices {devs}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged kernels read contiguous pools")
+    return q.contiguous(), tables.contiguous(), per_seq.contiguous()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        _, _, err_str, _ = _kernel()
+        raise RuntimeError(f"paged {what} kernel launch failed: "
+                           f"{err_str(err).decode()} ({err})")
+
+
+def _scratch(q: torch.Tensor, w: int, bs: int) -> torch.Tensor:
+    """The split-K partials of every query row: (acc, m, l) per key span."""
+    b, c, h, d = q.shape
+    n_split = -(-w * bs // SPLIT_KEYS)
+    return torch.empty((b * c * h * n_split * (d + 2),), dtype=torch.float32,
+                       device=q.device)
+
+
+def _launch(entry: int, q, k_pool, v_pool, tables, per_seq) -> torch.Tensor:
+    """Launch the decode (entry 0) or chunk (entry 1) kernels."""
+    q, tables, per_seq = _kernel_args(q, k_pool, v_pool, tables, per_seq)
+    b, c, h, d = q.shape
+    nb, bs, n_kv, _ = k_pool.shape
+    w = tables.shape[1]
+    part = _scratch(q, w, bs)
+    out = torch.empty_like(q)
+    fn = _kernel()[entry]
+    shape = (b, w, h, n_kv, d, nb, bs) if entry == 0 else \
+        (b, c, w, h, n_kv, d, nb, bs)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 tables.data_ptr(), per_seq.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), _DTYPE_CODES[q.dtype], *shape, SPLIT_KEYS,
+                 d ** -0.5, stream)
+    _raise_on(err, ("decode", "chunk")[entry])
+    return out
+
+
+def _route(q: torch.Tensor, others) -> str:
+    if all(t.device.type == "cpu" for t in (q, *others)):
+        return "cpu"
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cuda or cpu tensors, "
+                         f"not {q.device}")
+    return "cuda"
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention through block tables. q: [b, 1, h, d]; pools:
+    one layer's [nb, bs, n_kv, d]; tables: [b, w] int32; lengths: [b] int32
+    (counting the new token; read on the device). Returns [b, 1, h, d].
+
+    CUDA tensors run the hand-written kernel; CPU tensors run
+    ``paged_decode_attention_ref``. Anything else raises."""
+    _check(q, k_pool, v_pool, tables, lengths, "lengths")
+    if q.shape[1] != 1:
+        raise ValueError(f"decode takes one query per sequence, got "
+                         f"{q.shape[1]}")
+    if _route(q, (k_pool, v_pool, tables, lengths)) == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths)
+    out = _launch(0, q, k_pool, v_pool, tables, lengths)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          offsets: torch.Tensor) -> torch.Tensor:
+    """Causal chunk attention through block tables. q: [b, c, h, d]; pools:
+    one layer's [nb, bs, n_kv, d]; tables: [b, w] int32; offsets: [b] int32
+    (row i of sequence b sits at position offsets[b] + i and sees positions
+    <= it). Returns [b, c, h, d].
+
+    CUDA tensors run the hand-written kernel; CPU tensors run
+    ``paged_chunk_attention_ref``. Anything else raises."""
+    _check(q, k_pool, v_pool, tables, offsets, "offsets")
+    if _route(q, (k_pool, v_pool, tables, offsets)) == "cpu":
+        return paged_chunk_attention_ref(q, k_pool, v_pool, tables, offsets)
+    out = _launch(1, q, k_pool, v_pool, tables, offsets)
+    paged_chunk_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_chunk_attention.launches = 0

@@ -1,20 +1,28 @@
-"""Serving engine: continuous-batching decode over fixed lanes, and the
-prefill worker of disaggregated serving.
+"""Serving engines: continuous batching over a paged KV cache (the default),
+continuous-batching decode over fixed lanes, and the lanes engine's prefill
+worker.
 
-- fixed decode batch lanes: inactive lanes compute too, so every step has
-  the same shapes;
-- prefill and decode are separate calls so that they can run in separate
-  pods: ``PrefillWorker`` returns the per-sequence KV slab and
+- ``PagedDecodeEngine`` (``GROVE_ENGINE=paged``, the default): fixed-size
+  KV blocks with per-request block tables (serving/kvcache.py), chunked
+  prefill interleaved with decode, recompute preemption, and the prefix
+  cache with copy-on-write (serving/schedule.py); one CUDA graph per
+  (batch, table width) decode bucket, where the JAX package compiles one
+  ``jax.jit`` per bucket;
+- ``DecodeEngine`` (``GROVE_ENGINE=lanes``): fixed decode batch lanes;
+  inactive lanes compute too, so every step has the same shapes; prefill
+  and decode are separate calls so that they can run in separate pods:
+  ``PrefillWorker`` returns the per-sequence KV slab and
   ``DecodeEngine.insert`` splices it into a free lane;
-- the KV cache is updated in place (the JAX package donates it);
+- KV caches are updated in place (the JAX package donates them);
 - sampled tokens accumulate on the device and reach the host once per
   window of ``host_sync_interval`` steps; ``step`` itself never waits for
   the device;
 - a queue-depth metric hook feeds the control plane's autoscaler.
 
-Only the lanes engine (``GROVE_ENGINE=lanes``) is ported so far; the paged
-engine, the request/device observatories and chunked prefill are not, and
-asking for them raises.
+Not ported yet, and raising when asked for (ROADMAP.md, queue 1): the
+paged engine's sampled path, speculative decoding, int8 KV, tensor
+parallelism and disaggregated serving; the request and device
+observatories; the lanes worker's chunked prefill.
 """
 
 from __future__ import annotations
@@ -32,6 +40,14 @@ from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.models import llama
 from grove_tpu_torch.models.llama import LlamaConfig
 from grove_tpu_torch.ops.kvcache import KVCache
+from grove_tpu_torch.ops.paged import paged_decode_attention
+from grove_tpu_torch.serving.kvcache import (NULL_BLOCK, BlockAllocator,
+                                             PagedKV, PrefixTree, pad_tables)
+from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
+
+
+# The hand-written kernels a captured decode step launches, by wrapper.
+_KERNEL_WRAPPERS = (paged_decode_attention,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +141,15 @@ def _complete_impl(req: Request, completed: list, telemetry) -> None:
         telemetry.observe_request(req)
 
 
+def _reject_unported(**observatories) -> None:
+    """The JAX package's request/device observatories are not ported:
+    each may be None or False only."""
+    for name, val in observatories.items():
+        if val is not None and val is not False:
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP.md, queue 1); pass None")
+
+
 def _quantized(params, quant: str | None):
     if quant not in (None, "int8"):
         raise ValueError(f"unknown quant mode {quant!r}")
@@ -208,12 +233,7 @@ class DecodeEngine:
                  xprof=None,
                  reqtrace=None,
                  device: str | torch.device | None = None):
-        for name, val in (("telemetry", telemetry), ("xprof", xprof),
-                          ("reqtrace", reqtrace)):
-            if val is not None and val is not False:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP.md, queue 1); "
-                    "pass None")
+        _reject_unported(telemetry=telemetry, xprof=xprof, reqtrace=reqtrace)
         self.cfg = cfg
         self.device = resolve_device(device)
         self._sampler = sampler or SamplerConfig()
@@ -518,12 +538,724 @@ class DecodeEngine:
             self.sync()
 
 
+class PagedDecodeEngine:
+    """Continuous-batching decode over a paged KV cache.
+
+    The port of the JAX package's default engine (``GROVE_ENGINE=paged``),
+    greedy decoding over a bf16 (or the model's dtype) KV pool:
+
+    - **Paged KV** (serving/kvcache.py): fixed-size blocks and per-request
+      block tables, so effective batch is bounded by tokens in flight, and
+      decode attention reads the bucketed live width.
+    - **Continuous batching** (serving/schedule.py): requests join and
+      leave the decode batch at any step. Decode shapes come off fixed
+      power-of-two bucket ladders, so the set of decode steps is finite.
+    - **One CUDA graph per decode bucket.** On the card, ``_get_step(B,
+      W)`` captures ``decode_step_paged`` + argmax + ``lengths += 1`` once
+      per (batch, width) bucket; the graph reads and writes static token,
+      length and table buffers and the pools in place, and a replay costs
+      one launch. ``warmup`` captures over the null block before traffic,
+      and ``graphs_captured`` counts captures. On the CPU the same dict
+      holds the eager step functions. A capture that fails raises.
+    - **Chunked prefill**: prompts advance one fixed chunk per engine
+      tick, interleaved with decode (eagerly: the prefill chunk has no
+      graph yet, ROADMAP.md queue 1).
+
+    Host discipline: the per-step dispatch path performs no device sync.
+    Sampled tokens stay on the device; bookkeeping drains once per
+    ``host_sync_interval`` window or at a composition change, whichever
+    comes first.
+    """
+
+    def __init__(self, cfg: LlamaConfig, key_or_params, batch: int = 8,
+                 max_len: int | None = None,
+                 block_size: int | None = None,
+                 num_blocks: int | None = None,
+                 prefill_chunk: int | None = None,
+                 metric_hook: Callable[[int], None] | None = None,
+                 host_sync_interval: int = 8,
+                 sampler: SamplerConfig | None = None,
+                 quant: str | None = None,
+                 telemetry=None,
+                 xprof=None,
+                 reqtrace=None,
+                 mesh=None,
+                 prefix_cache: bool | None = None,
+                 spec_decode: bool | None = None,
+                 spec_k: int | None = None,
+                 draft_params=None,
+                 kv_quant: str | None = None,
+                 device: str | torch.device | None = None):
+        _reject_unported(telemetry=telemetry, xprof=xprof, reqtrace=reqtrace)
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor parallelism is not ported yet (ROADMAP.md, queue 1, "
+                "item 7)")
+        if spec_decode is None:
+            spec_decode = os.environ.get("GROVE_SPEC_DECODE", "0") == "1"
+        if spec_decode or spec_k is not None or draft_params is not None:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP.md, queue "
+                "1, item 3)")
+        self._sampler = sampler or SamplerConfig()
+        if self._sampler.temperature > 0.0:
+            raise NotImplementedError(
+                "the paged engine's sampled path (temperature > 0) is not "
+                "ported yet (ROADMAP.md, queue 1, item 1); it decodes "
+                "greedily")
+        if kv_quant is None:
+            kv_quant = os.environ.get("GROVE_KV_QUANT", "off")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if isinstance(key_or_params, torch.Generator):
+            key_or_params = llama.init_params(cfg, key_or_params,
+                                              self.device)
+        self.params = _quantized(key_or_params, quant)
+        self.quant = quant
+        self.batch = batch          # max decode slots
+        self.max_len = max_len or cfg.max_seq_len
+        self.metric_hook = metric_hook
+        self.telemetry = None
+        self.host_sync_interval = max(1, host_sync_interval)
+        self._ttft_compat = os.environ.get("GROVE_TTFT_COMPAT", "0") == "1"
+
+        # Block geometry: 16-token blocks (GROVE_PAGED_BLOCK overrides) and
+        # a pool sized to the lanes engine's worst case (batch x max_len),
+        # so the default shape never has less capacity than the lanes
+        # engine; deployments shrink num_blocks to bank the memory.
+        if block_size is None:
+            block_size = int(os.environ.get("GROVE_PAGED_BLOCK", 16))
+        block_size = max(1, min(block_size, self.max_len))
+        self.block_size = block_size
+        self.max_blocks_per_seq = -(-self.max_len // block_size)
+        if num_blocks is None:
+            num_blocks = batch * self.max_blocks_per_seq + 1  # + null
+        # The pool must fit at least one full sequence, or a lone
+        # max-length request could never be served.
+        if num_blocks - 1 < self.max_blocks_per_seq:
+            raise ValueError(f"{num_blocks} blocks cannot hold one "
+                             f"{self.max_len}-token sequence")
+        self.kv_quant = kv_quant
+        self.kv = PagedKV.create(cfg.n_layers, num_blocks, block_size,
+                                 cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
+                                 quant=kv_quant, device=self.device)
+        self._alloc = BlockAllocator(num_blocks, block_size)
+        if prefill_chunk is None:
+            prefill_chunk = int(os.environ.get("GROVE_PAGED_CHUNK", 32))
+        self.prefill_chunk = max(1, min(prefill_chunk, self.max_len))
+        # Global prefix cache (GROVE_PREFIX_CACHE=0 switches it off). The
+        # tokens are the same either way: cached KV is what a cold prefill
+        # would have written.
+        if prefix_cache is None:
+            prefix_cache = os.environ.get("GROVE_PREFIX_CACHE", "1") != "0"
+        self._prefix = PrefixTree(self._alloc) if prefix_cache else None
+        from grove_tpu_torch.serving.quant import kv_block_bytes
+        self._block_bytes = kv_block_bytes(cfg, block_size, kv_quant)
+        self.cow_copies = 0
+        self._sched = PagedScheduler(self._alloc, batch,
+                                     self.max_blocks_per_seq,
+                                     self.prefill_chunk,
+                                     prefix_tree=self._prefix)
+
+        # Static decode inputs, written in place between steps and read by
+        # every step (and captured graph): tokens and lengths of slots
+        # [0, B) are views of one buffer each, and each table width has
+        # one [batch, W] buffer whose first B rows a step reads.
+        self._tok_buf = torch.zeros((batch,), dtype=torch.int32,
+                                    device=self.device)
+        self._len_buf = torch.zeros((batch,), dtype=torch.int32,
+                                    device=self.device)
+        self._table_bufs: dict[int, torch.Tensor] = {}
+        # One step per (batch bucket, width bucket): a captured graph's
+        # replay on the card, the eager step on the CPU.
+        self._steps: dict[tuple[int, int], Callable[[], None]] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        self.graphs_captured = 0
+        self.capture_seconds = 0.0
+        self.capture_bytes = 0
+
+        # Request flow state.
+        self._queue: deque[Request] = deque()
+        self._next_rid = 0
+        self.completed: list[Request] = []
+        self.steps = 0              # decode dispatches
+        self.ticks = 0              # engine ticks (prefill or decode)
+        self._cur_shape: tuple[int, int] | None = None
+        self._tables_sig: tuple = ()
+        self._run_order: tuple = ()
+        self._composition_dirty = True
+        self._pending: list[tuple[torch.Tensor, tuple]] = []
+        self._finishing: list = []
+
+    @property
+    def sampler(self) -> SamplerConfig:
+        return self._sampler
+
+    # ---- decode steps (one per shape bucket) ----
+
+    def _table_buf(self, W: int) -> torch.Tensor:
+        buf = self._table_bufs.get(W)
+        if buf is None:
+            buf = torch.zeros((self.batch, W), dtype=torch.int32,
+                              device=self.device)
+            self._table_bufs[W] = buf
+        return buf
+
+    def _get_step(self, B: int, W: int) -> Callable[[], None]:
+        key = (B, W)
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+        cfg, params, kv = self.cfg, self.params, self.kv
+        tokens, lengths = self._tok_buf[:B], self._len_buf[:B]
+        tables = self._table_buf(W)[:B]
+
+        def step() -> None:
+            logits = llama.decode_step_paged(cfg, params, tokens, kv.k,
+                                             kv.v, tables, lengths)
+            tokens.copy_(torch.argmax(logits, dim=-1))
+            lengths.add_(1)
+
+        fn = self._capture(step) if self.device.type == "cuda" else step
+        self._steps[key] = fn
+        return fn
+
+    def _capture(self, step: Callable[[], None]) -> Callable[[], None]:
+        """Capture ``step`` into a CUDA graph; returns its replay.
+
+        The step runs once eagerly on a side stream first (torch's
+        documented warm-up), so the kernel library's load, its function
+        attributes and every lazily built table happen outside the
+        capture. That run reads the live static buffers and writes the
+        pools' next K/V rows with the values the next real step writes
+        again; the token and length buffers it advances are restored
+        before the capture. All graphs share one memory pool: no tensor
+        allocated inside a capture outlives it.
+
+        Kernel launch counts follow the device: the wrappers' counts taken
+        while capturing (when nothing launches) move to the replay, which
+        adds them each time it launches the graph's kernels."""
+        dev = self.device
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        saved = (self._tok_buf.clone(), self._len_buf.clone())
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._tok_buf.copy_(saved[0])
+        self._len_buf.copy_(saved[1])
+        graph = torch.cuda.CUDAGraph()
+        counts = [w.launches for w in _KERNEL_WRAPPERS]
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            step()
+        per_replay = []
+        for w, n in zip(_KERNEL_WRAPPERS, counts):
+            if w.launches != n:
+                per_replay.append((w, w.launches - n))
+                w.launches = n
+        torch.cuda.empty_cache()
+        self.graphs_captured += 1
+        self.capture_seconds += time.perf_counter() - t0
+        self.capture_bytes += torch.cuda.memory_reserved(dev) - reserved
+
+        def replay() -> None:
+            graph.replay()
+            for w, n in per_replay:
+                w.launches += n
+
+        return replay
+
+    def _upload(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        """Copy a host array into a device buffer without waiting for the
+        device: through pinned memory (whose block the caching host
+        allocator holds until the copy has run) on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(src))
+        if dst.device.type == "cuda":
+            dst.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(t)
+
+    def _to_device(self, src: np.ndarray) -> torch.Tensor:
+        out = torch.empty(src.shape, dtype=torch.int32, device=self.device)
+        self._upload(out, src)
+        return out
+
+    def warmup(self, batches: list[int] | None = None,
+               widths: list[int] | None = None,
+               prefill_widths: list[int] | None = None) -> int:
+        """Capture the decode step of every (batch, width) bucket named
+        (both ladders by default) over the null block, and run each once:
+        tables all point at block 0 and lengths are 0, so every write
+        lands in the one block no sequence owns, and the static buffers are
+        restored afterwards, so live state is untouched. Then run one
+        prefill chunk per ``prefill_widths`` (default ``widths``; ``[]``
+        skips them) over the null block. Returns the number of steps built:
+        graphs captured on the card, eager steps on the CPU. A deployment
+        calls this at startup so that traffic never pays a capture."""
+        self._cow_guard(())
+        built = 0
+        saved = (self._tok_buf.clone(), self._len_buf.clone(),
+                 {W: t.clone() for W, t in self._table_bufs.items()})
+        for B in batches or self._sched.batch_buckets:
+            for W in widths or self._sched.width_buckets:
+                self._tok_buf[:B].zero_()
+                self._len_buf[:B].zero_()
+                self._table_buf(W)[:B].zero_()
+                if (B, W) not in self._steps:
+                    built += 1
+                self._get_step(B, W)()
+        if prefill_widths is None:
+            prefill_widths = widths or self._sched.width_buckets
+        for W in prefill_widths:
+            c = self.prefill_chunk
+            llama.prefill_chunk_paged(
+                self.cfg, self.params,
+                torch.zeros((1, c), dtype=torch.int32, device=self.device),
+                self.kv.k, self.kv.v,
+                torch.zeros((1, W), dtype=torch.int32, device=self.device),
+                0, 0, 0)
+        self._tok_buf.copy_(saved[0])
+        self._len_buf.copy_(saved[1])
+        for W, t in saved[2].items():
+            self._table_bufs[W].copy_(t)
+        for W in set(self._table_bufs) - set(saved[2]):
+            self._table_bufs[W].zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return built
+
+    def decode_width_buckets(self, start_tokens: int,
+                             end_tokens: int) -> list[int]:
+        """The width buckets a sequence crosses decoding from
+        ``start_tokens`` to ``end_tokens`` in cache: what a caller passes
+        to ``warmup(widths=...)`` to capture exactly the graphs a run of
+        known lengths will use."""
+        bs = self.block_size
+        ladder = self._sched.width_buckets
+        lo = pick_bucket(max(1, -(-start_tokens // bs)), ladder)
+        hi = pick_bucket(max(1, -(-end_tokens // bs)), ladder)
+        return [w for w in ladder if lo <= w <= hi]
+
+    # ---- request intake ----
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        prompt = np.asarray(prompt, np.int32)
+        if len(prompt) >= self.max_len:
+            raise ValueError(f"prompt of {len(prompt)} tokens cannot fit "
+                             f"max_len={self.max_len} with room to generate")
+        req = Request(rid=self._next_rid, prompt=prompt,
+                      max_new_tokens=max_new_tokens,
+                      enqueue_ts=time.time())
+        self._next_rid += 1
+        self._queue.append(req)
+        self._report_metric()
+        return req.rid
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests not yet (re)admitted: the submit queue plus preempted
+        sequences awaiting recompute."""
+        return len(self._queue) + len(self._sched.preempted)
+
+    @property
+    def kv_lane_utilization(self) -> float:
+        """Fraction of the KV block pool in use (1.0 = allocator dry,
+        admissions defer)."""
+        return self._alloc.utilization
+
+    @property
+    def _active(self) -> np.ndarray:
+        """Liveness mask: one True per sequence prefilling or decoding,
+        plus one while undrained window tokens or completions are pending,
+        so that a driver stepping while "active" keeps ticking until the
+        last request's bookkeeping lands."""
+        n = self._sched.live
+        if n == 0 and (self._pending or self._finishing):
+            n = 1
+        return np.ones((n,), bool)
+
+    def _report_metric(self) -> None:
+        if self.metric_hook is not None:
+            self.metric_hook(self.queue_depth)
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache gauges (empty with the cache off)."""
+        if self._prefix is None:
+            return {}
+        p = self._prefix.payload()
+        return {"hit_rate": p["hit_rate"],
+                "cached_blocks": p["cached_blocks"],
+                "cached_bytes": p["cached_blocks"] * self._block_bytes,
+                "reclaimed_bytes":
+                    p["reclaimed_total"] * self._block_bytes,
+                "tokens_matched_total": p["tokens_matched_total"],
+                "cow_copies": self.cow_copies}
+
+    def _stamp_admit(self, req: Request, now: float,
+                     admit: float | None = None) -> None:
+        _stamp_admit_impl(req, now, admit, self._ttft_compat, self.telemetry)
+
+    def _complete(self, req: Request) -> None:
+        _complete_impl(req, self.completed, self.telemetry)
+
+    # ---- admission ----
+
+    def admit_from_queue(self, prefiller=None) -> int:
+        """Admit queued work into the scheduler: preempted sequences
+        re-enter first (recompute), then fresh requests FIFO, each gated on
+        a free slot and the allocator's first-chunk grant. ``prefiller`` is
+        accepted for the lanes engine's call sites and ignored: chunked
+        prefill is in-engine here."""
+        admitted = 0
+        while self._sched.preempted:
+            seq = self._sched.preempted.popleft()
+            if self._sched.readmit(seq) is None:
+                self._sched.preempted.appendleft(seq)
+                break
+            admitted += 1
+        while self._queue:
+            req = self._queue[0]
+            popped = time.time()  # queue exit, before any prefill work
+            if self._sched.admit(
+                    req, req.prompt[:req.prompt_len]) is None:
+                break
+            self._queue.popleft()
+            if not req.admit_ts:
+                req.admit_ts = popped
+            admitted += 1
+        if admitted:
+            self._report_metric()
+        return admitted
+
+    def admit_prompts(self, prompts, max_new_tokens: int | None = None,
+                      lengths=None) -> None:
+        """Bulk admission: submit a [b, s] batch and drive chunked prefill
+        to completion so that every row is decoding."""
+        prompts_np = np.asarray(prompts)
+        b, s = prompts_np.shape
+        lengths_np = (np.full((b,), s, np.int32) if lengths is None
+                      else np.asarray(lengths, np.int32))
+        for i in range(b):
+            n = int(lengths_np[i])
+            new = (max_new_tokens if max_new_tokens is not None
+                   else self.max_len - n)
+            self.submit(prompts_np[i, :n], max_new_tokens=new)
+        self.admit_from_queue()
+        stalled = 0
+        while self._sched.has_prefill_work() or self._queue \
+                or self._sched.preempted:
+            before = self._admit_progress()
+            if self._sched.has_prefill_work():
+                self._prefill_tick()
+            elif self._sched.running:
+                # Slots full with prompts still queued: decode the live
+                # set so that completions free slots.
+                self._decode_tick()
+            self.admit_from_queue()
+            stalled = stalled + 1 if self._admit_progress() == before \
+                else 0
+            if stalled > 4 * self.batch + 16:
+                raise RuntimeError(
+                    "admit_prompts stalled: KV pool too small for the "
+                    f"batch ({self._alloc.payload()})")
+
+    def _admit_progress(self) -> tuple:
+        """Monotone progress signature for admit_prompts' stall guard."""
+        return (sum(sq.pos for sq in self._sched.prefilling),
+                sum(sq.pos for sq in self._sched.running),
+                len(self.completed), self._sched.admitted_total)
+
+    # ---- the tick loop ----
+
+    def step(self) -> None:
+        """One engine tick: at most one prefill chunk, then one decode
+        step over the compacted batch. No device sync on this path:
+        windows drain in ``_drain``."""
+        if self._sched.has_prefill_work():
+            self._prefill_tick()
+        if self._sched.running:
+            self._decode_tick()
+        elif self._pending or self._finishing:
+            # The decode set emptied with a window in flight: fold it in
+            # now (the last completion must not wait for more traffic).
+            self._drain()
+        self.ticks += 1
+
+    def run(self, steps: int) -> None:
+        """Drive ``steps`` ticks, then drain and wait for the device."""
+        for _ in range(steps):
+            self.step()
+        self.sync()
+
+    def sync(self) -> None:
+        self._drain()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- copy-on-write ----
+
+    def _resolve_cow(self, seq) -> None:
+        """Copy-on-write barrier, which every prefill chunk passes first:
+        a sequence that matched a prefix mid-block shares that block
+        read-only; before its first chunk writes into it, the shared
+        contents are copied into the fresh block the scheduler granted
+        (the table already points at the copy) and the source reference
+        drops."""
+        if seq.cow_src < 0:
+            return
+        src, dst = seq.cow_src, seq.cow_dst
+        seq.cow_src = seq.cow_dst = -1
+        ids = torch.tensor([src, dst], dtype=torch.long, device=self.device)
+        llama.paged_block_copy(self.kv.k, self.kv.v, self.kv.k, self.kv.v,
+                               ids[:1], ids[1:])
+        self._alloc.free([src])
+        self.cow_copies += 1
+
+    def _cow_guard(self, seqs, span: int = 1) -> None:
+        """Exclusive-write tripwire ahead of the decode scatter: every
+        block the next step can write must have refcount 1. By
+        construction decode always writes a fresh suffix or CoW block; a
+        trip here means the sharing bookkeeping is corrupt, and raising
+        beats the silent corruption of every other holder's KV."""
+        bs = self.block_size
+        for seq in seqs:
+            start = seq.pos + seq.inflight
+            end = min(start + span, len(seq.blocks.blocks) * bs)
+            for p in range(start, end):
+                b = seq.blocks.blocks[p // bs]
+                if self._alloc.refcount(b) > 1:
+                    raise RuntimeError(
+                        f"decode write into shared block {b} (refcount "
+                        f"{self._alloc.refcount(b)}): copy-on-write was "
+                        "bypassed")
+
+    # ---- chunked prefill ----
+
+    def _prefill_tick(self) -> None:
+        seq = self._sched.next_prefill()
+        if seq is None:
+            if not self._sched.prefilling:
+                return
+            # OOM at the prefill head. Decode has absolute priority for
+            # the pool: with anything running, the head waits for
+            # completions. With nothing running, the blocks are pinned by
+            # prefilling sequences that can never advance past the FIFO
+            # head: evict the newest back to the queue.
+            if not self._sched.running:
+                head = self._sched.prefilling[0]
+                victim = self._sched.evict_newest_prefilling(protect=head)
+                if victim is not None:
+                    self._requeue_prefill_victim(victim)
+                    self._report_metric()
+            return
+        # A pending mid-block prefix hit is copied into its fresh block
+        # before this chunk's scatter can land there.
+        self._resolve_cow(seq)
+        c = self.prefill_chunk
+        pos, total = seq.pos, seq.prompt_len
+        valid = min(c, total - pos)
+        toks = np.zeros((1, c), np.int32)
+        toks[0, :valid] = seq.tokens[pos:pos + valid]
+        W = pick_bucket(len(seq.blocks.blocks), self._sched.width_buckets)
+        table = pad_tables([seq.blocks.blocks], W)
+        logits = llama.prefill_chunk_paged(
+            self.cfg, self.params, self._to_device(toks), self.kv.k,
+            self.kv.v, self._to_device(table), pos, max(0, valid - 1),
+            valid)
+        seq.pos += valid
+        if seq.prefill_done:
+            self._finish_prefill(seq, logits)
+
+    def _requeue_prefill_victim(self, victim) -> None:
+        """Re-queue a sequence evicted from the prefill queue: a recompute
+        victim carries generated history in its tokens and re-enters
+        through the preempted path; a fresh one through the submit
+        queue."""
+        if victim.recompute:
+            self._sched.preempted.appendleft(victim)
+        else:
+            self._queue.appendleft(victim.req)
+
+    def _sample_first(self, logits: torch.Tensor) -> int:
+        """The prefill-produced token, greedy (one host fetch)."""
+        return int(torch.argmax(logits, dim=-1)[0])
+
+    def _finish_prefill(self, seq, logits) -> None:
+        """The chunk that produces the first token just ran: take it and
+        stamp TTFT here, at token emission."""
+        tok = self._sample_first(logits)
+        req = seq.req
+        if not seq.recompute:
+            # A recompute replays history: its token is the next decode
+            # token, and the stamps stay.
+            self._stamp_admit(req, time.time(), admit=req.admit_ts or None)
+        req.generated.append(tok)
+        seq.n_generated = len(req.generated)
+        seq.last_token = tok
+        self._sched.promote(seq)
+        self._composition_dirty = True
+        if seq.finished():
+            self._sched.retire(seq)
+            self._complete(req)
+        self._report_metric()
+
+    # ---- decode ----
+
+    def _decode_tick(self) -> None:
+        sched = self._sched
+        # Cache-full truncation: a sequence whose next write would land
+        # past max_len completes now (its table would outgrow the width
+        # ladder's top bucket).
+        full = [s for s in sched.running if s.pos + 1 > self.max_len]
+        if full:
+            self._drain()
+            for s in full:
+                sched.retire(s)
+                self._complete(s.req)
+            self._composition_dirty = True
+            self._report_metric()
+            if not sched.running:
+                return
+        # Capacity: a block grant does not change composition, so the
+        # cheap path needs no drain; only a shortfall (preemption) or a
+        # finished/joined sequence forces one.
+        needy = [s for s in sched.running if not s.blocks.ensure(s.pos + 1)]
+        if needy:
+            self._drain()
+            if sched.ensure_decode_capacity():
+                self._composition_dirty = True
+                self._report_metric()
+            stuck = [s for s in sched.running
+                     if s.blocks.capacity < s.pos + 1]
+            for s in stuck:
+                # Reclaim from the prefill queue before truncating.
+                while s.blocks.capacity < s.pos + 1:
+                    victim = sched.evict_newest_prefilling()
+                    if victim is None:
+                        break
+                    self._requeue_prefill_victim(victim)
+                    s.blocks.ensure(s.pos + 1)
+                if s.blocks.capacity >= s.pos + 1:
+                    continue
+                # Truly un-growable: truncate rather than livelock.
+                sched.retire(s)
+                self._complete(s.req)
+                self._composition_dirty = True
+            if not sched.running:
+                return
+        sig = tuple(len(s.blocks.blocks) for s in self._run_order)
+        if self._composition_dirty:
+            self._recompose()
+        elif sig != self._tables_sig:
+            self._refresh_tables()
+        if not sched.running:
+            return
+        B, W = self._cur_shape
+        self._cow_guard(self._run_order)
+        self._get_step(B, W)()
+        # Each pending window keeps its own token copy (the next step
+        # overwrites the static buffer) and its composition, so joins and
+        # leaves between windows need no drain.
+        self._pending.append((self._tok_buf[:B].clone(), self._run_order))
+        self.steps += 1
+        for seq in self._run_order:
+            if seq.req.done:
+                continue
+            seq.pos += 1
+            seq.n_generated += 1
+            if seq.finished() and seq in sched.running:
+                # Count-based completion: blocks free now; the window's
+                # tokens drain into req.generated later.
+                sched.retire(seq)
+                self._finishing.append(seq)
+                self._composition_dirty = True
+        if len(self._pending) >= self.host_sync_interval:
+            self._drain()
+
+    def _recompose(self) -> None:
+        """Rebuild the decode inputs after sequences joined or left: drain
+        pending windows (their tokens carry the survivors' current tokens
+        to the host), compact the running set into slots [0, n), and copy
+        tokens, lengths and tables into the static buffers at the new
+        buckets."""
+        self._drain()
+        running = self._sched.running
+        self._run_order = tuple(running)
+        self._composition_dirty = False
+        if not running:
+            self._cur_shape = None
+            self._tables_sig = ()
+            return
+        B, W = self._sched.decode_shape()
+        self._cur_shape = (B, W)
+        toks = np.zeros((B,), np.int32)
+        lens = np.zeros((B,), np.int32)
+        for i, s in enumerate(running):
+            toks[i] = s.last_token
+            lens[i] = s.pos
+        self._upload(self._tok_buf[:B], toks)
+        self._upload(self._len_buf[:B], lens)
+        self._push_tables(B, W)
+
+    def _refresh_tables(self) -> None:
+        """A running sequence grew a block (same composition): only the
+        tables are stale, and the width bucket may step up; tokens and
+        lengths stay on the device."""
+        B = self._cur_shape[0]
+        W = pick_bucket(
+            max(len(s.blocks.blocks) for s in self._run_order),
+            self._sched.width_buckets)
+        self._cur_shape = (B, W)
+        self._push_tables(B, W)
+
+    def _push_tables(self, B: int, W: int) -> None:
+        rows = pad_tables([s.blocks.blocks for s in self._run_order], W)
+        full = np.full((B, W), NULL_BLOCK, np.int32)
+        full[:len(self._run_order)] = rows
+        self._upload(self._table_buf(W)[:B], full)
+        self._tables_sig = tuple(len(s.blocks.blocks)
+                                 for s in self._run_order)
+
+    def _drain(self) -> None:
+        """Fold pending window tokens into their requests with one host
+        fetch. Every pending step has the same batch bucket (it changes
+        only in ``_recompose``, which drains first), so the window stacks
+        into one [steps, B] tensor."""
+        if not self._pending:
+            return
+        toks = torch.stack([e[0] for e in self._pending]).cpu().numpy()
+        orders = [e[1] for e in self._pending]
+        self._pending.clear()
+        for arr, order in zip(toks, orders):
+            for i, seq in enumerate(order):
+                req = seq.req
+                if req.done or len(req.generated) >= req.max_new_tokens:
+                    continue
+                tok = int(arr[i])
+                req.generated.append(tok)
+                seq.last_token = tok
+        if self._finishing:
+            for seq in self._finishing:
+                self._complete(seq.req)
+            self._finishing = []
+            self._report_metric()
+
+
 def engine_mode() -> str:
     """GROVE_ENGINE=paged|lanes (default paged)."""
     mode = os.environ.get("GROVE_ENGINE", "paged")
     if mode not in ("paged", "lanes"):
         raise ValueError(f"GROVE_ENGINE={mode!r} (expected paged|lanes)")
     return mode
+
+
+def disagg_mode() -> bool:
+    """GROVE_DISAGG=1 asks for disaggregated paged serving (default 0)."""
+    return os.environ.get("GROVE_DISAGG", "0") == "1"
 
 
 def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
@@ -535,22 +1267,27 @@ def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
                 reqtrace=None, mesh=None, mode: str | None = None,
                 device: str | torch.device | None = None,
                 **paged_kwargs):
-    """Engine factory honoring GROVE_ENGINE. ``mode="lanes"`` builds the
-    lanes ``DecodeEngine``; the paged engine (the default mode) is not
-    ported yet and raises. Paged-only knobs in ``paged_kwargs`` are ignored
-    by the lanes engine, as in the JAX package."""
+    """Engine factory honoring GROVE_ENGINE: the paged engine by default,
+    ``mode="lanes"`` for the lanes ``DecodeEngine``. Paged-only knobs
+    (block_size, num_blocks, prefill_chunk, prefix_cache, ...) pass
+    through ``paged_kwargs`` and are ignored by the lanes engine, as in
+    the JAX package. GROVE_DISAGG=1 raises: disaggregated serving is not
+    ported yet."""
     mode = mode or engine_mode()
-    if mode == "paged":
-        raise NotImplementedError(
-            "the paged engine (GROVE_ENGINE=paged) is not ported yet: see "
-            "ROADMAP.md, queue 1, item 1 (the paged engine); use "
-            "mode='lanes'")
-    if mode != "lanes":
+    common = dict(batch=batch, max_len=max_len,
+                  host_sync_interval=host_sync_interval, sampler=sampler,
+                  quant=quant, metric_hook=metric_hook,
+                  telemetry=telemetry, xprof=xprof, reqtrace=reqtrace,
+                  device=device)
+    if mode == "lanes":
+        if mesh is not None:
+            raise NotImplementedError("tensor parallelism is not ported yet")
+        return DecodeEngine(cfg, key_or_params, **common)
+    if mode != "paged":
         raise ValueError(f"unknown engine mode {mode!r}")
-    if mesh is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet")
-    return DecodeEngine(cfg, key_or_params, batch=batch, max_len=max_len,
-                        host_sync_interval=host_sync_interval,
-                        sampler=sampler, quant=quant,
-                        metric_hook=metric_hook, telemetry=telemetry,
-                        xprof=xprof, reqtrace=reqtrace, device=device)
+    if disagg_mode():
+        raise NotImplementedError(
+            "disaggregated serving (GROVE_DISAGG=1) is not ported yet "
+            "(ROADMAP.md, queue 1, item 4)")
+    return PagedDecodeEngine(cfg, key_or_params, mesh=mesh, **common,
+                             **paged_kwargs)

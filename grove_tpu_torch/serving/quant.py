@@ -85,6 +85,13 @@ def kv_bytes_per_token_per_layer(cfg: Any, kv_quant: str = "off") -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
 
 
+def kv_block_bytes(cfg: Any, block_size: int, kv_quant: str = "off") -> int:
+    """Device bytes of one K+V block pair across all layers: what one
+    allocator grant costs in device memory."""
+    return cfg.n_layers * block_size * kv_bytes_per_token_per_layer(
+        cfg, kv_quant)
+
+
 def _leaves(tree: Any):
     if isinstance(tree, dict):
         for v in tree.values():

@@ -232,8 +232,8 @@ def test_make_engine_modes(params, monkeypatch):
     assert isinstance(tengine.make_engine(T_CFG, tp, device="cpu"),
                       tengine.DecodeEngine)
     monkeypatch.delenv("GROVE_ENGINE")
-    with pytest.raises(NotImplementedError, match="paged"):
-        tengine.make_engine(T_CFG, tp, device="cpu")  # default: paged
+    assert isinstance(tengine.make_engine(T_CFG, tp, device="cpu"),
+                      tengine.PagedDecodeEngine)  # default: paged
     monkeypatch.setenv("GROVE_ENGINE", "bogus")
     with pytest.raises(ValueError):
         tengine.make_engine(T_CFG, tp, device="cpu")

@@ -1,0 +1,149 @@
+"""The paged attention wrappers (grove_tpu_torch/ops/paged.py) without the
+JAX package: their routing and checks on the CPU, the row property the
+kernels keep, and on a CUDA card each kernel against its plain version and
+the paged engine's captured graphs against its eager CPU steps.
+
+On the machine with the card this file runs without the repo's conftest
+(``python -m pytest --noconftest tests/test_torch_paged_kernels.py``).
+Tolerances: f32 1e-4 (summation order); bf16 2e-2 (two bf16 roundings:
+the output, one ulp = 2^-8 relative, and P before P.V).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from grove_tpu_torch.ops import paged
+
+# Small shapes: one intra-op thread keeps these tests from crowding the
+# timing-sensitive control-plane tests that run beside them in parallel.
+torch.set_num_threads(1)
+
+BS = 4
+BF16_TOL = 2e-2
+
+
+def _attn_inputs(seed, b, c, h, n_kv, d, w):
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * w
+    q = rng.standard_normal((b, c, h, d)).astype(np.float32)
+    k = rng.standard_normal((nb, BS, n_kv, d)).astype(np.float32)
+    v = rng.standard_normal((nb, BS, n_kv, d)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, nb)).reshape(b, w).astype(np.int32)
+    return q, k, v, tables
+
+
+def test_chunk_row_depends_only_on_its_position():
+    """The property the kernels keep and the prefix cache relies on: a row
+    at absolute position p gets the same numbers whether it sits in a
+    chunk at offset 0 or 4, and whatever the table width."""
+    q, k, v, tables = _attn_inputs(12, 1, 12, 8, 4, 8, 4)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tt = torch.from_numpy(tables)
+    whole = paged.paged_chunk_attention(tq, tk, tv, tt,
+                                        torch.zeros(1, dtype=torch.int32))
+    tail = paged.paged_chunk_attention(tq[:, 4:], tk, tv, tt,
+                                       torch.full((1,), 4, dtype=torch.int32))
+    np.testing.assert_allclose(tail.numpy(), whole[:, 4:].numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_cpu_calls_never_count_a_launch():
+    q, k, v, tables = _attn_inputs(13, 2, 1, 8, 4, 8, 2)
+    tq, tk, tv, tt = (torch.from_numpy(x) for x in (q, k, v, tables))
+    before = (paged.paged_decode_attention.launches,
+              paged.paged_chunk_attention.launches)
+    paged.paged_decode_attention(tq, tk, tv, tt,
+                                 torch.full((2,), 5, dtype=torch.int32))
+    paged.paged_chunk_attention(tq, tk, tv, tt,
+                                torch.zeros(2, dtype=torch.int32))
+    assert (paged.paged_decode_attention.launches,
+            paged.paged_chunk_attention.launches) == before
+
+
+def test_wrappers_reject_bad_inputs():
+    q, k, v, tables = _attn_inputs(14, 2, 1, 8, 4, 8, 2)
+    tq, tk, tv, tt = (torch.from_numpy(x) for x in (q, k, v, tables))
+    lengths = torch.full((2,), 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        paged.paged_decode_attention(tq, tk, tv, tt.long(), lengths)
+    with pytest.raises(ValueError, match="batch"):
+        paged.paged_decode_attention(tq, tk, tv, tt, lengths[:1])
+    with pytest.raises(ValueError, match="group"):
+        paged.paged_decode_attention(tq[:, :, :6], tk, tv, tt, lengths)
+    with pytest.raises(ValueError, match="one query"):
+        paged.paged_decode_attention(torch.cat([tq, tq], 1), tk, tv, tt,
+                                     lengths)
+
+
+# ---- the kernels themselves (need a CUDA card) ----
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,h,n_kv,d,w", [(5, 16, 8, 128, 8),
+                                          (3, 8, 8, 64, 4),
+                                          (4, 8, 1, 64, 2)])
+def test_kernels_match_plain_on_cuda(dtype, tol, b, h, n_kv, d, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nb = 1 + b * w
+    k = torch.randn((nb, BS, n_kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((nb, BS, n_kv, d), generator=gen, device="cuda").to(dtype)
+    tables = (1 + torch.randperm(nb - 1, device="cuda")).reshape(b, w).to(
+        torch.int32)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+    lengths = torch.randint(1, w * BS + 1, (b,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    before = paged.paged_decode_attention.launches
+    out = paged.paged_decode_attention(q, k, v, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged.paged_decode_attention.launches == before + 1
+    ref = paged.paged_decode_attention_ref(q, k, v, tables, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    qc = torch.randn((b, 8, h, d), generator=gen, device="cuda").to(dtype)
+    # Offsets anywhere in the table: some rows run past its last position.
+    offs = torch.randint(0, w * BS, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    out = paged.paged_chunk_attention(qc, k, v, tables, offs)
+    torch.cuda.synchronize()
+    ref = paged.paged_chunk_attention_ref(qc, k, v, tables, offs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_engine_graphs_match_eager_cpu_on_cuda():
+    """test-tiny f32 through the paged engine on the card (kernels, one
+    captured graph per decode bucket) and on the CPU (plain versions,
+    eager steps): the same greedy tokens per request."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (graphs and kernels)")
+    import dataclasses
+
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.serving.engine import PagedDecodeEngine
+    cfg = dataclasses.replace(CONFIGS["test-tiny"], dtype=torch.float32,
+                              max_seq_len=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32)
+               for n in (5, 19, 3, 11, 7)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                 {n: w.to(dev) for n, w in v.items()})
+             for k, v in params.items()}
+        eng = PagedDecodeEngine(cfg, p, batch=4, max_len=48, block_size=8,
+                                prefill_chunk=8, host_sync_interval=4,
+                                device=dev)
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=6)
+        for _ in range(500):
+            eng.admit_from_queue()
+            if len(eng.completed) == len(prompts):
+                break
+            eng.step()
+        eng.sync()
+        out[dev] = {r.rid: r.generated for r in eng.completed}
+        if dev == "cuda":
+            assert eng.graphs_captured == len(eng._steps) > 0
+    assert out["cuda"] == out["cpu"]

@@ -1,0 +1,205 @@
+"""The port's paged-KV host bookkeeping (serving/kvcache.py,
+serving/schedule.py) against the JAX package's classes: the same decisions
+over a seeded sequence of allocator and prefix-tree operations, the same
+bucket ladders and scheduler decisions, and the port's torch pools."""
+
+import numpy as np
+import pytest
+import torch
+
+from grove_tpu.serving import kvcache as jkv
+from grove_tpu.serving import schedule as jsched
+from grove_tpu_torch.serving import kvcache as tkv
+from grove_tpu_torch.serving import schedule as tsched
+
+# Fields of the allocator payload the port keeps (the JAX package's
+# ``adopted_total`` belongs to the disaggregated handoff, not ported).
+_PAYLOAD_KEYS = ("capacity", "used", "free", "block_size", "cached",
+                 "utilization", "allocs_total", "frees_total", "refs_total",
+                 "oom_events", "high_water", "reclaimed_total",
+                 "cached_high_water")
+
+
+def _side(mod, num_blocks, block_size):
+    alloc = mod.BlockAllocator(num_blocks, block_size)
+    return alloc, mod.PrefixTree(alloc)
+
+
+def _state(alloc, tree):
+    p = alloc.payload()
+    return ({k: p[k] for k in _PAYLOAD_KEYS}, tree.payload(),
+            sorted(alloc._free), sorted(alloc._refs.items()),
+            list(alloc._cached))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_allocator_and_prefix_tree_decide_as_jax(seed):
+    """alloc / ref / free / match / insert, with LRU eviction under
+    pressure, applied to both packages in lockstep: every result and the
+    full allocator and tree state agree after every operation. A vocab of
+    three tokens makes prefix hits and mid-block partial hits common."""
+    rng = np.random.default_rng(seed)
+    bs = 4
+    sides = {"jax": _side(jkv, 24, bs), "port": _side(tkv, 24, bs)}
+    held: list[tuple[list[int], np.ndarray]] = []  # blocks + their tokens
+    kinds = ("alloc", "free", "ref", "insert", "match")
+    for step in range(300):
+        op = kinds[int(rng.integers(0, len(kinds)))]
+        results = {}
+        if op == "alloc":
+            n = int(rng.integers(0, 6))
+            for name, (alloc, _) in sides.items():
+                results[name] = alloc.alloc(n)
+            if results["jax"] is not None:
+                held.append((list(results["jax"]),
+                             rng.integers(0, 3, size=n * bs)))
+        elif op == "free" and held:
+            blocks, _ = held.pop(int(rng.integers(0, len(held))))
+            for name, (alloc, _) in sides.items():
+                results[name] = alloc.free(list(blocks))
+        elif op == "ref" and held:
+            blocks, toks = held[int(rng.integers(0, len(held)))]
+            if blocks:
+                j = int(rng.integers(0, len(blocks)))
+                for name, (alloc, _) in sides.items():
+                    results[name] = alloc.ref(blocks[j])
+                held.append(([blocks[j]], toks[j * bs:(j + 1) * bs]))
+        elif op == "insert" and held:
+            blocks, toks = held[int(rng.integers(0, len(held)))]
+            for name, (_, tree) in sides.items():
+                results[name] = tree.insert(toks, list(blocks))
+        elif op == "match":
+            toks = rng.integers(0, 3, size=int(rng.integers(1, 14)))
+            for name, (_, tree) in sides.items():
+                results[name] = tree.match(toks)
+            full, _, partial = results["jax"]
+            refs = list(full) + ([partial[0]] if partial else [])
+            if refs:
+                held.append((refs, np.zeros(len(refs) * bs, np.int64)))
+        assert results.get("jax") == results.get("port"), (step, op)
+        assert _state(*sides["jax"]) == _state(*sides["port"]), (step, op)
+        sides["port"][0].check()
+    assert sides["port"][1].payload()["hits"] > 0
+    assert sides["port"][0].reclaimed_total > 0 or seed != 0
+
+
+def test_alloc_is_all_or_nothing_and_free_is_strict():
+    alloc = tkv.BlockAllocator(5, 4)
+    got = alloc.alloc(3)
+    assert got == [1, 2, 3]
+    assert alloc.alloc(2) is None and alloc.oom_events == 1
+    with pytest.raises(ValueError):
+        alloc.free([tkv.NULL_BLOCK])
+    alloc.free(got)
+    with pytest.raises(ValueError, match="double free"):
+        alloc.free([got[0]])
+    alloc.check()
+
+
+def test_seq_blocks_and_pad_tables_match_jax():
+    for mod in (jkv, tkv):
+        alloc = mod.BlockAllocator(8, 4)
+        seq = mod.SeqBlocks(alloc)
+        assert seq.ensure(9) and seq.capacity == 12
+        assert not seq.ensure(40)  # all or nothing
+        assert seq.capacity == 12
+        seq.release()
+        seq.release()  # idempotent
+        assert alloc.used_blocks == 0
+    tables = [[3, 1], [2], []]
+    np.testing.assert_array_equal(tkv.pad_tables(tables, 4),
+                                  jkv.pad_tables(tables, 4))
+
+
+def test_paged_kv_pools_are_torch_tensors():
+    kv = tkv.PagedKV.create(2, 5, 4, 3, 8, torch.float32, device="cpu")
+    assert kv.k.shape == (2, 5, 4, 3, 8) and kv.v.dtype == torch.float32
+    assert kv.num_blocks == 5 and kv.block_size == 4
+    assert kv.tokens_capacity == 16 and not kv.quantized
+    assert kv.pool_bytes == 2 * 2 * 5 * 4 * 3 * 8 * 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkv.PagedKV.create(2, 5, 4, 3, 8, quant="int8")
+    with pytest.raises(ValueError):
+        tkv.PagedKV.create(2, 5, 4, 3, 8, quant="fp4")
+
+
+@pytest.mark.parametrize("maximum,start", [(1, 1), (32, 1), (128, 1),
+                                           (48, 4), (6, 1)])
+def test_bucket_ladders_match_jax(maximum, start):
+    ladder = tsched.bucket_ladder(maximum, start)
+    assert ladder == jsched.bucket_ladder(maximum, start)
+    for n in range(1, maximum + 1):
+        assert tsched.pick_bucket(n, ladder) == jsched.pick_bucket(n, ladder)
+    with pytest.raises(ValueError):
+        tsched.pick_bucket(maximum + 1, ladder)
+
+
+class _Req:
+    def __init__(self, rid, prompt, max_new_tokens):
+        self.rid = rid
+        self.prompt = prompt
+        self.prompt_len = len(prompt)
+        self.max_new_tokens = max_new_tokens
+        self.generated = []
+        self.cached_tokens = 0
+
+
+@pytest.mark.parametrize("prefix", [True, False])
+def test_scheduler_decisions_match_jax(prefix):
+    """Admission, chunk grants, promotion, decode capacity with newest-first
+    preemption and retirement on a tight pool: both schedulers make the
+    same decisions, step for step."""
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 50, size=9)
+    prompts = [np.concatenate([base, rng.integers(0, 50, size=int(n))])
+               for n in rng.integers(1, 12, size=6)]
+    trace = {}
+    for name, kv_mod, sched_mod in (("jax", jkv, jsched),
+                                    ("port", tkv, tsched)):
+        alloc = kv_mod.BlockAllocator(12, 4)
+        tree = kv_mod.PrefixTree(alloc) if prefix else None
+        sched = sched_mod.PagedScheduler(alloc, max_slots=3,
+                                         max_blocks_per_seq=8, chunk=4,
+                                         prefix_tree=tree)
+        queue = [_Req(i, p, 12) for i, p in enumerate(prompts)]
+        log = []
+        for tick in range(200):
+            while queue:
+                seq = sched.admit(queue[0], queue[0].prompt)
+                if seq is None:
+                    break
+                log.append(("admit", queue.pop(0).rid, seq.pos))
+            head = sched.next_prefill()
+            if head is not None:
+                head.pos = min(head.pos + 4, head.prompt_len)
+                if head.prefill_done:
+                    head.req.generated.append(tick)
+                    head.last_token = tick
+                    head.n_generated = 1
+                    sched.promote(head)
+                    log.append(("promote", head.req.rid))
+            victims = sched.ensure_decode_capacity()
+            log.append(("victims", [v.req.rid for v in victims]))
+            for seq in list(sched.running):
+                seq.pos += 1
+                seq.n_generated += 1
+                seq.req.generated.append(tick)
+                seq.last_token = tick
+                if seq.finished():
+                    sched.retire(seq)
+                    log.append(("retire", seq.req.rid))
+            while sched.preempted:
+                seq = sched.preempted.popleft()
+                if sched.readmit(seq) is None:
+                    sched.preempted.appendleft(seq)
+                    break
+            log.append(("shape", sched.decode_shape() if sched.running
+                        else None, alloc.used_blocks, alloc.cached_blocks))
+            if not (queue or sched.live or sched.preempted):
+                break
+        alloc.check()
+        p = sched.payload()
+        trace[name] = (log, p["preemptions_total"], p["admitted_total"],
+                       p["deferred_total"], p["prefix_tokens_skipped_total"])
+    assert trace["port"] == trace["jax"]
+    assert trace["port"][1] > 0  # the pool was tight enough to preempt
