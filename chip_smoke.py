@@ -10,8 +10,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      and the library call's time at the last two, and each build's
      registers, spills and shared memory; the paged decode and chunk
      kernels at ragged lengths, GQA/MHA/MQA groups and chunk offsets, then
-     timed at the serving shapes beside their bounds, their plain versions
-     and a gather + scaled_dot_product_attention yardstick;
+     timed at the serving shapes (and decode at max_len) beside their
+     bounds, their plain versions and a gather +
+     scaled_dot_product_attention yardstick, and a bitwise check that a
+     bf16 row depends only on its position (chunk offset, table width,
+     decode vs chunk);
   4. lanes serve: llama-1b at full width and depth (random weights from
      --seed) through make_engine(mode="lanes") with int8 weights: queued
      requests admitted through a PrefillWorker, then the bench posture
@@ -460,20 +463,26 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
 # ---- the paged path (the default make_engine) ----
 
 PAGED_DECODE_CASES = [                    # B, W, n_kv, g, d
-    (1, 128, 8, 2, 128),                  # one sequence over a full W = 128 table
+    (1, 128, 8, 2, 128),                  # one sequence, a full W = 128 table
+    (10, 32, 8, 2, 128),                  # lengths at block and span edges
     (5, 16, 4, 1, 64),                    # MHA (g = 1)
     (5, 8, 2, 8, 128),                    # g = 8
     (32, 64, 8, 2, 128),                  # llama-1b's heads
     (32, 4, 1, 8, 64),                    # MQA, short tables
+    (4, 8, 4, 3, 64),                     # g = 3
 ]
 PAGED_CHUNK_CASES = [                     # offset, n_valid, n_kv, g, d
     (0, 5, 8, 2, 128),                    # rows past the table's 16 keys clamp
     (13, 20, 4, 1, 64),
     (992, 7, 2, 8, 128),
+    (112, 32, 8, 2, 128),                 # rows on both sides of a span edge
+    (241, 32, 8, 2, 128),                 # rows across position 256
+    (100, 32, 2, 16, 64),                 # g = 16: four positions per row tile
 ]
 PAGED_BS = 16                             # the engine's default block size
 PAGED_CHUNK = 32                          # the engine's default chunk
 SERVE_DECODE = (32, 64, 512, 1024)        # B, W, shortest and longest length
+LONG_DECODE = (32, 128, 1536, 2048)       # at the engine's max_len of 2048
 SERVE_CHUNK_OFFSET = 992                  # b = 1, c = 32, W = 64
 
 
@@ -499,13 +508,16 @@ def paged_pools(gen, lengths, W, n_kv, d, dtype, spare: int = 3):
 
 
 def decode_lengths(rng, B, W):
-    """Ragged lengths in [1, W * bs], with 1, bs, bs + 1 and a full table
-    among them."""
+    """Ragged lengths in [1, W * bs]: a full table first, then the edges of
+    a block, of a key span and of position 256 that fit, then random."""
     import numpy as np
+    from grove_tpu_torch.ops.paged import SPLIT_KEYS
     full = W * PAGED_BS
     lengths = rng.integers(1, full + 1, size=B)
-    special = [full] if B == 1 else [1, PAGED_BS, PAGED_BS + 1, full]
-    lengths[:len(special)] = [min(x, full) for x in special][:B]
+    edges = [full] + [x for x in (1, PAGED_BS, PAGED_BS + 1, SPLIT_KEYS - 1,
+                                  SPLIT_KEYS, SPLIT_KEYS + 1, 255, 256, 257)
+                      if x < full]
+    lengths[:min(B, len(edges))] = edges[:B]
     return lengths.astype(np.int32)
 
 
@@ -563,20 +575,80 @@ def time_paged(label, kernel, plain, yard, bound, card: str) -> dict:
     return t
 
 
+def paged_build_info() -> None:
+    """Registers, spills and shared memory of every paged kernel build; the
+    bf16 tensor-core builds must not spill."""
+    import torch
+    from grove_tpu_torch.ops.paged import kernel_info
+    for which, dt, d in (("partial", "float32", 128),
+                         ("partial", "bfloat16", 64),
+                         ("partial", "bfloat16", 128),
+                         ("combine", "float32", 128),
+                         ("combine", "bfloat16", 128)):
+        info = kernel_info(which, getattr(torch, dt), d)
+        log(f"kernels: build paged {which} {dt} d<={d}: {info['registers']} "
+            f"registers, {info['local_bytes']} bytes local (spill) per "
+            f"thread, {info['smem_bytes']} bytes dynamic shared memory per "
+            f"CTA")
+        if dt == "bfloat16" and info["local_bytes"]:
+            raise AssertionError(f"the bf16 paged {which} kernel spills")
+
+
+def check_row_invariance(gen) -> None:
+    """bf16, llama-1b's heads: a row's output depends only on its absolute
+    position, bitwise. A chunk at offset 0 against its tail at offset k;
+    a table of width W against the same table padded to 2W (chunk and
+    decode); and decode at length p + 1 against the chunk's row at p."""
+    import torch
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                           paged_decode_attention)
+    n_kv, g, d, W, c, k0 = 8, 2, 128, 8, 48, 19
+    dtype = torch.bfloat16
+    k, v, tables = paged_pools(gen, [W * PAGED_BS] * 2, W, n_kv, d, dtype)
+    wide = torch.cat([tables, torch.zeros_like(tables)], 1)
+    q = torch.randn((2, c, n_kv * g, d), generator=gen,
+                    device="cuda").to(dtype)
+    zero = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    whole = paged_chunk_attention(q, k, v, tables, zero)
+    tail = paged_chunk_attention(q[:, k0:], k, v, tables, zero + k0)
+    padded = paged_chunk_attention(q, k, v, wide, zero)
+    # Decode rows: sequence 0's chunk rows at every position p.
+    pos = torch.arange(c, device="cuda")
+    dec_q = q[0][:, None]                                  # [c, 1, h, d]
+    dec_t = tables[:1].expand(c, W).contiguous()
+    lens = (pos + 1).to(torch.int32)
+    dec = paged_decode_attention(dec_q, k, v, dec_t, lens)
+    dec_wide = paged_decode_attention(dec_q, k, v,
+                                      wide[:1].expand(c, 2 * W).contiguous(),
+                                      lens)
+    torch.cuda.synchronize()
+    checks = {
+        f"chunk tail at offset {k0} vs offset 0": torch.equal(
+            tail, whole[:, k0:]),
+        f"chunk table width {W} vs {2 * W}": torch.equal(padded, whole),
+        f"decode table width {W} vs {2 * W}": torch.equal(dec_wide, dec),
+        "decode at length p + 1 vs chunk row p": torch.equal(
+            dec[:, 0], whole[0]),
+    }
+    for name, same in checks.items():
+        log(f"kernels: bf16 row invariance: {name}: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+    if not all(checks.values()):
+        raise AssertionError("bf16 paged rows depend on more than their "
+                             "position")
+
+
 def phase_paged_kernels(seed: int, card: str) -> list[dict]:
     """Both paged kernels against their plain versions at f32 and bf16,
-    then timed at the serving shapes. Returns their kernel-table rows."""
+    the bf16 row-invariance check, then timed at the serving shapes and at
+    a long decode. Returns their kernel-table rows."""
     import numpy as np
     import torch
-    from grove_tpu_torch.ops.paged import (kernel_info, paged_chunk_attention,
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                            paged_chunk_attention_ref,
                                            paged_decode_attention,
                                            paged_decode_attention_ref)
-    for which in ("partial", "combine"):
-        for dt in ("float32", "bfloat16"):
-            info = kernel_info(which, getattr(torch, dt))
-            log(f"kernels: build paged {which} {dt}: {info['registers']} "
-                f"registers, {info['local_bytes']} bytes local per thread")
+    paged_build_info()
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     rng = np.random.default_rng(seed + 7)
     errs = {"decode": 0.0, "chunk": 0.0}
@@ -608,39 +680,46 @@ def phase_paged_kernels(seed: int, card: str) -> list[dict]:
             errs["chunk"] = max(errs["chunk"], check_paged(
                 out, ref, f"paged chunk b=2 c={PAGED_CHUNK} offset={off} "
                 f"n_valid={n_valid} W={W} n_kv={n_kv} g={g} d={d}", dt))
+    check_row_invariance(gen)
 
     rows = []
     dtype = torch.bfloat16
-    B, W, lo, hi = SERVE_DECODE
     n_kv, g, d = 8, 2, 128
     h = n_kv * g
-    lengths = rng.integers(lo, hi + 1, size=B).astype(np.int32)
-    k, v, tables = paged_pools(gen, lengths, W, n_kv, d, dtype)
-    q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(dtype)
-    lens = torch.from_numpy(lengths).cuda()
-    idx = tables.reshape(-1).long()
-    mask = (torch.arange(W * PAGED_BS, device="cuda")[None, :]
-            < lens[:, None].long())[:, None, None, :]
-    label = (f"paged decode serving shape B={B} W={W} lengths {lo}..{hi} "
-             f"h={h} n_kv={n_kv} d={d} bf16")
-    err = check_paged(paged_decode_attention(q, k, v, tables, lens),
-                      paged_decode_attention_ref(q, k, v, tables, lens),
-                      label, "bfloat16")
-    total = int(lengths.sum())
-    t = time_paged(
-        label, lambda: paged_decode_attention(q, k, v, tables, lens),
-        lambda: paged_decode_attention_ref(q, k, v, tables, lens),
-        lambda: gather_sdpa(q, k, v, idx, mask),
-        paged_bound_ms(total, B, h * total, n_kv, h, d, dtype), card)
+    timed = {}
+    for name, (B, W, lo, hi) in (("serving shape", SERVE_DECODE),
+                                 ("long decode", LONG_DECODE)):
+        lengths = rng.integers(lo, hi + 1, size=B).astype(np.int32)
+        k, v, tables = paged_pools(gen, lengths, W, n_kv, d, dtype)
+        q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(dtype)
+        lens = torch.from_numpy(lengths).cuda()
+        idx = tables.reshape(-1).long()
+        mask = (torch.arange(W * PAGED_BS, device="cuda")[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        label = (f"paged decode {name} B={B} W={W} lengths {lo}..{hi} "
+                 f"h={h} n_kv={n_kv} d={d} bf16")
+        err = check_paged(paged_decode_attention(q, k, v, tables, lens),
+                          paged_decode_attention_ref(q, k, v, tables, lens),
+                          label, "bfloat16")
+        total = int(lengths.sum())
+        timed[name] = (err, time_paged(
+            label, lambda: paged_decode_attention(q, k, v, tables, lens),
+            lambda: paged_decode_attention_ref(q, k, v, tables, lens),
+            lambda: gather_sdpa(q, k, v, idx, mask),
+            paged_bound_ms(total, B, h * total, n_kv, h, d, dtype), card))
+        del k, v
+    err, t = timed["serving shape"]
     rows.append({"name": "paged_decode_attention", "route": "cuda",
                  "source": "grove_tpu_torch/csrc/paged_attn.cu",
                  "replaces": "grove_tpu/models/llama.py:637",
-                 "launches": 0, "max_abs_err": max(err, errs["decode"]),
+                 "launches": 0,
+                 "max_abs_err": max(err, errs["decode"],
+                                    timed["long decode"][0]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": None, "two_call_ms": t["two_call_ms"]})
-    del k, v
 
+    W = SERVE_DECODE[1]
     off, c = SERVE_CHUNK_OFFSET, PAGED_CHUNK
     k, v, tables = paged_pools(gen, [off + c], W, n_kv, d, dtype)
     q = torch.randn((1, c, h, d), generator=gen, device="cuda").to(dtype)

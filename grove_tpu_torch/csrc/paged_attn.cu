@@ -20,38 +20,84 @@
 // freezes every host value). Table entries are clamped to [0, nb) as the
 // JAX gather clamps them.
 //
-// What bounds them on an H100: bytes. A decode step reads every live K/V
-// row once for all g query heads of its kv head and does 4 d g flops per
-// row and kv head; at llama-1b (d = 128, g = 2, bf16) that is 1 flop per
-// byte, far below the ~295 flops per byte where the tensor cores would
-// bind. The design is therefore the simple one: CUDA cores, f32
-// accumulation, K/V tiles of 32 keys staged in shared memory as f32 with
-// 16-byte vector loads, and each K/V row read from device memory once per
-// CTA, for all the query rows it holds.
-//
-// Both functions run as two kernels. Pass 1 (paged_partial_kernel) is
-// split-K: one CTA per (key span, group of query rows, sequence x kv head),
-// where the spans are fixed runs of split_keys positions tiling the table
-// from position 0 on, so the number of spans follows the table width W,
-// not the lengths, and a graph captured for a bucket serves every length
-// in it. A CTA holds up to kMaxRows query rows: the g heads of its kv head
-// for decode, and positions x heads for a chunk. It walks its span's
-// 32-key tiles in order, online softmax per row, and writes each row's
-// partial (acc, m, l); a row with no visible key in the span writes a
-// neutral partial (m = -1e30, l = 0, acc = 0). Pass 2
-// (paged_combine_kernel) merges each row's partials in span order.
+// Both functions run as two kernels. Pass 1 is split-K over work items of
+// (key span, group of query rows, sequence x group of kv heads), where the
+// spans are fixed runs of split_keys positions tiling the table from
+// position 0 on, so the number of spans follows the table width W, not the
+// lengths, and a graph captured for a bucket serves every length in it. An
+// item walks its key tiles in order, online softmax per row, and writes
+// each row's partial (acc, m, l); an item whose span holds no key that any
+// of its rows sees writes nothing. Pass 2 (paged_combine_kernel) merges
+// each row's partials in span order over the spans that hold a key the row
+// sees (a row with no visible key in a span of its item has a neutral
+// partial, m = -1e30, l = 0, acc = 0, which would add exact zeros).
 //
 // A row's result depends only on its absolute position, its q row and the
 // K/V rows: tiles and spans are aligned to position 0 whatever the chunk's
 // offset, a tile wholly past a row's bound leaves its state bitwise
-// unchanged (p = 0, correction 1), and neutral partials add exact zeros in
-// the combine. So a chunk boundary moved by a prefix-cache hit, the other
-// rows of the CTA, and the table width never change a row's numbers.
+// unchanged (p = 0, correction exactly 1), and the combine reads the same
+// spans in the same order. So a chunk boundary moved by a prefix-cache hit,
+// the other rows of the item, and the table width never change a row's
+// numbers; in the bf16 kernel a decode row at length p + 1 and a chunk row
+// at position p run the same instructions on the same operands and agree
+// bitwise.
+//
+// What bounds them on an H100: bytes. A decode step reads every live K/V
+// row once for all g query heads of its kv head and does 4 d g flops per
+// row and kv head; at llama-1b (d = 128, g = 2, bf16) that is 1 flop per
+// byte, far below the ~295 flops per byte where the tensor cores would
+// bind. A chunk of c = 32 positions does 32 times that, still far below.
+//
+// bfloat16 (the serving type): paged_partial_mma_kernel. A first, CUDA-core
+// version of the kernel (kept for f32 below) reached 22% of the decode
+// byte bound and lost 2.4x to a gather + SDPA composition on the chunk, for
+// four reasons; the design answers each:
+//   1. Synchronous loads, one 32-key tile in flight per CTA, four block-wide
+//      barriers per tile. Here one producer warp streams K/V by TMA into a
+//      three-stage ring of 16-position tiles with full/empty mbarriers;
+//      four consumer warps compute tile t while tiles t + 1, t + 2 land,
+//      and the steady loop has no block-wide barrier. The pool is a rank-4
+//      tensor map over (d, position in block, kv head, block); one box is
+//      (64 columns, gcd(bs, 16) positions of one block, the item's kv
+//      heads), so a 16-position tile at bs = 16 is two boxes per K or V
+//      (one per 64-column panel), each found through the table, and
+//      columns past d load as zeros. Each span's table entries load
+//      together, not one per tile.
+//   2. f32 staging (twice the shared bytes). Tiles stay bf16 in shared
+//      memory, 128-byte swizzled by the TMA, so the 8 rows of an ldmatrix
+//      land in distinct bank groups.
+//   3. Scores on the CUDA cores, half the warps idle at g = 2. Both
+//      products are tensor-core mma.sync m16n8k16 (bf16 operands, f32
+//      accumulators): a consumer warp holds one 16-row tile of one kv
+//      head's query rows (decode: the g heads, padded to 16; chunk: 16 of
+//      the positions x heads), its scaled q as A fragments in registers,
+//      K and V as B fragments by ldmatrix (V transposed). The online
+//      softmax runs on the accumulator fragments (row max and sum over the
+//      quad that shares a row, exp2 of log2e-scaled scores), P is rounded
+//      to bf16 in registers as the A operand of P.V and l sums the f32 p.
+//   4. Grids that idle SMs or reread K/V. Items are one span of up to four
+//      kv heads of one sequence (decode: one consumer warp per head) or of
+//      one kv head with all 64 rows of 32 positions x 2 heads (chunk: each
+//      K/V tile is read once per chunk, not once per 16-row group). The
+//      kernel is persistent: two CTAs per SM take items at a fixed stride,
+//      and both roles skip an item past every row it holds before any
+//      load, so an SM streams tiles back to back (the producer runs ahead
+//      across items) instead of paying a CTA's start and drain per span.
+//      Spans are 128 positions (split_keys from the wrapper): shorter
+//      spans gave the chunk more CTAs but cost decode more partials.
+// Key slots of a tile past the keys it needs hold zeros (the ring is
+// zeroed at start) or earlier finite rows, so P = 0 times them adds exact
+// zeros. One instantiation per head-dim range: d <= 64 and d <= 128.
+//
+// float32: paged_partial_kernel, the CUDA-core kernel: 32-key tiles
+// staged in shared memory as f32, one key per lane against a padded K
+// tile, up to 16 query rows per CTA.
 //
 // C entry points return cudaGetLastError() after their launches (or the
 // error that kept them from launching); they launch on the given stream
 // and never synchronize.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,11 +112,6 @@ constexpr int kMaxRows = 16;  // query rows per CTA
 constexpr int kMaxElems = kMaxRows * kMaxD / kThreads;  // acc per thread
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -80,33 +121,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
 }
 
-// x rounded through the input type (a no-op for f32).
-template <typename T>
-__device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// 16-byte vector loads: 4 f32 or 8 bf16 elements, widened to f32.
-template <typename T>
-struct Vec {
-  static constexpr int kElems = 16 / sizeof(T);
-};
-
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   const float4 a = *reinterpret_cast<const float4*>(src);
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
-                                         float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    dst[2 * j] = f.x;
-    dst[2 * j + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -160,13 +177,13 @@ size_t smem_bytes(int rows, int d) {
 // Keys at positions >= tile_end are not loaded (zeros); a row sees key p
 // only when p < lim[row], and lim[row] <= tile_end for every row that has
 // a visible key in the tile.
-template <typename T>
-__device__ __forceinline__ void attend_tile(const T* kpool, const T* vpool,
+__device__ __forceinline__ void attend_tile(const float* kpool,
+                                            const float* vpool,
                                             const int* table_row, int nb,
                                             int bs, int n_kv, int kv, int d,
                                             int t0, int tile_end, int rows,
                                             const Smem& s, float* acc) {
-  constexpr int kVec = Vec<T>::kElems;
+  constexpr int kVec = 4;
   constexpr int kRowsPerThread = kMaxRows / kWarps;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int vecs = d / kVec;
@@ -229,7 +246,7 @@ __device__ __forceinline__ void attend_tile(const T* kpool, const T* vpool,
     // yet rescales nothing (the TPU kernel's NEG_INF rules).
     const float p = mt == kNegInf ? 0.f : expf(sc - mn);
     const float psum = warp_sum(p);
-    s.sc[r * kTileK + lane] = round_t<T>(p);
+    s.sc[r * kTileK + lane] = p;
     if (lane == 0) {
       const float c = mo == kNegInf ? 0.f : expf(mo - mn);
       s.corr[r] = c;
@@ -254,20 +271,20 @@ __device__ __forceinline__ void attend_tile(const T* kpool, const T* vpool,
   __syncthreads();
 }
 
-// Pass 1, for decode (causal = 0) and chunk (causal = 1): grid
+// Pass 1 for f32, decode (causal = 0) and chunk (causal = 1): grid
 // (n_split, ceil(C / qpos), b * n_kv). The CTA holds rows = qpos * g query
 // rows: position i = blockIdx.y * qpos + r / g of the chunk (C = 1 for
 // decode), head kv * g + r % g, and attends to the keys of its span
 // [split * split_keys, (split + 1) * split_keys) that the row sees: below
 // the length (decode) or at most offset + i (chunk). Writes (acc[0..d), m,
 // l) of each row into part[(row * n_split + split) * (d + 2)], row = the
-// query row's index in [b, C, H].
-template <typename T>
+// query row's index in [b, C, H]; m is in the natural-log domain.
 __global__ void __launch_bounds__(kThreads)
-    paged_partial_kernel(const T* q, const T* kpool, const T* vpool,
-                         const int* tables, const int* per_seq, float* part,
-                         int C, int W, int H, int n_kv, int d, int nb, int bs,
-                         int qpos, int split_keys, int causal, float scale) {
+    paged_partial_kernel(const float* q, const float* kpool,
+                         const float* vpool, const int* tables,
+                         const int* per_seq, float* part, int C, int W, int H,
+                         int n_kv, int d, int nb, int bs, int qpos,
+                         int split_keys, int causal, float scale) {
   extern __shared__ float4 smem_raw[];
   const int split = blockIdx.x, n_split = gridDim.x;
   const int b = blockIdx.z / n_kv, kv = blockIdx.z % n_kv;
@@ -290,8 +307,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int e = threadIdx.x; e < rows * d; e += kThreads) {
     const int r = e / d, i = i0 + r / g;
-    s.qs[e] = i < C ? round_t<T>(to_f(q[(((size_t)b * C + i) * H + kv * g +
-                                        r % g) * d + e % d]) * scale)
+    s.qs[e] = i < C ? q[(((size_t)b * C + i) * H + kv * g + r % g) * d +
+                        e % d] * scale
                     : 0.f;
   }
   if (threadIdx.x < rows) {
@@ -308,8 +325,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int* table_row = tables + (size_t)b * W;
   for (int t0 = k_begin; t0 < max_lim; t0 += kTileK)
-    attend_tile<T>(kpool, vpool, table_row, nb, bs, n_kv, kv, d, t0,
-                   min(t0 + kTileK, max_lim), rows, s, acc);
+    attend_tile(kpool, vpool, table_row, nb, bs, n_kv, kv, d, t0,
+                min(t0 + kTileK, max_lim), rows, s, acc);
 
   const size_t row0 = ((size_t)b * C + i0) * H + kv * g;  // row r = 0
 #pragma unroll
@@ -330,27 +347,623 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Pass 2: grid (rows); merges the n_split partials of one query row in
-// split order and writes out[row, :] (the [b, C, H, d] output).
-template <typename T>
+// Pass 2: grid (rows); merges the partials of one query row in span order
+// over the spans that hold a key the row sees, and writes out[row, :] (the
+// [b, C, H, d] output). The loops over spans are unrolled so that the
+// loads of several spans are in flight at once. kLog2: the partials' m is
+// in the log2 domain.
+template <typename T, bool kLog2>
 __global__ void __launch_bounds__(kThreads)
-    paged_combine_kernel(const float* part, T* out, int d, int n_split) {
+    paged_combine_kernel(const float* part, T* out, const int* per_seq, int C,
+                         int H, int d, int n_split, int split_keys,
+                         int n_keys, int causal) {
   const size_t row = blockIdx.x;
+  const int b = (int)(row / ((size_t)C * H));
+  const int i = (int)((row / H) % C);
+  int lim = causal ? per_seq[b] + i + 1 : per_seq[b];
+  lim = max(0, min(lim, n_keys));
+  const int n_live = (lim + split_keys - 1) / split_keys;
   const float* base = part + row * n_split * (d + 2);
+  auto ex = [](float x) { return kLog2 ? exp2f(x) : expf(x); };
   float M = kNegInf;
-  for (int sp = 0; sp < n_split; ++sp)
+#pragma unroll 8
+  for (int sp = 0; sp < n_live; ++sp)
     M = fmaxf(M, base[sp * (d + 2) + d]);
   float L = 0.f;
-  for (int sp = 0; sp < n_split; ++sp)
-    L += base[sp * (d + 2) + d + 1] * expf(base[sp * (d + 2) + d] - M);
+#pragma unroll 8
+  for (int sp = 0; sp < n_live; ++sp)
+    L += base[sp * (d + 2) + d + 1] * ex(base[sp * (d + 2) + d] - M);
   const float den = fmaxf(L, 1e-30f);
-  for (int i = threadIdx.x; i < d; i += kThreads) {
+  for (int c = threadIdx.x; c < d; c += kThreads) {
     float o = 0.f;
-    for (int sp = 0; sp < n_split; ++sp)
-      o += base[sp * (d + 2) + i] * expf(base[sp * (d + 2) + d] - M);
-    out[row * d + i] = from_f<T>(o / den);
+#pragma unroll 8
+    for (int sp = 0; sp < n_live; ++sp)
+      o += base[sp * (d + 2) + c] * ex(base[sp * (d + 2) + d] - M);
+    out[row * d + c] = from_f<T>(o / den);
   }
 }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync tensor-core tiles fed by a TMA mbarrier ring.
+
+namespace hopper {
+
+constexpr int kTile = 16;            // positions per K/V tile (one mma k)
+constexpr int kStages = 3;           // ring depth
+constexpr int kConsumerWarps = 4;    // one 16-row tile of one kv head each
+constexpr int kThreadsB = 32 * (kConsumerWarps + 1);  // + one producer warp
+constexpr int kPanelCols = 64;       // bf16 columns of one 128-byte row
+constexpr int kRowBytes = 128;
+constexpr int kMaxHeadPanels = 8;    // kv heads x 64-column panels per item
+constexpr int kMaxBoxes = 128;       // boxes of one span (table entries)
+// K + V of one stage, at most: 2 panels of 16 boxes in 1 KB slots.
+constexpr int kMaxStageBytes = 2 * 2 * 16 * 1024;
+constexpr int kChunkRows = 64;       // query rows of one kv head per item
+constexpr float kLog2e = 1.4426950408889634f;
+
+// How a call is cut into work items. An item holds qpos positions of the
+// chunk (1 for decode) of HB kv heads over one key span: R = qpos * g
+// query rows per kv head in RT 16-row tiles, HB * RT <= kConsumerWarps.
+// K/V move as TMA boxes of (64 columns, box_pos positions of one pool
+// block, HB heads), 128-byte swizzled: box_pos = gcd(bs, kTile), so a box
+// never straddles two blocks, kTile / box_pos of them per tile and
+// 64-column panel, each in its own 1024-byte-aligned slot.
+struct Geo {
+  int B, C, W, H, n_kv, d, nb, bs;
+  int g, qpos, R, RT, HB, split, n_split, causal;
+  int n_panels, box_pos, slot, panel_bytes, stage_bytes;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that lasts
+// some ten seconds means a broken pipeline: trap, so that the launch fails
+// with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - t0 > 20000000000LL) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d[16 x 8] += A[16 x 16] B[16 x 8]: bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One work item: one key span of one group of query rows of HB kv heads.
+// Items are numbered span-major, so CTA c's items lie about gridDim.x /
+// (items per span) spans apart and mix early spans, which every sequence
+// reaches, with late ones.
+struct Item {
+  int b, kv0, i0, seq, k_begin, k_end, n_tiles;
+};
+
+__device__ __forceinline__ Item item_at(int it, const Geo& gm,
+                                        const int* per_seq) {
+  const int ny = (gm.C + gm.qpos - 1) / gm.qpos;
+  const int groups = gm.n_kv / gm.HB;
+  const int per_span = ny * groups * gm.B;
+  const int span = it / per_span;
+  const int rest = it % per_span;
+  Item w;
+  const int z = rest % (groups * gm.B);
+  w.b = z / groups;
+  w.kv0 = (z % groups) * gm.HB;
+  w.i0 = (rest / (groups * gm.B)) * gm.qpos;
+  w.seq = per_seq[w.b];  // decode: length; chunk: offset
+  w.k_begin = span * gm.split;
+  w.k_end = min(w.k_begin + gm.split, gm.W * gm.bs);
+  const int last_i = min(w.i0 + gm.qpos, gm.C) - 1;
+  const int max_lim = max(
+      w.k_begin, min(gm.causal ? w.seq + last_i + 1 : w.seq, w.k_end));
+  // No tile when no row of the item sees a key of the span.
+  w.n_tiles = (max_lim - w.k_begin + kTile - 1) / kTile;
+  w.k_end = max_lim;  // from here on: the end of the keys to load
+  return w;
+}
+
+// Byte offset, inside one panel of a stage, of the 128-byte row of
+// position p (of the tile) and item head h.
+__device__ __forceinline__ uint32_t row_offset(const Geo& gm, int p, int h) {
+  return (p / gm.box_pos) * gm.slot +
+         (h * gm.box_pos + p % gm.box_pos) * kRowBytes;
+}
+
+// Pass 1 for bf16, persistent: a grid of as many CTAs as fit on the card
+// at once (two per SM at llama-1b), CTA c taking work items c,
+// c + gridDim.x, ... and
+// skipping those whose rows see no key of their span. Warp kConsumerWarps
+// is the producer: one lane issues the TMA boxes of the live items' K/V
+// tiles into the ring, running ahead across items, the warp loading each
+// span's table entries together. Warps 0..HB*RT-1 are consumers, warp w
+// holding row tile w % RT of kv head kv0 + w / RT of every item; they walk
+// the same items and load an item's q before they wait for its first tile.
+// Rows are numbered r = position-in-item * g + head-in-group, as in the f32
+// kernel, and the partial layout is the same, with m in the log2 domain.
+// kNT: 8-column tiles of the head dim (d <= 8 * kNT).
+template <int kNT>
+__global__ void __launch_bounds__(kThreadsB, 2)
+    paged_partial_mma_kernel(__grid_constant__ const CUtensorMap k_map,
+                             __grid_constant__ const CUtensorMap v_map,
+                             const __nv_bfloat16* __restrict__ q,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ per_seq, float* part,
+                             Geo gm) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const int n_items = gm.n_split * ((gm.C + gm.qpos - 1) / gm.qpos) *
+                      (gm.n_kv / gm.HB) * gm.B;
+  const int consumers = gm.HB * gm.RT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = gm.d;
+  const int ring = kStages * gm.stage_bytes;
+  const int half = gm.stage_bytes / 2;  // K, then V, of one stage
+
+  const uint32_t bar0 = base + ring;
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Zero the ring: boxes a tile does not load then hold finite values.
+  for (int o = 16 * threadIdx.x; o < ring; o += 16 * kThreadsB)
+    *reinterpret_cast<uint4*>(smem + o) = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  int g = 0;  // tiles of this CTA so far (the ring's stage and phase)
+  if (warp == kConsumerWarps) {
+    if (lane == 0) {
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+    }
+    const uint32_t box_bytes = gm.box_pos * gm.HB * kRowBytes;
+    const int tile_boxes = kTile / gm.box_pos;
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+      const Item w = item_at(it, gm, per_seq);
+      if (w.n_tiles == 0) continue;
+      // The table entries of the span's boxes, up to four per lane, loaded
+      // together (one latency per item, not one per tile).
+      const int* trow = tables + (size_t)w.b * gm.W;
+      int blk[kMaxBoxes / 32];
+#pragma unroll
+      for (int u = 0; u < kMaxBoxes / 32; ++u) {
+        const int p = w.k_begin + (lane + 32 * u) * gm.box_pos;
+        int e = p < w.k_end ? trow[p / gm.bs] : 0;
+        blk[u] = e < 0 ? 0 : (e >= gm.nb ? gm.nb - 1 : e);
+      }
+      for (int t = 0; t < w.n_tiles; ++t) {
+        const int s = g % kStages, use = g / kStages;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        ++g;
+        const int t0 = w.k_begin + t * kTile;
+        const int boxes = (min(kTile, w.k_end - t0) + gm.box_pos - 1) /
+                          gm.box_pos;
+        if (lane == 0)
+          mbar_expect_tx(full(s), 2 * gm.n_panels * boxes * box_bytes);
+        for (int j = 0; j < boxes; ++j) {
+          const int bx = t * tile_boxes + j;  // box of the span
+          const int mine = bx < 32   ? blk[0]
+                           : bx < 64 ? blk[1]
+                           : bx < 96 ? blk[2]
+                                     : blk[3];
+          const int e = __shfl_sync(0xffffffffu, mine, bx & 31);
+          if (lane == 0) {
+            const int p0 = (t0 + j * gm.box_pos) % gm.bs;
+            const uint32_t dst = base + s * gm.stage_bytes + j * gm.slot;
+            for (int pn = 0; pn < gm.n_panels; ++pn) {
+              tma_load_4d(dst + pn * gm.panel_bytes, &k_map, full(s),
+                          pn * kPanelCols, p0, w.kv0, e);
+              tma_load_4d(dst + half + pn * gm.panel_bytes, &v_map, full(s),
+                          pn * kPanelCols, p0, w.kv0, e);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  if (warp >= consumers) return;
+
+  // Consumer: 16 query rows of kv head kv0 + hl of each item. Fragment
+  // rows of this thread: gid and gid + 8 of the tile; columns 2 tig,
+  // 2 tig + 1 of each 8-column accumulator tile.
+  const int hl = warp / gm.RT, rt = warp % gm.RT;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nt = d / 8;
+  // ldmatrix: lane supplies the address of row lane % 8 of matrix lane / 8.
+  // K matrices: keys 8 (mi >> 1) + 0..7, columns 16 ks + 8 (mi & 1) +
+  // 0..7; V matrices (transposed): keys 8 (mi & 1) + 0..7, columns
+  // 16 np + 8 (mi >> 1) + 0..7. The 16-byte chunk c of a row sits at chunk
+  // c ^ (row & 7) (the 128-byte swizzle; slots are 1024-byte aligned).
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t k_row = row_offset(gm, 8 * (mi >> 1) + mr, hl);
+  const uint32_t v_row = row_offset(gm, 8 * (mi & 1) + mr, hl);
+  const uint32_t k_swz = (k_row >> 7) & 7, v_swz = (v_row >> 7) & 7;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const Item w = item_at(it, gm, per_seq);
+    if (w.n_tiles == 0) continue;
+    const int kv = w.kv0 + hl;
+    int lim[2];
+    bool row_ok[2];
+    size_t row_idx[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = rt * 16 + gid + 8 * i;
+      const int pos = w.i0 + rr / gm.g;
+      row_ok[i] = rr < gm.R && pos < gm.C;
+      const int bound = gm.causal ? w.seq + pos + 1 : w.seq;
+      lim[i] = row_ok[i] ? max(w.k_begin, min(bound, w.k_end)) : w.k_begin;
+      row_idx[i] = ((size_t)w.b * gm.C + pos) * gm.H + kv * gm.g + rr % gm.g;
+    }
+    // qs = q * d^-0.5 rounded to bf16, as A fragments: register x of k
+    // step ks is row gid + 8 (x & 1), columns 16 ks + 8 (x >> 1) + 2 tig,
+    // + 1.
+    uint32_t qa[kNT / 2][4];
+#pragma unroll
+    for (int ks = 0; ks < kNT / 2; ++ks)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = x & 1, col = 16 * ks + 8 * (x >> 1) + 2 * tig;
+        float lo = 0.f, hi = 0.f;
+        if (row_ok[i] && col < d) {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              q + row_idx[i] * d + col);
+          lo = __bfloat162float(v.x) * gm.scale;
+          hi = __bfloat162float(v.y) * gm.scale;
+        }
+        qa[ks][x] = pack_bf16(lo, hi);
+      }
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float acc[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int t = 0; t < w.n_tiles; ++t, ++g) {
+      const int s = g % kStages;
+      mbar_wait(full(s), (g / kStages) & 1);
+      const int t0 = w.k_begin + t * kTile;
+      const uint32_t kst = base + s * gm.stage_bytes;
+      const uint32_t vst = kst + half;
+
+      // S = qs K^T: score tile j covers keys 8 j .. 8 j + 7 of the tile;
+      // ldmatrix registers 0, 1 are tile 0's B fragment, 2, 3 tile 1's.
+      float sc[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kNT / 2; ++ks) {
+        if (16 * ks < d) {
+          const int pn = ks >> 2, chunk = 2 * (ks & 3) + (mi & 1);
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kst + pn * gm.panel_bytes + k_row +
+                              ((chunk ^ k_swz) << 4));
+          mma_bf16(sc[0], qa[ks], kb[0], kb[1]);
+          mma_bf16(sc[1], qa[ks], kb[2], kb[3]);
+        }
+      }
+
+      // Online softmax in the log2 domain. Element e of score tile j is
+      // row gid + 8 (e >> 1), key t0 + 8 j + 2 tig + (e & 1).
+      float tile_m[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int key = t0 + 8 * j + 2 * tig + (e & 1);
+          const float v = key < lim[i] ? sc[j][e] * kLog2e : kNegInf;
+          sc[j][e] = v;
+          tile_m[i] = fmaxf(tile_m[i], v);
+        }
+      float corr[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tile_m[i] =
+            fmaxf(tile_m[i], __shfl_xor_sync(0xffffffffu, tile_m[i], 1));
+        tile_m[i] =
+            fmaxf(tile_m[i], __shfl_xor_sync(0xffffffffu, tile_m[i], 2));
+        const float m_new = fmaxf(m[i], tile_m[i]);
+        // A row with no visible key yet rescales nothing; a tile that
+        // moves no max (a wholly masked one among them) rescales by
+        // exactly 1.
+        corr[i] = m[i] == kNegInf
+                      ? 0.f
+                      : (m[i] == m_new ? 1.f : ex2(m[i] - m_new));
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = tile_m[i] == kNegInf ? 0.f : ex2(sc[j][e] - m[i]);
+          sc[j][e] = p;
+          row_sum[i] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + row_sum[i];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // P as the bf16 A fragment of P.V: keys 2 tig.. of tile 0, then of
+      // tile 1 (8 + 2 tig..), rows gid and gid + 8.
+      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
+                              pack_bf16(sc[0][2], sc[0][3]),
+                              pack_bf16(sc[1][0], sc[1][1]),
+                              pack_bf16(sc[1][2], sc[1][3])};
+
+      // O += P V; ldmatrix registers 0, 1 are the B fragment of column
+      // tile 2 np, 2, 3 of tile 2 np + 1.
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        if (2 * np < nt) {
+          const int pn = np >> 2, chunk = 2 * (np & 3) + (mi >> 1);
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vst + pn * gm.panel_bytes + v_row +
+                                    ((chunk ^ v_swz) << 4));
+          mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
+          mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // (acc, m, l) of each valid row, l summed over the quad.
+    const int span = w.k_begin / gm.split;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if (!row_ok[i]) continue;
+      float* out = part + (row_idx[i] * gm.n_split + span) * (d + 2);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        if (n < nt)
+          *reinterpret_cast<float2*>(out + 8 * n + 2 * tig) =
+              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+      if (tig == 0) {
+        out[d] = m[i];
+        out[d + 1] = l[i];
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point) through the runtime,
+// so the build needs no -lcuda.
+cudaError_t encode_fn(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// One layer's pool [nb, bs, n_kv, d] as a rank-4 tensor map over (d,
+// position in block, kv head, block), boxes of (64 columns, box_pos
+// positions, HB heads, one block), 128-byte swizzled; columns past d load
+// as zeros.
+cudaError_t make_pool_map(CUtensorMap* map, const void* pool, const Geo& gm) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)gm.d, (cuuint64_t)gm.bs,
+                              (cuuint64_t)gm.n_kv, (cuuint64_t)gm.nb};
+  const cuuint64_t strides[3] = {(cuuint64_t)gm.n_kv * gm.d * 2,
+                                 (cuuint64_t)gm.d * 2,
+                                 (cuuint64_t)gm.bs * gm.n_kv * gm.d * 2};
+  const cuuint32_t box[4] = {kPanelCols, (cuuint32_t)gm.box_pos,
+                             (cuuint32_t)gm.HB, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(pool), dims,
+      strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int smem_bytes(const Geo& gm) { return kStages * gm.stage_bytes + 64 + 1024; }
+constexpr int kMaxSmemBytes = kStages * kMaxStageBytes + 64 + 1024;
+
+template <int kNT>
+cudaError_t launch_partial(const CUtensorMap (&maps)[2], const void* q,
+                           const int* tables, const int* per_seq, float* part,
+                           const Geo& gm, int n_items, cudaStream_t stream) {
+  static int n_sm = 0;  // once per instantiation and process
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(paged_partial_mma_kernel<kNT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmemBytes);
+    if (err != cudaSuccess) {
+      n_sm = 0;
+      return err;
+    }
+  }
+  // CTAs resident at once: two per SM where their shared memory fits
+  // (the SM's 228 KB, 1 KB reserved per CTA), else one.
+  const int smem = smem_bytes(gm);
+  const int per_sm = 2 * (smem + 1024) <= 233472 ? 2 : 1;
+  paged_partial_mma_kernel<kNT>
+      <<<min(n_items, per_sm * n_sm), kThreadsB, smem, stream>>>(
+          maps[0], maps[1], static_cast<const __nv_bfloat16*>(q), tables,
+          per_seq, part, gm);
+  return cudaGetLastError();
+}
+
+int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+// Pass 1 for bf16 over [b, C, H, d] queries; returns the launch error.
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const int* tables, const int* per_seq, float* part,
+                        int b, int C, int W, int H, int n_kv, int d, int nb,
+                        int bs, int split_keys, int causal, float scale,
+                        cudaStream_t stream) {
+  Geo gm;
+  gm.B = b; gm.C = C; gm.W = W; gm.H = H; gm.n_kv = n_kv; gm.d = d;
+  gm.nb = nb; gm.bs = bs; gm.split = split_keys; gm.causal = causal;
+  gm.scale = scale;
+  gm.n_split = (W * bs + split_keys - 1) / split_keys;
+  gm.g = H / n_kv;
+  gm.qpos = max(1, min(C, kChunkRows / gm.g));
+  gm.R = gm.qpos * gm.g;
+  gm.RT = (gm.R + 15) / 16;
+  gm.n_panels = (d + kPanelCols - 1) / kPanelCols;
+  gm.HB = 1;
+  for (int hb = n_kv; hb > 1; --hb)
+    if (n_kv % hb == 0 && hb * gm.RT <= kConsumerWarps &&
+        hb * gm.n_panels <= kMaxHeadPanels) {
+      gm.HB = hb;
+      break;
+    }
+  gm.box_pos = gcd(bs, kTile);
+  if (split_keys % kTile != 0 || split_keys / gm.box_pos > kMaxBoxes)
+    return cudaErrorInvalidValue;
+  gm.slot = (gm.box_pos * gm.HB * kRowBytes + 1023) / 1024 * 1024;
+  gm.panel_bytes = kTile / gm.box_pos * gm.slot;
+  gm.stage_bytes = 2 * gm.n_panels * gm.panel_bytes;
+  CUtensorMap maps[2];
+  cudaError_t err = make_pool_map(&maps[0], k, gm);
+  if (err == cudaSuccess) err = make_pool_map(&maps[1], v, gm);
+  if (err != cudaSuccess) return err;
+  const int n_items =
+      gm.n_split * ((C + gm.qpos - 1) / gm.qpos) * (n_kv / gm.HB) * b;
+  if (d <= 64)
+    return launch_partial<8>(maps, q, tables, per_seq, part, gm, n_items,
+                             stream);
+  return launch_partial<16>(maps, q, tables, per_seq, part, gm, n_items,
+                            stream);
+}
+
+}  // namespace hopper
+
+namespace {
 
 bool bad_geometry(int H, int n_kv, int d, int W, int nb, int bs) {
   return d <= 0 || d > kMaxD || d % 8 != 0 || n_kv <= 0 || H % n_kv != 0 ||
@@ -359,47 +972,42 @@ bool bad_geometry(int H, int n_kv, int d, int W, int nb, int bs) {
 
 // Both passes over [b, C, H, d] queries: split-K partials, then the
 // combine. part holds b * C * H * n_split * (d + 2) floats.
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* tables, const int* per_seq, float* part,
-                   void* out, int b, int C, int W, int H, int n_kv, int d,
-                   int nb, int bs, int split_keys, int causal, float scale,
-                   cudaStream_t stream) {
-  const int g = H / n_kv;
-  const int qpos = C == 1 ? 1 : kMaxRows / g;
-  const int n_split = (W * bs + split_keys - 1) / split_keys;
-  paged_partial_kernel<T><<<dim3(n_split, (C + qpos - 1) / qpos, b * n_kv),
-                            kThreads, smem_bytes(qpos * g, d), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, per_seq, part, C, W, H, n_kv, d, nb,
-      bs, qpos, split_keys, causal, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_combine_kernel<T><<<(unsigned)((size_t)b * C * H), kThreads, 0,
-                            stream>>>(part, static_cast<T*>(out), d,
-                                      n_split);
-  return cudaGetLastError();
-}
-
 int dispatch(const void* q, const void* k, const void* v, const void* tables,
              const void* per_seq, void* part, void* out, int dtype, int b,
              int C, int W, int H, int n_kv, int d, int nb, int bs,
              int split_keys, int causal, float scale, void* stream) {
   if (bad_geometry(H, n_kv, d, W, nb, bs) || b <= 0 || C <= 0 ||
-      split_keys <= 0 || split_keys % kTileK != 0)
+      split_keys <= 0 || split_keys % kTileK != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* ps = static_cast<const int*>(per_seq);
   float* p = static_cast<float*>(part);
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, t, ps, p, out, b, C, W, H, n_kv, d,
-                              nb, bs, split_keys, causal, scale, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, t, ps, p, out, b, C, W, H,
-                                      n_kv, d, nb, bs, split_keys, causal,
-                                      scale, s);
-  return (int)cudaErrorInvalidValue;
+  const int n_split = (W * bs + split_keys - 1) / split_keys;
+  const unsigned rows = (unsigned)((size_t)b * C * H);
+  cudaError_t err;
+  if (dtype == 0) {
+    const int g = H / n_kv;
+    const int qpos = C == 1 ? 1 : kMaxRows / g;
+    paged_partial_kernel<<<dim3(n_split, (C + qpos - 1) / qpos, b * n_kv),
+                           kThreads, smem_bytes(qpos * g, d), st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), t, ps, p, C, W, H, n_kv, d, nb, bs,
+        qpos, split_keys, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    paged_combine_kernel<float, false><<<rows, kThreads, 0, st>>>(
+        p, static_cast<float*>(out), ps, C, H, d, n_split, split_keys,
+        W * bs, causal);
+  } else {
+    err = hopper::launch_bf16(q, k, v, t, ps, p, b, C, W, H, n_kv, d, nb, bs,
+                              split_keys, causal, scale, st);
+    if (err != cudaSuccess) return (int)err;
+    paged_combine_kernel<__nv_bfloat16, true><<<rows, kThreads, 0, st>>>(
+        p, static_cast<__nv_bfloat16*>(out), ps, C, H, d, n_split,
+        split_keys, W * bs, causal);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -407,8 +1015,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
 // Decode attention through the block tables. q, out: [B, 1, H, d]; k, v:
 // one layer's pool [nb, bs, n_kv, d]; tables [B, W] int32; lengths [B]
 // int32 (counting the new token); part: f32 scratch of
-// B * H * ceil(W * bs / split_keys) * (d + 2) elements. All contiguous.
-// dtype 0 = f32, 1 = bf16.
+// B * H * ceil(W * bs / split_keys) * (d + 2) elements. All contiguous;
+// bf16 pools 16-byte aligned. dtype 0 = f32, 1 = bf16.
 extern "C" int grove_paged_decode(const void* q, const void* k, const void* v,
                                   const void* tables, const void* lengths,
                                   void* part, void* out, int dtype, int B,
@@ -423,7 +1031,8 @@ extern "C" int grove_paged_decode(const void* q, const void* k, const void* v,
 // [b, C, H, d]; k, v: one layer's pool [nb, bs, n_kv, d]; tables [b, W]
 // int32; offsets [b] int32 (absolute position of each sequence's row 0);
 // part: f32 scratch of b * C * H * ceil(W * bs / split_keys) * (d + 2)
-// elements. All contiguous. dtype 0 = f32, 1 = bf16.
+// elements. All contiguous; bf16 pools 16-byte aligned. dtype 0 = f32,
+// 1 = bf16.
 extern "C" int grove_paged_chunk(const void* q, const void* k, const void* v,
                                  const void* tables, const void* offsets,
                                  void* part, void* out, int dtype, int b,
@@ -434,25 +1043,43 @@ extern "C" int grove_paged_chunk(const void* q, const void* k, const void* v,
                   n_kv, d, nb, bs, split_keys, 1, scale, stream);
 }
 
-// Per-thread registers and local (spill) bytes of the partial (which = 0)
-// or combine (which = 1) kernel for dtype, into out[2].
-extern "C" int grove_paged_info(int which, int dtype, int* out) {
+// Per-thread registers, local (spill) bytes and dynamic shared memory per
+// CTA of a built kernel, into out[3]: which = 0 the partial kernel that
+// takes dtype at head dim d (bf16: the d <= 64 or d <= 128 build), 1 the
+// combine kernel for dtype.
+extern "C" int grove_paged_info(int which, int dtype, int d, int* out) {
   const void* fn = nullptr;
-  if (which == 0)
-    fn = dtype == 0
-             ? reinterpret_cast<const void*>(paged_partial_kernel<float>)
-             : reinterpret_cast<const void*>(
-                   paged_partial_kernel<__nv_bfloat16>);
-  else
-    fn = dtype == 0
-             ? reinterpret_cast<const void*>(paged_combine_kernel<float>)
-             : reinterpret_cast<const void*>(
-                   paged_combine_kernel<__nv_bfloat16>);
+  int smem = 0;
+  if (which == 0 && dtype == 0) {
+    fn = reinterpret_cast<const void*>(paged_partial_kernel);
+    smem = (int)smem_bytes(kMaxRows, d);
+  } else if (which == 0 && dtype == 1) {
+    fn = d <= 64 ? reinterpret_cast<const void*>(
+                       hopper::paged_partial_mma_kernel<8>)
+                 : reinterpret_cast<const void*>(
+                       hopper::paged_partial_mma_kernel<16>);
+    // At block size 16 with the widest kv head group that d allows.
+    hopper::Geo gm;
+    gm.n_panels = (d + hopper::kPanelCols - 1) / hopper::kPanelCols;
+    gm.HB = min(hopper::kConsumerWarps,
+                hopper::kMaxHeadPanels / gm.n_panels);
+    gm.stage_bytes =
+        2 * gm.n_panels * hopper::kTile * gm.HB * hopper::kRowBytes;
+    smem = hopper::smem_bytes(gm);
+  } else if (which == 1 && dtype == 0) {
+    fn = reinterpret_cast<const void*>(paged_combine_kernel<float, false>);
+  } else if (which == 1 && dtype == 1) {
+    fn = reinterpret_cast<const void*>(
+        paged_combine_kernel<__nv_bfloat16, true>);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
   return 0;
 }
 

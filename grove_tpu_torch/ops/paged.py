@@ -16,12 +16,18 @@ entries to the pool's rows and never write the gathered cache:
   of queries at absolute positions ``offsets[b] + i``, causal.
 
 What bounds them on an H100 is bytes (every live K/V row is read once per
-kv head; about one flop per byte at llama-1b), so the kernels are the
-simple kind: CUDA cores, f32 accumulation, 32-key tiles in shared memory.
-Both are split-K over fixed spans of ``SPLIT_KEYS`` positions from 0, one
-CTA per (span, group of query rows, sequence x kv head), then a combine
-pass; a row's numbers depend only on its position, never on the table
-width or the chunk's boundaries. The source's header has the details.
+kv head; about one flop per byte at llama-1b). For bfloat16, the serving
+type, both products run on the tensor cores (``mma.sync``, f32
+accumulation, P rounded to bf16 as the P.V operand) while one producer warp
+per CTA streams K/V tiles by TMA, through the block table, into a
+three-stage mbarrier ring, so loads overlap compute; the kernel is
+persistent, a decode work item holds up to four kv heads of one sequence
+and a chunk item all 64 query rows of one kv head. float32 takes a
+CUDA-core kernel (32-key tiles staged as f32). Both are split-K over fixed
+spans of ``SPLIT_KEYS`` positions from 0, then a combine pass; a
+row's numbers depend only on its position, never on the table width or the
+chunk's boundaries (and in bf16 a decode row at length p + 1 equals the
+chunk row at position p bitwise). The source's header has the details.
 
 Each wrapper takes its kernel for CUDA tensors and the plain version for
 CPU tensors; anything else raises. ``launches`` on each wrapper counts its
@@ -40,7 +46,7 @@ from grove_tpu_torch.ops.attention import causal_attention, decode_attention
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 16       # query heads per kv head the kernels hold per CTA
-SPLIT_KEYS = 256     # positions per key span (a multiple of 32)
+SPLIT_KEYS = 128     # positions per key span (a multiple of 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -121,22 +127,26 @@ def _kernel():
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
     info = lib.grove_paged_info
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
     info.restype = ctypes.c_int
     return decode, chunk, err_str, info
 
 
-def kernel_info(which: str, dtype: torch.dtype) -> dict[str, int]:
-    """Registers and local (spill) bytes per thread of the built
-    ``partial`` (pass 1) or ``combine`` (pass 2) kernel for ``dtype``
-    (needs the card)."""
+def kernel_info(which: str, dtype: torch.dtype,
+                head_dim: int = MAX_HEAD_DIM) -> dict[str, int]:
+    """Registers and local (spill) bytes per thread and dynamic shared
+    memory per CTA of the built ``partial`` (pass 1) or ``combine`` (pass
+    2) kernel that a call with ``dtype`` and ``head_dim`` runs (needs the
+    card)."""
     _, _, err_str, info = _kernel()
-    out = (ctypes.c_int * 2)()
-    err = info({"partial": 0, "combine": 1}[which], _DTYPE_CODES[dtype], out)
+    out = (ctypes.c_int * 3)()
+    err = info({"partial": 0, "combine": 1}[which], _DTYPE_CODES[dtype],
+               head_dim, out)
     if err != 0:
         raise RuntimeError(f"paged kernel info failed: "
                            f"{err_str(err).decode()} ({err})")
-    return {"registers": out[0], "local_bytes": out[1]}
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2]}
 
 
 def _kernel_args(q, k_pool, v_pool, tables, per_seq):
@@ -158,7 +168,13 @@ def _kernel_args(q, k_pool, v_pool, tables, per_seq):
         raise ValueError(f"paged attention inputs span devices {devs}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged kernels read contiguous pools")
-    return q.contiguous(), tables.contiguous(), per_seq.contiguous()
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged kernels copy pool rows in 16-byte units: "
+                         "the pools must start 16-byte aligned")
+    q = q.contiguous()
+    if q.data_ptr() % 16:  # a view at an odd offset: the kernels load pairs
+        q = q.clone()
+    return q, tables.contiguous(), per_seq.contiguous()
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -168,12 +184,22 @@ def _raise_on(err: int, what: str) -> None:
                            f"{err_str(err).decode()} ({err})")
 
 
+def n_spans(w: int, bs: int) -> int:
+    """Key spans of a table ``w`` blocks of ``bs`` positions wide: the
+    split-K passes' count, fixed by the width, not by the lengths."""
+    return -(-w * bs // SPLIT_KEYS)
+
+
+def scratch_elems(b: int, c: int, h: int, d: int, w: int, bs: int) -> int:
+    """f32 elements of the split-K scratch: (acc[d], m, l) for every query
+    row and key span."""
+    return b * c * h * n_spans(w, bs) * (d + 2)
+
+
 def _scratch(q: torch.Tensor, w: int, bs: int) -> torch.Tensor:
     """The split-K partials of every query row: (acc, m, l) per key span."""
-    b, c, h, d = q.shape
-    n_split = -(-w * bs // SPLIT_KEYS)
-    return torch.empty((b * c * h * n_split * (d + 2),), dtype=torch.float32,
-                       device=q.device)
+    return torch.empty((scratch_elems(*q.shape, w, bs),),
+                       dtype=torch.float32, device=q.device)
 
 
 def _launch(entry: int, q, k_pool, v_pool, tables, per_seq) -> torch.Tensor:

@@ -6,7 +6,8 @@ the paged engine's captured graphs against its eager CPU steps.
 On the machine with the card this file runs without the repo's conftest
 (``python -m pytest --noconftest tests/test_torch_paged_kernels.py``).
 Tolerances: f32 1e-4 (summation order); bf16 2e-2 (two bf16 roundings:
-the output, one ulp = 2^-8 relative, and P before P.V).
+the output, one ulp = 2^-8 relative, and P before P.V). The bf16 row
+property is bitwise.
 """
 
 import numpy as np
@@ -76,39 +77,106 @@ def test_wrappers_reject_bad_inputs():
                                      lengths)
 
 
+def test_span_count_and_scratch_size():
+    """The split-K geometry the wrapper allocates for: spans tile the table
+    width from position 0 (never the lengths), the last one ragged, each
+    (query row, span) keeps acc[d], m and l."""
+    s = paged.SPLIT_KEYS
+    assert s % 32 == 0
+    assert paged.n_spans(1, 4) == 1
+    assert paged.n_spans(s // 16, 16) == 1
+    assert paged.n_spans(s // 16 + 1, 16) == 2
+    assert paged.n_spans(64, 16) == 1024 // s
+    assert paged.n_spans(128, 16) == 2048 // s
+    assert paged.scratch_elems(32, 1, 16, 128, 64, 16) == \
+        32 * 16 * (1024 // s) * 130
+    q = torch.zeros((2, 3, 8, 16))
+    part = paged._scratch(q, 5, 4)
+    assert part.dtype == torch.float32
+    assert part.numel() == 2 * 3 * 8 * paged.n_spans(5, 4) * 18
+
+
 # ---- the kernels themselves (need a CUDA card) ----
+
+def _cuda_pools(gen, nb, bs, n_kv, d, dtype):
+    k = torch.randn((nb, bs, n_kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((nb, bs, n_kv, d), generator=gen, device="cuda").to(dtype)
+    return k, v
+
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("b,h,n_kv,d,w", [(5, 16, 8, 128, 8),
-                                          (3, 8, 8, 64, 4),
-                                          (4, 8, 1, 64, 2)])
-def test_kernels_match_plain_on_cuda(dtype, tol, b, h, n_kv, d, w):
+@pytest.mark.parametrize("b,h,n_kv,d,w,bs,lengths", [
+    (5, 16, 8, 128, 8, BS, None),
+    (3, 8, 8, 64, 4, BS, None),
+    (4, 8, 1, 64, 2, BS, None),
+    (4, 12, 4, 8, 3, BS, None),
+    # llama-1b's serving geometry, lengths at block, span and table edges
+    (10, 16, 8, 128, 32, 16,
+     (1, 16, 17, 127, 128, 129, 255, 256, 257, 512)),
+])
+def test_kernels_match_plain_on_cuda(dtype, tol, b, h, n_kv, d, w, bs,
+                                     lengths):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     nb = 1 + b * w
-    k = torch.randn((nb, BS, n_kv, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((nb, BS, n_kv, d), generator=gen, device="cuda").to(dtype)
+    k, v = _cuda_pools(gen, nb, bs, n_kv, d, dtype)
     tables = (1 + torch.randperm(nb - 1, device="cuda")).reshape(b, w).to(
         torch.int32)
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
-    lengths = torch.randint(1, w * BS + 1, (b,), generator=gen,
-                            device="cuda", dtype=torch.int32)
+    if lengths is None:
+        lengths = torch.randint(1, w * bs + 1, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     before = paged.paged_decode_attention.launches
     out = paged.paged_decode_attention(q, k, v, tables, lengths)
     torch.cuda.synchronize()
     assert paged.paged_decode_attention.launches == before + 1
     ref = paged.paged_decode_attention_ref(q, k, v, tables, lengths)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-    qc = torch.randn((b, 8, h, d), generator=gen, device="cuda").to(dtype)
+    qc = torch.randn((b, 40, h, d), generator=gen, device="cuda").to(dtype)
     # Offsets anywhere in the table: some rows run past its last position.
-    offs = torch.randint(0, w * BS, (b,), generator=gen, device="cuda",
+    offs = torch.randint(0, w * bs, (b,), generator=gen, device="cuda",
                          dtype=torch.int32)
     out = paged.paged_chunk_attention(qc, k, v, tables, offs)
     torch.cuda.synchronize()
     ref = paged.paged_chunk_attention_ref(qc, k, v, tables, offs)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_bf16_rows_depend_only_on_position_on_cuda():
+    """The card-side twin of test_chunk_row_depends_only_on_its_position,
+    bitwise, at llama-1b's heads in bf16: a chunk at offset 0 against its
+    tail at offset 19; table width W against 2W (chunk and decode); decode
+    at length p + 1 against the chunk's row at position p (the bf16 kernel
+    runs both through the same per-row instructions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_kv, g, d, w, bs, c, k0 = 8, 2, 128, 8, 16, 48, 19
+    dtype = torch.bfloat16
+    k, v = _cuda_pools(gen, 1 + 2 * w, bs, n_kv, d, dtype)
+    tables = (1 + torch.randperm(2 * w, device="cuda")).reshape(2, w).to(
+        torch.int32)
+    wide = torch.cat([tables, torch.zeros_like(tables)], 1)
+    q = torch.randn((2, c, n_kv * g, d), generator=gen,
+                    device="cuda").to(dtype)
+    zero = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    whole = paged.paged_chunk_attention(q, k, v, tables, zero)
+    tail = paged.paged_chunk_attention(q[:, k0:], k, v, tables, zero + k0)
+    padded = paged.paged_chunk_attention(q, k, v, wide, zero)
+    lens = torch.arange(1, c + 1, dtype=torch.int32, device="cuda")
+    dec_q = q[0][:, None].contiguous()
+    dec = paged.paged_decode_attention(
+        dec_q, k, v, tables[:1].expand(c, w).contiguous(), lens)
+    dec_wide = paged.paged_decode_attention(
+        dec_q, k, v, wide[:1].expand(c, 2 * w).contiguous(), lens)
+    assert torch.equal(tail, whole[:, k0:])
+    assert torch.equal(padded, whole)
+    assert torch.equal(dec_wide, dec)
+    assert torch.equal(dec[:, 0], whole[0])
 
 
 def test_engine_graphs_match_eager_cpu_on_cuda():
