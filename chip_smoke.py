@@ -14,7 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      bounds, their plain versions and a gather +
      scaled_dot_product_attention yardstick, and a bitwise check that a
      bf16 row depends only on its position (chunk offset, table width,
-     decode vs chunk);
+     decode vs chunk); the same over int8 pools (the int8 kernels), and
+     the quantizing scatter bitwise against its plain version (rows past
+     the table's width and invalid rows in the null block), each timed at
+     its serving shape;
   4. lanes serve: llama-1b at full width and depth (random weights from
      --seed) through make_engine(mode="lanes") with int8 weights: queued
      requests admitted through a PrefillWorker, then the bench posture
@@ -26,15 +29,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      attention formulation;
   6. paged parity: test-tiny f32 through the paged engine with the kernels
      and CUDA graphs on: paged vs lanes, prefix cache on vs off, tight vs
-     roomy pool give equal tokens;
+     roomy pool give equal tokens, over f32 and int8 KV; sampled decoding
+     with top_k=1 equals greedy, one seed repeats, two seeds differ, and
+     graph replays draw fresh noise;
   7. paged serve: llama-1b through the default make_engine (the paged
-     engine, int8 weights, batch 32, max_len 2048): graphs captured at
-     warmup, 64 requests (prompts 64-1024 tokens, half opening with one
-     shared 264-token prefix, 64 new tokens each) with no capture during
-     traffic, the paged kernels' launch counts read from this run alone;
-     a full-batch decode window with a profiler pass; the same traffic on
-     a quarter-size pool, then a full batch decoding past that pool's
-     capacity, which must preempt and still finish every request;
+     engine, int8 weights, batch 32, max_len 2048): decode and prefill-chunk
+     graphs captured at warmup, 64 requests (prompts 64-1024 tokens, half
+     opening with one shared 264-token prefix, 64 new tokens each) with no
+     capture during traffic, the paged kernels' launch counts read from
+     this run alone, a window of mixed ticks timed; a full-batch decode
+     window with a profiler pass; the same traffic on a quarter-size pool
+     (the same window of mixed ticks under the profiler), then a full
+     batch decoding past that pool's capacity, which must preempt and
+     still finish every request; the same traffic and decode window over
+     int8 KV, whose kernels' launch counts are read from its run;
   8. paged model: llama-1b bf16 decode_step_paged and prefill_chunk_paged
      logits through the paged kernels vs their plain versions.
 The last two lines are the kernel table as JSON and the result object.
@@ -522,14 +530,16 @@ def decode_lengths(rng, B, W):
 
 
 def paged_bound_ms(kv_rows: int, q_rows: int, pairs: int, n_kv: int, h: int,
-                   d: int, dtype) -> tuple[float, str]:
+                   d: int, dtype, int8: bool = False) -> tuple[float, str]:
     """Least time for one call: the K/V rows the call needs (``kv_rows``
     positions, all kv heads, K and V) read once, q read and the output
     written once, at the memory rate; against 4 d operations per (query
-    head, visible key) pair at the input type's peak."""
+    head, visible key) pair at the input type's peak. An int8 pool's row
+    is d int8 codes plus one f32 scale per kv head."""
     import torch
     elt = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * kv_rows * n_kv + 2 * q_rows * h) * d * elt
+    kv_row = d + 4 if int8 else d * elt
+    nbytes = 2 * kv_rows * n_kv * kv_row + 2 * q_rows * h * d * elt
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * d * pairs / PEAK_OPS_PER_S[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -559,19 +569,21 @@ def gather_sdpa(q, k_pool, v_pool, idx, mask):
                                           attn_mask=mask, enable_gqa=True)
 
 
-def time_paged(label, kernel, plain, yard, bound, card: str) -> dict:
+def time_paged(label, kernel, plain, yard, bound, card: str,
+               yard_name: str = "index_select per pool + "
+               "scaled_dot_product_attention") -> dict:
     t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-         "two_call_ms": time_ms(yard)}
+         "yardstick_ms": time_ms(yard) if yard is not None else None}
     t["bound_ms"], t["bound_by"] = bound
     dispatch = host_us(kernel)
-    for name in ("ms", "plain_ms", "bound_ms", "two_call_ms"):
+    for name in ("ms", "plain_ms", "bound_ms", "yardstick_ms"):
         log(f"kernels: {label} {name}={t[name]} on {card}")
+    speed = (f"{t['yardstick_ms'] / t['ms']:.2f}x the yardstick's speed "
+             f"({yard_name}; no single PyTorch call computes this)"
+             if yard is not None else "no yardstick")
     log(f"kernels: {label} bound by {t['bound_by']}; kernel at "
-        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound, "
-        f"{t['two_call_ms'] / t['ms']:.2f}x the gather+sdpa yardstick's "
-        f"speed (index_select per pool + scaled_dot_product_attention; no "
-        f"single PyTorch call attends through a block table); wrapper "
-        f"dispatch {dispatch:.1f} us per call on the host")
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound, {speed}; "
+        f"wrapper dispatch {dispatch:.1f} us per call on the host")
     return t
 
 
@@ -580,31 +592,50 @@ def paged_build_info() -> None:
     bf16 tensor-core builds must not spill."""
     import torch
     from grove_tpu_torch.ops.paged import kernel_info
-    for which, dt, d in (("partial", "float32", 128),
-                         ("partial", "bfloat16", 64),
-                         ("partial", "bfloat16", 128),
-                         ("combine", "float32", 128),
-                         ("combine", "bfloat16", 128)):
-        info = kernel_info(which, getattr(torch, dt), d)
-        log(f"kernels: build paged {which} {dt} d<={d}: {info['registers']} "
-            f"registers, {info['local_bytes']} bytes local (spill) per "
-            f"thread, {info['smem_bytes']} bytes dynamic shared memory per "
-            f"CTA")
+    for which, dt, d, q8 in (("partial", "float32", 128, False),
+                             ("partial", "bfloat16", 64, False),
+                             ("partial", "bfloat16", 128, False),
+                             ("partial", "float32", 128, True),
+                             ("partial", "bfloat16", 64, True),
+                             ("partial", "bfloat16", 128, True),
+                             ("combine", "float32", 128, False),
+                             ("combine", "bfloat16", 128, False)):
+        info = kernel_info(which, getattr(torch, dt), d, int8_pool=q8)
+        pool = "int8 pool" if q8 else "pool of q's type"
+        log(f"kernels: build paged {which} {dt} d<={d} {pool}: "
+            f"{info['registers']} registers, {info['local_bytes']} bytes "
+            f"local (spill) per thread, {info['smem_bytes']} bytes dynamic "
+            f"shared memory per CTA")
         if dt == "bfloat16" and info["local_bytes"]:
-            raise AssertionError(f"the bf16 paged {which} kernel spills")
+            raise AssertionError(f"the bf16 paged {which} kernel spills "
+                                 f"({pool})")
 
 
-def check_row_invariance(gen) -> None:
+def check_row_invariance(gen, int8: bool = False) -> None:
     """bf16, llama-1b's heads: a row's output depends only on its absolute
     position, bitwise. A chunk at offset 0 against its tail at offset k;
     a table of width W against the same table padded to 2W (chunk and
-    decode); and decode at length p + 1 against the chunk's row at p."""
+    decode); and decode at length p + 1 against the chunk's row at p. With
+    ``int8``, over int8 pools through the int8 kernels."""
     import torch
-    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
-                                           paged_decode_attention)
+    from grove_tpu_torch.ops import paged
     n_kv, g, d, W, c, k0 = 8, 2, 128, 8, 48, 19
     dtype = torch.bfloat16
-    k, v, tables = paged_pools(gen, [W * PAGED_BS] * 2, W, n_kv, d, dtype)
+    if int8:
+        kq, vq, ks, vs, tables = int8_pools(gen, [W * PAGED_BS] * 2, W, n_kv,
+                                            d)
+
+        def paged_chunk_attention(q, k, v, t, off):
+            return paged.paged_chunk_attention_q8(q, kq, vq, ks, vs, t, off)
+
+        def paged_decode_attention(q, k, v, t, lens):
+            return paged.paged_decode_attention_q8(q, kq, vq, ks, vs, t, lens)
+        k = v = None
+    else:
+        paged_chunk_attention = paged.paged_chunk_attention
+        paged_decode_attention = paged.paged_decode_attention
+        k, v, tables = paged_pools(gen, [W * PAGED_BS] * 2, W, n_kv, d,
+                                   dtype)
     wide = torch.cat([tables, torch.zeros_like(tables)], 1)
     q = torch.randn((2, c, n_kv * g, d), generator=gen,
                     device="cuda").to(dtype)
@@ -630,8 +661,9 @@ def check_row_invariance(gen) -> None:
         "decode at length p + 1 vs chunk row p": torch.equal(
             dec[:, 0], whole[0]),
     }
+    pool = "int8 pool" if int8 else "bf16 pool"
     for name, same in checks.items():
-        log(f"kernels: bf16 row invariance: {name}: "
+        log(f"kernels: bf16 row invariance ({pool}): {name}: "
             f"{'bitwise equal' if same else 'DIFFER'}")
     if not all(checks.values()):
         raise AssertionError("bf16 paged rows depend on more than their "
@@ -717,7 +749,7 @@ def phase_paged_kernels(seed: int, card: str) -> list[dict]:
                                     timed["long decode"][0]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None, "two_call_ms": t["two_call_ms"]})
+                 "library_ms": None, "yardstick_ms": t["yardstick_ms"]})
 
     W = SERVE_DECODE[1]
     off, c = SERVE_CHUNK_OFFSET, PAGED_CHUNK
@@ -744,7 +776,228 @@ def phase_paged_kernels(seed: int, card: str) -> list[dict]:
                  "launches": 0, "max_abs_err": max(err, errs["chunk"]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None, "two_call_ms": t["two_call_ms"]})
+                 "library_ms": None, "yardstick_ms": t["yardstick_ms"]})
+    return rows
+
+
+def int8_pools(gen, lengths, W, n_kv, d):
+    """``paged_pools`` quantized as the int8 write does it: int8 pools, their
+    f32 scales and the tables."""
+    import torch
+    from grove_tpu_torch.ops.kvquant import quantize_rows
+    k, v, tables = paged_pools(gen, lengths, W, n_kv, d, torch.float32)
+    (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+    return kq, vq, ks, vs, tables
+
+
+def gather_q_sdpa(q, kq, vq, ks, vs, idx, mask):
+    """The int8 yardstick: ``index_select`` of each int8 pool and its
+    scales, the dequantize, then ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    b = q.shape[0]
+    nb, bs, n_kv, d = kq.shape
+
+    def rows(pool, scale):
+        x = pool.index_select(0, idx).float() * scale.index_select(
+            0, idx)[..., None]
+        return x.to(q.dtype).view(b, -1, n_kv, d).transpose(1, 2)
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), rows(kq, ks), rows(vq, vs), attn_mask=mask,
+        enable_gqa=True)
+
+
+def check_scatter_q(gen, card: str) -> dict:
+    """The quantizing scatter against its plain version, bitwise on codes
+    and scales, for f32 and bf16 rows: one sequence's chunk running past
+    its table's width, the other's padded tail marked invalid (both land
+    in the null block, in distinct slots, so the comparison covers it);
+    then timed at the decode step's shape. Returns its kernel-table row."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.ops.kvquant import (paged_scatter_q,
+                                             paged_scatter_q_ref)
+    n_kv, d, W, c = 8, 128, 4, PAGED_CHUNK
+    nb = 1 + 2 * W + 3
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(5))
+    tables = (1 + perm[:2 * W]).reshape(2, W).to(torch.int32).cuda()
+    steps = torch.arange(c, dtype=torch.int32, device="cuda")
+    # Sequence 0 at offset 36: positions 64..67 lie past the table's 64
+    # (null slots 0..3); sequence 1 at 0 with 24 valid rows: rows 24..31
+    # are rerouted (null slots 8..15).
+    positions = torch.stack([36 + steps, steps])
+    valid = torch.ones((2, c), dtype=torch.bool, device="cuda")
+    valid[1, 24:] = False
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        k = (3 * torch.randn((2, c, n_kv, d), generator=gen,
+                             device="cuda")).to(dtype)
+        v = torch.randn((2, c, n_kv, d), generator=gen,
+                        device="cuda").to(dtype)
+        k[0, 5, 3] = 0  # an all-zero row takes the floor scale
+        pools = [torch.randint(-127, 128, (nb, PAGED_BS, n_kv, d),
+                               generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand((nb, PAGED_BS, n_kv), generator=gen,
+                             device="cuda") for _ in range(2)]
+        mine = [t.clone() for t in (*pools, *scales)]
+        ref = [t.clone() for t in (*pools, *scales)]
+        before = paged_scatter_q.launches
+        paged_scatter_q(*mine, k, v, tables, positions, valid)
+        torch.cuda.synchronize()
+        if paged_scatter_q.launches != before + 1:
+            raise AssertionError("the scatter wrapper did not count its "
+                                 "launch")
+        paged_scatter_q_ref(ref[0], ref[2], k, tables, positions, valid)
+        paged_scatter_q_ref(ref[1], ref[3], v, tables, positions, valid)
+        same = [torch.equal(a, b) for a, b in zip(mine, ref)]
+        log(f"kernels: paged_scatter_q {dt} b=2 c={c} n_kv={n_kv} d={d} "
+            f"W={W} (rows past the width and invalid rows in the null "
+            f"block): codes K {same[0]}, V {same[1]}, scales K {same[2]}, "
+            f"V {same[3]} bitwise equal to the plain version")
+        if not all(same):
+            raise AssertionError(f"the scatter kernel disagrees ({dt})")
+    # The decode step's shape: one row per sequence at lengths 512..1024.
+    B, Wd, lo, hi = SERVE_DECODE
+    lengths = np.random.default_rng(17).integers(lo, hi, size=B)
+    kq, vq, ks, vs, tables = int8_pools(gen, lengths + 1, Wd, n_kv, d)
+    k = torch.randn((B, 1, n_kv, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, 1, n_kv, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.from_numpy(lengths.astype(np.int32)).cuda()[:, None]
+    rows = B * n_kv
+    nbytes = 2 * rows * d * 2 + 2 * rows * (d + 4) + 2 * B * 4
+    bound = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    label = (f"paged_scatter_q decode shape B={B} s=1 n_kv={n_kv} d={d} "
+             f"bf16 rows")
+    t = time_paged(
+        label, lambda: paged_scatter_q(kq, vq, ks, vs, k, v, tables, pos),
+        lambda: (paged_scatter_q_ref(kq, ks, k, tables, pos),
+                 paged_scatter_q_ref(vq, vs, v, tables, pos)),
+        None, bound, card)
+    return {"name": "paged_scatter_q", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/kv_quant.cu",
+            "replaces": "grove_tpu/models/llama.py:525",
+            "launches": 0, "max_abs_err": 0.0, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "yardstick_ms": None}
+
+
+def phase_int8_kernels(seed: int, card: str) -> list[dict]:
+    """The quantizing scatter, then both paged kernels over int8 pools
+    against their plain versions (f32 and bf16 queries), the bf16 row
+    invariance over int8 pools, and the int8 kernels timed at the serving
+    shapes. Returns the three kernel-table rows."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention_q8,
+                                           paged_chunk_attention_ref,
+                                           paged_decode_attention_q8,
+                                           paged_decode_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    rng = np.random.default_rng(seed + 9)
+    rows = [check_scatter_q(gen, card)]
+    errs = {"decode": 0.0, "chunk": 0.0}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for (B, W, n_kv, g, d) in PAGED_DECODE_CASES:
+            lengths = decode_lengths(rng, B, W)
+            kq, vq, ks, vs, tables = int8_pools(gen, lengths, W, n_kv, d)
+            q = torch.randn((B, 1, n_kv * g, d), generator=gen,
+                            device="cuda").to(dtype)
+            lens = torch.from_numpy(lengths).cuda()
+            out = paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lens)
+            torch.cuda.synchronize()
+            ref = paged_decode_attention_ref(q, kq, vq, tables, lens, ks, vs)
+            errs["decode"] = max(errs["decode"], check_paged(
+                out, ref, f"int8 paged decode B={B} W={W} n_kv={n_kv} g={g} "
+                f"d={d} lengths {lengths.min()}..{lengths.max()}", dt))
+        for (off, n_valid, n_kv, g, d) in PAGED_CHUNK_CASES:
+            backed = -(-(off + n_valid) // PAGED_BS)
+            W = 1 << (backed - 1).bit_length()
+            kq, vq, ks, vs, tables = int8_pools(gen, [off + n_valid] * 2, W,
+                                                n_kv, d)
+            q = torch.randn((2, PAGED_CHUNK, n_kv * g, d), generator=gen,
+                            device="cuda").to(dtype)
+            offs = torch.full((2,), off, dtype=torch.int32, device="cuda")
+            out = paged_chunk_attention_q8(q, kq, vq, ks, vs, tables, offs)
+            torch.cuda.synchronize()
+            ref = paged_chunk_attention_ref(q, kq, vq, tables, offs, ks, vs)
+            errs["chunk"] = max(errs["chunk"], check_paged(
+                out, ref, f"int8 paged chunk b=2 c={PAGED_CHUNK} offset={off} "
+                f"n_valid={n_valid} W={W} n_kv={n_kv} g={g} d={d}", dt))
+    check_row_invariance(gen, int8=True)
+
+    n_kv, g, d = 8, 2, 128
+    h = n_kv * g
+    B, W, lo, hi = SERVE_DECODE
+    lengths = rng.integers(lo, hi + 1, size=B).astype(np.int32)
+    kq, vq, ks, vs, tables = int8_pools(gen, lengths, W, n_kv, d)
+    lens = torch.from_numpy(lengths).cuda()
+    idx = tables.reshape(-1).long()
+    mask = (torch.arange(W * PAGED_BS, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    label = (f"int8 paged decode serving shape B={B} W={W} lengths "
+             f"{lo}..{hi} h={h} n_kv={n_kv} d={d}")
+    for dt in ("float32", "bfloat16"):
+        q = torch.randn((B, 1, h, d), generator=gen,
+                        device="cuda").to(getattr(torch, dt))
+        err = check_paged(
+            paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lens),
+            paged_decode_attention_ref(q, kq, vq, tables, lens, ks, vs),
+            label, dt)
+        errs["decode"] = max(errs["decode"], err)
+    total = int(lengths.sum())
+    t = time_paged(
+        label + " bf16",
+        lambda: paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lens),
+        lambda: paged_decode_attention_ref(q, kq, vq, tables, lens, ks, vs),
+        lambda: gather_q_sdpa(q, kq, vq, ks, vs, idx, mask),
+        paged_bound_ms(total, B, h * total, n_kv, h, d, q.dtype, int8=True),
+        card, "index_select of each int8 pool and its scales, dequantize, "
+        "scaled_dot_product_attention")
+    rows.append({"name": "paged_decode_attention_q8", "route": "cuda",
+                 "source": "grove_tpu_torch/csrc/paged_attn.cu",
+                 "replaces": "grove_tpu/models/llama.py:634",
+                 "launches": 0, "max_abs_err": errs["decode"],
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None, "yardstick_ms": t["yardstick_ms"]})
+
+    off, c = SERVE_CHUNK_OFFSET, PAGED_CHUNK
+    kq, vq, ks, vs, tables = int8_pools(gen, [off + c], W, n_kv, d)
+    offs = torch.full((1,), off, dtype=torch.int32, device="cuda")
+    idx = tables.reshape(-1).long()
+    mask = (torch.arange(W * PAGED_BS, device="cuda")[None, :]
+            <= off + torch.arange(c, device="cuda")[:, None])[None, None]
+    label = (f"int8 paged chunk serving shape b=1 c={c} offset={off} W={W} "
+             f"h={h} n_kv={n_kv} d={d}")
+    for dt in ("float32", "bfloat16"):
+        q = torch.randn((1, c, h, d), generator=gen,
+                        device="cuda").to(getattr(torch, dt))
+        err = check_paged(
+            paged_chunk_attention_q8(q, kq, vq, ks, vs, tables, offs),
+            paged_chunk_attention_ref(q, kq, vq, tables, offs, ks, vs),
+            label, dt)
+        errs["chunk"] = max(errs["chunk"], err)
+    pairs = h * sum(off + i + 1 for i in range(c))
+    t = time_paged(
+        label + " bf16",
+        lambda: paged_chunk_attention_q8(q, kq, vq, ks, vs, tables, offs),
+        lambda: paged_chunk_attention_ref(q, kq, vq, tables, offs, ks, vs),
+        lambda: gather_q_sdpa(q, kq, vq, ks, vs, idx, mask),
+        paged_bound_ms(off + c, c, pairs, n_kv, h, d, q.dtype, int8=True),
+        card, "index_select of each int8 pool and its scales, dequantize, "
+        "scaled_dot_product_attention")
+    rows.append({"name": "paged_chunk_attention_q8", "route": "cuda",
+                 "source": "grove_tpu_torch/csrc/paged_attn.cu",
+                 "replaces": "grove_tpu/models/llama.py:707",
+                 "launches": 0, "max_abs_err": errs["chunk"],
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None, "yardstick_ms": t["yardstick_ms"]})
     return rows
 
 
@@ -764,24 +1017,32 @@ def drive_paged(eng, want: int, max_iters: int = 100_000) -> None:
 def phase_paged_parity(seed: int, device: str = "cuda") -> None:
     """test-tiny f32 through the paged engine with the kernels and graphs on
     (the workloads of tests/test_paged_engine.py's parity tests): paged
-    against lanes, prefix cache on against off, a tight pool against a
-    roomy one; tokens must be equal."""
+    against lanes, prefix cache on against off and a tight pool against a
+    roomy one, over a model-dtype and an int8 pool; tokens must be equal.
+    Then sampling: top_k = 1 equals greedy, one seed twice gives the same
+    tokens, two seeds differ, and at a temperature that leaves the noise
+    to choose, no request repeats one token (each graph replay draws fresh
+    noise)."""
     import dataclasses
     import numpy as np
     import torch
     from grove_tpu_torch.models.llama import CONFIGS, init_params
-    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
-                                           paged_decode_attention)
+    from grove_tpu_torch.ops import kvquant, paged
     from grove_tpu_torch.serving.engine import (DecodeEngine,
-                                                PagedDecodeEngine)
+                                                PagedDecodeEngine,
+                                                SamplerConfig)
     cfg = dataclasses.replace(CONFIGS["test-tiny"], dtype=torch.float32,
                               max_seq_len=64)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device=device)
-    paged_decode_attention.launches = paged_chunk_attention.launches = 0
+    wrappers = (paged.paged_decode_attention, paged.paged_chunk_attention,
+                paged.paged_decode_attention_q8,
+                paged.paged_chunk_attention_q8, kvquant.paged_scatter_q)
+    for w in wrappers:
+        w.launches = 0
     captured = 0
 
-    def paged(**kw):
+    def paged_eng(**kw):
         return PagedDecodeEngine(cfg, params, device=device, **kw)
 
     def finish(eng):
@@ -807,8 +1068,8 @@ def phase_paged_parity(seed: int, device: str = "cuda") -> None:
     for _ in range(16):
         lanes.step()
     lanes.sync()
-    eng = paged(batch=4, max_len=48, block_size=8, prefill_chunk=8,
-                host_sync_interval=4)
+    eng = paged_eng(batch=4, max_len=48, block_size=8, prefill_chunk=8,
+                    host_sync_interval=4)
     for p in prompts:
         eng.submit(p, max_new_tokens=8)
     drive_paged(eng, len(prompts))
@@ -820,49 +1081,90 @@ def phase_paged_parity(seed: int, device: str = "cuda") -> None:
     if not same:
         raise AssertionError("paged and lanes tokens differ")
 
-    rng = np.random.default_rng(41)
-    base = rng.integers(0, 256, size=19).astype(np.int32)
-    later = [base.copy(),
-             np.concatenate([base[:12],
-                             rng.integers(0, 256, size=7).astype(np.int32)]),
-             rng.integers(0, 256, size=7).astype(np.int32), base.copy()]
-    runs = {}
-    for on in (True, False):
-        eng = paged(batch=4, max_len=48, block_size=8, num_blocks=24,
-                    prefill_chunk=8, host_sync_interval=4, prefix_cache=on)
-        eng.submit(base, max_new_tokens=6)
-        drive_paged(eng, 1)
-        for p in later:
-            eng.submit(p, max_new_tokens=6)
-        drive_paged(eng, 1 + len(later))
-        runs[on] = (finish(eng), eng.cow_copies)
-    same = runs[True][0] == runs[False][0]
-    log(f"parity: test-tiny f32 prefix cache on vs off tokens "
-        f"{'equal' if same else 'DIFFER'} ({runs[True][1]} CoW copies on)")
-    if not same or runs[True][1] < 2:
-        raise AssertionError("prefix cache on/off tokens differ or no CoW")
+    for kv_quant in ("off", "int8"):
+        pool = "int8 KV" if kv_quant == "int8" else "f32 KV"
+        rng = np.random.default_rng(41)
+        base = rng.integers(0, 256, size=19).astype(np.int32)
+        later = [base.copy(),
+                 np.concatenate([base[:12], rng.integers(
+                     0, 256, size=7).astype(np.int32)]),
+                 rng.integers(0, 256, size=7).astype(np.int32), base.copy()]
+        runs = {}
+        for on in (True, False):
+            eng = paged_eng(batch=4, max_len=48, block_size=8, num_blocks=24,
+                            prefill_chunk=8, host_sync_interval=4,
+                            prefix_cache=on, kv_quant=kv_quant)
+            eng.submit(base, max_new_tokens=6)
+            drive_paged(eng, 1)
+            for p in later:
+                eng.submit(p, max_new_tokens=6)
+            drive_paged(eng, 1 + len(later))
+            runs[on] = (finish(eng), eng.cow_copies)
+        same = runs[True][0] == runs[False][0]
+        log(f"parity: test-tiny f32 model, {pool}: prefix cache on vs off "
+            f"tokens {'equal' if same else 'DIFFER'} ({runs[True][1]} CoW "
+            f"copies on)")
+        if not same or runs[True][1] < 2:
+            raise AssertionError(f"{pool}: prefix cache on/off tokens differ "
+                                 f"or no CoW")
 
-    rng = np.random.default_rng(9)
-    prompts = [rng.integers(0, 256, size=6).astype(np.int32)
-               for _ in range(4)]
-    runs = {}
-    for nb in (48, 13):
-        eng = paged(batch=4, max_len=40, block_size=4, num_blocks=nb,
-                    prefill_chunk=4, host_sync_interval=2)
+        rng = np.random.default_rng(9)
+        tight = [rng.integers(0, 256, size=6).astype(np.int32)
+                 for _ in range(4)]
+        runs = {}
+        for nb in (48, 13):
+            eng = paged_eng(batch=4, max_len=40, block_size=4, num_blocks=nb,
+                            prefill_chunk=4, host_sync_interval=2,
+                            kv_quant=kv_quant)
+            for p in tight:
+                eng.submit(p, max_new_tokens=12)
+            drive_paged(eng, len(tight))
+            runs[nb] = (finish(eng), eng._sched.preemptions_total)
+        same = runs[13][0] == runs[48][0]
+        log(f"parity: test-tiny f32 model, {pool}: tight pool ({runs[13][1]} "
+            f"preemptions) vs roomy pool tokens "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same or runs[13][1] == 0:
+            raise AssertionError(f"{pool}: tight/roomy tokens differ or no "
+                                 f"preemption")
+
+    def sampled(sampler=None, kv_quant="off", new=12):
+        eng = paged_eng(batch=4, max_len=48, block_size=8, prefill_chunk=8,
+                        host_sync_interval=4, sampler=sampler,
+                        kv_quant=kv_quant)
         for p in prompts:
-            eng.submit(p, max_new_tokens=12)
+            eng.submit(p, max_new_tokens=new)
         drive_paged(eng, len(prompts))
-        runs[nb] = (finish(eng), eng._sched.preemptions_total)
-    same = runs[13][0] == runs[48][0]
-    log(f"parity: test-tiny f32 tight pool ({runs[13][1]} preemptions) vs "
-        f"roomy pool tokens {'equal' if same else 'DIFFER'}")
-    if not same or runs[13][1] == 0:
-        raise AssertionError("tight/roomy tokens differ or no preemption")
-    log(f"parity: {captured} graphs captured, paged decode kernel launched "
-        f"{paged_decode_attention.launches} times, chunk kernel "
-        f"{paged_chunk_attention.launches} times")
-    if device == "cuda" and not (captured and paged_decode_attention.launches
-                                 and paged_chunk_attention.launches):
+        return finish(eng)
+
+    for kv_quant in ("off", "int8"):
+        greedy = sampled(kv_quant=kv_quant)
+        top1 = sampled(SamplerConfig(temperature=1.5, top_k=1, seed=7),
+                       kv_quant)
+        one = sampled(SamplerConfig(temperature=1.5, top_k=8, seed=7),
+                      kv_quant)
+        again = sampled(SamplerConfig(temperature=1.5, top_k=8, seed=7),
+                        kv_quant)
+        other = sampled(SamplerConfig(temperature=1.5, top_k=8, seed=8),
+                        kv_quant)
+        checks = {"top_k=1 equals greedy": top1 == greedy,
+                  "seed 7 twice equal": one == again,
+                  "seeds 7 and 8 differ": one != other}
+        log(f"parity: sampled, {kv_quant} KV: " + ", ".join(
+            f"{k}: {v}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise AssertionError(f"sampling checks failed ({kv_quant} KV)")
+    # Nearly flat logits: the noise picks the token. A replay that reused
+    # its noise would repeat one token per slot.
+    flat = sampled(SamplerConfig(temperature=1e3, top_k=0, seed=11), new=16)
+    distinct = min(len(set(t)) for t in flat.values())
+    log(f"parity: sampled at temperature 1e3: at least {distinct} distinct "
+        f"tokens in every request's 16")
+    if distinct < 8:
+        raise AssertionError("graph replays repeat their noise")
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"parity: {captured} graphs captured; launches {counts}")
+    if device == "cuda" and not (captured and all(counts.values())):
         raise AssertionError("the parity runs bypassed the graphs or kernels")
 
 
@@ -871,26 +1173,34 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                       max_len: int = 2048, new_tokens: int = 64,
                       prompt_lo: int = 64, prompt_hi: int = 1024,
                       shared: int = 264, bench_len: int = 512,
-                      bench_steps: int = 64) -> dict[str, int]:
+                      bench_steps: int = 64,
+                      window: tuple[int, int] = (200, 32)) -> dict[str, int]:
     """Serve through the default ``make_engine`` (the paged engine) with
     int8 weights: ``n_requests`` requests with seeded prompt lengths in
     [prompt_lo, prompt_hi], every other one opening with one shared
     ``shared``-token prefix (diverging mid-block, so copy-on-write fires),
-    ``new_tokens`` each; then a decode window over a full batch, with a
-    profiler pass; then the same traffic on a pool of a quarter of the
-    default size, then a full batch decoding past that pool's capacity,
-    which must preempt. Returns the paged kernels' launch counts of the
-    first traffic run (zeroed at its start)."""
+    ``new_tokens`` each, after a warmup that captures every decode and
+    prefill-chunk graph the traffic uses; ticks [window[0], window[0] +
+    window[1]) are timed alone. Then a decode window over a full batch,
+    with a profiler pass. Then the same traffic on a pool of a quarter of
+    the default size, whose same window of mixed ticks (the same work: the
+    pool never fills there) runs under the profiler, then a full batch
+    decoding past that pool's capacity, which must preempt. Then the same
+    traffic and full-batch decode over int8 KV. Returns the hand-written
+    kernels' launch counts: the model-dtype kernels' from the first traffic
+    run, the int8 kernels' from the int8 one (zeroed at each start)."""
     import numpy as np
     import torch
-    from grove_tpu_torch.models import llama
     from grove_tpu_torch.models.llama import CONFIGS, init_params
-    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
-                                           paged_decode_attention)
+    from grove_tpu_torch.ops import kvquant, paged
     from grove_tpu_torch.serving.engine import PagedDecodeEngine, make_engine
 
     cfg = cfg or CONFIGS["llama-1b"]
     on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    wrappers = (paged.paged_decode_attention, paged.paged_chunk_attention,
+                paged.paged_decode_attention_q8,
+                paged.paged_chunk_attention_q8, kvquant.paged_scatter_q)
     rng = np.random.default_rng(seed + 11)
     lens = rng.integers(prompt_lo, prompt_hi + 1, size=n_requests)
     prefix = rng.integers(0, cfg.vocab_size, size=shared)
@@ -904,13 +1214,136 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             prompts.append(rng.integers(0, cfg.vocab_size,
                                         size=int(n)).astype(np.int32))
     longest = max(len(p) for p in prompts) + new_tokens
+    bench = rng.integers(0, cfg.vocab_size,
+                         (batch, bench_len)).astype(np.int32)
 
-    chunks = [0]
-    chunk_fn = llama.prefill_chunk_paged
+    def warm(eng, label, setup_s):
+        widths = eng.decode_width_buckets(prompt_lo, longest)
+        chunk_widths = eng.decode_width_buckets(1, longest)
+        t0 = time.perf_counter()
+        built = eng.warmup(widths=widths, prefill_widths=chunk_widths)
+        log(f"paged: {label}: {type(eng).__name__}, {cfg.n_layers} layers, "
+            f"int8 weights, {eng.kv_quant} KV, batch {batch}, max_len "
+            f"{max_len}, block {eng.block_size}, chunk {eng.prefill_chunk}, "
+            f"{eng.kv.num_blocks} blocks ({eng.kv.pool_bytes / 2**30:.3f} "
+            f"GiB pool, {eng.kv.pool_bytes} bytes), prefix cache "
+            f"{'on' if eng._prefix else 'off'}; set-up {setup_s:.2f} s")
+        log(f"paged: {label}: warmup built {built} graphs (decode: batches "
+            f"{eng._sched.batch_buckets} x widths {widths}; prefill chunks: "
+            f"widths {chunk_widths}) in {time.perf_counter() - t0:.2f} s; "
+            f"captures {eng.graphs_captured} in {eng.capture_seconds:.2f} s, "
+            f"{eng.capture_bytes / 2**20:.1f} MiB of graph memory on {card}")
 
-    def counted_chunk(*a, **kw):
-        chunks[0] += 1
-        return chunk_fn(*a, **kw)
+    def serve(eng, label, window_ms=None):
+        """The traffic; returns (launch counts, the window's unprofiled
+        wall in ms). With ``window_ms`` the window runs under the profiler
+        against that wall."""
+        for w in wrappers:
+            w.launches = 0
+        steps0, chunks0 = eng.steps, eng.chunks
+        captured0 = eng.graphs_captured
+        start, width = window
+        ticks, win = 0, None
+
+        def run_window():
+            for _ in range(width):
+                eng.admit_from_queue()
+                eng.step()
+
+        t = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        for _ in range(100_000):
+            eng.admit_from_queue()
+            if len(eng.completed) >= n_requests:
+                break
+            if not eng._sched.live:
+                continue
+            if ticks == start and on_cuda:
+                if window_ms is None:
+                    sync()
+                    t_w = time.perf_counter()
+                    run_window()
+                    sync()
+                    win = (time.perf_counter() - t_w) * 1e3
+                    log(f"paged: {label}: ticks {start}..{start + width - 1} "
+                        f"(one prefill chunk and one decode step each): "
+                        f"{win:.3f} ms, {win / width:.3f} ms per tick on "
+                        f"{card}")
+                else:
+                    t_w = time.perf_counter()
+                    profile_window(f"mixed ticks {start}..{start + width - 1}"
+                                   f" ({label})", run_window, window_ms,
+                                   card, ("paged_partial", "paged_combine",
+                                          "scatter_q"))
+                    log(f"paged: {label}: the profiled window and the "
+                        f"profiler's processing took "
+                        f"{time.perf_counter() - t_w:.3f} s of this serve's "
+                        f"wall")
+                ticks += width
+                continue
+            eng.step()
+            ticks += 1
+        eng.sync()
+        wall = time.perf_counter() - t
+        counts = {w.__name__: w.launches for w in wrappers}
+        done = {r.rid: r for r in eng.completed}
+        if sorted(done) != rids:
+            raise AssertionError(f"{label}: {len(done)} of {n_requests} "
+                                 f"requests answered")
+        bad = [r.rid for r in done.values()
+               if len(r.generated) != new_tokens
+               or not all(0 <= x < cfg.vocab_size for x in r.generated)]
+        if bad:
+            raise AssertionError(f"{label}: requests {bad} have the wrong "
+                                 f"tokens")
+        steps, chunks = eng.steps - steps0, eng.chunks - chunks0
+        ttft = np.array([r.first_token_ts - r.enqueue_ts
+                         for r in done.values()]) * 1e3
+        n_tok = sum(len(r.generated) for r in done.values())
+        log(f"paged: {label}: {len(done)} requests, {n_tok} tokens "
+            f"generated in {wall:.3f} s ({n_tok / wall:.1f} tokens/s "
+            f"overall) over {ticks} ticks, {steps} decode steps and "
+            f"{chunks} prefill chunks ({1e3 * wall / max(ticks, 1):.3f} ms "
+            f"per tick) on {card}")
+        log(f"paged: {label}: TTFT p50 {np.percentile(ttft, 50):.1f} ms, "
+            f"p90 {np.percentile(ttft, 90):.1f} ms; prefix hits "
+            f"{eng._prefix.hits if eng._prefix else 0}, tokens matched "
+            f"{eng._sched.prefix_tokens_skipped_total}, cow_copies "
+            f"{eng.cow_copies}, preemptions "
+            f"{eng._sched.preemptions_total}; allocator high water "
+            f"{eng._alloc.high_water} of {eng._alloc.capacity} blocks")
+        q8 = eng.kv.quantized
+        n = cfg.n_layers if on_cuda else 0
+        want = {"paged_decode_attention": 0 if q8 else n * steps,
+                "paged_chunk_attention": 0 if q8 else n * chunks,
+                "paged_decode_attention_q8": n * steps if q8 else 0,
+                "paged_chunk_attention_q8": n * chunks if q8 else 0,
+                "paged_scatter_q": n * (steps + chunks) if q8 else 0}
+        log(f"paged: {label}: launches {counts} ({cfg.n_layers} per decode "
+            f"step and per chunk expected: {want}); graphs captured during "
+            f"traffic: {eng.graphs_captured - captured0}")
+        if counts != want:
+            raise AssertionError(f"{label}: kernel launches off the path")
+        if eng.graphs_captured != captured0:
+            raise AssertionError(f"{label}: graphs captured mid-traffic")
+        return counts, win
+
+    def decode_bench(eng, label):
+        """A full batch decoding: tokens/s, then a profiled window."""
+        eng.admit_prompts(bench, max_new_tokens=4 * bench_steps)
+        sync()
+        t = time.perf_counter()
+        eng.run(bench_steps)
+        sync()
+        decode_s = time.perf_counter() - t
+        log(f"paged: {label}: decode {batch * bench_steps / decode_s:.1f} "
+            f"tokens/s (batch {batch}, prompts of {bench_len}, "
+            f"run({bench_steps}) in {decode_s * 1e3:.1f} ms, "
+            f"{decode_s * 1e3 / bench_steps:.3f} ms per step) on {card}")
+        if on_cuda:
+            profile_window(f"paged decode ({label})", lambda: eng.run(8),
+                           decode_s * 1e3 / bench_steps * 8, card,
+                           ("paged_partial", "paged_combine", "scatter_q"))
 
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -922,114 +1355,26 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     del params
     if not isinstance(eng, PagedDecodeEngine):
         raise AssertionError(f"make_engine built {type(eng).__name__}")
-    widths = eng.decode_width_buckets(prompt_lo, longest)
-    setup_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    built = eng.warmup(widths=widths, prefill_widths=[])
-    warm_s = time.perf_counter() - t0
-    log(f"paged: make_engine -> PagedDecodeEngine, {cfg.n_layers} layers, "
-        f"int8 weights, batch {batch}, max_len {max_len}, block "
-        f"{eng.block_size}, chunk {eng.prefill_chunk}, "
-        f"{eng.kv.num_blocks} blocks ({eng.kv.pool_bytes / 2**30:.3f} GiB "
-        f"pool), prefix cache {'on' if eng._prefix else 'off'}; set-up "
-        f"{setup_s:.2f} s")
-    log(f"paged: warmup captured {built} graphs (batches "
-        f"{eng._sched.batch_buckets} x widths {widths}) in {warm_s:.2f} s; "
-        f"captures {eng.graphs_captured} in {eng.capture_seconds:.2f} s, "
-        f"{eng.capture_bytes / 2**20:.1f} MiB of graph memory on {card}")
-
-    def serve(eng, label):
-        llama.prefill_chunk_paged = counted_chunk
-        try:
-            chunks[0] = 0
-            steps0, captured0 = eng.steps, eng.graphs_captured
-            paged_decode_attention.launches = 0
-            paged_chunk_attention.launches = 0
-            t = time.perf_counter()
-            rids = [eng.submit(p, max_new_tokens=new_tokens)
-                    for p in prompts]
-            drive_paged(eng, n_requests)
-            wall = time.perf_counter() - t
-        finally:
-            llama.prefill_chunk_paged = chunk_fn
-        counts = {"paged_decode_attention": paged_decode_attention.launches,
-                  "paged_chunk_attention": paged_chunk_attention.launches}
-        done = {r.rid: r for r in eng.completed}
-        if sorted(done) != rids:
-            raise AssertionError(f"{label}: {len(done)} of {n_requests} "
-                                 f"requests answered")
-        bad = [r.rid for r in done.values()
-               if len(r.generated) != new_tokens
-               or not all(0 <= x < cfg.vocab_size for x in r.generated)]
-        if bad:
-            raise AssertionError(f"{label}: requests {bad} have the wrong "
-                                 f"tokens")
-        steps = eng.steps - steps0
-        ttft = np.array([r.first_token_ts - r.enqueue_ts
-                         for r in done.values()]) * 1e3
-        n_tok = sum(len(r.generated) for r in done.values())
-        log(f"paged: {label}: {len(done)} requests, {n_tok} tokens "
-            f"generated in {wall:.3f} s ({n_tok / wall:.1f} tokens/s "
-            f"overall) over {steps} decode steps and {chunks[0]} prefill "
-            f"chunks on {card}")
-        log(f"paged: {label}: TTFT p50 {np.percentile(ttft, 50):.1f} ms, "
-            f"p90 {np.percentile(ttft, 90):.1f} ms; prefix hits "
-            f"{eng._prefix.hits if eng._prefix else 0}, tokens matched "
-            f"{eng._sched.prefix_tokens_skipped_total}, cow_copies "
-            f"{eng.cow_copies}, preemptions "
-            f"{eng._sched.preemptions_total}; allocator high water "
-            f"{eng._alloc.high_water} of {eng._alloc.capacity} blocks")
-        want_dec = cfg.n_layers * steps if on_cuda else 0
-        want_chunk = cfg.n_layers * chunks[0] if on_cuda else 0
-        log(f"paged: {label}: launches: paged decode "
-            f"{counts['paged_decode_attention']} ({cfg.n_layers} per decode "
-            f"step expected: {want_dec}), paged chunk "
-            f"{counts['paged_chunk_attention']} ({cfg.n_layers} per chunk "
-            f"expected: {want_chunk}); graphs captured during traffic: "
-            f"{eng.graphs_captured - captured0}")
-        if counts["paged_decode_attention"] != want_dec or \
-                counts["paged_chunk_attention"] != want_chunk:
-            raise AssertionError(f"{label}: kernel launches off the path")
-        if eng.graphs_captured != captured0:
-            raise AssertionError(f"{label}: graphs captured mid-traffic")
-        return counts
-
-    counts = serve(eng, "default pool")
+    warm(eng, "default pool", time.perf_counter() - t0)
+    counts, window_ms = serve(eng, "default pool")
     if not (eng._prefix and eng._prefix.hits and eng.cow_copies):
         raise AssertionError("the shared prefix did not hit or copy on "
                              "write")
-
-    # A full batch decoding: the decode wall per step against its device
-    # work (the graphs' effect on the host share), then a profiled window.
-    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
-    bench = rng.integers(0, cfg.vocab_size,
-                         (batch, bench_len)).astype(np.int32)
-    eng.admit_prompts(bench, max_new_tokens=4 * bench_steps)
-    sync()
-    t = time.perf_counter()
-    eng.run(bench_steps)
-    sync()
-    decode_s = time.perf_counter() - t
-    log(f"paged: decode {batch * bench_steps / decode_s:.1f} tokens/s "
-        f"(batch {batch}, prompts of {bench_len}, run({bench_steps}) in "
-        f"{decode_s * 1e3:.1f} ms, {decode_s * 1e3 / bench_steps:.3f} ms "
-        f"per step) on {card}")
+    decode_bench(eng, "default pool")
     peak = torch.cuda.max_memory_allocated() if on_cuda else 0
     log(f"paged: peak torch.cuda.max_memory_allocated "
         f"{peak / 2**30:.3f} GiB on {card}")
-    if on_cuda:
-        profile_window("paged decode", lambda: eng.run(8),
-                       decode_s * 1e3 / bench_steps * 8, card,
-                       ("paged_partial", "paged_combine"))
     params = eng.params
     num_blocks = eng.kv.num_blocks // 4
+    bf16_pool = eng.kv.pool_bytes
     del eng
 
+    t0 = time.perf_counter()
     small = make_engine(cfg, params, batch=batch, max_len=max_len,
                         num_blocks=num_blocks, device=device)
-    small.warmup(widths=widths, prefill_widths=[])
+    warm(small, "quarter pool", time.perf_counter() - t0)
     captured = small.graphs_captured
-    serve(small, f"quarter pool ({num_blocks} blocks)")
+    serve(small, f"quarter pool ({num_blocks} blocks)", window_ms=window_ms)
     # The traffic above prefills one chunk per tick, so few sequences
     # decode at once and it may fit the quarter pool; a full batch
     # decoding past the pool's capacity must preempt (by recompute) and
@@ -1059,7 +1404,27 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     if small.graphs_captured != captured:
         raise AssertionError("the quarter pool captured graphs after "
                              "warmup")
-    return counts
+    del small
+
+    t0 = time.perf_counter()
+    q8 = make_engine(cfg, params, batch=batch, max_len=max_len,
+                     kv_quant="int8", device=device)
+    warm(q8, "int8 KV", time.perf_counter() - t0)
+    log(f"paged: int8 KV pool {q8.kv.pool_bytes} bytes against "
+        f"{bf16_pool} for the model-dtype pool of as many blocks "
+        f"({q8.kv.pool_bytes / bf16_pool:.4f}; d + 4 bytes per row and "
+        f"head against d of the model's dtype is "
+        f"{(cfg.head_dim + 4) / (cfg.dtype.itemsize * cfg.head_dim):.4f})")
+    q8_counts, _ = serve(q8, "int8 KV")
+    if not (q8._prefix and q8._prefix.hits and q8.cow_copies):
+        raise AssertionError("int8 KV: the shared prefix did not hit or "
+                             "copy on write")
+    decode_bench(q8, "int8 KV")
+    del q8
+    return {**{k: v for k, v in counts.items() if not k.endswith("_q")
+               and not k.endswith("_q8")},
+            **{k: v for k, v in q8_counts.items() if k.endswith("_q")
+               or k.endswith("_q8")}}
 
 
 def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -1156,6 +1521,7 @@ def main() -> int:
     # 3. kernels vs plain
     flash_row = phase_kernels(args.seed, card)
     paged_rows = phase_paged_kernels(args.seed, card)
+    paged_rows += phase_int8_kernels(args.seed, card)
     # 4. the lanes path; 5. the flash kernel through the model
     flash_row["launches"] = phase_serve(args.seed, card)
     phase_model(args.seed, card)

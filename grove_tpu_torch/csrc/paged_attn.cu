@@ -93,6 +93,25 @@
 // staged in shared memory as f32, one key per lane against a padded K
 // tile, up to 16 query rows per CTA.
 //
+// int8 pools (GROVE_KV_QUANT=int8; the JAX package's _paged_gather_q,
+// grove_tpu/models/llama.py:553): rows of int8 codes with one f32 scale per
+// (slot, kv head) beside the pool. Each K/V value dequantizes as the plain
+// version does, (float)code * scale in f32 rounded once to the query's type,
+// and from there on both kernels run exactly as for a pool of that type: in
+// f32 the tile loads multiply by the row's scale. In bf16 the producer warp
+// copies each tile's raw int8 rows and f32 scales into the ring with
+// cp.async (in place of the TMA: an int8 box would not fill the 128-byte
+// swizzle row, and the scale rows would need boxes of their own), each lane
+// arriving on the stage's full barrier when its copies land; each consumer
+// warp then dequantizes its own kv head's K and V rows of the stage into a
+// private bf16 tile, laid out and swizzled as a TMA'd bf16 panel, frees the
+// stage, and runs the unchanged ldmatrix/mma code on that tile. (A first
+// design had the producer warp load, dequantize and store every tile
+// itself: one warp's instruction rate bound it at 8% of the byte bound.)
+// So a row's numbers still depend only on its position, and a decode row
+// at length p + 1 equals the chunk row at p bitwise. What bounds it:
+// bytes, d + 4 per row and kv head for K and for V, about half of bf16's.
+//
 // C entry points return cudaGetLastError() after their launches (or the
 // error that kept them from launching); they launch on the given stream
 // and never synchronize.
@@ -124,6 +143,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   const float4 a = *reinterpret_cast<const float4*>(src);
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+}
+
+// Four values of a pool row as f32, from element `off` of the pool whose
+// row (slot, kv head) is `srow`: a float pool as stored; an int8 pool times
+// the row's f32 scale (the product, whose rounding to an f32 model is
+// exact: the plain version's dequantize).
+__device__ __forceinline__ void load_kv4(const float* pool, const float*,
+                                         size_t off, size_t, float* dst) {
+  load_vec(pool + off, dst);
+}
+
+__device__ __forceinline__ void load_kv4(const int8_t* pool,
+                                         const float* scales, size_t off,
+                                         size_t srow, float* dst) {
+  const char4 c = *reinterpret_cast<const char4*>(pool + off);
+  const float s = scales[srow];
+  dst[0] = (float)c.x * s; dst[1] = (float)c.y * s;
+  dst[2] = (float)c.z * s; dst[3] = (float)c.w * s;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -176,9 +213,12 @@ size_t smem_bytes(int rows, int d) {
 // One key tile [t0, t0 + kTileK) of one kv head for every row of the CTA.
 // Keys at positions >= tile_end are not loaded (zeros); a row sees key p
 // only when p < lim[row], and lim[row] <= tile_end for every row that has
-// a visible key in the tile.
-__device__ __forceinline__ void attend_tile(const float* kpool,
-                                            const float* vpool,
+// a visible key in the tile. P: the pool's type (float, or int8 with
+// per-row scales).
+template <typename P>
+__device__ __forceinline__ void attend_tile(const P* kpool, const P* vpool,
+                                            const float* kscale,
+                                            const float* vscale,
                                             const int* table_row, int nb,
                                             int bs, int n_kv, int kv, int d,
                                             int t0, int tile_end, int rows,
@@ -195,10 +235,9 @@ __device__ __forceinline__ void attend_tile(const float* kpool,
     if (p < tile_end) {
       int blk = table_row[p / bs];
       blk = blk < 0 ? 0 : (blk >= nb ? nb - 1 : blk);
-      const size_t off =
-          ((size_t)(blk * bs + p % bs) * n_kv + kv) * d + i;
-      load_vec(kpool + off, kb);
-      load_vec(vpool + off, vb);
+      const size_t srow = (size_t)(blk * bs + p % bs) * n_kv + kv;
+      load_kv4(kpool, kscale, srow * d + i, srow, kb);
+      load_kv4(vpool, vscale, srow * d + i, srow, vb);
     } else {
 #pragma unroll
       for (int j = 0; j < kVec; ++j) kb[j] = vb[j] = 0.f;
@@ -279,9 +318,11 @@ __device__ __forceinline__ void attend_tile(const float* kpool,
 // the length (decode) or at most offset + i (chunk). Writes (acc[0..d), m,
 // l) of each row into part[(row * n_split + split) * (d + 2)], row = the
 // query row's index in [b, C, H]; m is in the natural-log domain.
+template <typename P>
 __global__ void __launch_bounds__(kThreads)
-    paged_partial_kernel(const float* q, const float* kpool,
-                         const float* vpool, const int* tables,
+    paged_partial_kernel(const float* q, const P* kpool, const P* vpool,
+                         const float* kscale, const float* vscale,
+                         const int* tables,
                          const int* per_seq, float* part, int C, int W, int H,
                          int n_kv, int d, int nb, int bs, int qpos,
                          int split_keys, int causal, float scale) {
@@ -325,8 +366,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int* table_row = tables + (size_t)b * W;
   for (int t0 = k_begin; t0 < max_lim; t0 += kTileK)
-    attend_tile(kpool, vpool, table_row, nb, bs, n_kv, kv, d, t0,
-                min(t0 + kTileK, max_lim), rows, s, acc);
+    attend_tile(kpool, vpool, kscale, vscale, table_row, nb, bs, n_kv, kv, d,
+                t0, min(t0 + kTileK, max_lim), rows, s, acc);
 
   const size_t row0 = ((size_t)b * C + i0) * H + kv * g;  // row r = 0
 #pragma unroll
@@ -410,12 +451,41 @@ constexpr float kLog2e = 1.4426950408889634f;
 // block, HB heads), 128-byte swizzled: box_pos = gcd(bs, kTile), so a box
 // never straddles two blocks, kTile / box_pos of them per tile and
 // 64-column panel, each in its own 1024-byte-aligned slot.
+// int8 pools: a stage holds the raw rows [K or V][head][position][dr]
+// (dr = d rounded up to 16 bytes), then their f32 scales [K or V][head]
+// [position]; stg_bytes is one consumer warp's bf16 K + V tile (0 for a
+// bf16 pool).
 struct Geo {
   int B, C, W, H, n_kv, d, nb, bs;
   int g, qpos, R, RT, HB, split, n_split, causal;
-  int n_panels, box_pos, slot, panel_bytes, stage_bytes;
+  int n_panels, box_pos, slot, panel_bytes, stage_bytes, stg_bytes;
   float scale;
 };
+
+// An int8 pool pair [nb, bs, n_kv, d] and its per-(slot, kv head) f32
+// scales [nb, bs, n_kv] (the kQ8 kernels; null otherwise).
+struct Q8Pools {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+};
+
+__host__ __device__ __forceinline__ int q8_row_bytes(int d) {
+  return (d + 15) & ~15;
+}
+
+// Stage and staging bytes of a call's geometry (HB, n_panels, d and
+// panel_bytes set).
+inline void set_stage_bytes(Geo& gm, bool q8) {
+  if (q8) {
+    gm.stage_bytes = 2 * gm.HB * kTile * (q8_row_bytes(gm.d) + 4);
+    gm.stg_bytes = 2 * gm.n_panels * kTile * kRowBytes;
+  } else {
+    gm.stage_bytes = 2 * gm.n_panels * gm.panel_bytes;
+    gm.stg_bytes = 0;
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -469,6 +539,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// One arrival on `bar` when every cp.async this thread started so far has
+// landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -504,6 +600,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The four int8 codes of w, each times s in f32 and rounded once to bf16
+// (the plain version's dequantize), as two bf16 pairs. A code x becomes the
+// f32 2^23 + (x + 128) by one byte permute, less 2^23 + 128: exactly x,
+// without the conversion unit's quarter rate.
+__device__ __forceinline__ uint2 dq4(uint32_t w, float s) {
+  const uint32_t u = w ^ 0x80808080u;  // x + 128 in each byte
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+            8388736.0f) * s;
+  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -551,6 +661,97 @@ __device__ __forceinline__ uint32_t row_offset(const Geo& gm, int p, int h) {
          (h * gm.box_pos + p % gm.box_pos) * kRowBytes;
 }
 
+// The pool block of each box of item w's span, up to four boxes per lane
+// (box lane + 32 u in blk[u]), loaded together: one latency per item.
+__device__ __forceinline__ void span_blocks(int (&blk)[kMaxBoxes / 32],
+                                            const Item& w, const int* trow,
+                                            const Geo& gm, int lane) {
+#pragma unroll
+  for (int u = 0; u < kMaxBoxes / 32; ++u) {
+    const int p = w.k_begin + (lane + 32 * u) * gm.box_pos;
+    const int e = p < w.k_end ? trow[p / gm.bs] : 0;
+    blk[u] = e < 0 ? 0 : (e >= gm.nb ? gm.nb - 1 : e);
+  }
+}
+
+// int8 pools, producer: start the cp.async copies of the tile [t0, t0 +
+// kTile) of item w into stage `st` (a shared address): the raw rows
+// [K or V][head][position] * dr, then their scales. Lanes 2 p and 2 p + 1
+// take position t0 + p: both halves of each 32-byte sector of its rows
+// (16-byte pieces, 8-byte where d is not a multiple of 16), and the even
+// or odd rows' scales. Positions at or past the item's last key are not
+// copied: they keep earlier finite rows (or the zeros of the start), which
+// P = 0 multiplies away.
+__device__ __forceinline__ void copy_stage_q8(
+    uint32_t st, const Item& w, int t0, const int (&blk)[kMaxBoxes / 32],
+    const Geo& gm, const Q8Pools& q8, int lane) {
+  const int d = gm.d, dr = q8_row_bytes(d);
+  const int piece = (d & 15) ? 8 : 16, ppr = d / piece;
+  const int p = lane >> 1, sub = lane & 1;
+  // The block of position t0 + p, from the span's boxes (whole warp).
+  const int bx = (t0 - w.k_begin + p) / gm.box_pos;
+  const int e0 = __shfl_sync(0xffffffffu, blk[0], bx & 31);
+  const int e1 = __shfl_sync(0xffffffffu, blk[1], bx & 31);
+  const int e2 = __shfl_sync(0xffffffffu, blk[2], bx & 31);
+  const int e3 = __shfl_sync(0xffffffffu, blk[3], bx & 31);
+  const int e = bx < 32 ? e0 : bx < 64 ? e1 : bx < 96 ? e2 : e3;
+  const int pos = t0 + p;
+  if (pos >= w.k_end) return;
+  const size_t slot = (size_t)e * gm.bs + pos % gm.bs;
+  const uint32_t scales = st + 2 * gm.HB * kTile * dr;
+  for (int hw = 0; hw < 2 * gm.HB; ++hw) {  // (K or V) * HB + head
+    const int which = hw >= gm.HB ? 1 : 0;
+    const size_t row = slot * gm.n_kv + w.kv0 + hw - which * gm.HB;
+    const int8_t* src = (which ? q8.v : q8.k) + row * d;
+    const uint32_t dst = st + (hw * kTile + p) * dr;
+    for (int c = sub; c < ppr; c += 2) {
+      if (piece == 16)
+        cp_async16(dst + 16 * c, src + 16 * c);
+      else
+        cp_async8(dst + 8 * c, src + 8 * c);
+    }
+    if ((hw & 1) == sub)
+      cp_async4(scales + 4 * (hw * kTile + p), (which ? q8.vs : q8.ks) + row);
+  }
+}
+
+// int8 pools, consumer: dequantize head hl's K and V rows of the landed
+// stage `st` into the warp's bf16 tile `stg`: K then V, each n_panels
+// panels of kTile 128-byte rows, 16-byte chunk c of row p at c ^ (p & 7)
+// (the 128-byte swizzle, so ldmatrix reads it as it reads a TMA'd bf16
+// tile). Lanes 2 p and 2 p + 1 take row p, 16 codes at a time (one 16-byte
+// shared load, four dq4, two 16-byte stores), starting 2 p units in, so
+// the eight lanes of a shared-memory phase touch eight distinct banks.
+__device__ __forceinline__ void dequant_stage_q8(const uint8_t* st,
+                                                 uint8_t* stg, const Geo& gm,
+                                                 int hl, int lane) {
+  const int dr = q8_row_bytes(gm.d), upr = dr / 16;
+  const int p = lane >> 1, sub = lane & 1, rot = (2 * p) % upr;
+  const float* scales =
+      reinterpret_cast<const float*>(st + 2 * gm.HB * kTile * dr);
+  const int v_half = gm.n_panels * kTile * kRowBytes;
+  const int swz = p & 7;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const int sr = (which * gm.HB + hl) * kTile + p;
+    const uint8_t* src = st + sr * dr;
+    const float s = scales[sr];
+    uint8_t* row = stg + which * v_half + p * kRowBytes;
+    for (int k = sub; k < upr; k += 2) {
+      const int c = k + rot < upr ? k + rot : k + rot - upr;
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + 16 * c);
+      const uint2 a = dq4(raw.x, s), b = dq4(raw.y, s);
+      const uint2 e = dq4(raw.z, s), f = dq4(raw.w, s);
+      uint8_t* dst = row + (c >> 2) * (kTile * kRowBytes);
+      const int chunk = 2 * (c & 3);
+      *reinterpret_cast<uint4*>(dst + ((chunk ^ swz) << 4)) =
+          make_uint4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<uint4*>(dst + (((chunk + 1) ^ swz) << 4)) =
+          make_uint4(e.x, e.y, f.x, f.y);
+    }
+  }
+}
+
 // Pass 1 for bf16, persistent: a grid of as many CTAs as fit on the card
 // at once (two per SM at llama-1b), CTA c taking work items c,
 // c + gridDim.x, ... and
@@ -562,15 +763,19 @@ __device__ __forceinline__ uint32_t row_offset(const Geo& gm, int p, int h) {
 // the same items and load an item's q before they wait for its first tile.
 // Rows are numbered r = position-in-item * g + head-in-group, as in the f32
 // kernel, and the partial layout is the same, with m in the log2 domain.
-// kNT: 8-column tiles of the head dim (d <= 8 * kNT).
-template <int kNT>
+// kNT: 8-column tiles of the head dim (d <= 8 * kNT). kQ8: int8 pools, whose
+// raw rows and scales the producer copies into the ring with cp.async (the
+// tensor maps are unused; a full barrier takes one arrival per producer
+// lane) and each consumer warp dequantizes into its own bf16 tile, after
+// the ring and its barriers (dequant_stage_q8).
+template <int kNT, bool kQ8>
 __global__ void __launch_bounds__(kThreadsB, 2)
     paged_partial_mma_kernel(__grid_constant__ const CUtensorMap k_map,
                              __grid_constant__ const CUtensorMap v_map,
                              const __nv_bfloat16* __restrict__ q,
                              const int* __restrict__ tables,
                              const int* __restrict__ per_seq, float* part,
-                             Geo gm) {
+                             Geo gm, Q8Pools q8) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: align the ring to it.
   const uint32_t raw = smem_addr(smem_raw);
@@ -589,18 +794,41 @@ __global__ void __launch_bounds__(kThreadsB, 2)
   auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1);
+      mbar_init(full(s), kQ8 ? 32 : 1);
       mbar_init(empty(s), consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Zero the ring: boxes a tile does not load then hold finite values.
+  // Zero the ring and the staging tiles: rows and columns a tile does not
+  // load then hold finite values.
   for (int o = 16 * threadIdx.x; o < ring; o += 16 * kThreadsB)
     *reinterpret_cast<uint4*>(smem + o) = make_uint4(0u, 0u, 0u, 0u);
+  for (int o = 16 * threadIdx.x; o < kConsumerWarps * gm.stg_bytes;
+       o += 16 * kThreadsB)
+    *reinterpret_cast<uint4*>(smem + ring + 64 + o) =
+        make_uint4(0u, 0u, 0u, 0u);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   int g = 0;  // tiles of this CTA so far (the ring's stage and phase)
+  if (warp == kConsumerWarps && kQ8) {
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+      const Item w = item_at(it, gm, per_seq);
+      if (w.n_tiles == 0) continue;
+      int blk[kMaxBoxes / 32];
+      span_blocks(blk, w, tables + (size_t)w.b * gm.W, gm, lane);
+      for (int t = 0; t < w.n_tiles; ++t) {
+        const int s = g % kStages, use = g / kStages;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        ++g;
+        copy_stage_q8(base + s * gm.stage_bytes, w, w.k_begin + t * kTile,
+                       blk, gm, q8, lane);
+        cp_async_arrive(full(s));
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
   if (warp == kConsumerWarps) {
     if (lane == 0) {
       prefetch_map(&k_map);
@@ -611,16 +839,8 @@ __global__ void __launch_bounds__(kThreadsB, 2)
     for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
       const Item w = item_at(it, gm, per_seq);
       if (w.n_tiles == 0) continue;
-      // The table entries of the span's boxes, up to four per lane, loaded
-      // together (one latency per item, not one per tile).
-      const int* trow = tables + (size_t)w.b * gm.W;
       int blk[kMaxBoxes / 32];
-#pragma unroll
-      for (int u = 0; u < kMaxBoxes / 32; ++u) {
-        const int p = w.k_begin + (lane + 32 * u) * gm.box_pos;
-        int e = p < w.k_end ? trow[p / gm.bs] : 0;
-        blk[u] = e < 0 ? 0 : (e >= gm.nb ? gm.nb - 1 : e);
-      }
+      span_blocks(blk, w, tables + (size_t)w.b * gm.W, gm, lane);
       for (int t = 0; t < w.n_tiles; ++t) {
         const int s = g % kStages, use = g / kStages;
         if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
@@ -665,9 +885,14 @@ __global__ void __launch_bounds__(kThreadsB, 2)
   // 0..7; V matrices (transposed): keys 8 (mi & 1) + 0..7, columns
   // 16 np + 8 (mi >> 1) + 0..7. The 16-byte chunk c of a row sits at chunk
   // c ^ (row & 7) (the 128-byte swizzle; slots are 1024-byte aligned).
+  // int8 pools: the same, in the warp's own tile of kTile rows per panel.
   const int mi = lane >> 3, mr = lane & 7;
-  const uint32_t k_row = row_offset(gm, 8 * (mi >> 1) + mr, hl);
-  const uint32_t v_row = row_offset(gm, 8 * (mi & 1) + mr, hl);
+  const uint32_t k_row = kQ8 ? (8 * (mi >> 1) + mr) * kRowBytes
+                             : row_offset(gm, 8 * (mi >> 1) + mr, hl);
+  const uint32_t v_row = kQ8 ? (8 * (mi & 1) + mr) * kRowBytes
+                             : row_offset(gm, 8 * (mi & 1) + mr, hl);
+  const uint32_t panel = kQ8 ? kTile * kRowBytes : gm.panel_bytes;
+  uint8_t* const stg = smem + ring + 64 + warp * gm.stg_bytes;
   const uint32_t k_swz = (k_row >> 7) & 7, v_swz = (v_row >> 7) & 7;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
     const Item w = item_at(it, gm, per_seq);
@@ -715,8 +940,15 @@ __global__ void __launch_bounds__(kThreadsB, 2)
       const int s = g % kStages;
       mbar_wait(full(s), (g / kStages) & 1);
       const int t0 = w.k_begin + t * kTile;
-      const uint32_t kst = base + s * gm.stage_bytes;
-      const uint32_t vst = kst + half;
+      uint32_t kst = base + s * gm.stage_bytes, vst = kst + half;
+      if (kQ8) {  // dequantize, then free the stage at once
+        __syncwarp();  // the previous tile's ldmatrix reads are done
+        dequant_stage_q8(smem + s * gm.stage_bytes, stg, gm, hl, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+        kst = smem_addr(stg);
+        vst = kst + gm.n_panels * panel;
+      }
 
       // S = qs K^T: score tile j covers keys 8 j .. 8 j + 7 of the tile;
       // ldmatrix registers 0, 1 are tile 0's B fragment, 2, 3 tile 1's.
@@ -730,7 +962,7 @@ __global__ void __launch_bounds__(kThreadsB, 2)
         if (16 * ks < d) {
           const int pn = ks >> 2, chunk = 2 * (ks & 3) + (mi & 1);
           uint32_t kb[4];
-          ldmatrix_x4(kb, kst + pn * gm.panel_bytes + k_row +
+          ldmatrix_x4(kb, kst + pn * panel + k_row +
                               ((chunk ^ k_swz) << 4));
           mma_bf16(sc[0], qa[ks], kb[0], kb[1]);
           mma_bf16(sc[1], qa[ks], kb[2], kb[3]);
@@ -798,14 +1030,14 @@ __global__ void __launch_bounds__(kThreadsB, 2)
         if (2 * np < nt) {
           const int pn = np >> 2, chunk = 2 * (np & 3) + (mi >> 1);
           uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vst + pn * gm.panel_bytes + v_row +
+          ldmatrix_x4_trans(vb, vst + pn * panel + v_row +
                                     ((chunk ^ v_swz) << 4));
           mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
           mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
         }
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty(s));
+      if (!kQ8 && lane == 0) mbar_arrive(empty(s));
     }
 
     // (acc, m, l) of each valid row, l summed over the quad.
@@ -883,13 +1115,19 @@ cudaError_t make_pool_map(CUtensorMap* map, const void* pool, const Geo& gm) {
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-int smem_bytes(const Geo& gm) { return kStages * gm.stage_bytes + 64 + 1024; }
+// The ring, its barriers (64 bytes), the int8 staging tiles, and the slack
+// of the 1024-byte alignment.
+int smem_bytes(const Geo& gm) {
+  return kStages * gm.stage_bytes + 64 + kConsumerWarps * gm.stg_bytes +
+         1024;
+}
 constexpr int kMaxSmemBytes = kStages * kMaxStageBytes + 64 + 1024;
 
-template <int kNT>
-cudaError_t launch_partial(const CUtensorMap (&maps)[2], const void* q,
-                           const int* tables, const int* per_seq, float* part,
-                           const Geo& gm, int n_items, cudaStream_t stream) {
+template <int kNT, bool kQ8>
+cudaError_t launch_partial(const CUtensorMap (&maps)[2], const Q8Pools& q8,
+                           const void* q, const int* tables,
+                           const int* per_seq, float* part, const Geo& gm,
+                           int n_items, cudaStream_t stream) {
   static int n_sm = 0;  // once per instantiation and process
   if (n_sm == 0) {
     int dev = 0;
@@ -898,7 +1136,7 @@ cudaError_t launch_partial(const CUtensorMap (&maps)[2], const void* q,
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                    dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(paged_partial_mma_kernel<kNT>,
+      err = cudaFuncSetAttribute(paged_partial_mma_kernel<kNT, kQ8>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxSmemBytes);
     if (err != cudaSuccess) {
@@ -910,17 +1148,19 @@ cudaError_t launch_partial(const CUtensorMap (&maps)[2], const void* q,
   // (the SM's 228 KB, 1 KB reserved per CTA), else one.
   const int smem = smem_bytes(gm);
   const int per_sm = 2 * (smem + 1024) <= 233472 ? 2 : 1;
-  paged_partial_mma_kernel<kNT>
+  paged_partial_mma_kernel<kNT, kQ8>
       <<<min(n_items, per_sm * n_sm), kThreadsB, smem, stream>>>(
           maps[0], maps[1], static_cast<const __nv_bfloat16*>(q), tables,
-          per_seq, part, gm);
+          per_seq, part, gm, q8);
   return cudaGetLastError();
 }
 
 int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 // Pass 1 for bf16 over [b, C, H, d] queries; returns the launch error.
+// With scales (ks, vs non-null) k and v are int8 pools.
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const float* ks, const float* vs,
                         const int* tables, const int* per_seq, float* part,
                         int b, int C, int W, int H, int n_kv, int d, int nb,
                         int bs, int split_keys, int causal, float scale,
@@ -947,18 +1187,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   gm.slot = (gm.box_pos * gm.HB * kRowBytes + 1023) / 1024 * 1024;
   gm.panel_bytes = kTile / gm.box_pos * gm.slot;
-  gm.stage_bytes = 2 * gm.n_panels * gm.panel_bytes;
-  CUtensorMap maps[2];
+  set_stage_bytes(gm, ks != nullptr);
+  const int n_items =
+      gm.n_split * ((C + gm.qpos - 1) / gm.qpos) * (n_kv / gm.HB) * b;
+  CUtensorMap maps[2] = {};
+  if (ks != nullptr) {  // int8: the producer copies rows by cp.async
+    const Q8Pools q8 = {static_cast<const int8_t*>(k),
+                        static_cast<const int8_t*>(v), ks, vs};
+    if (d <= 64)
+      return launch_partial<8, true>(maps, q8, q, tables, per_seq, part, gm,
+                                     n_items, stream);
+    return launch_partial<16, true>(maps, q8, q, tables, per_seq, part, gm,
+                                    n_items, stream);
+  }
   cudaError_t err = make_pool_map(&maps[0], k, gm);
   if (err == cudaSuccess) err = make_pool_map(&maps[1], v, gm);
   if (err != cudaSuccess) return err;
-  const int n_items =
-      gm.n_split * ((C + gm.qpos - 1) / gm.qpos) * (n_kv / gm.HB) * b;
+  const Q8Pools none = {nullptr, nullptr, nullptr, nullptr};
   if (d <= 64)
-    return launch_partial<8>(maps, q, tables, per_seq, part, gm, n_items,
-                             stream);
-  return launch_partial<16>(maps, q, tables, per_seq, part, gm, n_items,
-                            stream);
+    return launch_partial<8, false>(maps, none, q, tables, per_seq, part, gm,
+                                    n_items, stream);
+  return launch_partial<16, false>(maps, none, q, tables, per_seq, part, gm,
+                                   n_items, stream);
 }
 
 }  // namespace hopper
@@ -971,11 +1221,13 @@ bool bad_geometry(int H, int n_kv, int d, int W, int nb, int bs) {
 }
 
 // Both passes over [b, C, H, d] queries: split-K partials, then the
-// combine. part holds b * C * H * n_split * (d + 2) floats.
-int dispatch(const void* q, const void* k, const void* v, const void* tables,
-             const void* per_seq, void* part, void* out, int dtype, int b,
-             int C, int W, int H, int n_kv, int d, int nb, int bs,
-             int split_keys, int causal, float scale, void* stream) {
+// combine. part holds b * C * H * n_split * (d + 2) floats. With scales
+// (ks, vs non-null) k and v are int8 pools.
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* tables, const void* per_seq,
+             void* part, void* out, int dtype, int b, int C, int W, int H,
+             int n_kv, int d, int nb, int bs, int split_keys, int causal,
+             float scale, void* stream) {
   if (bad_geometry(H, n_kv, d, W, nb, bs) || b <= 0 || C <= 0 ||
       split_keys <= 0 || split_keys % kTileK != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -985,23 +1237,32 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
   float* p = static_cast<float*>(part);
   const int n_split = (W * bs + split_keys - 1) / split_keys;
   const unsigned rows = (unsigned)((size_t)b * C * H);
+  const float* kscale = static_cast<const float*>(ks);
+  const float* vscale = static_cast<const float*>(vs);
   cudaError_t err;
   if (dtype == 0) {
     const int g = H / n_kv;
     const int qpos = C == 1 ? 1 : kMaxRows / g;
-    paged_partial_kernel<<<dim3(n_split, (C + qpos - 1) / qpos, b * n_kv),
-                           kThreads, smem_bytes(qpos * g, d), st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), t, ps, p, C, W, H, n_kv, d, nb, bs,
-        qpos, split_keys, causal, scale);
+    const dim3 grid(n_split, (C + qpos - 1) / qpos, b * n_kv);
+    const size_t smem = smem_bytes(qpos * g, d);
+    if (kscale != nullptr)
+      paged_partial_kernel<int8_t><<<grid, kThreads, smem, st>>>(
+          static_cast<const float*>(q), static_cast<const int8_t*>(k),
+          static_cast<const int8_t*>(v), kscale, vscale, t, ps, p, C, W, H,
+          n_kv, d, nb, bs, qpos, split_keys, causal, scale);
+    else
+      paged_partial_kernel<float><<<grid, kThreads, smem, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), nullptr, nullptr, t, ps, p, C, W, H,
+          n_kv, d, nb, bs, qpos, split_keys, causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     paged_combine_kernel<float, false><<<rows, kThreads, 0, st>>>(
         p, static_cast<float*>(out), ps, C, H, d, n_split, split_keys,
         W * bs, causal);
   } else {
-    err = hopper::launch_bf16(q, k, v, t, ps, p, b, C, W, H, n_kv, d, nb, bs,
-                              split_keys, causal, scale, st);
+    err = hopper::launch_bf16(q, k, v, kscale, vscale, t, ps, p, b, C, W, H,
+                              n_kv, d, nb, bs, split_keys, causal, scale, st);
     if (err != cudaSuccess) return (int)err;
     paged_combine_kernel<__nv_bfloat16, true><<<rows, kThreads, 0, st>>>(
         p, static_cast<__nv_bfloat16*>(out), ps, C, H, d, n_split,
@@ -1013,58 +1274,71 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
 }  // namespace
 
 // Decode attention through the block tables. q, out: [B, 1, H, d]; k, v:
-// one layer's pool [nb, bs, n_kv, d]; tables [B, W] int32; lengths [B]
-// int32 (counting the new token); part: f32 scratch of
+// one layer's pool [nb, bs, n_kv, d], of q's type, or int8 with ks, vs its
+// f32 scales [nb, bs, n_kv] (null for a pool of q's type); tables [B, W]
+// int32; lengths [B] int32 (counting the new token); part: f32 scratch of
 // B * H * ceil(W * bs / split_keys) * (d + 2) elements. All contiguous;
-// bf16 pools 16-byte aligned. dtype 0 = f32, 1 = bf16.
+// pools 16-byte aligned. dtype (of q) 0 = f32, 1 = bf16.
 extern "C" int grove_paged_decode(const void* q, const void* k, const void* v,
+                                  const void* ks, const void* vs,
                                   const void* tables, const void* lengths,
                                   void* part, void* out, int dtype, int B,
                                   int W, int H, int n_kv, int d, int nb,
                                   int bs, int split_keys, float scale,
                                   void* stream) {
-  return dispatch(q, k, v, tables, lengths, part, out, dtype, B, 1, W, H,
-                  n_kv, d, nb, bs, split_keys, 0, scale, stream);
+  return dispatch(q, k, v, ks, vs, tables, lengths, part, out, dtype, B, 1,
+                  W, H, n_kv, d, nb, bs, split_keys, 0, scale, stream);
 }
 
 // Chunked-prefill attention through the block tables. q, out:
-// [b, C, H, d]; k, v: one layer's pool [nb, bs, n_kv, d]; tables [b, W]
+// [b, C, H, d]; k, v, ks, vs: as for grove_paged_decode; tables [b, W]
 // int32; offsets [b] int32 (absolute position of each sequence's row 0);
 // part: f32 scratch of b * C * H * ceil(W * bs / split_keys) * (d + 2)
-// elements. All contiguous; bf16 pools 16-byte aligned. dtype 0 = f32,
+// elements. All contiguous; pools 16-byte aligned. dtype 0 = f32,
 // 1 = bf16.
 extern "C" int grove_paged_chunk(const void* q, const void* k, const void* v,
+                                 const void* ks, const void* vs,
                                  const void* tables, const void* offsets,
                                  void* part, void* out, int dtype, int b,
                                  int C, int W, int H, int n_kv, int d, int nb,
                                  int bs, int split_keys, float scale,
                                  void* stream) {
-  return dispatch(q, k, v, tables, offsets, part, out, dtype, b, C, W, H,
-                  n_kv, d, nb, bs, split_keys, 1, scale, stream);
+  return dispatch(q, k, v, ks, vs, tables, offsets, part, out, dtype, b, C,
+                  W, H, n_kv, d, nb, bs, split_keys, 1, scale, stream);
 }
 
 // Per-thread registers, local (spill) bytes and dynamic shared memory per
 // CTA of a built kernel, into out[3]: which = 0 the partial kernel that
-// takes dtype at head dim d (bf16: the d <= 64 or d <= 128 build), 1 the
-// combine kernel for dtype.
-extern "C" int grove_paged_info(int which, int dtype, int d, int* out) {
+// takes dtype at head dim d (bf16: the d <= 64 or d <= 128 build) over a
+// pool of q's type (q8 = 0) or an int8 pool (q8 = 1), 1 the combine kernel
+// for dtype.
+extern "C" int grove_paged_info(int which, int dtype, int d, int q8,
+                                int* out) {
   const void* fn = nullptr;
   int smem = 0;
   if (which == 0 && dtype == 0) {
-    fn = reinterpret_cast<const void*>(paged_partial_kernel);
+    fn = q8 ? reinterpret_cast<const void*>(paged_partial_kernel<int8_t>)
+            : reinterpret_cast<const void*>(paged_partial_kernel<float>);
     smem = (int)smem_bytes(kMaxRows, d);
   } else if (which == 0 && dtype == 1) {
-    fn = d <= 64 ? reinterpret_cast<const void*>(
-                       hopper::paged_partial_mma_kernel<8>)
-                 : reinterpret_cast<const void*>(
-                       hopper::paged_partial_mma_kernel<16>);
+    if (q8)
+      fn = d <= 64 ? reinterpret_cast<const void*>(
+                         hopper::paged_partial_mma_kernel<8, true>)
+                   : reinterpret_cast<const void*>(
+                         hopper::paged_partial_mma_kernel<16, true>);
+    else
+      fn = d <= 64 ? reinterpret_cast<const void*>(
+                         hopper::paged_partial_mma_kernel<8, false>)
+                   : reinterpret_cast<const void*>(
+                         hopper::paged_partial_mma_kernel<16, false>);
     // At block size 16 with the widest kv head group that d allows.
     hopper::Geo gm;
     gm.n_panels = (d + hopper::kPanelCols - 1) / hopper::kPanelCols;
     gm.HB = min(hopper::kConsumerWarps,
                 hopper::kMaxHeadPanels / gm.n_panels);
-    gm.stage_bytes =
-        2 * gm.n_panels * hopper::kTile * gm.HB * hopper::kRowBytes;
+    gm.d = d;
+    gm.panel_bytes = hopper::kTile * gm.HB * hopper::kRowBytes;
+    hopper::set_stage_bytes(gm, q8 != 0);
     smem = hopper::smem_bytes(gm);
   } else if (which == 1 && dtype == 0) {
     fn = reinterpret_cast<const void*>(paged_combine_kernel<float, false>);

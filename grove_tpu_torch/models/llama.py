@@ -23,9 +23,12 @@ from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
                                            pick_causal_attention)
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
+from grove_tpu_torch.ops.kvquant import paged_scatter_q, scatter_slots
 from grove_tpu_torch.ops.norms import rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
-                                       paged_decode_attention)
+                                       paged_chunk_attention_q8,
+                                       paged_decode_attention,
+                                       paged_decode_attention_q8)
 from grove_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -279,8 +282,13 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
 # the tables with the kernels of ops/paged.py on CUDA tensors and their
 # plain versions (the JAX composition: ``_paged_gather``, which is
 # ops/paged.py's ``paged_gather``, then dense attention) on CPU tensors.
-# int8 pools (_paged_scatter_q, _paged_gather_q,
-# paged_block_copy_q) are not ported yet (ROADMAP.md, queue 1).
+#
+# int8 paged KV (GROVE_KV_QUANT=int8): the pools hold int8 rows with a
+# per-(slot, head) f32 scale beside them ([layers, num_blocks, bs, n_kv],
+# ``k_scale``/``v_scale``). The write quantizes (the JAX package's
+# ``_paged_scatter_q``: ops/kvquant.py, a kernel on CUDA tensors),
+# attention dequantizes as it reads (``_paged_gather_q``'s arithmetic:
+# ops/paged.py, inside the paged kernels).
 
 
 def _paged_scatter(cache_blocks: torch.Tensor, kv: torch.Tensor,
@@ -289,29 +297,12 @@ def _paged_scatter(cache_blocks: torch.Tensor, kv: torch.Tensor,
     """Write ``kv`` [b, s, n_kv, d] at token ``positions`` [b, s] through
     the block tables [b, w] (one flat index write into ``cache_blocks``
     [nb, bs, n_kv, d], in place; returns it). Positions in a table's
-    padding resolve to the null block.
-
-    A position past the table's width also lands in the null block, at
-    slot ``positions % bs``: that is where the JAX package's write goes,
-    since its ``take_along_axis`` fills an out-of-range column with the
-    int32 minimum, which times an even block size wraps to block 0 (its
-    scatter drops the write for an odd one). ``valid`` [b, s] bool, when
-    given, reroutes masked-out rows to the same null-block slot: without
-    it a padded chunk tail past the table's backed capacity would write
-    into a live block. Rerouted rows are the only ones that can share an
-    index, and only inside the null block, so the order-undefined
-    duplicate write on CUDA lands nowhere live."""
+    padding resolve to the null block; positions past the table's width,
+    and rows that ``valid`` [b, s] masks out, land in the null block at
+    slot ``positions % bs`` (``scatter_slots`` says why)."""
     nb, bs = cache_blocks.shape[0], cache_blocks.shape[1]
-    w = tables.shape[1]
-    col = torch.div(positions, bs, rounding_mode="floor")
-    block = torch.gather(tables, 1, col.clamp(0, w - 1).to(torch.long))
-    slot = positions % bs
-    flat_idx = block.to(positions.dtype) * bs + slot
-    inside = col < w
-    keep = inside if valid is None else inside & valid
-    flat_idx = torch.where(keep, flat_idx, slot)
     flat = cache_blocks.view((nb * bs,) + tuple(cache_blocks.shape[2:]))
-    flat.index_copy_(0, flat_idx.reshape(-1).to(torch.long),
+    flat.index_copy_(0, scatter_slots(tables, positions, bs, valid),
                      kv.reshape((-1,) + tuple(kv.shape[2:])).to(flat.dtype))
     return cache_blocks
 
@@ -331,15 +322,43 @@ def paged_block_copy(dst_k: torch.Tensor, dst_v: torch.Tensor,
     dst_v.index_copy_(1, dst, v_rows)
 
 
+def paged_block_copy_q(dst_k: torch.Tensor, dst_v: torch.Tensor,
+                       dst_ks: torch.Tensor, dst_vs: torch.Tensor,
+                       src_k: torch.Tensor, src_v: torch.Tensor,
+                       src_ks: torch.Tensor, src_vs: torch.Tensor,
+                       src: torch.Tensor, dst: torch.Tensor) -> None:
+    """int8 variant of ``paged_block_copy``: the int8 rows and their
+    per-slot scales move together, as they are (an int8 block without its
+    scale rows dequantizes to garbage)."""
+    paged_block_copy(dst_k, dst_v, src_k, src_v, src, dst)
+    paged_block_copy(dst_ks, dst_vs, src_ks, src_vs, src, dst)
+
+
+def _write_and_attend(q, k, v, kc, vc, ks, vs, tables, positions, per_seq,
+                      valid, decode: bool):
+    """One layer's paged K/V write and attention, over a model-dtype pool
+    (``ks`` None) or an int8 pool with its scales."""
+    if ks is None:
+        _paged_scatter(kc, k, tables, positions, valid=valid)
+        _paged_scatter(vc, v, tables, positions, valid=valid)
+        attn = paged_decode_attention if decode else paged_chunk_attention
+        return attn(q, kc, vc, tables, per_seq)
+    paged_scatter_q(kc, vc, ks, vs, k, v, tables, positions, valid)
+    attn = paged_decode_attention_q8 if decode else paged_chunk_attention_q8
+    return attn(q, kc, vc, ks, vs, tables, per_seq)
+
+
 def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                       kv_k: torch.Tensor, kv_v: torch.Tensor,
-                      tables: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      tables: torch.Tensor, lengths: torch.Tensor,
+                      k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step over block tables. tokens: [b]; pools:
     [layers, num_blocks, bs, n_kv, d]; tables: [b, w] int32; lengths: [b]
     int32 = tokens already in cache (the new token writes at that
-    position). Writes the new K/V into the pools in place and returns the
-    logits [b, vocab] f32.
+    position). With ``k_scale``/``v_scale`` ([layers, num_blocks, bs,
+    n_kv] f32) the pools are int8. Writes the new K/V (and scales) into the
+    pools in place and returns the logits [b, vocab] f32.
 
     Everything stays on the device and nothing is read back to the host,
     so the engine can capture the step in a CUDA graph: ``tables`` and
@@ -354,53 +373,71 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
         q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
-        kc, vc = kv_k[i], kv_v[i]
-        _paged_scatter(kc, k, tables, positions)
-        _paged_scatter(vc, v, tables, positions)
-        attn = paged_decode_attention(q, kc, vc, tables, new_lengths)
+        attn = _write_and_attend(
+            q, k, v, kv_k[i], kv_v[i],
+            None if k_scale is None else k_scale[i],
+            None if v_scale is None else v_scale[i], tables, positions,
+            new_lengths, None, decode=True)
         x = _attn_out(x, attn, lp)
         x = _mlp_block(cfg, x, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(x[:, 0], params["lm_head"])
 
 
+def _device_scalar(v, device: torch.device) -> torch.Tensor:
+    """An int or a one-element tensor as a [1] int32 tensor on ``device``
+    (a tensor already there is not copied)."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(v)], dtype=torch.int32, device=device)
+
+
 def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
                         tokens: torch.Tensor, kv_k: torch.Tensor,
                         kv_v: torch.Tensor, tables: torch.Tensor,
-                        offset: int, logit_idx: int,
-                        n_valid: int | None = None) -> torch.Tensor:
+                        offset, logit_idx, n_valid=None,
+                        k_scale: torch.Tensor | None = None,
+                        v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """One chunked-prefill window over block tables, the pools written in
-    place.
+    place (int8 pools with ``k_scale``/``v_scale``, as in
+    ``decode_step_paged``).
 
-    tokens: [b, c] at absolute positions [offset, offset + c); ``n_valid``
-    (default c) counts the real tokens of the chunk: padded tail rows
-    scatter to the null block instead of clamping into the sequence's last
-    backed block (see ``_paged_scatter``; they are causally invisible to
-    the valid rows regardless). Attention is causal from ``offset`` over
-    the w * bs window the tables reach. Returns the logits [b, vocab] f32
-    at row ``logit_idx``: the caller passes the last valid row for the
-    chunk that completes the prompt. An index outside the chunk is clamped
-    into it (the JAX package's ``take`` returns NaN rows there instead;
-    no caller passes one)."""
+    tokens: [b, c] at absolute positions [offset, offset + c). ``offset``,
+    ``logit_idx`` and ``n_valid`` are int32 device scalars (one-element
+    tensors; Python ints are taken too and give the same numbers): the
+    JAX package's traced scalars, and what lets one captured CUDA graph per
+    (c, table width) serve every window, since nothing here is read back to
+    the host. ``n_valid`` (default c) counts the real tokens of the chunk:
+    padded tail rows scatter to the null block instead of clamping into the
+    sequence's last backed block (see ``scatter_slots``; they are causally
+    invisible to the valid rows regardless). Attention is causal from
+    ``offset`` over the w * bs window the tables reach. Returns the logits
+    [b, vocab] f32 at row ``logit_idx``: the caller passes the last valid
+    row for the chunk that completes the prompt. An index outside the chunk
+    is clamped into it (the JAX package's ``take`` returns NaN rows there
+    instead; no caller passes one)."""
     b, c = tokens.shape
     dev = tokens.device
-    positions = (offset + torch.arange(c, device=dev))[None, :].expand(b, c)
-    if n_valid is None:
-        n_valid = c
-    valid = (torch.arange(c, device=dev) < n_valid)[None, :].expand(b, c)
-    offsets = torch.full((b,), offset, dtype=torch.int32, device=dev)
+    offset = _device_scalar(offset, dev)
+    logit_idx = _device_scalar(logit_idx, dev)
+    n_valid = _device_scalar(c if n_valid is None else n_valid, dev)
+    steps = torch.arange(c, dtype=torch.int32, device=dev)
+    positions = (offset + steps)[None, :].expand(b, c)
+    valid = (steps < n_valid)[None, :].expand(b, c)
+    offsets = offset.expand(b)
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
     x = embed(cfg, params, tokens)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
         q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
-        kc, vc = kv_k[i], kv_v[i]
-        _paged_scatter(kc, k, tables, positions, valid=valid)
-        _paged_scatter(vc, v, tables, positions, valid=valid)
-        attn = paged_chunk_attention(q, kc, vc, tables, offsets)
+        attn = _write_and_attend(
+            q, k, v, kv_k[i], kv_v[i],
+            None if k_scale is None else k_scale[i],
+            None if v_scale is None else v_scale[i], tables, positions,
+            offsets, valid, decode=False)
         x = _attn_out(x, attn, lp)
         x = _mlp_block(cfg, x, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    row = x[:, min(max(int(logit_idx), 0), c - 1)]  # [b, d]
+    row = x.index_select(1, logit_idx.clamp(0, c - 1))[:, 0]  # [b, d]
     return _logits(row, params["lm_head"])

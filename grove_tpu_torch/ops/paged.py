@@ -29,6 +29,17 @@ row's numbers depend only on its position, never on the table width or the
 chunk's boundaries (and in bf16 a decode row at length p + 1 equals the
 chunk row at position p bitwise). The source's header has the details.
 
+int8 pools (``GROVE_KV_QUANT=int8``: int8 rows with a per-(slot, kv head)
+f32 scale, ops/kvquant.py) go through ``paged_decode_attention_q8`` and
+``paged_chunk_attention_q8``. Their plain versions dequantize the gathered
+rows as the JAX package's ``_paged_gather_q`` does (``paged_gather_q``: f32
+product, one rounding to the query's type), then attend as above. The
+kernels dequantize the same way as rows load, then run the same per-row
+instructions as for a model-dtype pool: in bf16 the producer warp copies the
+raw int8 rows and scales into the ring with ``cp.async`` and each consumer
+warp dequantizes its kv head's rows into a bf16 tile laid out as TMA lays
+out a bf16 pool's; f32 dequantizes in its tile loads.
+
 Each wrapper takes its kernel for CUDA tensors and the plain version for
 CPU tensors; anything else raises. ``launches`` on each wrapper counts its
 launches (one per call: the split-K pass and its combine).
@@ -65,30 +76,63 @@ def paged_gather(cache_blocks: torch.Tensor,
     return cache_blocks[idx].reshape(b, w * bs, n_kv, d)
 
 
+def paged_gather_q(cache_blocks: torch.Tensor, scales: torch.Tensor,
+                   tables: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Dequantizing variant of ``paged_gather`` (the JAX package's
+    ``_paged_gather_q``): int8 rows [nb, bs, n_kv, d] times their f32
+    scales [nb, bs, n_kv], the product rounded once to ``dtype`` ->
+    [b, w * bs, n_kv, d]."""
+    b, w = tables.shape
+    nb, bs, n_kv, d = cache_blocks.shape
+    idx = tables.to(torch.long).clamp(0, nb - 1)
+    vals = cache_blocks[idx].reshape(b, w * bs, n_kv, d)
+    s = scales[idx].reshape(b, w * bs, n_kv)
+    return (vals.to(torch.float32) * s[..., None]).to(dtype)
+
+
+def _gathered(q, k_pool, v_pool, tables, k_scale, v_scale):
+    if k_scale is None:
+        return paged_gather(k_pool, tables), paged_gather(v_pool, tables)
+    return (paged_gather_q(k_pool, k_scale, tables, q.dtype),
+            paged_gather_q(v_pool, v_scale, tables, q.dtype))
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, tables: torch.Tensor,
-                               lengths: torch.Tensor) -> torch.Tensor:
+                               lengths: torch.Tensor,
+                               k_scale: torch.Tensor | None = None,
+                               v_scale: torch.Tensor | None = None
+                               ) -> torch.Tensor:
     """Plain version: ``decode_attention`` over the gathered cache (the JAX
     package's composition in ``decode_step_paged``). q: [b, 1, h, d];
     pools: [nb, bs, n_kv, d]; tables: [b, w]; lengths: [b], counting the
-    new token."""
-    return decode_attention(q, paged_gather(k_pool, tables),
-                            paged_gather(v_pool, tables), lengths)
+    new token. With ``k_scale``/``v_scale`` [nb, bs, n_kv] the pools are
+    int8 and gather through ``paged_gather_q``."""
+    k, v = _gathered(q, k_pool, v_pool, tables, k_scale, v_scale)
+    return decode_attention(q, k, v, lengths)
 
 
 def paged_chunk_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor, tables: torch.Tensor,
-                              offsets: torch.Tensor) -> torch.Tensor:
+                              offsets: torch.Tensor,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """Plain version: ``causal_attention`` over the gathered cache with a
     per-sequence q offset (``prefill_chunk_paged``'s composition). q:
     [b, c, h, d]; pools: [nb, bs, n_kv, d]; tables: [b, w]; offsets: [b]
-    int32, the absolute position of each sequence's row 0."""
-    return causal_attention(q, paged_gather(k_pool, tables),
-                            paged_gather(v_pool, tables), q_offset=offsets)
+    int32, the absolute position of each sequence's row 0. Scales as in
+    ``paged_decode_attention_ref``."""
+    k, v = _gathered(q, k_pool, v_pool, tables, k_scale, v_scale)
+    return causal_attention(q, k, v, q_offset=offsets)
 
 
 def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-           tables: torch.Tensor, per_seq: torch.Tensor, name: str) -> None:
+           tables: torch.Tensor, per_seq: torch.Tensor, name: str,
+           k_scale: torch.Tensor | None = None,
+           v_scale: torch.Tensor | None = None) -> None:
+    """Shapes and types; with scales, the pools must be int8 and the scales
+    float32 [nb, bs, n_kv]."""
     if q.dim() != 4 or k_pool.dim() != 4 or tables.dim() != 2:
         raise ValueError("q must be [b, s, h, d], pools [nb, bs, n_kv, d] "
                          "and tables [b, w]")
@@ -106,9 +150,18 @@ def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                          f"{b}")
     if tables.dtype != torch.int32 or per_seq.dtype != torch.int32:
         raise ValueError(f"tables and {name} must be int32")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise ValueError(f"dtype mismatch: {q.dtype}, {k_pool.dtype}, "
-                         f"{v_pool.dtype}")
+    pool_dtype = q.dtype if k_scale is None else torch.int8
+    if not (k_pool.dtype == v_pool.dtype == pool_dtype):
+        raise ValueError(f"dtype mismatch: q {q.dtype}, pools "
+                         f"{k_pool.dtype}, {v_pool.dtype}")
+    if k_scale is not None:
+        want = tuple(k_pool.shape[:3])
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want \
+                or k_scale.dtype != torch.float32 \
+                or v_scale.dtype != torch.float32:
+            raise ValueError(f"scales must be float32 {list(want)}, got "
+                             f"{k_scale.dtype} {tuple(k_scale.shape)}, "
+                             f"{v_scale.dtype} {tuple(v_scale.shape)}")
 
 
 @functools.lru_cache(maxsize=1)
@@ -116,43 +169,43 @@ def _kernel():
     """The C entry points and helpers, typed once."""
     lib = _build.load("paged_attn")
     decode = lib.grove_paged_decode
-    decode.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    decode.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     decode.restype = ctypes.c_int
     chunk = lib.grove_paged_chunk
-    chunk.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+    chunk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
     chunk.restype = ctypes.c_int
     err_str = lib.grove_paged_error_string
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
     info = lib.grove_paged_info
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p]
+    info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     info.restype = ctypes.c_int
     return decode, chunk, err_str, info
 
 
 def kernel_info(which: str, dtype: torch.dtype,
-                head_dim: int = MAX_HEAD_DIM) -> dict[str, int]:
+                head_dim: int = MAX_HEAD_DIM,
+                int8_pool: bool = False) -> dict[str, int]:
     """Registers and local (spill) bytes per thread and dynamic shared
     memory per CTA of the built ``partial`` (pass 1) or ``combine`` (pass
-    2) kernel that a call with ``dtype`` and ``head_dim`` runs (needs the
-    card)."""
+    2) kernel that a call with query ``dtype``, ``head_dim`` and a
+    model-dtype or int8 pool runs (needs the card)."""
     _, _, err_str, info = _kernel()
     out = (ctypes.c_int * 3)()
     err = info({"partial": 0, "combine": 1}[which], _DTYPE_CODES[dtype],
-               head_dim, out)
+               head_dim, int(int8_pool), out)
     if err != 0:
         raise RuntimeError(f"paged kernel info failed: "
                            f"{err_str(err).decode()} ({err})")
     return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2]}
 
 
-def _kernel_args(q, k_pool, v_pool, tables, per_seq):
+def _kernel_args(q, k_pool, v_pool, tables, per_seq, scales):
     """Validate what the kernels take; returns contiguous q, tables and the
-    per-sequence vector. The pools are never copied: a pool that is not
-    contiguous raises."""
+    per-sequence vector. The pools (and scales) are never copied: one that
+    is not contiguous raises."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"paged kernels take float32 or bfloat16, not "
                          f"{q.dtype}")
@@ -163,14 +216,17 @@ def _kernel_args(q, k_pool, v_pool, tables, per_seq):
     if q.shape[2] // k_pool.shape[2] > MAX_GROUP:
         raise ValueError(f"paged kernels hold at most {MAX_GROUP} query "
                          f"heads per kv head")
-    devs = {t.device for t in (q, k_pool, v_pool, tables, per_seq)}
+    pools = (k_pool, v_pool, *scales)
+    devs = {t.device for t in (q, *pools, tables, per_seq)}
     if len(devs) != 1:
         raise ValueError(f"paged attention inputs span devices {devs}")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+    if not all(t.is_contiguous() for t in pools):
         raise ValueError("paged kernels read contiguous pools")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged kernels copy pool rows in 16-byte units: "
                          "the pools must start 16-byte aligned")
+    if any(t.data_ptr() % 4 for t in scales):
+        raise ValueError("the scales must start 4-byte aligned")
     q = q.contiguous()
     if q.data_ptr() % 16:  # a view at an odd offset: the kernels load pairs
         q = q.clone()
@@ -202,9 +258,12 @@ def _scratch(q: torch.Tensor, w: int, bs: int) -> torch.Tensor:
                        dtype=torch.float32, device=q.device)
 
 
-def _launch(entry: int, q, k_pool, v_pool, tables, per_seq) -> torch.Tensor:
-    """Launch the decode (entry 0) or chunk (entry 1) kernels."""
-    q, tables, per_seq = _kernel_args(q, k_pool, v_pool, tables, per_seq)
+def _launch(entry: int, q, k_pool, v_pool, tables, per_seq,
+            scales=()) -> torch.Tensor:
+    """Launch the decode (entry 0) or chunk (entry 1) kernels; ``scales``
+    (k_scale, v_scale) for int8 pools."""
+    q, tables, per_seq = _kernel_args(q, k_pool, v_pool, tables, per_seq,
+                                      scales)
     b, c, h, d = q.shape
     nb, bs, n_kv, _ = k_pool.shape
     w = tables.shape[1]
@@ -213,9 +272,10 @@ def _launch(entry: int, q, k_pool, v_pool, tables, per_seq) -> torch.Tensor:
     fn = _kernel()[entry]
     shape = (b, w, h, n_kv, d, nb, bs) if entry == 0 else \
         (b, c, w, h, n_kv, d, nb, bs)
+    ks, vs = (t.data_ptr() for t in scales) if scales else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
                  tables.data_ptr(), per_seq.data_ptr(), part.data_ptr(),
                  out.data_ptr(), _DTYPE_CODES[q.dtype], *shape, SPLIT_KEYS,
                  d ** -0.5, stream)
@@ -242,9 +302,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     CUDA tensors run the hand-written kernel; CPU tensors run
     ``paged_decode_attention_ref``. Anything else raises."""
     _check(q, k_pool, v_pool, tables, lengths, "lengths")
-    if q.shape[1] != 1:
-        raise ValueError(f"decode takes one query per sequence, got "
-                         f"{q.shape[1]}")
+    _one_query(q)
     if _route(q, (k_pool, v_pool, tables, lengths)) == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths)
     out = _launch(0, q, k_pool, v_pool, tables, lengths)
@@ -270,5 +328,53 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, tables: torch.Tensor,
+                              lengths: torch.Tensor) -> torch.Tensor:
+    """``paged_decode_attention`` over int8 pools [nb, bs, n_kv, d] with
+    their f32 scales [nb, bs, n_kv]: K/V dequantize to q's type (f32
+    product, one rounding) before attention.
+
+    CUDA tensors run the hand-written kernel; CPU tensors run
+    ``paged_decode_attention_ref`` with the scales. Anything else raises."""
+    _check(q, k_pool, v_pool, tables, lengths, "lengths", k_scale, v_scale)
+    _one_query(q)
+    if _route(q, (k_pool, v_pool, k_scale, v_scale, tables,
+                  lengths)) == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
+                                          k_scale, v_scale)
+    out = _launch(0, q, k_pool, v_pool, tables, lengths, (k_scale, v_scale))
+    paged_decode_attention_q8.launches += 1
+    return out
+
+
+def paged_chunk_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, tables: torch.Tensor,
+                             offsets: torch.Tensor) -> torch.Tensor:
+    """``paged_chunk_attention`` over int8 pools with their f32 scales (as
+    ``paged_decode_attention_q8``).
+
+    CUDA tensors run the hand-written kernel; CPU tensors run
+    ``paged_chunk_attention_ref`` with the scales. Anything else raises."""
+    _check(q, k_pool, v_pool, tables, offsets, "offsets", k_scale, v_scale)
+    if _route(q, (k_pool, v_pool, k_scale, v_scale, tables,
+                  offsets)) == "cpu":
+        return paged_chunk_attention_ref(q, k_pool, v_pool, tables, offsets,
+                                         k_scale, v_scale)
+    out = _launch(1, q, k_pool, v_pool, tables, offsets, (k_scale, v_scale))
+    paged_chunk_attention_q8.launches += 1
+    return out
+
+
+def _one_query(q: torch.Tensor) -> None:
+    if q.shape[1] != 1:
+        raise ValueError(f"decode takes one query per sequence, got "
+                         f"{q.shape[1]}")
+
+
 paged_decode_attention.launches = 0
 paged_chunk_attention.launches = 0
+paged_decode_attention_q8.launches = 0
+paged_chunk_attention_q8.launches = 0

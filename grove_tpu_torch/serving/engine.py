@@ -3,11 +3,12 @@ continuous-batching decode over fixed lanes, and the lanes engine's prefill
 worker.
 
 - ``PagedDecodeEngine`` (``GROVE_ENGINE=paged``, the default): fixed-size
-  KV blocks with per-request block tables (serving/kvcache.py), chunked
-  prefill interleaved with decode, recompute preemption, and the prefix
-  cache with copy-on-write (serving/schedule.py); one CUDA graph per
-  (batch, table width) decode bucket, where the JAX package compiles one
-  ``jax.jit`` per bucket;
+  KV blocks with per-request block tables (serving/kvcache.py), int8 or
+  model-dtype pools, chunked prefill interleaved with decode, recompute
+  preemption, and the prefix cache with copy-on-write
+  (serving/schedule.py); greedy or sampled decoding; one CUDA graph per
+  (batch, table width) decode bucket and one per prefill-chunk width,
+  where the JAX package compiles one ``jax.jit`` per bucket;
 - ``DecodeEngine`` (``GROVE_ENGINE=lanes``): fixed decode batch lanes;
   inactive lanes compute too, so every step has the same shapes; prefill
   and decode are separate calls so that they can run in separate pods:
@@ -19,10 +20,9 @@ worker.
   the device;
 - a queue-depth metric hook feeds the control plane's autoscaler.
 
-Not ported yet, and raising when asked for (ROADMAP.md, queue 1): the
-paged engine's sampled path, speculative decoding, int8 KV, tensor
-parallelism and disaggregated serving; the request and device
-observatories; the lanes worker's chunked prefill.
+Not ported yet, and raising when asked for (ROADMAP.md, queue 1):
+speculative decoding, tensor parallelism and disaggregated serving; the
+request and device observatories; the lanes worker's chunked prefill.
 """
 
 from __future__ import annotations
@@ -40,20 +40,30 @@ from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.models import llama
 from grove_tpu_torch.models.llama import LlamaConfig
 from grove_tpu_torch.ops.kvcache import KVCache
-from grove_tpu_torch.ops.paged import paged_decode_attention
+from grove_tpu_torch.ops.kvquant import paged_scatter_q
+from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                       paged_chunk_attention_q8,
+                                       paged_decode_attention,
+                                       paged_decode_attention_q8)
 from grove_tpu_torch.serving.kvcache import (NULL_BLOCK, BlockAllocator,
                                              PagedKV, PrefixTree, pad_tables)
 from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
 
 
-# The hand-written kernels a captured decode step launches, by wrapper.
-_KERNEL_WRAPPERS = (paged_decode_attention,)
+# The hand-written kernels a captured decode step or prefill chunk
+# launches, by wrapper.
+_KERNEL_WRAPPERS = (paged_decode_attention, paged_chunk_attention,
+                    paged_decode_attention_q8, paged_chunk_attention_q8,
+                    paged_scatter_q)
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
     """Token sampling: temperature 0 = greedy argmax; otherwise a
-    temperature-scaled categorical over the top_k logits (0 = full vocab).
+    temperature-scaled categorical over the top_k logits (0 = full vocab),
+    drawn from a ``torch.Generator`` seeded with ``seed`` (its draws are
+    not ``jax.random``'s: the same seed gives other tokens than the JAX
+    package's).
     """
 
     temperature: float = 0.0
@@ -541,25 +551,37 @@ class DecodeEngine:
 class PagedDecodeEngine:
     """Continuous-batching decode over a paged KV cache.
 
-    The port of the JAX package's default engine (``GROVE_ENGINE=paged``),
-    greedy decoding over a bf16 (or the model's dtype) KV pool:
+    The port of the JAX package's default engine (``GROVE_ENGINE=paged``):
 
     - **Paged KV** (serving/kvcache.py): fixed-size blocks and per-request
       block tables, so effective batch is bounded by tokens in flight, and
-      decode attention reads the bucketed live width.
+      decode attention reads the bucketed live width. The pool holds the
+      model's dtype, or int8 rows with per-(slot, head) f32 scales
+      (``kv_quant="int8"`` or ``GROVE_KV_QUANT=int8``: half the bytes of
+      bf16; the write quantizes, attention dequantizes as it reads).
     - **Continuous batching** (serving/schedule.py): requests join and
       leave the decode batch at any step. Decode shapes come off fixed
       power-of-two bucket ladders, so the set of decode steps is finite.
     - **One CUDA graph per decode bucket.** On the card, ``_get_step(B,
-      W)`` captures ``decode_step_paged`` + argmax + ``lengths += 1`` once
-      per (batch, width) bucket; the graph reads and writes static token,
-      length and table buffers and the pools in place, and a replay costs
-      one launch. ``warmup`` captures over the null block before traffic,
-      and ``graphs_captured`` counts captures. On the CPU the same dict
-      holds the eager step functions. A capture that fails raises.
+      W)`` captures ``decode_step_paged`` + the token choice + ``lengths
+      += 1`` once per (batch, width) bucket; the graph reads and writes
+      static token, length and table buffers and the pools in place, and a
+      replay costs one launch. ``warmup`` captures over the null block
+      before traffic, and ``graphs_captured`` counts captures. On the CPU
+      the same dict holds the eager step functions. A capture that fails
+      raises.
+    - **Sampling** (``sampler.temperature > 0``): the step draws with
+      ``sample_tokens`` (Gumbel-max over the top-k) from the engine's own
+      generator, seeded with ``sampler.seed`` and registered with every
+      captured graph, so each replay advances its counter and draws fresh
+      noise; the first token of a prompt is drawn from the same generator.
+      The draws are not ``jax.random``'s.
     - **Chunked prefill**: prompts advance one fixed chunk per engine
-      tick, interleaved with decode (eagerly: the prefill chunk has no
-      graph yet, ROADMAP.md queue 1).
+      tick, interleaved with decode. ``_get_prefill(W)`` captures one
+      ``prefill_chunk_paged`` per table-width bucket (the JAX package's
+      per-width executables): static chunk tokens, table, offset, logit
+      row and valid count go up in one pinned upload per tick, and a
+      chunk that does not complete its prompt fetches nothing.
 
     Host discipline: the per-step dispatch path performs no device sync.
     Sampled tokens stay on the device; bookkeeping drains once per
@@ -598,15 +620,13 @@ class PagedDecodeEngine:
                 "speculative decoding is not ported yet (ROADMAP.md, queue "
                 "1, item 3)")
         self._sampler = sampler or SamplerConfig()
-        if self._sampler.temperature > 0.0:
-            raise NotImplementedError(
-                "the paged engine's sampled path (temperature > 0) is not "
-                "ported yet (ROADMAP.md, queue 1, item 1); it decodes "
-                "greedily")
+        self._sampling = self._sampler.temperature > 0.0
         if kv_quant is None:
             kv_quant = os.environ.get("GROVE_KV_QUANT", "off")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            self._sampler.seed)
         if isinstance(key_or_params, torch.Generator):
             key_or_params = llama.init_params(cfg, key_or_params,
                                               self.device)
@@ -669,6 +689,15 @@ class PagedDecodeEngine:
         # One step per (batch bucket, width bucket): a captured graph's
         # replay on the card, the eager step on the CPU.
         self._steps: dict[tuple[int, int], Callable[[], None]] = {}
+        # Static prefill inputs, one int32 buffer uploaded once per chunk:
+        # the chunk's c tokens, then offset, logit row and valid count,
+        # then the table (its first W entries for width W). One chunk per
+        # width bucket, a graph's replay or the eager chunk, each returning
+        # the logits.
+        self._pf_buf = torch.zeros(
+            (self.prefill_chunk + 3 + max(self._sched.width_buckets),),
+            dtype=torch.int32, device=self.device)
+        self._prefills: dict[int, Callable[[], torch.Tensor]] = {}
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda" else None)
         self.graphs_captured = 0
@@ -680,6 +709,7 @@ class PagedDecodeEngine:
         self._next_rid = 0
         self.completed: list[Request] = []
         self.steps = 0              # decode dispatches
+        self.chunks = 0             # prefill-chunk dispatches
         self.ticks = 0              # engine ticks (prefill or decode)
         self._cur_shape: tuple[int, int] | None = None
         self._tables_sig: tuple = ()
@@ -710,19 +740,46 @@ class PagedDecodeEngine:
         cfg, params, kv = self.cfg, self.params, self.kv
         tokens, lengths = self._tok_buf[:B], self._len_buf[:B]
         tables = self._table_buf(W)[:B]
+        sampler, gen = self._sampler, self._gen
 
         def step() -> None:
             logits = llama.decode_step_paged(cfg, params, tokens, kv.k,
-                                             kv.v, tables, lengths)
-            tokens.copy_(torch.argmax(logits, dim=-1))
+                                             kv.v, tables, lengths,
+                                             **kv.scales)
+            tokens.copy_(sample_tokens(logits, gen, sampler))
             lengths.add_(1)
 
         fn = self._capture(step) if self.device.type == "cuda" else step
         self._steps[key] = fn
         return fn
 
-    def _capture(self, step: Callable[[], None]) -> Callable[[], None]:
-        """Capture ``step`` into a CUDA graph; returns its replay.
+    def _get_prefill(self, W: int) -> Callable[[], torch.Tensor]:
+        """The prefill chunk of table width ``W``: reads the static prefill
+        buffer, writes the pools in place, returns the logits [1, vocab]
+        (on the card, the captured graph's static output, valid until the
+        next replay)."""
+        fn = self._prefills.get(W)
+        if fn is not None:
+            return fn
+        cfg, params, kv, c = self.cfg, self.params, self.kv, \
+            self.prefill_chunk
+        buf = self._pf_buf
+        tokens, table = buf[:c].view(1, c), buf[c + 3:c + 3 + W].view(1, W)
+
+        def chunk() -> torch.Tensor:
+            return llama.prefill_chunk_paged(
+                cfg, params, tokens, kv.k, kv.v, table, buf[c:c + 1],
+                buf[c + 1:c + 2], buf[c + 2:c + 3], **kv.scales)
+
+        fn = self._capture(chunk) if self.device.type == "cuda" else chunk
+        self._prefills[W] = fn
+        return fn
+
+    def _capture(self, step: Callable[[], torch.Tensor | None]
+                 ) -> Callable[[], torch.Tensor | None]:
+        """Capture ``step`` into a CUDA graph; returns its replay, which
+        returns what the captured call returned (a static tensor of the
+        graph's pool, or None).
 
         The step runs once eagerly on a side stream first (torch's
         documented warm-up), so the kernel library's load, its function
@@ -731,7 +788,9 @@ class PagedDecodeEngine:
         pools' next K/V rows with the values the next real step writes
         again; the token and length buffers it advances are restored
         before the capture. All graphs share one memory pool: no tensor
-        allocated inside a capture outlives it.
+        allocated inside a capture outlives it, but the returned one. A
+        sampling engine registers its generator with the graph, so each
+        replay takes fresh random numbers.
 
         Kernel launch counts follow the device: the wrappers' counts taken
         while capturing (when nothing launches) move to the replay, which
@@ -749,9 +808,11 @@ class PagedDecodeEngine:
         self._tok_buf.copy_(saved[0])
         self._len_buf.copy_(saved[1])
         graph = torch.cuda.CUDAGraph()
+        if self._sampling:
+            graph.register_generator_state(self._gen)
         counts = [w.launches for w in _KERNEL_WRAPPERS]
         with torch.cuda.graph(graph, pool=self._graph_pool):
-            step()
+            out = step()
         per_replay = []
         for w, n in zip(_KERNEL_WRAPPERS, counts):
             if w.launches != n:
@@ -762,10 +823,11 @@ class PagedDecodeEngine:
         self.capture_seconds += time.perf_counter() - t0
         self.capture_bytes += torch.cuda.memory_reserved(dev) - reserved
 
-        def replay() -> None:
+        def replay() -> torch.Tensor | None:
             graph.replay()
             for w, n in per_replay:
                 w.launches += n
+            return out
 
         return replay
 
@@ -780,7 +842,8 @@ class PagedDecodeEngine:
             dst.copy_(t)
 
     def _to_device(self, src: np.ndarray) -> torch.Tensor:
-        out = torch.empty(src.shape, dtype=torch.int32, device=self.device)
+        out = torch.empty(src.shape, dtype=torch.from_numpy(src).dtype,
+                          device=self.device)
         self._upload(out, src)
         return out
 
@@ -791,11 +854,13 @@ class PagedDecodeEngine:
         (both ladders by default) over the null block, and run each once:
         tables all point at block 0 and lengths are 0, so every write
         lands in the one block no sequence owns, and the static buffers are
-        restored afterwards, so live state is untouched. Then run one
-        prefill chunk per ``prefill_widths`` (default ``widths``; ``[]``
-        skips them) over the null block. Returns the number of steps built:
-        graphs captured on the card, eager steps on the CPU. A deployment
-        calls this at startup so that traffic never pays a capture."""
+        restored afterwards, so live state is untouched. Then capture and
+        run the prefill chunk of every width in ``prefill_widths`` (default
+        ``widths``, else the width ladder; ``[]`` skips them) over the null
+        block: no valid row, every write rerouted to block 0. Returns the
+        number of steps and chunks built: graphs captured on the card,
+        eager functions on the CPU. A deployment calls this at startup so
+        that traffic never pays a capture."""
         self._cow_guard(())
         built = 0
         saved = (self._tok_buf.clone(), self._len_buf.clone(),
@@ -811,13 +876,10 @@ class PagedDecodeEngine:
         if prefill_widths is None:
             prefill_widths = widths or self._sched.width_buckets
         for W in prefill_widths:
-            c = self.prefill_chunk
-            llama.prefill_chunk_paged(
-                self.cfg, self.params,
-                torch.zeros((1, c), dtype=torch.int32, device=self.device),
-                self.kv.k, self.kv.v,
-                torch.zeros((1, W), dtype=torch.int32, device=self.device),
-                0, 0, 0)
+            self._pf_buf.zero_()
+            if W not in self._prefills:
+                built += 1
+            self._get_prefill(W)()
         self._tok_buf.copy_(saved[0])
         self._len_buf.copy_(saved[1])
         for W, t in saved[2].items():
@@ -1009,9 +1071,14 @@ class PagedDecodeEngine:
             return
         src, dst = seq.cow_src, seq.cow_dst
         seq.cow_src = seq.cow_dst = -1
-        ids = torch.tensor([src, dst], dtype=torch.long, device=self.device)
-        llama.paged_block_copy(self.kv.k, self.kv.v, self.kv.k, self.kv.v,
-                               ids[:1], ids[1:])
+        ids = self._to_device(np.array([src, dst], np.int64))
+        kv = self.kv
+        if kv.quantized:  # the scale rows move with the int8 rows
+            llama.paged_block_copy_q(kv.k, kv.v, kv.k_scale, kv.v_scale,
+                                     kv.k, kv.v, kv.k_scale, kv.v_scale,
+                                     ids[:1], ids[1:])
+        else:
+            llama.paged_block_copy(kv.k, kv.v, kv.k, kv.v, ids[:1], ids[1:])
         self._alloc.free([src])
         self.cow_copies += 1
 
@@ -1058,14 +1125,14 @@ class PagedDecodeEngine:
         c = self.prefill_chunk
         pos, total = seq.pos, seq.prompt_len
         valid = min(c, total - pos)
-        toks = np.zeros((1, c), np.int32)
-        toks[0, :valid] = seq.tokens[pos:pos + valid]
         W = pick_bucket(len(seq.blocks.blocks), self._sched.width_buckets)
-        table = pad_tables([seq.blocks.blocks], W)
-        logits = llama.prefill_chunk_paged(
-            self.cfg, self.params, self._to_device(toks), self.kv.k,
-            self.kv.v, self._to_device(table), pos, max(0, valid - 1),
-            valid)
+        host = np.zeros((c + 3 + W,), np.int32)
+        host[:valid] = seq.tokens[pos:pos + valid]
+        host[c:c + 3] = (pos, max(0, valid - 1), valid)
+        host[c + 3:] = pad_tables([seq.blocks.blocks], W)[0]
+        self._upload(self._pf_buf[:c + 3 + W], host)
+        logits = self._get_prefill(W)()
+        self.chunks += 1
         seq.pos += valid
         if seq.prefill_done:
             self._finish_prefill(seq, logits)
@@ -1081,8 +1148,8 @@ class PagedDecodeEngine:
             self._queue.appendleft(victim.req)
 
     def _sample_first(self, logits: torch.Tensor) -> int:
-        """The prefill-produced token, greedy (one host fetch)."""
-        return int(torch.argmax(logits, dim=-1)[0])
+        """The prefill-produced token, by the sampler (one host fetch)."""
+        return int(sample_tokens(logits, self._gen, self._sampler)[0])
 
     def _finish_prefill(self, seq, logits) -> None:
         """The chunk that produces the first token just ran: take it and

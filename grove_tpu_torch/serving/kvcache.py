@@ -26,8 +26,9 @@ engine's device.
   (the engine copies the shared block before any write lands in it).
 
 The pools are updated in place by ``models/llama.decode_step_paged`` and
-``prefill_chunk_paged`` (the JAX package donates them instead). The int8
-pools of ``GROVE_KV_QUANT=int8`` are not ported yet (ROADMAP.md, queue 1).
+``prefill_chunk_paged`` (the JAX package donates them instead). With
+``GROVE_KV_QUANT=int8`` they hold int8 rows and per-(slot, head) f32 scales
+(ops/kvquant.py quantizes, ops/paged.py dequantizes).
 """
 
 from __future__ import annotations
@@ -49,9 +50,12 @@ class PagedKV:
     ``[layers, num_blocks, block_size, n_kv, head_dim]``.
 
     The pools live for the engine's lifetime and are written in place, so
-    a captured CUDA graph can hold their addresses. ``k_scale``/``v_scale``
-    are the int8 pools' per-(slot, head) scales in the JAX package; they
-    stay None here until int8 KV is ported."""
+    a captured CUDA graph can hold their addresses. With int8 KV
+    (``quant="int8"``) the pools hold int8 rows and ``k_scale``/``v_scale``
+    the per-(slot, head) symmetric dequantize scales, ``[layers,
+    num_blocks, block_size, n_kv]`` f32: per slot because rows are written
+    one at a time (a whole-block scale would need slots the writer has not
+    seen). Without it the scales are None."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -63,14 +67,17 @@ class PagedKV:
                n_kv: int, head_dim: int, dtype: torch.dtype = torch.bfloat16,
                quant: str = "off",
                device: str | torch.device = "cpu") -> "PagedKV":
+        shape = (n_layers, num_blocks, block_size, n_kv, head_dim)
         if quant == "int8":
-            raise NotImplementedError(
-                "int8 paged KV (GROVE_KV_QUANT=int8) is not ported yet: see "
-                "ROADMAP.md, queue 1 (the int8 KV pool and its quantizing "
-                "scatter kernel)")
+            sshape = shape[:-1]
+            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       k_scale=torch.zeros(sshape, dtype=torch.float32,
+                                           device=device),
+                       v_scale=torch.zeros(sshape, dtype=torch.float32,
+                                           device=device))
         if quant != "off":
             raise ValueError(f"unknown KV quant mode {quant!r}")
-        shape = (n_layers, num_blocks, block_size, n_kv, head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -80,9 +87,18 @@ class PagedKV:
 
     @property
     def pool_bytes(self) -> int:
-        """Device bytes of both pools."""
-        return (self.k.numel() * self.k.element_size()
-                + self.v.numel() * self.v.element_size())
+        """Device bytes of both pools, scales included."""
+        parts = (self.k, self.v) if self.k_scale is None else \
+            (self.k, self.v, self.k_scale, self.v_scale)
+        return sum(t.numel() * t.element_size() for t in parts)
+
+    @property
+    def scales(self) -> dict:
+        """The scale pools as keyword arguments of the paged model
+        functions (``k_scale=``, ``v_scale=``); empty without int8."""
+        if self.k_scale is None:
+            return {}
+        return {"k_scale": self.k_scale, "v_scale": self.v_scale}
 
     @property
     def num_blocks(self) -> int:

@@ -1,7 +1,9 @@
 """The port's paged engine against the JAX package's PagedDecodeEngine on
 tools/decode_smoke.py's geometry (batch 4, max_len 48, block 8, chunk 8),
-mirrors of tests/test_paged_engine.py's behaviour tests, the decode-step
-set, the host-sync discipline and the engine factory's default."""
+over a model-dtype and an int8 KV pool, mirrors of
+tests/test_paged_engine.py's behaviour tests and of tests/test_serving.py's
+sampling test, the decode-step and prefill-chunk sets, the host-sync
+discipline and the engine factory's default."""
 
 import dataclasses
 
@@ -16,6 +18,7 @@ from grove_tpu.serving import engine as jengine
 from grove_tpu_torch.convert import params_from_numpy
 from grove_tpu_torch.models import llama as tllama
 from grove_tpu_torch.serving import engine as tengine
+from grove_tpu_torch.serving.kvcache import pad_tables
 
 # Small shapes: one intra-op thread keeps these tests from crowding the
 # timing-sensitive control-plane tests that run beside them in parallel.
@@ -34,6 +37,10 @@ SCENARIOS = {                             # engine knobs beyond GEOM
     # The cache off on a pool tight enough to preempt (one JAX run fewer
     # to compile than a separate scenario for each).
     "prefix_off_tight": dict(prefix_cache=False, num_blocks=7),
+    # The same two over int8 KV (copy-on-write moves the scale rows too).
+    "int8_prefix_on": dict(prefix_cache=True, kv_quant="int8"),
+    "int8_prefix_off_tight": dict(prefix_cache=False, num_blocks=7,
+                                  kv_quant="int8"),
 }
 
 
@@ -117,6 +124,15 @@ def test_scenarios_exercise_sharing_and_preemption(jax_runs):
     off = jax_runs["prefix_off_tight"]
     assert off["preemptions"] > 0 and off["cow_copies"] == 0
     assert jax_runs["prefix_on"]["tokens"] == off["tokens"]
+
+
+def test_int8_scenarios_exercise_sharing_and_preemption(jax_runs):
+    """The int8 scenarios copy on write and preempt too, and int8 tokens
+    are the same with the prefix cache on and off."""
+    on, off = jax_runs["int8_prefix_on"], jax_runs["int8_prefix_off_tight"]
+    assert on["cow_copies"] > 0 and on["prefix_skipped"] > 0
+    assert off["preemptions"] > 0 and off["cow_copies"] == 0
+    assert on["tokens"] == off["tokens"]
 
 
 # ---- mirrors of tests/test_paged_engine.py ----
@@ -280,13 +296,16 @@ def test_step_set_after_warmup_does_not_grow(params):
     eng = _port(tp)
     built = eng.warmup()
     ladder = eng._sched
-    assert built == len(ladder.batch_buckets) * len(ladder.width_buckets)
+    assert built == (len(ladder.batch_buckets) + 1) * len(
+        ladder.width_buckets)  # decode steps, then one chunk per width
+    assert sorted(eng._prefills) == ladder.width_buckets
     keys = set(eng._steps)
     assert eng.warmup() == 0  # idempotent
     assert eng.graphs_captured == 0  # eager steps on the CPU
     assert eng._alloc.used_blocks == 0 and not eng._pending
     _serve_twice(eng)
     assert set(eng._steps) == keys
+    assert sorted(eng._prefills) == ladder.width_buckets
 
 
 def test_warmup_leaves_live_state_untouched(params):
@@ -339,6 +358,127 @@ def test_decode_fetches_to_the_host_once_per_window(params, monkeypatch):
     assert fetches == [(4, 2)]  # the whole [window, batch] block at once
 
 
+class _CountFetches(torch.overrides.TorchFunctionMode):
+    """Counts reads of a tensor's value into Python (what is a host fetch
+    on the card): item, tolist, numpy, cpu and the int/float/bool/index
+    conversions."""
+
+    NAMES = {"item", "tolist", "numpy", "cpu", "__int__", "__float__",
+             "__bool__", "__index__"}
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in self.NAMES:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+def test_prefill_tick_fetches_only_when_it_completes_a_prompt(params,
+                                                               kv_quant):
+    """A 19-token prompt in chunks of 8: the first two chunks read nothing
+    back (offset, valid count and logit row are device scalars), the third
+    fetches its first token once."""
+    _, tp = params
+    eng = _port(tp, kv_quant=kv_quant)
+    eng.submit(np.arange(19, dtype=np.int32), max_new_tokens=4)
+    eng.admit_from_queue()
+    fetches = []
+    for _ in range(3):
+        with _CountFetches() as mode:
+            eng._prefill_tick()
+        fetches.append(mode.n)
+    assert fetches == [0, 0, 1]
+    assert len(eng._sched.running) == 1
+    assert sorted(eng._prefills) == [1, 2, 4]  # the widths the chunks took
+
+
+def test_chunk_logits_equal_with_device_scalars(params):
+    """One chunk through the engine's static buffer (device scalars)
+    against the model function with Python ints: bitwise equal logits and
+    pools."""
+    _, tp = params
+    outs = []
+    for engine_path in (True, False):
+        eng = _port(tp)
+        eng.submit(np.arange(3, 14, dtype=np.int32), max_new_tokens=2)
+        eng.admit_from_queue()
+        seq = eng._sched.next_prefill()
+        blocks = list(seq.blocks.blocks)
+        if engine_path:
+            c = eng.prefill_chunk
+            W = 2
+            host = np.zeros((c + 3 + W,), np.int32)
+            host[:c] = seq.tokens[:c]
+            host[c:c + 3] = (0, c - 1, c)
+            host[c + 3:] = pad_tables([blocks], W)[0]
+            eng._upload(eng._pf_buf[:c + 3 + W], host)
+            logits = eng._get_prefill(W)()
+        else:
+            logits = tllama.prefill_chunk_paged(
+                T_CFG, tp, torch.from_numpy(seq.tokens[None, :8].copy()),
+                eng.kv.k, eng.kv.v, torch.from_numpy(pad_tables([blocks], 2)),
+                0, 7, 8)
+        outs.append((logits.clone(), eng.kv.k.clone(), eng.kv.v.clone()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _sampled_run(tp, seed, temperature, top_k=8, steps=24):
+    eng = _port(tp, sampler=tengine.SamplerConfig(
+        temperature=temperature, top_k=top_k, seed=seed))
+    for p in _prompts()[:3]:
+        eng.submit(p, max_new_tokens=8)
+    drive(eng, 3, max_iters=steps * 10)
+    return {r.rid: r.generated for r in eng.completed}
+
+
+def test_paged_sampling_seed_temperature_and_topk(params):
+    """The paged engine's sampled path (tests/test_serving.py's sampling
+    test on the paged engine): deterministic per seed, different across
+    seeds, temperature 0 and top_k = 1 both equal greedy decoding, and
+    top-k sampling picks only among the k best logits."""
+    _, tp = params
+    greedy = {r: g for r, g in _sampled_run(tp, 0, 0.0).items()}
+    assert _sampled_run(tp, 0, 1.2) == _sampled_run(tp, 0, 1.2)
+    assert _sampled_run(tp, 0, 1.2) != _sampled_run(tp, 1, 1.2)
+    assert _sampled_run(tp, 5, 0.0) == greedy
+    assert _sampled_run(tp, 3, 1.2, top_k=1) == greedy
+    eng = _port(tp)
+    for p in _prompts()[:3]:
+        eng.submit(p, max_new_tokens=8)
+    drive(eng, 3)
+    assert {r.rid: r.generated for r in eng.completed} == greedy
+
+    logits = torch.tensor([[0.0, 1.0, 2.0, 3.0, 4.0]])
+    cfgk = tengine.SamplerConfig(temperature=0.5, top_k=2, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    picks = {int(tengine.sample_tokens(logits, gen, cfgk)[0])
+             for _ in range(30)}
+    assert picks == {3, 4}, picks
+
+
+def test_paged_sampling_over_int8_kv(params):
+    """Sampling composes with int8 KV: deterministic per seed, and top_k =
+    1 equals the int8 engine's greedy tokens."""
+    _, tp = params
+
+    def run(**kw):
+        eng = _port(tp, kv_quant="int8", **kw)
+        for p in _prompts()[:3]:
+            eng.submit(p, max_new_tokens=8)
+        drive(eng, 3)
+        return {r.rid: r.generated for r in eng.completed}
+
+    sampled = tengine.SamplerConfig(temperature=1.2, top_k=8, seed=4)
+    assert run(sampler=sampled) == run(sampler=sampled)
+    assert run(sampler=tengine.SamplerConfig(temperature=1.2, top_k=1,
+                                             seed=4)) == run()
+
+
 def test_make_engine_defaults_to_paged(params, monkeypatch):
     _, tp = params
     monkeypatch.delenv("GROVE_ENGINE", raising=False)
@@ -357,9 +497,8 @@ def test_make_engine_defaults_to_paged(params, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec_decode=True), dict(kv_quant="int8"),
-    dict(sampler=tengine.SamplerConfig(temperature=0.7)),
-    dict(mesh=object()), dict(xprof=object()), dict(reqtrace=object())])
+    dict(spec_decode=True), dict(mesh=object()), dict(xprof=object()),
+    dict(reqtrace=object())])
 def test_unported_options_raise(params, kw):
     _, tp = params
     with pytest.raises(NotImplementedError):

@@ -213,5 +213,178 @@ def test_engine_graphs_match_eager_cpu_on_cuda():
         eng.sync()
         out[dev] = {r.rid: r.generated for r in eng.completed}
         if dev == "cuda":
-            assert eng.graphs_captured == len(eng._steps) > 0
+            assert eng.graphs_captured == \
+                len(eng._steps) + len(eng._prefills) > 0
     assert out["cuda"] == out["cpu"]
+
+
+# ---- int8 pools ----
+
+def _q8(k, v):
+    from grove_tpu_torch.ops.kvquant import quantize_rows
+    (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+    return kq, vq, ks, vs
+
+
+def test_int8_cpu_calls_never_count_a_launch():
+    q, k, v, tables = _attn_inputs(15, 2, 1, 8, 4, 8, 2)
+    tq, tt = torch.from_numpy(q), torch.from_numpy(tables)
+    kq, vq, ks, vs = _q8(torch.from_numpy(k), torch.from_numpy(v))
+    before = (paged.paged_decode_attention_q8.launches,
+              paged.paged_chunk_attention_q8.launches)
+    dec = paged.paged_decode_attention_q8(
+        tq, kq, vq, ks, vs, tt, torch.full((2,), 5, dtype=torch.int32))
+    paged.paged_chunk_attention_q8(tq, kq, vq, ks, vs, tt,
+                                   torch.zeros(2, dtype=torch.int32))
+    assert (paged.paged_decode_attention_q8.launches,
+            paged.paged_chunk_attention_q8.launches) == before
+    ref = paged.paged_decode_attention_ref(
+        tq, kq, vq, tt, torch.full((2,), 5, dtype=torch.int32), ks, vs)
+    assert torch.equal(dec, ref)
+    with pytest.raises(ValueError, match="scales"):
+        paged.paged_decode_attention_q8(tq, kq, vq, ks[:1], vs, tt,
+                                        torch.full((2,), 5,
+                                                   dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,h,n_kv,d,w,bs", [
+    (5, 16, 8, 128, 8, BS), (4, 8, 1, 64, 2, BS), (4, 12, 4, 8, 3, BS),
+    (10, 16, 8, 128, 32, 16)])
+def test_int8_kernels_match_plain_on_cuda(dtype, tol, b, h, n_kv, d, w, bs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    nb = 1 + b * w
+    kq, vq, ks, vs = _q8(*_cuda_pools(gen, nb, bs, n_kv, d, torch.float32))
+    tables = (1 + torch.randperm(nb - 1, device="cuda")).reshape(b, w).to(
+        torch.int32)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+    lengths = torch.randint(1, w * bs + 1, (b,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    before = paged.paged_decode_attention_q8.launches
+    out = paged.paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged.paged_decode_attention_q8.launches == before + 1
+    ref = paged.paged_decode_attention_ref(q, kq, vq, tables, lengths, ks,
+                                           vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    qc = torch.randn((b, 40, h, d), generator=gen, device="cuda").to(dtype)
+    offs = torch.randint(0, w * bs, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    out = paged.paged_chunk_attention_q8(qc, kq, vq, ks, vs, tables, offs)
+    torch.cuda.synchronize()
+    ref = paged.paged_chunk_attention_ref(qc, kq, vq, tables, offs, ks, vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_q_kernel_is_bitwise_plain_on_cuda(dtype):
+    """The quantizing scatter kernel against its plain version, bitwise on
+    codes and scales, with a chunk running past its table's width and a
+    padded tail marked invalid (distinct null-block slots)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from grove_tpu_torch.ops.kvquant import (paged_scatter_q,
+                                             paged_scatter_q_ref)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n_kv, d, bs, w, c = 4, 64, 16, 4, 32
+    nb = 1 + 2 * w
+    tables = (1 + torch.randperm(nb - 1, device="cuda")).reshape(2, w).to(
+        torch.int32)
+    steps = torch.arange(c, dtype=torch.int32, device="cuda")
+    pos = torch.stack([36 + steps, steps])
+    valid = torch.ones((2, c), dtype=torch.bool, device="cuda")
+    valid[1, 24:] = False
+    k = (5 * torch.randn((2, c, n_kv, d), generator=gen,
+                         device="cuda")).to(dtype)
+    v = torch.randn((2, c, n_kv, d), generator=gen, device="cuda").to(dtype)
+    mine = [torch.zeros((nb, bs, n_kv, d), dtype=torch.int8, device="cuda")
+            for _ in range(2)] + [
+        torch.zeros((nb, bs, n_kv), device="cuda") for _ in range(2)]
+    ref = [t.clone() for t in mine]
+    paged_scatter_q(*mine, k, v, tables, pos, valid)
+    paged_scatter_q_ref(ref[0], ref[2], k, tables, pos, valid)
+    paged_scatter_q_ref(ref[1], ref[3], v, tables, pos, valid)
+    for a, b in zip(mine, ref):
+        assert torch.equal(a, b)
+
+
+def test_bf16_int8_rows_depend_only_on_position_on_cuda():
+    """test_bf16_rows_depend_only_on_position_on_cuda over int8 pools."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n_kv, g, d, w, bs, c, k0 = 8, 2, 128, 8, 16, 48, 19
+    kq, vq, ks, vs = _q8(*_cuda_pools(gen, 1 + 2 * w, bs, n_kv, d,
+                                      torch.float32))
+    tables = (1 + torch.randperm(2 * w, device="cuda")).reshape(2, w).to(
+        torch.int32)
+    wide = torch.cat([tables, torch.zeros_like(tables)], 1)
+    q = torch.randn((2, c, n_kv * g, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    zero = torch.zeros((2,), dtype=torch.int32, device="cuda")
+
+    def chunk(qq, t, off):
+        return paged.paged_chunk_attention_q8(qq, kq, vq, ks, vs, t, off)
+
+    def decode(t, lens):
+        return paged.paged_decode_attention_q8(q[0][:, None].contiguous(),
+                                               kq, vq, ks, vs, t, lens)
+
+    whole = chunk(q, tables, zero)
+    lens = torch.arange(1, c + 1, dtype=torch.int32, device="cuda")
+    dec = decode(tables[:1].expand(c, w).contiguous(), lens)
+    assert torch.equal(chunk(q[:, k0:], tables, zero + k0), whole[:, k0:])
+    assert torch.equal(chunk(q, wide, zero), whole)
+    assert torch.equal(decode(wide[:1].expand(c, 2 * w).contiguous(), lens),
+                       dec)
+    assert torch.equal(dec[:, 0], whole[0])
+
+
+def test_engine_int8_and_sampled_graphs_on_cuda():
+    """test-tiny f32 through the paged engine on the card with int8 KV: the
+    same greedy tokens as on the CPU; sampled, the same seed twice gives
+    the same tokens, two seeds differ, and top_k = 1 equals greedy (graph
+    replays draw fresh noise from the registered generator)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (graphs and kernels)")
+    import dataclasses
+
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.serving.engine import (PagedDecodeEngine,
+                                                SamplerConfig)
+    cfg = dataclasses.replace(CONFIGS["test-tiny"], dtype=torch.float32,
+                              max_seq_len=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32)
+               for n in (5, 19, 3, 11, 7)]
+
+    def run(dev, **kw):
+        p = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                 {n: w.to(dev) for n, w in v.items()})
+             for k, v in params.items()}
+        eng = PagedDecodeEngine(cfg, p, batch=4, max_len=48, block_size=8,
+                                prefill_chunk=8, host_sync_interval=4,
+                                kv_quant="int8", device=dev, **kw)
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=12)
+        for _ in range(500):
+            eng.admit_from_queue()
+            if len(eng.completed) == len(prompts):
+                break
+            eng.step()
+        eng.sync()
+        return {r.rid: r.generated for r in eng.completed}
+
+    greedy = run("cuda")
+    assert greedy == run("cpu")
+
+    def sampler(seed, top_k=8):
+        return SamplerConfig(temperature=1.5, top_k=top_k, seed=seed)
+
+    assert run("cuda", sampler=sampler(1)) == run("cuda", sampler=sampler(1))
+    assert run("cuda", sampler=sampler(1)) != run("cuda", sampler=sampler(2))
+    assert run("cuda", sampler=sampler(1, top_k=1)) == greedy

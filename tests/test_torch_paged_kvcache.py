@@ -117,8 +117,13 @@ def test_paged_kv_pools_are_torch_tensors():
     assert kv.num_blocks == 5 and kv.block_size == 4
     assert kv.tokens_capacity == 16 and not kv.quantized
     assert kv.pool_bytes == 2 * 2 * 5 * 4 * 3 * 8 * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.PagedKV.create(2, 5, 4, 3, 8, quant="int8")
+    assert kv.scales == {}
+    q8 = tkv.PagedKV.create(2, 5, 4, 3, 8, quant="int8", device="cpu")
+    assert q8.quantized and q8.k.dtype == q8.v.dtype == torch.int8
+    assert q8.k_scale.shape == q8.v_scale.shape == (2, 5, 4, 3)
+    assert q8.k_scale.dtype == torch.float32 and not q8.k_scale.any()
+    assert q8.pool_bytes == 2 * 2 * 5 * 4 * 3 * (8 + 4)
+    assert set(q8.scales) == {"k_scale", "v_scale"}
     with pytest.raises(ValueError):
         tkv.PagedKV.create(2, 5, 4, 3, 8, quant="fp4")
 

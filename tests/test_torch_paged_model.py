@@ -152,6 +152,28 @@ def test_prefill_chunk_logit_idx_clamps_into_the_chunk(params):
     torch.testing.assert_close(past, last, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("offset,n_valid,logit_idx", [(0, 8, 7), (9, 3, 2)])
+def test_prefill_chunk_device_scalars_equal_ints(params, offset, n_valid,
+                                                 logit_idx):
+    """Offset, logit row and valid count as int32 device scalars (what a
+    captured chunk reads) or as Python ints: bitwise equal logits and
+    pools."""
+    _, tp = params
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (3, 8)).astype(np.int32))
+    outs = []
+    for scalars in (False, True):
+        k, v = (torch.from_numpy(x) for x in _pools(4))
+        args = (offset, logit_idx, n_valid)
+        if scalars:
+            args = tuple(torch.tensor([a], dtype=torch.int32) for a in args)
+        logits = tllama.prefill_chunk_paged(T_CFG, tp, toks, k, v,
+                                            torch.from_numpy(TABLES), *args)
+        outs.append((logits, k, v))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_decode_step_paged_matches_jax_f32(params):
     jp, tp = params
     k, v = _pools(6)
