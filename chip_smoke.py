@@ -14,19 +14,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      bounds, their plain versions and a gather +
      scaled_dot_product_attention yardstick, and a bitwise check that a
      bf16 row depends only on its position (chunk offset, table width,
-     decode vs chunk); the same over int8 pools (the int8 kernels), and
-     the quantizing scatter bitwise against its plain version (rows past
-     the table's width and invalid rows in the null block), each timed at
-     its serving shape;
+     decode vs chunk); the same over int8 pools (the int8 kernels), the
+     quantizing scatter and the model-dtype scatter bitwise against their
+     plain versions (rows past the table's width and invalid rows in the
+     null block), each timed at its serving shape; the W8A16 GEMM at
+     llama-1b's five launches at M = 32 (QKV and gate/up one launch each;
+     gate/up also at M = 4,096),
+     at ragged and f32 shapes, timed beside its bound, its plain version,
+     a bf16-weight matmul and torch._weight_int8pack_mm, and a bitwise
+     check that its rows do not depend on M (1..256);
   4. lanes serve: llama-1b at full width and depth (random weights from
      --seed) through make_engine(mode="lanes") with int8 weights: queued
      requests admitted through a PrefillWorker, then the bench posture
-     (admit_prompts + run(64)); the flash launch count is read from this
-     phase alone; then a torch.profiler pass over one in-engine prefill and
-     one run(8) window gives the kernels by device time and the device's
-     busy share;
-  5. model: llama-1b prefill logits through the flash kernel vs the plain
-     attention formulation;
+     (admit_prompts + run(64)); the flash and W8A16 launch counts are read
+     from this phase alone; then a torch.profiler pass over one in-engine
+     prefill and one run(8) window gives the kernels by device time and the
+     device's busy share;
+  5. model: llama-1b prefill logits with int8 weights through the flash
+     and W8A16 kernels vs the plain attention and the GEMM's plain version;
   6. paged parity: test-tiny f32 through the paged engine with the kernels
      and CUDA graphs on: paged vs lanes, prefix cache on vs off, tight vs
      roomy pool give equal tokens, over f32 and int8 KV; sampled decoding
@@ -36,17 +41,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      engine, int8 weights, batch 32, max_len 2048): decode and prefill-chunk
      graphs captured at warmup, 64 requests (prompts 64-1024 tokens, half
      opening with one shared 264-token prefix, 64 new tokens each) with no
-     capture during traffic, the paged kernels' launch counts read from
-     this run alone, a window of mixed ticks timed; a full-batch decode
-     window with a profiler pass; the same traffic on a quarter-size pool
-     (the same window of mixed ticks under the profiler), then a full
-     batch decoding past that pool's capacity, which must preempt and
-     still finish every request; the same traffic and decode window over
-     int8 KV, whose kernels' launch counts are read from its run;
+     capture during traffic, the kernels' launch counts read from this run
+     alone (4 GEMM launches per layer and one for the head, and one KV
+     write per layer, per decode step and per chunk), a window of mixed ticks timed; a full-batch decode window with
+     a profiler pass; the same traffic on a quarter-size pool (the same
+     window of mixed ticks under the profiler), then a full batch decoding
+     past that pool's capacity, which must preempt and still finish every
+     request; the same traffic and decode window over int8 KV, whose
+     kernels' launch counts are read from its run;
   8. paged model: llama-1b bf16 decode_step_paged and prefill_chunk_paged
-     logits through the paged kernels vs their plain versions.
-The last two lines are the kernel table as JSON and the result object.
-
+     logits with int8 weights through the kernels vs their plain versions;
+     then 8 sequences' decode logits alone vs inside a batch of 32,
+     bitwise, naming the first op whose rows differ (reported).
 Usage: python3 chip_smoke.py [--seed N]
 """
 
@@ -259,13 +265,14 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 n_requests: int = 48, prompt_len: int = 128,
                 max_new_tokens: int = 32, batch: int = 32,
                 max_len: int = 512, bench_steps: int = 64,
-                count_launches: bool = True) -> int:
-    """Serve through the lanes engine; returns the flash launch count of
-    this phase (the counts are zeroed at its start)."""
+                count_launches: bool = True) -> dict[str, int]:
+    """Serve through the lanes engine; returns the flash and W8A16 launch
+    counts of this phase (the counts are zeroed at its start)."""
     import numpy as np
     import torch
     from grove_tpu_torch.models.llama import CONFIGS, init_params
     from grove_tpu_torch.ops.flash import flash_causal_attention
+    from grove_tpu_torch.ops.w8a16 import w8a16_matmul
     from grove_tpu_torch.serving.engine import PrefillWorker, make_engine
 
     cfg = cfg or CONFIGS["llama-1b"]
@@ -308,6 +315,8 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
 
     flash_causal_attention.launches = 0
+    w8a16_matmul.launches = 0
+    steps0 = eng.steps
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
     for _ in range(10 * n_requests):
@@ -342,6 +351,7 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     sync()
     decode_s = time.perf_counter() - t
     launches = flash_causal_attention.launches
+    gemms = w8a16_matmul.launches
     bench_done = eng.completed[n_before:]
     if len(bench_done) != batch or any(
             len(r.generated) != bench_steps + 1 for r in bench_done):
@@ -353,6 +363,15 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     if launches != want:
         raise AssertionError(f"flash launched {launches} times, "
                              f"expected {want}")
+    forwards = prefill_calls + eng.steps - steps0
+    per = GEMMS_PER_LAYER * cfg.n_layers + 1
+    want = per * forwards if count_launches else 0
+    log(f"serve: w8a16 launches {gemms} over {forwards} forwards ("
+        f"{prefill_calls} prefills, {eng.steps - steps0} decode steps) x "
+        f"{per} (expected {want})")
+    if gemms != want:
+        raise AssertionError(f"w8a16 launched {gemms} times, expected "
+                             f"{want}")
     peak = torch.cuda.max_memory_allocated() if on_cuda else 0
     tok_s = batch * bench_steps / decode_s
     log(f"serve: worker prefill (batch 8 x {prompt_len}) ms per call: "
@@ -367,7 +386,7 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     if on_cuda:
         profile_path(eng, bench_prompts, card, admit_ms,
                      decode_s * 1e3 / bench_steps)
-    return launches
+    return {"flash_causal_attention": launches, "w8a16_matmul": gemms}
 
 
 def profile_path(eng, prompts, card: str, prefill_ms: float,
@@ -375,9 +394,9 @@ def profile_path(eng, prompts, card: str, prefill_ms: float,
     """Device time by kernel for one in-engine prefill and one decode window
     of ``steps`` steps of the lanes engine."""
     profile_window("prefill", lambda: eng.admit_prompts(prompts),
-                   prefill_ms, card, ("flash_fwd",))
+                   prefill_ms, card, ("flash_fwd", "w8a16"))
     profile_window("decode", lambda: eng.run(steps), step_ms * steps, card,
-                   ("flash_fwd",))
+                   ("flash_fwd", "w8a16"))
 
 
 def profile_window(name: str, fn, wall_ms: float, card: str,
@@ -426,16 +445,20 @@ def profile_window(name: str, fn, wall_ms: float, card: str,
 
 def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
                 batch: int = 32, prompt_len: int = 128) -> None:
-    """llama-1b bf16 prefill logits through the kernel vs the plain
-    attention formulation (GROVE_FLASH_ATTENTION=0)."""
+    """llama-1b bf16 prefill logits with int8 weights through the kernels
+    (flash, W8A16) vs the plain attention formulation
+    (GROVE_FLASH_ATTENTION=0) and the GEMM's plain version."""
     import numpy as np
     import torch
+    from grove_tpu_torch.models import llama
     from grove_tpu_torch.models.llama import CONFIGS, init_params, prefill
+    from grove_tpu_torch.ops import w8a16
     from grove_tpu_torch.ops.kvcache import KVCache
+    from grove_tpu_torch.serving.quant import quantize_params
 
     cfg = cfg or CONFIGS["llama-1b"]
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    params = init_params(cfg, gen, device=device)
+    params = quantize_params(init_params(cfg, gen, device=device))
     tokens = torch.from_numpy(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
 
@@ -443,6 +466,7 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
         old = os.environ.pop("GROVE_FLASH_ATTENTION", None)
         if flash_env is not None:
             os.environ["GROVE_FLASH_ATTENTION"] = flash_env
+            llama.w8a16_matmul_group = w8a16.w8a16_matmul_group_ref
         try:
             cache = KVCache.create(cfg.n_layers, batch, prompt_len,
                                    cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
@@ -450,6 +474,7 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
             logits, _ = prefill(cfg, params, tokens, cache)
             return logits.float()
         finally:
+            llama.w8a16_matmul_group = w8a16.w8a16_matmul_group
             os.environ.pop("GROVE_FLASH_ATTENTION", None)
             if old is not None:
                 os.environ["GROVE_FLASH_ATTENTION"] = old
@@ -460,7 +485,8 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
     diff = (kernel - plain).abs().max().item()
     bound = 5e-2 * plain.abs().max().item()
     agree = int((kernel.argmax(-1) == plain.argmax(-1)).sum().item())
-    log(f"model: {cfg.n_layers}-layer bf16 prefill logits, kernel vs plain: "
+    log(f"model: {cfg.n_layers}-layer bf16 prefill logits (int8 weights), "
+        f"kernels vs plain: "
         f"max abs diff "
         f"{diff:.4e} (bound {bound:.4e}), argmax agrees on {agree}/{batch} "
         f"rows (need >= {batch - 1})")
@@ -1001,6 +1027,281 @@ def phase_int8_kernels(seed: int, card: str) -> list[dict]:
     return rows
 
 
+# ---- the W8A16 GEMM and the model-dtype KV write ----
+
+W8A16_LAUNCHES = [                        # name, K, N of each weight, per forward
+    ("wq, wk, wv", 2048, (2048, 1024, 1024), 16),  # one launch per layer
+    ("wo", 2048, (2048,), 16),
+    ("w_gate, w_up", 2048, (5632, 5632), 16),
+    ("w_down", 5632, (2048,), 16),
+    ("lm_head", 2048, (32000,), 1),
+]
+GEMMS_PER_LAYER = 4                       # launches of the GEMM per layer
+W8A16_M = 32                              # the decode batch and the chunk
+W8A16_PREFILL_M = 4096                    # the lanes prefill, 32 x 128
+ROW_CHECK_M = (1, 2, 7, 8, 31, 32, 33, 64, 128, 256)
+W8A16_TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # relative to max |plain|:
+# bf16 one output rounding (2^-8) after another sum order; f32 the order
+ROTATE_BYTES = 128 << 20                  # weights cycled per timing: > L2
+
+
+def w8a16_bound_ms(M: int, K: int, ns, out_elt: int) -> tuple[float, str]:
+    """Least time for one launch: the int8 weights, their bf16 scales and x
+    (bf16) read once and the outputs written once at the memory rate,
+    against 2 M K N operations at the bf16 tensor-core peak."""
+    N = sum(ns)
+    nbytes = K * N + 2 * N + 2 * M * K + out_elt * M * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_weights(gen, K: int, ns):
+    """Random int8 weights [K, n] with bf16 column scales, one per n."""
+    import torch
+    return [(torch.randint(-127, 128, (K, n), generator=gen, device="cuda",
+                           dtype=torch.int8),
+             (torch.rand((n,), generator=gen, device="cuda") * 2e-3
+              + 1e-4).to(torch.bfloat16)) for n in ns]
+
+
+def check_w8a16(x, weights, out, label: str) -> float:
+    """One launch against the plain version of each weight, within
+    W8A16_TOL relative to max |plain|."""
+    import torch
+    from grove_tpu_torch.ops.w8a16 import (w8a16_matmul, w8a16_matmul_group,
+                                           w8a16_matmul_ref)
+    before = w8a16_matmul.launches
+    got = w8a16_matmul_group(x, weights, out)
+    torch.cuda.synchronize()
+    launched = w8a16_matmul.launches - before
+    dt = str(out)[6:]
+    tol = W8A16_TOL[dt]
+    err, ok = 0.0, launched == 1
+    for g, (q, s) in zip(got, weights):
+        want = w8a16_matmul_ref(x, q, s, out)
+        err = max(err, (g.float() - want.float()).abs().max().item())
+        bound = tol * want.float().abs().max().item()
+        ok = ok and g.dtype == out and bool(torch.isfinite(g).all()) and \
+            torch.allclose(g.float(), want.float(), rtol=tol, atol=bound)
+    log(f"kernels: w8a16 {label} -> {dt}: max_abs_err={err:.3e} (rtol "
+        f"{tol}, atol {tol} x max |plain|), {launched} launch "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"w8a16 kernel disagrees at {label}")
+    return err
+
+
+def time_w8a16(gen, M: int, K: int, ns, out, label: str, card: str) -> dict:
+    """Kernel (one launch for the weights ``ns``), plain, yardstick
+    (torch.matmul against each bf16 weight dequantized once) and library
+    (torch._weight_int8pack_mm per weight) device ms, each cycling through
+    enough distinct weights that every call reads its weights from device
+    memory, not from the 50 MB L2."""
+    import itertools
+    import torch
+    from grove_tpu_torch.ops.w8a16 import (w8a16_matmul_group,
+                                           w8a16_matmul_group_ref,
+                                           w8a16_matmul_ref)
+    copies = max(2, -(-ROTATE_BYTES // (K * sum(ns))))
+    sets = [int8_weights(gen, K, ns) for _ in range(copies)]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    err = check_w8a16(x, sets[0], out, f"{label} M={M}")
+    iters = 2 * copies if copies > 10 else 20
+
+    def cycled(fn, items):
+        it = itertools.cycle(items)
+        return lambda: fn(next(it))
+
+    t = {"ms": time_ms(cycled(lambda ws: w8a16_matmul_group(x, ws, out),
+                              sets), iters=iters),
+         "plain_ms": time_ms(cycled(
+             lambda ws: w8a16_matmul_group_ref(x, ws, out), sets),
+             iters=iters)}
+    dense = [[q.to(torch.bfloat16) * s for q, s in ws] for ws in sets]
+    t["yardstick_ms"] = time_ms(cycled(lambda ws: [x @ w for w in ws],
+                                       dense), iters=iters)
+    del dense
+    packed = [[(q.t().contiguous(), s) for q, s in ws] for ws in sets]
+    try:
+        lib = torch._weight_int8pack_mm(x, *packed[0][0])
+        torch.cuda.synchronize()
+        ref = w8a16_matmul_ref(x, *sets[0][0], torch.bfloat16).float()
+        log(f"kernels: w8a16 {label}: torch._weight_int8pack_mm agrees with "
+            f"the plain version to {(lib.float() - ref).abs().max().item():.3e}")
+        t["library_ms"] = time_ms(cycled(
+            lambda ws: [torch._weight_int8pack_mm(x, q, s) for q, s in ws],
+            packed), iters=iters)
+    except (RuntimeError, NotImplementedError) as e:
+        t["library_ms"] = None
+        log(f"kernels: w8a16 {label}: torch._weight_int8pack_mm does not run "
+            f"here ({type(e).__name__}: {str(e).splitlines()[0][:120]}); "
+            f"library_ms null")
+    del packed
+    t["bound_ms"], t["bound_by"] = w8a16_bound_ms(
+        M, K, ns, torch.empty((), dtype=out).element_size())
+    t["err"] = err
+    dispatch = host_us(lambda: w8a16_matmul_group(x, sets[0], out))
+    log(f"kernels: w8a16 {label} M={M} K={K} N={list(ns)} ({copies} weight "
+        f"sets cycled): ms={t['ms']} plain_ms={t['plain_ms']} yardstick_ms="
+        f"{t['yardstick_ms']} library_ms={t['library_ms']} bound_ms="
+        f"{t['bound_ms']} ({t['bound_by']}) on {card}")
+    log(f"kernels: w8a16 {label} M={M}: kernel at "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound, "
+        f"{t['yardstick_ms'] / t['ms']:.2f}x the bf16-weight matmul's speed, "
+        f"{t['plain_ms'] / t['ms']:.2f}x the plain version's; wrapper "
+        f"dispatch {dispatch:.1f} us per call on the host")
+    return t
+
+
+def check_w8a16_rows(gen, K: int, ns, out, label: str) -> None:
+    """Bitwise: each row of a launch with M rows equals the same row inside
+    a launch with 256 rows, for every M of ROW_CHECK_M."""
+    import torch
+    from grove_tpu_torch.ops.w8a16 import w8a16_matmul_group
+    weights = int8_weights(gen, K, ns)
+    x = torch.randn((max(ROW_CHECK_M), K), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    whole = w8a16_matmul_group(x, weights, out)
+    same = {M: all(torch.equal(a, w[:M]) for a, w in zip(
+        w8a16_matmul_group(x[:M], weights, out), whole))
+        for M in ROW_CHECK_M}
+    torch.cuda.synchronize()
+    log(f"kernels: w8a16 row invariance {label} K={K} N={list(ns)}: rows of "
+        f"M in {list(ROW_CHECK_M)} vs the same rows at M=256: " + ", ".join(
+            f"{M} {'equal' if v else 'DIFFER'}" for M, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"w8a16 rows depend on M ({label})")
+
+
+def phase_w8a16_kernels(seed: int, card: str) -> dict:
+    """The W8A16 GEMM: each build's registers, spills and shared memory;
+    against its plain version at llama-1b's launches (M = 32, and M = 4,096
+    for the MLP's gate and up), at ragged and f32 shapes; the row
+    invariance; times. Returns its kernel-table row, whose times are the
+    sums over one llama-1b forward at M = 32 (65 launches)."""
+    import torch
+    from grove_tpu_torch.ops.w8a16 import kernel_info
+    for which in ("small", "wide", "fma"):
+        info = kernel_info(which)
+        log(f"kernels: build w8a16 {which} (tile {info['tile'][0]} x "
+            f"{info['tile'][1]}): {info['registers']} registers, "
+            f"{info['local_bytes']} bytes local (spill) per thread, "
+            f"{info['smem_bytes']} bytes dynamic shared memory per CTA")
+        if info["local_bytes"]:
+            raise AssertionError(f"the w8a16 {which} kernel spills")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    err = 0.0
+    # Ragged rows and columns (tiles of 64 cut at 32 and 48), test-tiny's
+    # shapes, three weights in one launch, and f32 activations (the
+    # CUDA-core kernel).
+    for M, K, ns, dt, out in (
+            (5, 64, (32,), torch.bfloat16, torch.bfloat16),
+            (7, 128, (64, 32, 48), torch.bfloat16, torch.bfloat16),
+            (300, 128, (256,), torch.bfloat16, torch.float32),
+            (300, 2048, (1024, 512), torch.bfloat16, torch.bfloat16),
+            (3, 64, (256, 32), torch.float32, torch.float32),
+            (32, 2048, (2048, 1024, 1024), torch.float32, torch.float32),
+            (300, 5632, (2048,), torch.float32, torch.float32)):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        err = max(err, check_w8a16(x, int8_weights(gen, K, ns), out,
+                                   f"{str(dt)[6:]} x M={M} K={K} "
+                                   f"N={list(ns)}"))
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_ms": 0.0,
+           "library_ms": 0.0}
+    launches = 0
+    for name, K, ns, calls in W8A16_LAUNCHES:
+        out = torch.float32 if name == "lm_head" else torch.bfloat16
+        t = time_w8a16(gen, W8A16_M, K, ns, out, name, card)
+        err = max(err, t["err"])
+        launches += calls
+        for key in row:
+            if row[key] is not None:
+                row[key] = None if t[key] is None else \
+                    row[key] + calls * t[key]
+    for key, v in row.items():
+        log(f"kernels: w8a16 one llama-1b forward at M={W8A16_M} ({launches} "
+            f"launches): {key}={v} on {card}")
+    t = time_w8a16(gen, W8A16_PREFILL_M, 2048, (5632, 5632), torch.bfloat16,
+                   "w_gate, w_up (lanes prefill)", card)
+    err = max(err, t["err"])
+    check_w8a16_rows(gen, 2048, (2048, 1024, 1024), torch.bfloat16,
+                     "wq, wk, wv")
+    check_w8a16_rows(gen, 2048, (2048,), torch.bfloat16, "wo")
+    check_w8a16_rows(gen, 2048, (32000,), torch.float32, "lm_head")
+    return {"name": "w8a16_matmul", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/w8a16_gemm.cu",
+            "replaces": "grove_tpu/serving/quant.py:42",
+            "launches": 0, "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": "bytes", "library_ms": row["library_ms"],
+            "yardstick_ms": row["yardstick_ms"],
+            "per": f"one llama-1b forward at M={W8A16_M}: {launches} "
+                   f"launches"}
+
+
+def check_scatter(gen, card: str) -> dict:
+    """The model-dtype scatter against its plain version, bitwise on both
+    pools, for f32 and bf16 rows: one sequence's chunk running past its
+    table's width, the other's padded tail marked invalid (both land in
+    the null block, in distinct slots); then timed at the decode step's
+    shape. Returns its kernel-table row."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.ops.kvquant import paged_scatter, paged_scatter_ref
+    n_kv, d, W, c = 8, 128, 4, PAGED_CHUNK
+    nb = 1 + 2 * W + 3
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(6))
+    tables = (1 + perm[:2 * W]).reshape(2, W).to(torch.int32).cuda()
+    steps = torch.arange(c, dtype=torch.int32, device="cuda")
+    positions = torch.stack([36 + steps, steps])
+    valid = torch.ones((2, c), dtype=torch.bool, device="cuda")
+    valid[1, 24:] = False
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        k, v = (torch.randn((2, c, n_kv, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        pools = [torch.randn((nb, PAGED_BS, n_kv, d), generator=gen,
+                             device="cuda").to(dtype) for _ in range(2)]
+        mine = [t.clone() for t in pools]
+        before = paged_scatter.launches
+        paged_scatter(*mine, k, v, tables, positions, valid)
+        torch.cuda.synchronize()
+        if paged_scatter.launches != before + 1:
+            raise AssertionError("the scatter wrapper did not count its "
+                                 "launch")
+        paged_scatter_ref(pools[0], k, tables, positions, valid)
+        paged_scatter_ref(pools[1], v, tables, positions, valid)
+        same = [torch.equal(a, b) for a, b in zip(mine, pools)]
+        log(f"kernels: paged_scatter {dt} b=2 c={c} n_kv={n_kv} d={d} W={W} "
+            f"(rows past the width and invalid rows in the null block): K "
+            f"pool {same[0]}, V pool {same[1]} bitwise equal to the plain "
+            f"version")
+        if not all(same):
+            raise AssertionError(f"the scatter kernel disagrees ({dt})")
+    B, Wd, lo, hi = SERVE_DECODE
+    lengths = np.random.default_rng(18).integers(lo, hi, size=B)
+    kp, vp, tables = paged_pools(gen, lengths + 1, Wd, n_kv, d,
+                                 torch.bfloat16)
+    k, v = (torch.randn((B, 1, n_kv, d), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    pos = torch.from_numpy(lengths.astype(np.int32)).cuda()[:, None]
+    nbytes = 2 * 2 * B * n_kv * d * 2 + 2 * B * 4
+    label = f"paged_scatter decode shape B={B} s=1 n_kv={n_kv} d={d} bf16"
+    t = time_paged(
+        label, lambda: paged_scatter(kp, vp, k, v, tables, pos),
+        lambda: (paged_scatter_ref(kp, k, tables, pos),
+                 paged_scatter_ref(vp, v, tables, pos)),
+        None, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), card)
+    return {"name": "paged_scatter", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/kv_quant.cu",
+            "replaces": "grove_tpu/models/llama.py:482",
+            "launches": 0, "max_abs_err": 0.0, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "yardstick_ms": None}
+
+
 def drive_paged(eng, want: int, max_iters: int = 100_000) -> None:
     for _ in range(max_iters):
         eng.admit_from_queue()
@@ -1037,7 +1338,8 @@ def phase_paged_parity(seed: int, device: str = "cuda") -> None:
         seed), device=device)
     wrappers = (paged.paged_decode_attention, paged.paged_chunk_attention,
                 paged.paged_decode_attention_q8,
-                paged.paged_chunk_attention_q8, kvquant.paged_scatter_q)
+                paged.paged_chunk_attention_q8, kvquant.paged_scatter_q,
+                kvquant.paged_scatter)
     for w in wrappers:
         w.launches = 0
     captured = 0
@@ -1192,7 +1494,7 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     import numpy as np
     import torch
     from grove_tpu_torch.models.llama import CONFIGS, init_params
-    from grove_tpu_torch.ops import kvquant, paged
+    from grove_tpu_torch.ops import kvquant, paged, w8a16
     from grove_tpu_torch.serving.engine import PagedDecodeEngine, make_engine
 
     cfg = cfg or CONFIGS["llama-1b"]
@@ -1200,7 +1502,10 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     wrappers = (paged.paged_decode_attention, paged.paged_chunk_attention,
                 paged.paged_decode_attention_q8,
-                paged.paged_chunk_attention_q8, kvquant.paged_scatter_q)
+                paged.paged_chunk_attention_q8, kvquant.paged_scatter_q,
+                kvquant.paged_scatter, w8a16.w8a16_matmul)
+    kernels = ("paged_partial", "paged_combine", "scatter_q", "scatter_kernel",
+               "w8a16")
     rng = np.random.default_rng(seed + 11)
     lens = rng.integers(prompt_lo, prompt_hi + 1, size=n_requests)
     prefix = rng.integers(0, cfg.vocab_size, size=shared)
@@ -1273,8 +1578,7 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                     t_w = time.perf_counter()
                     profile_window(f"mixed ticks {start}..{start + width - 1}"
                                    f" ({label})", run_window, window_ms,
-                                   card, ("paged_partial", "paged_combine",
-                                          "scatter_q"))
+                                   card, kernels)
                     log(f"paged: {label}: the profiled window and the "
                         f"profiler's processing took "
                         f"{time.perf_counter() - t_w:.3f} s of this serve's "
@@ -1318,9 +1622,14 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 "paged_chunk_attention": 0 if q8 else n * chunks,
                 "paged_decode_attention_q8": n * steps if q8 else 0,
                 "paged_chunk_attention_q8": n * chunks if q8 else 0,
-                "paged_scatter_q": n * (steps + chunks) if q8 else 0}
+                "paged_scatter_q": n * (steps + chunks) if q8 else 0,
+                "paged_scatter": 0 if q8 else n * (steps + chunks),
+                "w8a16_matmul": (GEMMS_PER_LAYER * n + 1) * (steps + chunks)
+                if on_cuda else 0}
         log(f"paged: {label}: launches {counts} ({cfg.n_layers} per decode "
-            f"step and per chunk expected: {want}); graphs captured during "
+            f"step and per chunk for each attention and write kernel, "
+            f"{GEMMS_PER_LAYER * cfg.n_layers + 1} GEMM launches: {want}); "
+            f"graphs captured during "
             f"traffic: {eng.graphs_captured - captured0}")
         if counts != want:
             raise AssertionError(f"{label}: kernel launches off the path")
@@ -1342,8 +1651,7 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             f"{decode_s * 1e3 / bench_steps:.3f} ms per step) on {card}")
         if on_cuda:
             profile_window(f"paged decode ({label})", lambda: eng.run(8),
-                           decode_s * 1e3 / bench_steps * 8, card,
-                           ("paged_partial", "paged_combine", "scatter_q"))
+                           decode_s * 1e3 / bench_steps * 8, card, kernels)
 
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -1424,23 +1732,26 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     return {**{k: v for k, v in counts.items() if not k.endswith("_q")
                and not k.endswith("_q8")},
             **{k: v for k, v in q8_counts.items() if k.endswith("_q")
-               or k.endswith("_q8")}}
+               or k.endswith("_q8")}}  # the GEMM's: the first serve's
 
 
 def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
                       batch: int = 8, width: int = 64) -> None:
     """llama-1b bf16 ``decode_step_paged`` and ``prefill_chunk_paged``
-    logits with the paged kernels vs their plain versions, on the same
-    pools (random K/V) and tables."""
+    logits with int8 weights through the kernels (paged attention, the
+    model-dtype scatter, W8A16) vs their plain versions, on the same pools
+    (random K/V) and tables; then, on the card, ``batch_rows`` at a batch
+    of 32."""
     import numpy as np
     import torch
     from grove_tpu_torch.models import llama
     from grove_tpu_torch.models.llama import CONFIGS, init_params
-    from grove_tpu_torch.ops import paged
+    from grove_tpu_torch.ops import kvquant, paged, w8a16
+    from grove_tpu_torch.serving.quant import quantize_params
 
     cfg = cfg or CONFIGS["llama-1b"]
     gen = torch.Generator(device=device).manual_seed(seed + 2)
-    params = init_params(cfg, gen, device=device)
+    params = quantize_params(init_params(cfg, gen, device=device))
     rng = np.random.default_rng(seed + 2)
     lengths = rng.integers(100, width * PAGED_BS, size=batch).astype(np.int32)
     lengths[0] = SERVE_CHUNK_OFFSET
@@ -1454,11 +1765,20 @@ def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
                               .astype(np.int32)).to(device)
     lens = torch.from_numpy(lengths).to(device)
 
+    def plain_scatter(kc, vc, k, v, t, pos, valid=None):
+        kvquant.paged_scatter_ref(kc, k, t, pos, valid)
+        kvquant.paged_scatter_ref(vc, v, t, pos, valid)
+
+    plain_fns = {"paged_decode_attention": paged.paged_decode_attention_ref,
+                 "paged_chunk_attention": paged.paged_chunk_attention_ref,
+                 "paged_scatter": plain_scatter,
+                 "w8a16_matmul_group": w8a16.w8a16_matmul_group_ref}
+
     def run(plain: bool):
-        saved = (llama.paged_decode_attention, llama.paged_chunk_attention)
+        saved = {name: getattr(llama, name) for name in plain_fns}
         if plain:
-            llama.paged_decode_attention = paged.paged_decode_attention_ref
-            llama.paged_chunk_attention = paged.paged_chunk_attention_ref
+            for name, fn in plain_fns.items():
+                setattr(llama, name, fn)
         try:
             k, v = k0.clone(), v0.clone()
             dec = llama.decode_step_paged(cfg, params, tokens[:, 0], k, v,
@@ -1469,7 +1789,8 @@ def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
                 SERVE_CHUNK_OFFSET, 31, 32)
             return dec.float(), chunk.float()
         finally:
-            llama.paged_decode_attention, llama.paged_chunk_attention = saved
+            for name, fn in saved.items():
+                setattr(llama, name, fn)
 
     kernel, plain = run(False), run(True)
     for name, kl, pl, need in (("decode_step_paged", kernel[0], plain[0],
@@ -1481,11 +1802,80 @@ def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
         diff = (kl - pl).abs().max().item()
         bound = 5e-2 * pl.abs().max().item()
         agree = int((kl.argmax(-1) == pl.argmax(-1)).sum().item())
-        log(f"model: {cfg.n_layers}-layer bf16 {name} logits, kernels vs "
-            f"plain: max abs diff {diff:.4e} (bound {bound:.4e}), argmax "
-            f"agrees on {agree}/{kl.shape[0]} rows (need >= {need})")
+        log(f"model: {cfg.n_layers}-layer bf16 {name} logits (int8 weights), "
+            f"kernels vs plain: max abs diff {diff:.4e} (bound {bound:.4e}), "
+            f"argmax agrees on {agree}/{kl.shape[0]} rows (need >= {need})")
         if diff > bound or agree < need:
             raise AssertionError(f"{name}: kernels and plain disagree")
+    del k0, v0
+    if device == "cuda":
+        batch_rows(cfg, params, seed, width=width)
+
+
+def batch_rows(cfg, params, seed: int, batch: int = 32, rows: int = 8,
+               width: int = 64, device: str = "cuda") -> None:
+    """``decode_step_paged`` over the first ``rows`` of ``batch`` sequences
+    alone and inside the whole batch: are their logits bitwise equal, and
+    if not, which op (in call order) first gives those rows other bits. A
+    finding for speculative decoding (its verify must equal sequential
+    decode bitwise), reported and not asserted."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama
+    traced = ("embed", "rms_norm", "w8a16_matmul_group", "apply_rope",
+              "paged_decode_attention")
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    rng = np.random.default_rng(seed + 3)
+    lens = torch.from_numpy(rng.integers(100, width * PAGED_BS, size=batch)
+                            .astype(np.int32)).to(device)
+    tables = torch.from_numpy((1 + np.arange(batch * width, dtype=np.int32)
+                               ).reshape(batch, width)).to(device)
+    shape = (cfg.n_layers, 1 + batch * width, PAGED_BS, cfg.n_kv_heads,
+             cfg.head_dim)
+    k0 = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    v0 = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, batch)
+                              .astype(np.int32)).to(device)
+
+    def run(n: int):
+        calls = []
+        saved = {name: getattr(llama, name) for name in traced}
+
+        def record(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                for t in out if isinstance(out, list) else [out]:
+                    calls.append((name, t))
+                return out
+            return call
+
+        for name in traced:
+            setattr(llama, name, record(name, saved[name]))
+        try:
+            k, v = k0.clone(), v0.clone()
+            logits = llama.decode_step_paged(cfg, params, tokens[:n], k, v,
+                                             tables[:n], lens[:n])
+        finally:
+            for name, fn in saved.items():
+                setattr(llama, name, fn)
+        return logits, calls
+
+    whole, whole_calls = run(tokens.shape[0])
+    alone, alone_calls = run(rows)
+    same = torch.equal(alone, whole[:rows])
+    first = None
+    seen: dict[str, int] = {}
+    for (name, a), (_, w) in zip(alone_calls, whole_calls):
+        seen[name] = seen.get(name, 0) + 1
+        if first is None and not torch.equal(a, w[:rows]):
+            first = (name, seen[name])
+    log(f"model: decode_step_paged logits of {rows} sequences alone vs "
+        f"inside a batch of {tokens.shape[0]}: "
+        f"{'bitwise equal' if same else 'DIFFER'} (max abs diff "
+        f"{(alone - whole[:rows]).abs().max().item():.4e}); "
+        + ("every traced op's rows equal" if first is None else
+           f"first op whose rows differ: {first[0]}, call {first[1]} of it "
+           f"(traced in call order: {', '.join(traced)})"))
 
 
 def main() -> int:
@@ -1522,8 +1912,14 @@ def main() -> int:
     flash_row = phase_kernels(args.seed, card)
     paged_rows = phase_paged_kernels(args.seed, card)
     paged_rows += phase_int8_kernels(args.seed, card)
-    # 4. the lanes path; 5. the flash kernel through the model
-    flash_row["launches"] = phase_serve(args.seed, card)
+    paged_rows.append(check_scatter(
+        torch.Generator(device="cuda").manual_seed(args.seed + 15), card))
+    paged_rows.append(phase_w8a16_kernels(args.seed, card))
+    # 4. the lanes path; 5. the flash and W8A16 kernels through the model
+    lanes = phase_serve(args.seed, card)
+    flash_row["launches"] = lanes["flash_causal_attention"]
+    if not lanes["w8a16_matmul"]:
+        raise AssertionError("w8a16_matmul never launched on the lanes path")
     phase_model(args.seed, card)
     # 6. paged parity; 7. the paged path (the default make_engine);
     # 8. the paged kernels through the model

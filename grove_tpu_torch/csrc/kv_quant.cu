@@ -1,9 +1,10 @@
-// The int8 paged KV cache's write: quantize new K/V rows and scatter them
-// through the block tables, on Hopper (sm_90a).
+// The paged KV cache's writes, on Hopper (sm_90a): new K/V rows scattered
+// through the block tables into a layer's pools, quantized for an int8 pool
+// or copied as they are for a pool of the model's type.
 //
-// Replaces the JAX package's _paged_scatter_q (grove_tpu/models/llama.py:525,
-// an XLA composition, no Pallas source): for every (row, kv head) of the new
-// K and V,
+// The quantizing scatter replaces the JAX package's _paged_scatter_q
+// (grove_tpu/models/llama.py:525, an XLA composition, no Pallas source): for
+// every (row, kv head) of the new K and V,
 //
 //   scale = max(max_i |x_i|, 1e-8) * f32(1 / 127),
 //   code_i = clip(rint(x_i / scale), -127, 127)
@@ -15,19 +16,28 @@
 // even. So codes and scales equal the plain version's, and JAX's, bit for
 // bit. The codes land at flat slot table[b, pos / bs] * bs + pos % bs of
 // the int8 pool [nb, bs, n_kv, d], the scale at the same slot of the f32
-// scales [nb, bs, n_kv]. A position whose column is past the table's width,
-// or a row whose valid flag is 0, goes to slot pos % bs of block 0 (the
-// null block), as the plain version routes it; a slot outside the pool is
+// scales [nb, bs, n_kv].
+//
+// The plain scatter replaces _paged_scatter (grove_tpu/models/llama.py:482,
+// also XLA): each row [n_kv, d] lands, as it is, at the same flat slot of a
+// pool of its own type. The port's plain version is an index computation
+// and two index_copy_ per layer; this is one launch, bitwise the same.
+//
+// Both route alike: a position whose column is past the table's width, or
+// a row whose valid flag is 0, goes to slot pos % bs of block 0 (the null
+// block), as the plain versions route it; a slot outside the pool is
 // dropped.
 //
-// What bounds it on an H100: bytes (each element read once and written once
-// as one byte, a few flops each). The design: one warp per (K or V, row,
-// kv head), each lane holding 4 consecutive values (d <= 128), the row's
-// absmax by five shuffles; one launch covers K and V of a layer.
+// What bounds them on an H100: bytes (each element read once and written
+// once, a few flops each for the quantizer). The designs: the quantizer
+// runs one warp per (K or V, row, kv head), each lane holding 4 consecutive
+// values (d <= 128), the row's absmax by five shuffles; the plain scatter
+// one CTA per (K or V, row), 16 bytes per thread. One launch covers K and V
+// of a layer.
 //
-// The C entry point returns cudaGetLastError() after its launch (or the
-// error that kept it from launching); it launches on the given stream and
-// never synchronizes.
+// The C entry points return cudaGetLastError() after their launch (or the
+// error that kept them from launching); they launch on the given stream and
+// never synchronize.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +62,22 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* src, float* x) {
   x[2] = __bfloat162float(hi.x); x[3] = __bfloat162float(hi.y);
 }
 
+// Flat pool slot of row `row` (rows = b * s, row-major over [b, s]), or -1
+// when the slot lies outside the pool [nb * bs slots].
+__device__ __forceinline__ long long slot_of(long long row,
+                                             const int* __restrict__ tables,
+                                             const int* __restrict__ positions,
+                                             const uint8_t* __restrict__ valid,
+                                             int s, int w, int nb, int bs) {
+  const int pos = positions[row];
+  const int col = pos / bs, slot = pos % bs;
+  if (pos < 0) return -1;
+  const bool keep = col < w && (valid == nullptr || valid[row] != 0);
+  const long long flat =
+      keep ? (long long)tables[(row / s) * w + col] * bs + slot : slot;
+  return flat < 0 || flat >= (long long)nb * bs ? -1 : flat;
+}
+
 // Grid: ceil(2 * rows * n_kv / kWarps) CTAs of kThreads. k, v:
 // [rows, n_kv, d] (rows = b * s); positions [rows] int32 (>= 0); valid
 // [rows] bytes or null; tables [b, w] int32.
@@ -72,12 +98,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long rh = item - which * per;
   const int head = (int)(rh % n_kv);
   const long long row = rh / n_kv;
-  const int pos = positions[row];
-  const int col = pos / bs, slot = pos % bs;
-  const bool keep = col < w && (valid == nullptr || valid[row] != 0);
   const long long flat =
-      keep ? (long long)tables[(row / s) * w + col] * bs + slot : slot;
-  if (pos < 0 || flat < 0 || flat >= (long long)nb * bs) return;
+      slot_of(row, tables, positions, valid, s, w, nb, bs);
+  if (flat < 0) return;
 
   const int c0 = 4 * lane;
   float x[4] = {0.f, 0.f, 0.f, 0.f};
@@ -98,6 +121,24 @@ __global__ void __launch_bounds__(kThreads)
     *reinterpret_cast<char4*>((which ? vpool : kpool) + dst * d + c0) = out;
   }
   if (lane == 0) (which ? vscale : kscale)[dst] = scale;
+}
+
+// Grid: 2 * rows CTAs of kThreads, one per (K or V, row). k, v: [rows,
+// chunks] 16-byte chunks (a row's n_kv * d values); pools [nb * bs, chunks].
+__global__ void __launch_bounds__(kThreads)
+    scatter_kernel(const uint4* __restrict__ k, const uint4* __restrict__ v,
+                   uint4* kpool, uint4* vpool, const int* __restrict__ tables,
+                   const int* __restrict__ positions,
+                   const uint8_t* __restrict__ valid, long long rows, int s,
+                   int w, int chunks, int nb, int bs) {
+  const int which = blockIdx.x >= rows ? 1 : 0;
+  const long long row = blockIdx.x - which * rows;
+  const long long flat =
+      slot_of(row, tables, positions, valid, s, w, nb, bs);
+  if (flat < 0) return;
+  const uint4* src = (which ? v : k) + row * chunks;
+  uint4* dst = (which ? vpool : kpool) + flat * chunks;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) dst[c] = src[c];
 }
 
 }  // namespace
@@ -137,6 +178,29 @@ extern "C" int grove_kv_scatter_q(const void* k, const void* v, void* kpool,
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), kp, vp, ks, vs, t, p, ok, rows,
         s, w, n_kv, d, nb, bs);
+  return (int)cudaGetLastError();
+}
+
+// Scatter one layer's new K and V rows, as they are, into pools of their
+// type. k, v: [rows, row_bytes] (rows = b * s, row-major over [b, s]);
+// kpool, vpool: [nb, bs, row_bytes]; tables [b, w] int32; positions [rows]
+// int32; valid [rows] bytes or null. All contiguous and 16-byte aligned;
+// row_bytes (n_kv * d * the element size) a multiple of 16.
+extern "C" int grove_kv_scatter(const void* k, const void* v, void* kpool,
+                                void* vpool, const void* tables,
+                                const void* positions, const void* valid,
+                                int b, int s, int w, int row_bytes, int nb,
+                                int bs, void* stream) {
+  if (b <= 0 || s <= 0 || w <= 0 || row_bytes <= 0 || row_bytes % 16 != 0 ||
+      nb <= 0 || bs <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)b * s;
+  scatter_kernel<<<(unsigned)(2 * rows), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(k), static_cast<const uint4*>(v),
+      static_cast<uint4*>(kpool), static_cast<uint4*>(vpool),
+      static_cast<const int*>(tables), static_cast<const int*>(positions),
+      static_cast<const uint8_t*>(valid), rows, s, w, row_bytes / 16, nb, bs);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,9 @@ loop over the L axis here, and the KV cache is updated in place.
 
 Products take the working type's inputs: where the JAX code asks for an
 f32 result (``preferred_element_type``), the port multiplies the same
-values upcast to f32.
+values upcast to f32. int8 weights (``QTensor`` leaves) go through the
+W8A16 GEMM (ops/w8a16.py: a kernel on CUDA tensors that reads the weight
+as int8, the materialize-then-matmul plain version on CPU tensors).
 """
 
 from __future__ import annotations
@@ -23,13 +25,16 @@ from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
                                            pick_causal_attention)
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
-from grove_tpu_torch.ops.kvquant import paged_scatter_q, scatter_slots
+from grove_tpu_torch.ops.kvquant import paged_scatter, paged_scatter_q
+from grove_tpu_torch.ops.kvquant import paged_scatter_ref as _paged_scatter
 from grove_tpu_torch.ops.norms import rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
                                        paged_decode_attention,
                                        paged_decode_attention_q8)
 from grove_tpu_torch.ops.rope import apply_rope, rope_table
+from grove_tpu_torch.ops.w8a16 import w8a16_matmul_group
+from grove_tpu_torch.serving.quant import QTensor
 
 Params = dict[str, Any]
 
@@ -131,18 +136,38 @@ def layer_params(layers: Params, i: int) -> Params:
     return {name: w[i] for name, w in layers.items()}
 
 
-def _w(w):
-    """A (possibly int8-quantized) weight as a dense tensor for a matmul.
-    For int8 weights this writes a working-type copy (the JAX package
-    leaves the upcast to XLA's fusion; a fused W8A16 kernel is later
-    work)."""
-    return w.materialize() if hasattr(w, "materialize") else w
+def _int8_matmul(x: torch.Tensor, ws: list[QTensor], n_contract: int,
+                 out_dtype: torch.dtype) -> list[torch.Tensor]:
+    """``x`` [..., *w.shape[:n_contract]] contracted with the leading
+    ``n_contract`` axes of each int8 weight of ``ws`` (one launch of the
+    W8A16 GEMM for all: x as [M, K], each weight as the [K, N] it is
+    stored as, its scales as [N])."""
+    k = ws[0].q.shape[:n_contract].numel()
+    ys = w8a16_matmul_group(
+        x.reshape(-1, k), [(w.q.reshape(k, -1), w.scale.reshape(-1))
+                           for w in ws], out_dtype)
+    lead = x.shape[:x.dim() - n_contract]
+    return [y.reshape(lead + w.q.shape[n_contract:]) for y, w in zip(ys, ws)]
+
+
+def _projs(eq: str, x: torch.Tensor, ws) -> list[torch.Tensor]:
+    """``einsum(eq, x, w)`` for each weight of ``ws`` (they share x), with
+    JAX's type promotion: mixed inputs (an f32 model over bf16 int8 scales)
+    meet in the wider type. Every equation here contracts x's trailing axes
+    with w's leading ones, so int8 weights go through the W8A16 GEMM, in
+    one launch; dense ones through einsum."""
+    if all(isinstance(w, QTensor) for w in ws):
+        w_axes, out_axes = eq.split(",")[1].split("->")
+        n_contract = sum(a not in out_axes for a in w_axes)
+        return _int8_matmul(x, ws, n_contract,
+                            torch.promote_types(x.dtype, ws[0].scale.dtype))
+    return [_proj(eq, x, w) for w in ws]
 
 
 def _proj(eq: str, x: torch.Tensor, w) -> torch.Tensor:
-    """``einsum(eq, x, _w(w))`` with JAX's type promotion: mixed inputs
-    (an f32 model over bf16 int8 scales) meet in the wider type."""
-    w = _w(w)
+    """``_projs`` of one weight."""
+    if isinstance(w, QTensor):
+        return _projs(eq, x, [w])[0]
     dt = torch.promote_types(x.dtype, w.dtype)
     return torch.einsum(eq, x.to(dt), w.to(dt))
 
@@ -150,9 +175,7 @@ def _proj(eq: str, x: torch.Tensor, w) -> torch.Tensor:
 def _qkv(cfg: LlamaConfig, x, lp, cos, sin, positions):
     """Pre-norm + QKV projections + rope. Shared by prefill and decode."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = _proj("bsd,dhk->bshk", h, lp["wq"])
-    k = _proj("bsd,dhk->bshk", h, lp["wk"])
-    v = _proj("bsd,dhk->bshk", h, lp["wv"])
+    q, k, v = _projs("bsd,dhk->bshk", h, [lp["wq"], lp["wk"], lp["wv"]])
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     return q, k, v
@@ -166,8 +189,7 @@ def _attn_out(x, attn, lp):
 def _mlp_block(cfg: LlamaConfig, x, lp):
     """Pre-norm SwiGLU MLP with residual. Shared by prefill and decode."""
     hm = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = _proj("bsd,df->bsf", hm, lp["w_gate"])
-    up = _proj("bsd,df->bsf", hm, lp["w_up"])
+    gate, up = _projs("bsd,df->bsf", hm, [lp["w_gate"], lp["w_up"]])
     out = _proj("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"])
     return x + out.to(x.dtype)
 
@@ -190,7 +212,7 @@ def embed(cfg: LlamaConfig, params: Params,
           tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding."""
     te = params["tok_embed"]
-    if hasattr(te, "materialize"):  # int8: gather rows, then scale them
+    if isinstance(te, QTensor):  # int8: gather rows, then scale them
         return (te.q[tokens].to(te.scale.dtype)
                 * te.scale[tokens]).to(cfg.dtype)
     return te[tokens].to(cfg.dtype)
@@ -198,8 +220,11 @@ def embed(cfg: LlamaConfig, params: Params,
 
 def _logits(x: torch.Tensor, w) -> torch.Tensor:
     """LM-head product with an f32 result: the working-type values upcast
-    to f32, as the JAX ``preferred_element_type=f32`` product."""
-    return x.to(torch.float32) @ _w(w).to(torch.float32)
+    to f32, as the JAX ``preferred_element_type=f32`` product (an int8
+    head through the W8A16 GEMM with an f32 output)."""
+    if isinstance(w, QTensor):
+        return _int8_matmul(x, [w], 1, torch.float32)[0]
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 def head(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -283,28 +308,16 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
 # plain versions (the JAX composition: ``_paged_gather``, which is
 # ops/paged.py's ``paged_gather``, then dense attention) on CPU tensors.
 #
+# The write is ops/kvquant.py's scatter (``_paged_scatter`` here is its plain
+# version, the JAX package's function), one kernel for K and V on CUDA
+# tensors.
+#
 # int8 paged KV (GROVE_KV_QUANT=int8): the pools hold int8 rows with a
 # per-(slot, head) f32 scale beside them ([layers, num_blocks, bs, n_kv],
 # ``k_scale``/``v_scale``). The write quantizes (the JAX package's
 # ``_paged_scatter_q``: ops/kvquant.py, a kernel on CUDA tensors),
 # attention dequantizes as it reads (``_paged_gather_q``'s arithmetic:
 # ops/paged.py, inside the paged kernels).
-
-
-def _paged_scatter(cache_blocks: torch.Tensor, kv: torch.Tensor,
-                   tables: torch.Tensor, positions: torch.Tensor,
-                   valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Write ``kv`` [b, s, n_kv, d] at token ``positions`` [b, s] through
-    the block tables [b, w] (one flat index write into ``cache_blocks``
-    [nb, bs, n_kv, d], in place; returns it). Positions in a table's
-    padding resolve to the null block; positions past the table's width,
-    and rows that ``valid`` [b, s] masks out, land in the null block at
-    slot ``positions % bs`` (``scatter_slots`` says why)."""
-    nb, bs = cache_blocks.shape[0], cache_blocks.shape[1]
-    flat = cache_blocks.view((nb * bs,) + tuple(cache_blocks.shape[2:]))
-    flat.index_copy_(0, scatter_slots(tables, positions, bs, valid),
-                     kv.reshape((-1,) + tuple(kv.shape[2:])).to(flat.dtype))
-    return cache_blocks
 
 
 def paged_block_copy(dst_k: torch.Tensor, dst_v: torch.Tensor,
@@ -339,8 +352,7 @@ def _write_and_attend(q, k, v, kc, vc, ks, vs, tables, positions, per_seq,
     """One layer's paged K/V write and attention, over a model-dtype pool
     (``ks`` None) or an int8 pool with its scales."""
     if ks is None:
-        _paged_scatter(kc, k, tables, positions, valid=valid)
-        _paged_scatter(vc, v, tables, positions, valid=valid)
+        paged_scatter(kc, vc, k, v, tables, positions, valid)
         attn = paged_decode_attention if decode else paged_chunk_attention
         return attn(q, kc, vc, tables, per_seq)
     paged_scatter_q(kc, vc, ks, vs, k, v, tables, positions, valid)

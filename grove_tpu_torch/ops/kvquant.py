@@ -1,5 +1,6 @@
-"""The int8 paged KV cache's write: the quantizing scatter, a CUDA kernel for
-Hopper and its plain PyTorch version.
+"""The paged KV cache's writes: the quantizing scatter of an int8 pool and
+the plain scatter of a model-dtype pool, CUDA kernels for Hopper and their
+plain PyTorch versions.
 
 With ``GROVE_KV_QUANT=int8`` the paged pools hold int8 rows and a per-(slot,
 kv head) f32 scale beside them (serving/kvcache.py). Per slot, not per
@@ -14,8 +15,14 @@ that is what the port computes; ``x / scale`` stays an IEEE division.
 null-block routing (``scatter_slots``); ``paged_scatter_q`` runs the kernel
 (``grove_tpu_torch/csrc/kv_quant.cu``) on CUDA tensors, one launch for K and
 V of a layer, and the plain version on CPU tensors. The two agree bit for
-bit: a row's codes and scale depend only on that row. ``launches`` on the
-wrapper counts its launches.
+bit: a row's codes and scale depend only on that row.
+
+A model-dtype pool takes the rows as they are: the JAX package's
+``_paged_scatter`` (``grove_tpu/models/llama.py:482``), whose plain version
+here is ``paged_scatter_ref`` (an index computation and one ``index_copy_``
+per pool); ``paged_scatter`` runs the same file's copy kernel on CUDA
+tensors, one launch for K and V of a layer, bitwise the plain version's
+result (it is a copy). ``launches`` on each wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -56,6 +63,22 @@ def scatter_slots(tables: torch.Tensor, positions: torch.Tensor, bs: int,
     return torch.where(keep, flat, slot).reshape(-1).to(torch.long)
 
 
+def paged_scatter_ref(cache_blocks: torch.Tensor, kv: torch.Tensor,
+                      tables: torch.Tensor, positions: torch.Tensor,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version for one pool: write ``kv`` [b, s, n_kv, d] at token
+    ``positions`` [b, s] through the block tables [b, w] (one flat index
+    write into ``cache_blocks`` [nb, bs, n_kv, d], in place; returns it).
+    Positions in a table's padding resolve to the null block; positions past
+    the table's width, and rows that ``valid`` [b, s] masks out, land in the
+    null block at slot ``positions % bs`` (``scatter_slots`` says why)."""
+    nb, bs = cache_blocks.shape[0], cache_blocks.shape[1]
+    flat = cache_blocks.view((nb * bs,) + tuple(cache_blocks.shape[2:]))
+    flat.index_copy_(0, scatter_slots(tables, positions, bs, valid),
+                     kv.reshape((-1,) + tuple(kv.shape[2:])).to(flat.dtype))
+    return cache_blocks
+
+
 def quantize_rows(kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``kv`` [..., d] -> (int8 codes [..., d], f32 scales [...]): absmax /
     127 per row, round half to even, clip to +-127, as the JAX package's
@@ -93,13 +116,17 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    plain = lib.grove_kv_scatter
+    plain.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    plain.restype = ctypes.c_int
     err_str = lib.grove_kv_error_string
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
-    return fn, err_str
+    return fn, plain, err_str
 
 
-def _check(k_pool, v_pool, k_scale, v_scale, k, v, tables, positions, valid):
+def _check_rows(k_pool, v_pool, k, v, tables, positions, valid) -> None:
     if k_pool.dim() != 4 or k.dim() != 4 or tables.dim() != 2:
         raise ValueError("pools must be [nb, bs, n_kv, d], rows [b, s, n_kv, "
                          "d] and tables [b, w]")
@@ -109,6 +136,17 @@ def _check(k_pool, v_pool, k_scale, v_scale, k, v, tables, positions, valid):
         raise ValueError(f"shape mismatch: pools {tuple(k_pool.shape)}, "
                          f"{tuple(v_pool.shape)}; rows {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    b, s = k.shape[:2]
+    if tables.shape[0] != b or tuple(positions.shape) != (b, s) or (
+            valid is not None and tuple(valid.shape) != (b, s)):
+        raise ValueError(f"tables {tuple(tables.shape)}, positions "
+                         f"{tuple(positions.shape)} do not match rows "
+                         f"[{b}, {s}]")
+
+
+def _check(k_pool, v_pool, k_scale, v_scale, k, v, tables, positions, valid):
+    _check_rows(k_pool, v_pool, k, v, tables, positions, valid)
+    nb, bs, n_kv, d = k_pool.shape
     if tuple(k_scale.shape) != (nb, bs, n_kv) or \
             v_scale.shape != k_scale.shape:
         raise ValueError(f"scales must be [{nb}, {bs}, {n_kv}], got "
@@ -116,12 +154,6 @@ def _check(k_pool, v_pool, k_scale, v_scale, k, v, tables, positions, valid):
     if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 or \
             k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise ValueError("int8 pools with float32 scales expected")
-    b, s = k.shape[:2]
-    if tables.shape[0] != b or tuple(positions.shape) != (b, s) or (
-            valid is not None and tuple(valid.shape) != (b, s)):
-        raise ValueError(f"tables {tuple(tables.shape)}, positions "
-                         f"{tuple(positions.shape)} do not match rows "
-                         f"[{b}, {s}]")
 
 
 def _launch(k_pool, v_pool, k_scale, v_scale, k, v, tables, positions,
@@ -151,7 +183,7 @@ def _launch(k_pool, v_pool, k_scale, v_scale, k, v, tables, positions,
     if valid is not None:
         valid = valid.to(torch.bool).contiguous()
     b, s = k.shape[:2]
-    fn, err_str = _kernel()
+    fn, _, err_str = _kernel()
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
         err = fn(k.data_ptr(), v.data_ptr(), k_pool.data_ptr(),
@@ -192,4 +224,65 @@ def paged_scatter_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
     paged_scatter_q.launches += 1
 
 
+def paged_scatter(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, tables: torch.Tensor,
+                  positions: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> None:
+    """Write one layer's new ``k``/``v`` [b, s, n_kv, d] into the pools
+    [nb, bs, n_kv, d] of the model's type (float32 or bfloat16) in place,
+    at token ``positions`` [b, s] through ``tables`` [b, w] (``valid``
+    [b, s] bool reroutes rows to the null block; see ``scatter_slots``).
+    Rows of another type are cast to the pools' first, as the plain version
+    casts them.
+
+    CUDA tensors run the hand-written kernel (one launch for K and V); CPU
+    tensors run ``paged_scatter_ref`` on each pool. Anything else raises."""
+    _check_rows(k_pool, v_pool, k, v, tables, positions, valid)
+    if k_pool.dtype not in _DTYPE_CODES or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"the scatter writes float32 or bfloat16 pools of "
+                         f"one type, not {k_pool.dtype}, {v_pool.dtype}")
+    tensors = (k_pool, v_pool, k, v, tables, positions)
+    if all(t.device.type == "cpu" for t in tensors):
+        paged_scatter_ref(k_pool, k, tables, positions, valid)
+        paged_scatter_ref(v_pool, v, tables, positions, valid)
+        return
+    if k.device.type != "cuda":
+        raise ValueError(f"the scatter runs on cuda or cpu tensors, not "
+                         f"{k.device}")
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"scatter inputs span devices {devs}")
+    nb, bs, n_kv, d = k_pool.shape
+    row_bytes = n_kv * d * k_pool.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"the scatter kernel copies 16-byte chunks: a row "
+                         f"of {row_bytes} bytes does not divide")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()) or \
+            k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the scatter kernel writes contiguous pools that "
+                         "start 16-byte aligned")
+    rows = []
+    for x in (k, v):
+        x = x.to(k_pool.dtype).contiguous()
+        rows.append(x.clone() if x.data_ptr() % 16 else x)
+    tables = tables.to(torch.int32).contiguous()
+    positions = positions.to(torch.int32).contiguous()
+    if valid is not None:
+        valid = valid.to(torch.bool).contiguous()
+    b, s = k.shape[:2]
+    _, plain, err_str = _kernel()
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        err = plain(rows[0].data_ptr(), rows[1].data_ptr(),
+                    k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+                    positions.data_ptr(),
+                    valid.data_ptr() if valid is not None else None, b, s,
+                    tables.shape[1], row_bytes, nb, bs, stream)
+    if err != 0:
+        raise RuntimeError(f"kv scatter kernel launch failed: "
+                           f"{err_str(err).decode()} ({err})")
+    paged_scatter.launches += 1
+
+
 paged_scatter_q.launches = 0
+paged_scatter.launches = 0

@@ -1,11 +1,13 @@
 """Weight-only int8 quantization for the serving path.
 
 Matmul weights are stored as int8 with per-output-channel bf16 scales
-(symmetric, scale = amax / 127). The model reads them through
-``llama._w``, which materializes a working-type copy: unlike the JAX
-package, where XLA fuses the upcast into the matmul's operand read, the
-plain ``materialize`` here writes that copy out, so the bytes saved on the
-weight read are spent again until a fused W8A16 kernel takes its place.
+(symmetric, scale = amax / 127). The model's projections read them through
+the W8A16 GEMM (ops/w8a16.py, called from ``llama._proj`` and
+``llama._logits``): on the card a kernel that reads the weight as int8 and
+forms ``materialize``'s bf16 values in shared memory, as XLA fuses the
+upcast into the matmul's operand read in the JAX package; on the CPU the
+plain version, ``materialize`` and then the matmul. The embedding gathers
+int8 rows and scales them (``llama.embed``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,127 @@
+"""The port's host-sync rule: nothing on ``PagedDecodeEngine``'s dispatch
+path waits for the device.
+
+The analogue of the JAX package's ``HostSyncInStepLoop`` rule, as an AST
+scan that imports nothing of the JAX package. The dispatch path is the
+engine's ``step``, ``run``, ``_decode_tick`` and ``_prefill_tick`` (the
+bodies of these methods: window drains and the prefill-completion fetch
+live in the named helpers ``_drain``, ``_finish_prefill`` and ``sync``,
+once per window or per request, which is where such a fetch belongs), and
+every kernel wrapper that a captured step or chunk runs, with the helpers
+of its own module that it calls. Banned there: ``.item()``, ``.cpu()``,
+``.tolist()``, ``int()`` / ``float()`` / ``bool()`` of anything but a
+constant, a name or shape arithmetic, and ``torch.cuda.synchronize``.
+"""
+
+import ast
+import inspect
+import textwrap
+
+import pytest
+
+from grove_tpu_torch.ops import kvquant, paged, w8a16
+from grove_tpu_torch.serving import engine
+
+STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick")
+WRAPPERS = {
+    "w8a16_matmul": (w8a16, ("w8a16_matmul", "w8a16_matmul_group",
+                             "_check", "_launch", "partition", "split_count",
+                             "column_tiles", "_counter_buf")),
+    "paged_scatter": (kvquant, ("paged_scatter", "_check_rows")),
+    "paged_scatter_q": (kvquant, ("paged_scatter_q", "_check", "_check_rows",
+                                  "_launch")),
+    "paged_attention": (paged, ("paged_decode_attention",
+                                "paged_chunk_attention",
+                                "paged_decode_attention_q8",
+                                "paged_chunk_attention_q8", "_check",
+                                "_kernel_args", "_launch", "_route",
+                                "_one_query", "_scratch", "scratch_elems",
+                                "n_spans")),
+}
+SYNC_METHODS = {"item", "cpu", "tolist", "synchronize"}
+CASTS = {"int", "float", "bool"}
+
+
+def _host_value(node: ast.AST) -> bool:
+    """An argument that is plainly a host value: a constant, a name, an
+    attribute chain ending in a size, or arithmetic over those."""
+    if isinstance(node, (ast.Constant, ast.Name)):
+        return True
+    if isinstance(node, ast.Attribute):
+        return node.attr in {"shape", "ndim"} or _host_value(node.value)
+    if isinstance(node, ast.Subscript):  # x.shape[0]
+        return isinstance(node.value, ast.Attribute) and \
+            node.value.attr == "shape"
+    if isinstance(node, ast.BinOp):
+        return _host_value(node.left) and _host_value(node.right)
+    if isinstance(node, ast.UnaryOp):
+        return _host_value(node.operand)
+    if isinstance(node, ast.Call):  # len(...), x.dim(), x.numel(), ...
+        f = node.func
+        return (isinstance(f, ast.Name) and f.id in {"len", "min", "max"}) \
+            or (isinstance(f, ast.Attribute) and f.attr in {
+                "dim", "numel", "element_size", "data_ptr"})
+    return False
+
+
+def host_syncs(fn_node: ast.AST) -> list[str]:
+    """The device->host waits in a function body, as 'line: what'."""
+    found = []
+    for node in ast.walk(fn_node):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Attribute) and f.attr in SYNC_METHODS:
+            found.append(f"{node.lineno}: .{f.attr}()")
+        elif isinstance(f, ast.Name) and f.id in CASTS and node.args and \
+                not _host_value(node.args[0]):
+            found.append(f"{node.lineno}: {f.id}(<tensor?>)")
+    return found
+
+
+def _function(module, name: str) -> ast.FunctionDef:
+    tree = ast.parse(textwrap.dedent(inspect.getsource(module)))
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return node
+    raise AssertionError(f"{module.__name__}.{name} not found")
+
+
+def _method(cls, name: str) -> ast.FunctionDef:
+    tree = ast.parse(textwrap.dedent(inspect.getsource(cls)))
+    for node in tree.body[0].body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return node
+    raise AssertionError(f"{cls.__name__}.{name} not found")
+
+
+@pytest.mark.parametrize("name", STEP_FUNCS)
+def test_paged_engine_dispatch_path_has_no_host_sync(name):
+    assert host_syncs(_method(engine.PagedDecodeEngine, name)) == []
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
+def test_kernel_wrappers_have_no_host_sync(wrapper):
+    module, names = WRAPPERS[wrapper]
+    for name in names:
+        assert host_syncs(_function(module, name)) == [], name
+
+
+def test_every_captured_wrapper_is_scanned():
+    scanned = {n for module, names in WRAPPERS.values() for n in names}
+    assert {w.__name__ for w in engine._KERNEL_WRAPPERS} <= scanned
+
+
+@pytest.mark.parametrize("src,want", [
+    ("def f(x):\n    return x.sum().item()", ["2: .item()"]),
+    ("def f(x):\n    return x.cpu()", ["2: .cpu()"]),
+    ("def f(x):\n    return int(x[0])", ["2: int(<tensor?>)"]),
+    ("def f(x):\n    torch.cuda.synchronize()", ["2: .synchronize()"]),
+    ("def f(x):\n    return x.tolist()", ["2: .tolist()"]),
+    ("def f(x, n):\n    return int(n) + int(x.shape[0] * 2) + int(len(x))",
+     []),
+    ("def f(x):\n    return float(x.float().mean())",
+     ["2: float(<tensor?>)"]),
+])
+def test_rule_flags_what_it_bans_and_only_that(src, want):
+    assert host_syncs(ast.parse(src)) == want

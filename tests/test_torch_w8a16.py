@@ -1,0 +1,298 @@
+"""The W8A16 GEMM (grove_tpu_torch/ops/w8a16.py) against the JAX package's
+int8-weight projections, its routing and checks on the CPU, the partition
+that keeps rows invariant, and on a CUDA card the kernel against its plain
+version.
+
+The weights are quantized by the JAX package's ``quantize_tensor`` on the
+same numpy weight, and JAX computes ``jnp.einsum(eq, x,
+QTensor.materialize())`` (the LM head with ``preferred_element_type=f32``).
+Tolerances: f32 rtol = atol = 1e-4 (the frameworks order their sums
+differently); bf16 out rtol 1e-2 and atol 1e-2 * max |out| (one bf16
+rounding of the output, 2^-8 relative, after sums taken in another order,
+which can move a value across a rounding boundary). The CPU route is held
+bitwise to the model's former arithmetic (materialize, then einsum), and on
+the card the rows are held bitwise across M.
+
+On the machine with the card this file runs without the repo's conftest
+(``python -m pytest --noconftest tests/test_torch_w8a16.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from grove_tpu.models import llama as jllama
+from grove_tpu.serving import quant as jquant
+from grove_tpu_torch.models import llama as tllama
+from grove_tpu_torch.ops import w8a16
+from grove_tpu_torch.serving.quant import QTensor
+
+# Without the repo's conftest (on the machine with the card) JAX would take
+# the GPU, whose f32 products run at reduced precision.
+jax.config.update("jax_platforms", "cpu")
+# Small shapes: one intra-op thread keeps these tests from crowding the
+# timing-sensitive control-plane tests that run beside them in parallel.
+torch.set_num_threads(1)
+
+_TINY = jllama.CONFIGS["test-tiny"]
+_D, _H, _KV, _HD, _FF, _V = (_TINY.d_model, _TINY.n_heads, _TINY.n_kv_heads,
+                             _TINY.head_dim, _TINY.d_ff, _TINY.vocab_size)
+# name: (einsum, weight shape, contracted axes, x shape) of one test-tiny
+# layer, as llama._qkv / _attn_out / _mlp_block / head use them.
+WEIGHTS = {
+    "wq": ("bsd,dhk->bshk", (_D, _H, _HD), (0,), (2, 5, _D)),
+    "wk": ("bsd,dhk->bshk", (_D, _KV, _HD), (0,), (2, 5, _D)),
+    "wv": ("bsd,dhk->bshk", (_D, _KV, _HD), (0,), (2, 5, _D)),
+    "wo": ("bshk,hkd->bsd", (_H, _HD, _D), (0, 1), (2, 5, _H, _HD)),
+    "w_gate": ("bsd,df->bsf", (_D, _FF), (0,), (2, 5, _D)),
+    "w_up": ("bsd,df->bsf", (_D, _FF), (0,), (2, 5, _D)),
+    "w_down": ("bsf,fd->bsd", (_FF, _D), (0,), (2, 5, _FF)),
+    "lm_head": ("bsd,dv->bsv", (_D, _V), (0,), (2, 5, _D)),
+}
+BF16_RTOL = 1e-2
+
+
+def _both(name, dtype, seed=0):
+    """The same numpy weight quantized by the JAX package, as JAX and port
+    QTensors, and the same x on both sides."""
+    eq, shape, axes, x_shape = WEIGHTS[name]
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal(shape) * shape[0] ** -0.5).astype(np.float32)
+    jq = jquant.quantize_tensor(jnp.asarray(w), axes)
+    tq = QTensor(q=torch.from_numpy(np.array(jq.q)),
+                 scale=torch.from_numpy(
+                     np.array(jq.scale).view(np.int16)).view(
+                         torch.bfloat16))
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(
+        np.float32)).to(dtype)
+    jx = jnp.asarray(x.float().numpy(), dtype=getattr(jnp, str(dtype)[6:]))
+    return eq, jq, tq, jx, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(WEIGHTS))
+def test_projection_matches_jax(name, dtype):
+    """Each test-tiny weight through the port's projection (the W8A16
+    wrapper on CPU tensors) against JAX's einsum over the materialized
+    weight."""
+    eq, jq, tq, jx, x = _both(name, dtype)
+    if name == "lm_head":
+        want = jnp.einsum(eq, jx, jq.materialize(),
+                          preferred_element_type=jnp.float32)
+        got = tllama._logits(x, tq)
+    else:
+        want = jnp.einsum(eq, jx, jq.materialize())
+        got = tllama._proj(eq, x, tq)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == (torch.float32 if name == "lm_head" else dtype)
+    assert tuple(got.shape) == want.shape
+    if dtype == torch.float32 or name == "lm_head":
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   rtol=BF16_RTOL,
+                                   atol=BF16_RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(WEIGHTS))
+def test_cpu_route_is_bitwise_the_materialized_einsum(name, dtype):
+    """On CPU tensors the projection equals what the model computed before
+    the kernel, bit for bit: the materialized bf16 weight, then the einsum
+    at the promoted type (the LM head: both upcast to f32)."""
+    eq, _, tq, _, x = _both(name, dtype, seed=1)
+    before = w8a16.w8a16_matmul.launches
+    w = tq.materialize()
+    if name == "lm_head":
+        got, want = tllama._logits(x[0], tq), x[0].float() @ w.float()
+    else:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        got, want = tllama._proj(eq, x, tq), torch.einsum(eq, x.to(dt),
+                                                          w.to(dt))
+    assert torch.equal(got, want)
+    assert w8a16.w8a16_matmul.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_projections_are_each_weights_own(dtype):
+    """QKV (and gate/up) in one call equal each weight's own projection bit
+    for bit, on CPU tensors, with no launch."""
+    _, _, wq, _, x = _both("wq", dtype, seed=2)
+    _, _, wk, _, _ = _both("wk", dtype, seed=3)
+    _, _, wv, _, _ = _both("wv", dtype, seed=4)
+    before = w8a16.w8a16_matmul.launches
+    got = tllama._projs("bsd,dhk->bshk", x, [wq, wk, wv])
+    for g, w in zip(got, (wq, wk, wv)):
+        assert torch.equal(g, tllama._proj("bsd,dhk->bshk", x, w))
+    assert w8a16.w8a16_matmul.launches == before
+
+
+def test_dense_weights_keep_einsum():
+    x = torch.randn(2, 3, 8)
+    w = torch.randn(8, 4, 2)
+    before = w8a16.w8a16_matmul.launches
+    assert torch.equal(tllama._proj("bsd,dhk->bshk", x, w),
+                       torch.einsum("bsd,dhk->bshk", x, w))
+    assert w8a16.w8a16_matmul.launches == before
+
+
+def _args(M=4, K=64, N=32, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(M * 7 + K + N)
+    x = torch.randn((M, K), generator=g).to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    scale = (torch.rand((N,), generator=g) * 0.01 + 1e-3).to(torch.bfloat16)
+    return x, q, scale
+
+
+def test_wrapper_defaults_to_the_promoted_type():
+    for dtype in (torch.float32, torch.bfloat16):
+        x, q, scale = _args(dtype=dtype)
+        out = w8a16.w8a16_matmul(x, q, scale)
+        assert out.dtype == dtype and tuple(out.shape) == (4, 32)
+        assert torch.equal(out, w8a16.w8a16_matmul_ref(x, q, scale, dtype))
+
+
+def test_wrapper_rejects_bad_inputs():
+    x, q, scale = _args()
+    with pytest.raises(ValueError, match="span devices"):
+        w8a16.w8a16_matmul(x, q.to("meta"), scale)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        w8a16.w8a16_matmul(x.to("meta"), q.to("meta"), scale.to("meta"))
+    with pytest.raises(ValueError, match="int8"):
+        w8a16.w8a16_matmul(x, q.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="int8"):
+        w8a16.w8a16_matmul(x, q, scale.float())
+    with pytest.raises(ValueError, match="activations"):
+        w8a16.w8a16_matmul(x.half(), q, scale)
+    with pytest.raises(ValueError, match="activations"):
+        w8a16.w8a16_matmul(x.float(), q, scale, torch.bfloat16)
+    with pytest.raises(ValueError, match="mismatch"):
+        w8a16.w8a16_matmul(x[:, :32], q, scale)
+    with pytest.raises(ValueError, match="mismatch"):
+        w8a16.w8a16_matmul(x, q, scale[:16])
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
+        w8a16.w8a16_matmul(x[None], q, scale)
+    with pytest.raises(ValueError, match="1 to 3 weights"):
+        w8a16.w8a16_matmul_group(x, [(q, scale)] * 4)
+    with pytest.raises(ValueError, match="1 to 3 weights"):
+        w8a16.w8a16_matmul_group(x, [], torch.bfloat16)
+
+
+LLAMA_1B_LAUNCHES = [  # (K, N of each weight) of llama-1b's GEMM launches
+    (2048, (2048, 1024, 1024)), (2048, (2048,)), (2048, (5632, 5632)),
+    (5632, (2048,)), (2048, (32000,)), (2048, (1024,))]
+
+
+@pytest.mark.parametrize("K,ns", LLAMA_1B_LAUNCHES)
+def test_partition_depends_only_on_the_weights_up_to_256_rows(K, ns):
+    """Row invariance by construction: every M <= 256 takes the same tile
+    shape and split of K; the split leaves each part at least
+    MIN_SPLIT_STEPS k-steps and fits the arrival counters."""
+    parts = {w8a16.partition(M, K, ns, torch.bfloat16)
+             for M in range(1, w8a16.ROW_INVARIANT_M + 1)}
+    assert len(parts) == 1
+    wide, split, (bm, bn) = parts.pop()
+    assert not wide and (bm, bn) == w8a16.SMALL_TILE
+    assert split == w8a16.split_count(K, ns)
+    assert 1 <= split <= (K // w8a16.BK) // w8a16.MIN_SPLIT_STEPS
+    tiles = -(-w8a16.ROW_INVARIANT_M // bm) * w8a16.column_tiles(ns, bn)
+    assert split == 1 or tiles <= w8a16.MAX_COUNTERS
+    # f32 activations split K the same way at these M.
+    assert w8a16.partition(32, K, ns, torch.float32)[1] == split
+    # Above 256 rows: the wide tile, no split.
+    assert w8a16.partition(4096, K, ns, torch.bfloat16) == (
+        True, 1, w8a16.WIDE_TILE)
+
+
+def test_split_fills_the_card_where_columns_are_few():
+    """N = 1,024 gives 16 column tiles of 64; the split brings the CTAs to
+    at least the SM count (132), never beyond two per SM's worth of
+    parts."""
+    for K, ns in LLAMA_1B_LAUNCHES:
+        n_tiles = w8a16.column_tiles(ns)
+        split = w8a16.split_count(K, ns)
+        assert n_tiles * split >= 132
+        assert split == 1 or n_tiles * (split - 1) < w8a16.FILL_CTAS
+    assert w8a16.split_count(2048, (32000,)) == 1
+    assert w8a16.split_count(64, (64,)) == 1  # test-tiny: one k-step
+    assert w8a16.column_tiles((32, 64, 48)) == 3  # a tile per ragged weight
+
+
+# ---- on the card ----
+
+def _cuda_args(gen, M, K, N, dtype):
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scale = (torch.rand((N,), generator=gen, device="cuda") * 2e-3
+             + 1e-4).to(torch.bfloat16)
+    return x, q, scale
+
+
+@pytest.mark.parametrize("M,K,N,dtype,out", [
+    (32, 2048, 2048, torch.bfloat16, torch.bfloat16),
+    (32, 2048, 1024, torch.bfloat16, torch.bfloat16),
+    (32, 2048, 5632, torch.bfloat16, torch.bfloat16),
+    (32, 5632, 2048, torch.bfloat16, torch.bfloat16),
+    (32, 2048, 32000, torch.bfloat16, torch.float32),
+    (5, 64, 32, torch.bfloat16, torch.bfloat16),
+    (300, 2048, 1024, torch.bfloat16, torch.bfloat16),
+    (1, 128, 256, torch.float32, torch.float32),
+    (40, 2048, 1024, torch.float32, torch.float32),
+    (32, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (32, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
+    (7, 128, (64, 32, 48), torch.bfloat16, torch.float32),
+    (300, 2048, (1024, 512), torch.bfloat16, torch.bfloat16),
+    (9, 64, (256, 32), torch.float32, torch.float32)])
+def test_kernel_matches_plain_on_cuda(M, K, N, dtype, out):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    ns = N if isinstance(N, tuple) else (N,)
+    gen = torch.Generator(device="cuda").manual_seed(M + K + sum(ns))
+    weights = [_cuda_args(gen, M, K, n, dtype)[1:] for n in ns]
+    x = _cuda_args(gen, M, K, 16, dtype)[0]
+    before = w8a16.w8a16_matmul.launches
+    outs = w8a16.w8a16_matmul_group(x, weights, out)
+    torch.cuda.synchronize()
+    assert w8a16.w8a16_matmul.launches == before + 1
+    for got, (q, scale) in zip(outs, weights):
+        want = w8a16.w8a16_matmul_ref(x, q, scale, out)
+        assert got.dtype == out
+        if out == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * want.abs().max().item())
+        else:
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=BF16_RTOL,
+                atol=BF16_RTOL * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("K,ns,out", [
+    (2048, (2048, 1024, 1024), torch.bfloat16), (2048, (2048,), torch.bfloat16),
+    (2048, (32000,), torch.float32)])
+def test_rows_do_not_depend_on_m_on_cuda(K, ns, out):
+    """Each row of a launch with M rows equals, bit for bit, the same row
+    inside a launch with 256 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(K + sum(ns))
+    weights = [_cuda_args(gen, 1, K, n, torch.bfloat16)[1:] for n in ns]
+    x = _cuda_args(gen, 256, K, 16, torch.bfloat16)[0]
+    whole = w8a16.w8a16_matmul_group(x, weights, out)
+    for M in (1, 2, 7, 8, 31, 32, 33, 64, 128):
+        for a, w in zip(w8a16.w8a16_matmul_group(x[:M], weights, out),
+                        whole):
+            assert torch.equal(a, w[:M]), M
+
+
+def test_mixed_devices_raise_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, q, scale = _args()
+    with pytest.raises(ValueError, match="span devices"):
+        w8a16.w8a16_matmul(x.cuda(), q, scale.cuda())
+    with pytest.raises(ValueError, match="K %"):
+        w8a16.w8a16_matmul(x[:, :48].cuda(), q[:48].cuda(), scale.cuda())
