@@ -17,12 +17,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      decode vs chunk); the same over int8 pools (the int8 kernels), the
      quantizing scatter and the model-dtype scatter bitwise against their
      plain versions (rows past the table's width and invalid rows in the
-     null block), each timed at its serving shape; the W8A16 GEMM at
-     llama-1b's five launches at M = 32 (QKV and gate/up one launch each;
-     gate/up also at M = 4,096),
-     at ragged and f32 shapes, timed beside its bound, its plain version,
-     a bf16-weight matmul and torch._weight_int8pack_mm, and a bitwise
-     check that its rows do not depend on M (1..256);
+     null block), each timed at its serving shape (the model-dtype one
+     beside index_put_ per pool); the W8A16 GEMM's builds (registers,
+     spills, shared memory, cluster size and resident clusters), then the
+     GEMM at llama-1b's five launches at M = 32 (QKV and gate/up one
+     launch each; gate/up also at M = 4,096), grouped launches at M = 1,
+     8, 64 and 256, ragged and f32 shapes, timed beside its bound, its
+     plain version, a bf16-weight matmul and torch._weight_int8pack_mm,
+     and a bitwise check that its rows do not depend on M (1..256);
   4. lanes serve: llama-1b at full width and depth (random weights from
      --seed) through make_engine(mode="lanes") with int8 weights: queued
      requests admitted through a PrefillWorker, then the bench posture
@@ -1174,8 +1176,42 @@ def check_w8a16_rows(gen, K: int, ns, out, label: str) -> None:
         raise AssertionError(f"w8a16 rows depend on M ({label})")
 
 
+def w8a16_host_parts(gen) -> None:
+    """Host microseconds per call of the GEMM wrapper at the QKV launch (M
+    = 32), and of its parts: the plan's key and lookup, the output's
+    allocation, the foreign call (x's tensor map and the launch); beside
+    them one small PyTorch launch (``zero_`` of a 32-row output)."""
+    import torch
+    from grove_tpu_torch.ops import w8a16
+    ws = int8_weights(gen, 2048, (2048, 1024, 1024))
+    x = torch.randn((32, 2048), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w8a16.w8a16_matmul_group(x, ws)
+    addr, _, _, total, _ = w8a16._plans[w8a16._plan_key(x, ws,
+                                                        torch.bfloat16)]
+    out = torch.empty((32 * total,), dtype=torch.bfloat16, device="cuda")
+    _, run, _, _, _ = w8a16._kernel()
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    parts = {
+        "whole call": lambda: w8a16.w8a16_matmul_group(x, ws),
+        "plan key and lookup": lambda: w8a16._plans.get(
+            w8a16._plan_key(x, ws, torch.bfloat16)),
+        "torch.empty of the outputs": lambda: torch.empty(
+            (32 * total,), dtype=torch.bfloat16, device="cuda"),
+        "current stream": lambda: torch._C._cuda_getCurrentRawStream(
+            x.get_device()),
+        "foreign call (x map + launch)": lambda: run(
+            addr, x.data_ptr(), out.data_ptr(), 32, stream),
+        "reference: out.zero_()": lambda: out.zero_(),
+    }
+    log("kernels: w8a16 wrapper host time, us per call over 200 calls: "
+        + ", ".join(f"{name} {host_us(fn, iters=200):.1f}"
+                    for name, fn in parts.items()))
+
+
 def phase_w8a16_kernels(seed: int, card: str) -> dict:
-    """The W8A16 GEMM: each build's registers, spills and shared memory;
+    """The W8A16 GEMM: each build's registers, spills, shared memory,
+    cluster size and residency;
     against its plain version at llama-1b's launches (M = 32, and M = 4,096
     for the MLP's gate and up), at ragged and f32 shapes; the row
     invariance; times. Returns its kernel-table row, whose times are the
@@ -1184,18 +1220,26 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
     from grove_tpu_torch.ops.w8a16 import kernel_info
     for which in ("small", "wide", "fma"):
         info = kernel_info(which)
+        resident = (f"{info['resident']} clusters of {info['cluster']} "
+                    f"resident at once" if info["cluster"] > 1 else
+                    f"{info['resident']} CTAs per SM")
         log(f"kernels: build w8a16 {which} (tile {info['tile'][0]} x "
             f"{info['tile'][1]}): {info['registers']} registers, "
             f"{info['local_bytes']} bytes local (spill) per thread, "
-            f"{info['smem_bytes']} bytes dynamic shared memory per CTA")
+            f"{info['smem_bytes']} bytes dynamic shared memory per CTA, "
+            f"cluster size up to {info['cluster']}, {resident}")
         if info["local_bytes"]:
             raise AssertionError(f"the w8a16 {which} kernel spills")
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     err = 0.0
-    # Ragged rows and columns (tiles of 64 cut at 32 and 48), test-tiny's
-    # shapes, three weights in one launch, and f32 activations (the
-    # CUDA-core kernel).
+    # Ragged rows and columns (tiles of 128 cut at 32 and 48), test-tiny's
+    # shapes, grouped launches at M = 1, 8, 64 and 256 (splits 8, 8, 4, 8),
+    # and f32 activations (the CUDA-core kernel).
     for M, K, ns, dt, out in (
+            (1, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+            (8, 5632, (2048,), torch.bfloat16, torch.bfloat16),
+            (64, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
+            (256, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
             (5, 64, (32,), torch.bfloat16, torch.bfloat16),
             (7, 128, (64, 32, 48), torch.bfloat16, torch.bfloat16),
             (300, 128, (256,), torch.bfloat16, torch.float32),
@@ -1222,6 +1266,7 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
     for key, v in row.items():
         log(f"kernels: w8a16 one llama-1b forward at M={W8A16_M} ({launches} "
             f"launches): {key}={v} on {card}")
+    w8a16_host_parts(gen)
     t = time_w8a16(gen, W8A16_PREFILL_M, 2048, (5632, 5632), torch.bfloat16,
                    "w_gate, w_up (lanes prefill)", card)
     err = max(err, t["err"])
@@ -1293,12 +1338,32 @@ def check_scatter(gen, card: str) -> dict:
         lambda: (paged_scatter_ref(kp, k, tables, pos),
                  paged_scatter_ref(vp, v, tables, pos)),
         None, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), card)
+    # The library call: one index_put_ per pool at the (block, offset)
+    # pairs the table gives these positions (computed outside the timing),
+    # first held bitwise to the kernel's write.
+    rows = torch.arange(B, device="cuda")
+    blocks = tables[rows, pos[:, 0] // PAGED_BS].long()
+    offsets = (pos[:, 0] % PAGED_BS).long()
+    k2, v2 = k.reshape(B, n_kv, d), v.reshape(B, n_kv, d)
+    mine = [kp.clone(), vp.clone()]
+    paged_scatter(*mine, k, v, tables, pos)
+    kp.index_put_((blocks, offsets), k2)
+    vp.index_put_((blocks, offsets), v2)
+    torch.cuda.synchronize()
+    if not (torch.equal(mine[0], kp) and torch.equal(mine[1], vp)):
+        raise AssertionError("index_put_ does not write what the scatter "
+                             "kernel writes")
+    t["library_ms"] = time_ms(lambda: (kp.index_put_((blocks, offsets), k2),
+                                       vp.index_put_((blocks, offsets), v2)))
+    log(f"kernels: {label} library_ms={t['library_ms']} (index_put_ per "
+        f"pool, bitwise equal to the kernel's write) on {card}; kernel "
+        f"{t['library_ms'] / t['ms']:.2f}x its speed")
     return {"name": "paged_scatter", "route": "cuda",
             "source": "grove_tpu_torch/csrc/kv_quant.cu",
             "replaces": "grove_tpu/models/llama.py:482",
             "launches": 0, "max_abs_err": 0.0, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "yardstick_ms": None}
 
 

@@ -13,52 +13,84 @@
 //
 // with f32 accumulation, rounded once to the output type (bf16 for the layer
 // projections, f32 for the LM head). w is the plain version's dequantized
-// weight bit for bit: one f32 product (exact: 8 by 8 significant bits), one
-// round to nearest even. It lives only in shared memory.
+// weight bit for bit: the product of two values of 8 significant bits is
+// exact, and one fma.rn.bf16x2 (with a -0 addend) rounds it once to nearest
+// even, as the plain version's f32 product rounded to bf16 does.
 //
-// What bounds it on an H100: at M <= 32 (decode, the prefill chunk) the
-// weight read, K * N bytes at 3.35 TB/s; at M = 4,096 (the lanes prefill)
-// the tensor cores. The design:
-//   - bf16 activations: each CTA owns a BM x BN output tile and a slice of
-//     K. A ring of cp.async stages brings the int8 weight rows [64, BN] and
-//     the activation rows [BM, 64] of each 64-deep k-step; each thread
-//     dequantizes the int8 chunks it copied into one of two bf16 tiles in
-//     shared memory while the warps run mma.sync m16n8k16 (bf16 operands,
-//     f32 accumulators) on the other, A by ldmatrix, B by ldmatrix.trans
-//     from the [k][n] tile: one barrier per k-step.
-//     Two tile shapes: 32 x 64 (4 warps) for M <= 256, 128 x 128 (8 warps)
-//     above, where the weight tile is reused by more rows.
-//   - f32 activations (an f32 model over int8 weights): a CUDA-core FMA
-//     kernel over the same tiles and the same split of K.
-//   - One launch may cover up to three weights that share x (wq, wk, wv;
-//     w_gate, w_up): each keeps its own codes, scales, N and output, read
-//     and written as stored, and the grid's column tiles run over them in
-//     order. No concatenated copy is made.
-//   - Split-K fills the card when N gives few column tiles (N = 1,024 gives
-//     16 tiles of 64 for 132 SMs). Each split writes its f32 partial tile;
-//     the last CTA of a tile to arrive (a per-tile arrival counter, reset by
-//     that CTA) sums the partials in split order 0, 1, ..., never by
-//     atomics on the values, and writes the output.
+// The weights are read as stored, [K, N] with N contiguous; one launch may
+// cover up to three weights that share x (wq, wk, wv; w_gate, w_up), each
+// with its own codes, scales, N and output, the grid's column tiles running
+// over them in order. Every tile of a weight arrives by TMA as int8: a box
+// of 64 k rows by 128 columns is one 128-byte swizzle row per k. The tensor
+// maps of the weights are encoded once per launch plan (ops/w8a16.py caches
+// the plan by the weights' pointers and shapes); x's map is encoded per call.
 //
-// Row invariance: the split count and k-step depth come from K and the
-// launch's weights alone (the caller picks them; ops/w8a16.py), each
-// accumulator takes its k-steps
+// Small M (M <= 256: decode, prefill chunks, the lanes decode). Bound by the
+// weight bytes, K * N at 3.35 TB/s. w8a16_small_kernel:
+//   - Swapped operands: out^T = w^T x^T on mma.sync m16n8k16. The weight's
+//     columns are the mma's 16-row side (A) and the tokens its 8-wide side
+//     (B), so M = 1..8 costs one n-tile and M = 32 four, with no padding of
+//     M to 16-row tiles. A CTA covers 128 columns and 32 tokens.
+//   - The int8 weight is dequantized straight into A fragments in registers;
+//     no bf16 weight tile is ever written. ldmatrix.trans over the int8 tile
+//     seen as b16 column pairs gives lane (gid = lane / 4, tig = lane % 4)
+//     the codes of columns 2 gid and 2 gid + 1 at k = 2 tig and 2 tig + 1;
+//     byte permutes pair them by column, and fragment row r holds column
+//
+//        fragment_column(r) = 2 (r mod 8) + r div 8
+//
+//     of its 16-column tile (ops/w8a16.py: fragment_column, pinned by
+//     tests/test_torch_w8a16.py). The epilogue reads the accumulator rows
+//     through the same map. Each thread needs two scales per 16 columns.
+//   - x, the small operand, rides in the same TMA stage as the weight tile
+//     (a 32 x 64 bf16 box, rows past M zero-filled), so each CTA reads x once
+//     over its k range. One producer warp keeps a ring of 4 stages (32 KB of
+//     weight) in flight behind full/empty mbarriers; four consumer warps
+//     own 32 columns each, three CTAs per SM.
+//   - Split-K inside a thread-block cluster: the `split` CTAs of one column
+//     tile (split in 1, 2, 4, 8: ops/w8a16.py::split_count) are one cluster.
+//     Each rank owns 128 / split columns of the tile; every rank pushes its
+//     f32 partial of each owner's columns into that owner's shared memory
+//     (st.shared::cluster), and after a cluster barrier each owner sums its
+//     columns in rank order 0, 1, ... and writes them. No global partials,
+//     no counters, no atomics on values. Every remote store precedes the
+//     second cluster barrier and the first one guarantees every rank has
+//     started, so no rank touches the shared memory of one that exited.
+//
+// Wide M (M > 256: the lanes prefill, M = 4,096). Bound by operations.
+// w8a16_wide_kernel: 128 x 256 output tiles, one producer warp and two
+// consumer warpgroups of 64 rows. x is wgmma's A, K-major by TMA (64 x 128
+// box, 128-byte swizzle); the int8 weight tile arrives by TMA beside it and
+// the consumers dequantize it, bit-exact as above, into a 128-byte-swizzled
+// bf16 tile [64 k][256 n] that wgmma reads as an MN-major B (the transpose
+// bit), while the previous k-step's wgmma runs. No split.
+//
+// f32 activations (an f32 model over int8 weights, off the serving path):
+// w8a16_fma_kernel, CUDA-core FMAs over 32 x 64 tiles, no split.
+//
+// Row invariance: the split and the k-step order come from K and the
+// launch's weights alone (ops/w8a16.py), each accumulator takes its k-steps
 // and its 16-deep mma steps in increasing order, and the split sum runs in
-// split order. So an output row's bits depend only on its own input row,
-// for every M that takes the same split (every M <= 256).
+// rank order; each mma output element depends only on its own row and
+// column. So for every M <= 256 an output row's bits depend only on its own
+// input row.
 //
-// The C entry point returns cudaGetLastError() after its launch (or the
-// error that kept it from launching); it launches on the given stream and
-// never synchronizes.
+// The C entry points return cudaGetLastError() after a launch (or the
+// error that kept it from launching); they launch on the given stream and
+// never synchronize.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kBK = 64;  // k-step depth
+constexpr int kBK = 64;        // k-step depth
+constexpr int kBN = 128;       // weight columns per CTA (tensor cores)
 constexpr int kMaxWeights = 3;
+constexpr int kMaxSplit = 8;   // the portable cluster size
 
 // The weights of one launch, in column-tile order: they share x and K; each
 // has its own int8 codes [K, n], bf16 scales [n], output [M, n] and first
@@ -72,47 +104,166 @@ struct Weights {
   int count;
 };
 
-// The weight that column tile `tile` of a launch falls in, and the tile's
-// first column within it.
+// The weight (index j) that column tile `tile` of a launch falls in, and the
+// tile's first column within it.
 struct Target {
   const int8_t* q;
   const __nv_bfloat16* scale;
   void* out;
-  int N, n0;
+  int N, n0, j;
 };
 
 __device__ __forceinline__ Target target_of(const Weights& w, int tile,
                                             int bn) {
-  Target t{w.q[0], w.scale[0], w.out[0], w.n[0], tile * bn};
+  Target t{w.q[0], w.scale[0], w.out[0], w.n[0], tile * bn, 0};
 #pragma unroll
   for (int j = 1; j < kMaxWeights; ++j)
     if (j < w.count && tile >= w.tile0[j])
       t = Target{w.q[j], w.scale[j], w.out[j], w.n[j],
-                 (tile - w.tile0[j]) * bn};
+                 (tile - w.tile0[j]) * bn, j};
   return t;
+}
+
+// The k-steps [k0, k1) of split s of k_steps steps in `split` parts.
+__device__ __forceinline__ void split_range(int k_steps, int split, int s,
+                                            int* k0, int* k1) {
+  *k0 = (int)((long long)s * k_steps / split);
+  *k1 = (int)((long long)(s + 1) * k_steps / split);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; a chunk past the matrix's edge (valid false)
-// is zero-filled and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
+__device__ __forceinline__ void store_pair(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+
+// ---- mbarriers, TMA, cluster ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
+
+// Wait until the phase of parity `parity` has completed. A wait that lasts
+// some ten seconds means a broken pipeline: trap, so that the launch fails
+// with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - t0 > 20000000000LL) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to the async proxy
+// (wgmma's operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The cluster barrier, in halves: every thread of every CTA of the cluster
+// arrives, then waits for all the others.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of this CTA's shared-memory address `addr` in cluster rank
+// `rank`'s shared memory.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a,
+                                                 float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+// ---- the exact dequantize ----
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte i (0..3) of u = codes ^ 0x80808080 (x + 128 in each byte) as the
+// exact f32 x: the byte permute builds the f32 2^23 + (x + 128), less
+// 2^23 + 128 (no conversion unit, which runs at a quarter of the FMA rate).
+__device__ __forceinline__ float code_f32(uint32_t u, int i) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+         8388736.0f;
+}
+
+// Two exact bf16 codes (lo, hi) times two bf16 scales, each product rounded
+// once to bf16: fma.rn with a -0 addend is the rounded product itself.
+__device__ __forceinline__ uint32_t scale_pair(float lo, float hi,
+                                               uint32_t s2) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(pack_bf16(lo, hi)), "r"(s2), "r"(0x80008000u));
+  return d;
+}
+
+// ---- small M: swapped mma.sync, TMA ring, split-K in a cluster ----
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -140,301 +291,455 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// One register of ldmatrix.trans over the int8 tile: the codes of columns
+// c = 2 gid and c + 1 at k = 2 tig and k + 1, as bytes (k, c), (k, c + 1),
+// (k + 1, c), (k + 1, c + 1). Out: the A register of fragment row gid
+// (column c: k, k + 1) and of row gid + 8 (column c + 1), each times its
+// column's scale (s_lo, s_hi: the scale in both halves).
+__device__ __forceinline__ void dequant_a(uint32_t r, uint32_t s_lo,
+                                          uint32_t s_hi, uint32_t& row_lo,
+                                          uint32_t& row_hi) {
+  const uint32_t u = r ^ 0x80808080u;
+  row_lo = scale_pair(code_f32(u, 0), code_f32(u, 2), s_lo);
+  row_hi = scale_pair(code_f32(u, 1), code_f32(u, 3), s_hi);
 }
 
-// Code i (0..3) of the four int8 codes in w, as an exact f32: the byte
-// permute builds the f32 2^23 + (x + 128), less 2^23 + 128 (no conversion
-// unit, which runs at a quarter of the FMA rate).
-__device__ __forceinline__ float code_f32(uint32_t w, int i) {
-  const uint32_t u = w ^ 0x80808080u;  // x + 128 in each byte
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
-         8388736.0f;
-}
+constexpr int kSmallM = 32;                        // tokens per CTA
+constexpr int kSmallWarps = 4;                     // consumers: 32 columns
+constexpr int kSmallConsumers = 32 * kSmallWarps;
+constexpr int kSmallThreads = kSmallConsumers + 32;  // + the producer warp
+constexpr int kSmallStages = 4;
+constexpr int kQTileBytes = kBK * kBN;             // int8 [64 k][128 n]
+constexpr int kSmallXBytes = kSmallM * kBK * 2;    // bf16 [32 m][64 k]
+constexpr int kSmallStageBytes = kQTileBytes + kSmallXBytes;
+constexpr int kRecvBytes = kBN * kSmallM * 4;      // f32 [rank][m][slice]
+constexpr int kSmallBarOff = kSmallStages * kSmallStageBytes + kRecvBytes;
+constexpr int kSmallSmem = kSmallBarOff + 16 * kSmallStages + 1024;
 
-// The four codes of w, each times its column's scale in f32 and rounded once
-// to bf16 (the plain version's weight), as two bf16 pairs.
-__device__ __forceinline__ uint2 dequant4(uint32_t w, const float* s) {
-  return make_uint2(pack_bf16(code_f32(w, 0) * s[0], code_f32(w, 1) * s[1]),
-                    pack_bf16(code_f32(w, 2) * s[2], code_f32(w, 3) * s[3]));
-}
-
-// The 16 scales of columns n .. n + 15 as f32 (zeros past N; N % 16 == 0,
-// so a chunk is wholly inside or outside), by two 16-byte loads.
-__device__ __forceinline__ void load_scales(const __nv_bfloat16* scale, int n,
-                                            int N, float* sc) {
-  uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-  if (n < N) {
-    v[0] = *reinterpret_cast<const uint4*>(scale + n);
-    v[1] = *reinterpret_cast<const uint4*>(scale + n + 8);
-  }
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(v);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) sc[j] = __bfloat162float(h[j]);
-}
-
-__device__ __forceinline__ void store_pair(float* out, float a, float b) {
-  *reinterpret_cast<float2*>(out) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
-                                           float b) {
-  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
-}
-
-// Called by every thread of a CTA after it wrote its partial tile: true in
-// the CTA that arrives last at its tile's counter (which it resets for the
-// next launch). That CTA then reads every split's partial.
-__device__ __forceinline__ bool last_to_arrive(int* counter, int split) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(counter, 1) == split - 1;
-    if (last) *counter = 0;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
-// The k-steps [k0, k1) of split s of k_steps steps in `split` parts.
-__device__ __forceinline__ void split_range(int k_steps, int split, int s,
-                                            int* k0, int* k1) {
-  *k0 = (int)((long long)s * k_steps / split);
-  *k1 = (int)((long long)(s + 1) * k_steps / split);
-}
-
-// ---- bf16 activations: tensor cores ----
-
-// WM x WN warps, each MT 16-row by NT 8-column mma tiles: BM = 16 WM MT rows
-// and BN = 8 WN NT columns per CTA.
-// The last CTA of a tile: out[m0.., n0..] = the sum of the split partial
-// tiles [split][BM][BN] at tp, taken in split order 0, 1, ..., four
-// columns per item, the loads of several splits in flight at once.
-template <int BM, int BN, int kThreads, typename OutT>
-__device__ __forceinline__ void sum_partials(const float* tp, int split,
-                                             OutT* out, int m0, int n0,
-                                             int M, int N) {
-  constexpr int kVec = BM * BN / 4, kPer = kVec / kThreads;
-  static_assert(kVec % kThreads == 0, "whole float4 items per thread");
-  const float4* p4 = reinterpret_cast<const float4*>(tp) + threadIdx.x;
-  float4 sum[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) sum[j] = __ldcg(p4 + j * kThreads);
-#pragma unroll 4
-  for (int s = 1; s < split; ++s) {
-    float4 v[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      v[j] = __ldcg(p4 + (size_t)s * kVec + j * kThreads);
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      sum[j].x += v[j].x;
-      sum[j].y += v[j].y;
-      sum[j].z += v[j].z;
-      sum[j].w += v[j].w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int e = threadIdx.x + j * kThreads;
-    const int m = m0 + e / (BN / 4), n = n0 + (e % (BN / 4)) * 4;
-    if (m < M && n < N) {
-      store_pair(out + (size_t)m * N + n, sum[j].x, sum[j].y);
-      store_pair(out + (size_t)m * N + n + 2, sum[j].z, sum[j].w);
-    }
-  }
-}
-
-// ---- bf16 activations: tensor cores ----
-
-// WM x WN warps, each MT 16-row by NT 8-column mma tiles: BM = 16 WM MT rows
-// and BN = 8 WN NT columns per CTA; kSplit: whether K may be split.
-template <int WM, int WN, int MT, int NT, int kStages, bool kSplit_>
-struct Mma {
-  static constexpr int WN_ = WN, MT_ = MT, NT_ = NT, STAGES = kStages;
-  static constexpr bool kSplit = kSplit_;
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int BM = 16 * WM * MT;
-  static constexpr int BN = 8 * WN * NT;
-  static constexpr int XS = kBK + 8;  // x tile row stride, bf16
-  static constexpr int WS = BN + 8;   // weight tile row stride, bf16
-  static constexpr int kXBytes = BM * XS * 2;
-  static constexpr int kQBytes = kBK * BN;  // int8 rows, BN bytes each
-  static constexpr int kStageBytes = kXBytes + kQBytes;
-  static constexpr int kWBytes = kBK * WS * 2;
-  static constexpr int kSmem = STAGES * kStageBytes + 2 * kWBytes;
-  static constexpr int kChunkCols = BN / 16;  // 16-byte int8 chunks per row
-  static_assert(kThreads % kChunkCols == 0, "a thread keeps its columns");
-  static_assert(NT % 2 == 0, "B fragments load in pairs of 8 columns");
-  static_assert(STAGES >= 2, "a stage ahead of the one in use");
-};
-
-using Small = Mma<1, 4, 2, 2, 4, true>;   // 32 x 64, 128 threads
-using Wide = Mma<2, 4, 4, 4, 3, false>;   // 128 x 128, 256 threads
-
-// Grid: (column tiles of every weight, split, M tiles). x [M, K] bf16; each
-// weight q [K, N] int8, scale [N] bf16, out [M, N]; part: split partial
-// tiles [M tiles, column tiles, split, BM, BN] f32 and counters [M tiles,
-// column tiles] (zero) when split > 1.
-//
-// The pipeline: a ring of STAGES cp.async stages (x rows and int8 rows of a
-// k-step) and two bf16 weight tiles. Each thread dequantizes exactly the
-// int8 chunks it copied, so it needs only its own copies' completion before
-// it dequantizes. Iteration i issues the copies of step i + STAGES - 1,
-// dequantizes step i + 1 into the other weight tile, runs the products of
-// step i, then meets the others at the one barrier of the step: warps
-// overlap one step's dequantize with another's products.
-template <class G, typename OutT>
-__global__ void __launch_bounds__(G::kThreads)
-    w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const Weights ws,
-                     float* __restrict__ part, int* __restrict__ counters,
-                     int M, int K, int split) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int BM = G::BM, BN = G::BN, XS = G::XS, WS = G::WS;
-  constexpr int S = G::STAGES;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Target tg = target_of(ws, blockIdx.x, BN);
-  const int8_t* const q = tg.q;
-  OutT* const out = static_cast<OutT*>(tg.out);
-  const int N = tg.N, n0 = tg.n0, m0 = blockIdx.z * BM;
+// Grid: (column tiles of every weight, split, M tiles of 32), clusters of
+// (1, split, 1): rank = blockIdx.y = the part of K. Tiles in shared memory
+// (128-byte swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)): the
+// int8 weight [64 k][128 columns] and x [32 m][64 k] of each stage.
+template <typename OutT>
+__global__ void __launch_bounds__(kSmallThreads)
+    w8a16_small_kernel(__grid_constant__ const CUtensorMap x_map,
+                       __grid_constant__ const CUtensorMap w_map0,
+                       __grid_constant__ const CUtensorMap w_map1,
+                       __grid_constant__ const CUtensorMap w_map2,
+                       const Weights ws, int M, int K, int split) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t recv_addr = base + kSmallStages * kSmallStageBytes;
+  const float* const recv =
+      reinterpret_cast<const float*>(smem_raw + (recv_addr - raw));
+  const uint32_t bar0 = base + kSmallBarOff;
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kSmallStages + s); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Target tg = target_of(ws, blockIdx.x, kBN);
+  const int m0 = blockIdx.z * kSmallM, rank = blockIdx.y;
   int k0, k1;
-  split_range(K / kBK, split, blockIdx.y, &k0, &k1);
+  split_range(K / kBK, split, rank, &k0, &k1);
   const int n_k = k1 - k0;
-  uint8_t* const wtiles = smem + S * G::kStageBytes;
 
-  // This thread's int8 chunks: the same 16 columns of every row it copies
-  // and dequantizes, and their scales (two 16-byte loads).
-  const int ccol = (tid % G::kChunkCols) * 16;
-  float sc[16];
-  load_scales(tg.scale, n0 + ccol, N, sc);
-
-  auto load = [&](int kk, int st) {
-    uint8_t* const xs = smem + st * G::kStageBytes;
-    uint8_t* const qs = xs + G::kXBytes;
-    for (int c = tid; c < BM * (kBK / 8); c += G::kThreads) {
-      const int r = c >> 3, cc = c & 7;
-      const bool ok = m0 + r < M;
-      const __nv_bfloat16* src =
-          x + (size_t)(ok ? m0 + r : 0) * K + kk * kBK + cc * 8;
-      cp_async16(smem_addr(xs + (r * XS + cc * 8) * 2), src, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSmallStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kSmallWarps);
     }
-    for (int c = tid; c < kBK * G::kChunkCols; c += G::kThreads) {
-      const int r = c / G::kChunkCols;
-      const bool ok = n0 + ccol < N;
-      const int8_t* src =
-          q + (size_t)(kk * kBK + r) * N + (ok ? n0 + ccol : 0);
-      cp_async16(smem_addr(qs + r * BN + ccol), src, ok);
-    }
-  };
-  auto dequant = [&](int st, uint8_t* wt) {
-    const uint8_t* const qs = smem + st * G::kStageBytes + G::kXBytes;
-    for (int c = tid; c < kBK * G::kChunkCols; c += G::kThreads) {
-      const int r = c / G::kChunkCols;
-      const uint4 w = *reinterpret_cast<const uint4*>(qs + r * BN + ccol);
-      uint8_t* const dst = wt + (r * WS + ccol) * 2;
-      const uint2 d0 = dequant4(w.x, sc), d1 = dequant4(w.y, sc + 4);
-      const uint2 d2 = dequant4(w.z, sc + 8), d3 = dequant4(w.w, sc + 12);
-      *reinterpret_cast<uint4*>(dst) = make_uint4(d0.x, d0.y, d1.x, d1.y);
-      *reinterpret_cast<uint4*>(dst + 16) = make_uint4(d2.x, d2.y, d3.x, d3.y);
-    }
-  };
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (split > 1) cluster_arrive_relaxed();  // this CTA has started
 
-  const int wm = warp / G::WN_, wn = warp % G::WN_;
-  float acc[G::MT_][G::NT_][4];
-#pragma unroll
-  for (int a = 0; a < G::MT_; ++a)
-#pragma unroll
-    for (int b = 0; b < G::NT_; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
-
-  // ldmatrix: lane supplies row lane % 8 of matrix lane / 8. A: rows
-  // lane % 16, columns 8 (lane / 16) of the 16-deep step; B (transposed
-  // from the [k][n] tile): k rows 8 (mi & 1) + 0..7, columns 8 (mi >> 1) +
-  // 0..7 of a 16-column pair of mma tiles.
-  const int mi = lane >> 3, mr = lane & 7;
-  const int a_row = wm * G::MT_ * 16 + (lane & 15), a_col = 8 * (lane >> 4);
-  const int b_row = 8 * (mi & 1) + mr,
-            b_col = wn * G::NT_ * 8 + 8 * (mi >> 1);
-  auto products = [&](int st, const uint8_t* wt) {
-    const uint32_t x_base = smem_addr(smem + st * G::kStageBytes);
-    const uint32_t w_base = smem_addr(wt);
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[G::MT_][4];
-#pragma unroll
-      for (int t = 0; t < G::MT_; ++t)
-        ldmatrix_x4(a[t], x_base + ((a_row + 16 * t) * XS + 16 * ks + a_col) *
-                                       2);
-#pragma unroll
-      for (int np = 0; np < G::NT_ / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, w_base + ((16 * ks + b_row) * WS + b_col +
-                                       16 * np) * 2);
-#pragma unroll
-        for (int t = 0; t < G::MT_; ++t) {
-          mma_bf16(acc[t][2 * np], a[t], b[0], b[1]);
-          mma_bf16(acc[t][2 * np + 1], a[t], b[2], b[3]);
-        }
+  if (warp == kSmallWarps) {
+    // Producer: lane 0 keeps the ring filled.
+    if (lane == 0) {
+      const CUtensorMap* wm =
+          tg.j == 0 ? &w_map0 : tg.j == 1 ? &w_map1 : &w_map2;
+      prefetch_map(wm);
+      prefetch_map(&x_map);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % kSmallStages, use = i / kSmallStages;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        const uint32_t st = base + s * kSmallStageBytes;
+        mbar_expect_tx(full(s), kSmallStageBytes);
+        tma_load_2d(st, wm, full(s), tg.n0, (k0 + i) * kBK);
+        tma_load_2d(st + kQTileBytes, &x_map, full(s), (k0 + i) * kBK, m0);
       }
     }
-  };
-
-#pragma unroll
-  for (int i = 0; i < S - 1; ++i) {
-    if (i < n_k) load(k0 + i, i);
-    cp_async_commit();
+    __syncwarp();
+    if (split > 1) {  // the cluster's two barriers, as every thread
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
   }
-  cp_async_wait<S - 2>();  // this thread's copies of step 0
-  dequant(0, wtiles);
-  __syncthreads();         // every copy of step 0 and its weight tile
-  for (int i = 0; i < n_k; ++i) {
-    if (i + S - 1 < n_k) load(k0 + i + S - 1, (i + S - 1) % S);
-    cp_async_commit();
-    cp_async_wait<S - 2>();  // this thread's copies of step i + 1
-    if (i + 1 < n_k)
-      dequant((i + 1) % S, wtiles + ((i + 1) & 1) * G::kWBytes);
-    products(i % S, wtiles + (i & 1) * G::kWBytes);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
 
-  // Element e of mma tile (t, u): local row 16 t + gid + 8 (e >> 1) of the
-  // warp's rows, local column 8 u + 2 tig + (e & 1) of its columns.
+  // Consumer warp `warp`: columns 32 warp + 16 t + 0..15 (t = 0, 1) of the
+  // tile, every token of it. Lane (gid, tig)'s scales: columns 2 gid and
+  // 2 gid + 1 of each 16 (zero past N; N % 16 == 0).
   const int gid = lane >> 2, tig = lane & 3;
-  const int r_base = wm * G::MT_ * 16 + gid, c_base = wn * G::NT_ * 8 + 2 * tig;
-  if (!G::kSplit || split == 1) {
+  uint32_t s_lo[2], s_hi[2];
 #pragma unroll
-    for (int t = 0; t < G::MT_; ++t)
+  for (int t = 0; t < 2; ++t) {
+    const int c = tg.n0 + 32 * warp + 16 * t + 2 * gid;
+    const uint32_t p =
+        c < tg.N ? *reinterpret_cast<const uint32_t*>(tg.scale + c) : 0u;
+    s_lo[t] = __byte_perm(p, 0, 0x1010);
+    s_hi[t] = __byte_perm(p, 0, 0x3232);
+  }
+  // acc[t][j]: rows = columns of 16-column tile t (through fragment_column),
+  // columns = tokens 8 j + 0..7; token tiles wholly past M are skipped.
+  float acc[2][4][4];
 #pragma unroll
-      for (int u = 0; u < G::NT_; ++u)
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  const int rows_left = M - m0;
+  const int n_tiles = rows_left >= kSmallM ? 4 : (rows_left + 7) / 8;
+  // ldmatrix addresses: lane l supplies row l % 8 of matrix l / 8.
+  const int mi = lane >> 3;
+
+  for (int i = 0; i < n_k; ++i) {
+    const int s = i % kSmallStages;
+    mbar_wait(full(s), (i / kSmallStages) & 1);
+    const uint32_t qs = base + s * kSmallStageBytes, xs = qs + kQTileBytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // k 32 h .. 32 h + 31 of the step
+      // B = x^T: k16 steps 2 h + kk, token tiles 2 jp and 2 jp + 1 per
+      // ldmatrix (matrices: tile 2 jp k-lo, k-hi, tile 2 jp + 1 k-lo, k-hi).
+      uint32_t b[2][4][2];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int row = 8 * (2 * jp + (mi >> 1)) + (lane & 7);
+          const int chunk = 2 * (2 * h + kk) + (mi & 1);
+          uint32_t r[4];
+          ldmatrix_x4(r, xs + row * 128 + ((chunk ^ (row & 7)) << 4));
+          b[kk][2 * jp][0] = r[0];
+          b[kk][2 * jp][1] = r[1];
+          b[kk][2 * jp + 1][0] = r[2];
+          b[kk][2 * jp + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        // A = w^T: k rows 32 h + lane of column chunk 2 warp + t; r[q] is
+        // k 32 h + 8 q + 0..7.
+        const int row = 32 * h + lane, chunk = 2 * warp + t;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, qs + row * 128 + ((chunk ^ (row & 7)) << 4));
+        uint32_t a[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          dequant_a(r[2 * kk], s_lo[t], s_hi[t], a[kk][0], a[kk][1]);
+          dequant_a(r[2 * kk + 1], s_lo[t], s_hi[t], a[kk][2], a[kk][3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < n_tiles)
+              mma_bf16(acc[t][j], a[kk], b[kk][j][0], b[kk][j][1]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // Element e of acc[t][j]: weight column lc = 32 warp + 16 t + 2 gid
+  // (e < 2) or lc + 1 (e >= 2), token 8 j + 2 tig + (e & 1).
+  OutT* const out = static_cast<OutT*>(tg.out);
+  const int N = tg.N;
+  if (split == 1) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int m = m0 + r_base + 16 * t + 8 * h, n = n0 + c_base + 8 * u;
+          const int m = m0 + 8 * j + 2 * tig + h;
+          const int n = tg.n0 + 32 * warp + 16 * t + 2 * gid;
           if (m < M && n < N)
-            store_pair(out + (size_t)m * N + n, acc[t][u][2 * h],
-                       acc[t][u][2 * h + 1]);
+            store_pair(out + (size_t)m * N + n, acc[t][j][h],
+                       acc[t][j][2 + h]);
         }
     return;
   }
-  if constexpr (G::kSplit) {
-    const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-    float* const tp = part + (size_t)tile * split * BM * BN;
+  // Rank r owns columns [r slice, (r + 1) slice) of the tile; its recv
+  // buffer holds each rank's partial of them as f32 [rank][token][slice].
+  const int slice = kBN / split;
+  cluster_wait();  // every rank has started
 #pragma unroll
-    for (int t = 0; t < G::MT_; ++t)
+  for (int t = 0; t < 2; ++t) {
+    const int lc = 32 * warp + 16 * t + 2 * gid;
+    const uint32_t owner = (uint32_t)(lc / slice);
 #pragma unroll
-      for (int u = 0; u < G::NT_; ++u)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          store_pair(tp + ((size_t)blockIdx.y * BM + r_base + 16 * t +
-                           8 * h) * BN + c_base + 8 * u,
-                     acc[t][u][2 * h], acc[t][u][2 * h + 1]);
-    if (last_to_arrive(counters + tile, split))
-      sum_partials<BM, BN, G::kThreads>(tp, split, out, m0, n0, M, N);
+      for (int h = 0; h < 2; ++h) {
+        const int tok = 8 * j + 2 * tig + h;
+        const uint32_t off =
+            (uint32_t)(((rank * kSmallM + tok) * slice + lc % slice) * 4);
+        st_cluster_f32x2(map_rank(recv_addr + off, owner), acc[t][j][h],
+                         acc[t][j][2 + h]);
+      }
+  }
+  cluster_arrive();
+  cluster_wait();  // every partial has landed; no remote access after this
+  const int per_row = slice / 4;
+  for (int it = threadIdx.x; it < kSmallM * per_row; it += kSmallConsumers) {
+    const int tok = it / per_row, c = (it % per_row) * 4;
+    const int m = m0 + tok, n = tg.n0 + rank * slice + c;
+    if (m >= M || n >= N) continue;
+    float4 sum = *reinterpret_cast<const float4*>(recv + tok * slice + c);
+    for (int src = 1; src < split; ++src) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          recv + (src * kSmallM + tok) * slice + c);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    store_pair(out + (size_t)m * N + n, sum.x, sum.y);
+    store_pair(out + (size_t)m * N + n + 2, sum.z, sum.w);
+  }
+}
+
+// ---- wide M: wgmma over a dequantized bf16 B tile ----
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand. For a
+// K-major operand (x) `lbo` is unused and `sbo` is the 8-row stride; for an
+// MN-major one (the bf16 weight tile) `lbo` is the stride between 64-column
+// panels and `sbo` the 8-row stride along K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define F8(a, i)                                                       \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),          \
+      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d[64 x 256] += A[64 x 16] B[16 x 256]: A K-major and B MN-major
+// (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, "
+      "1, 0, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
+        F8(d, 48), F8(d, 56), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88),
+        F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
+#undef F8
+
+constexpr int kWideM = 128;                        // rows per CTA
+constexpr int kWideN = 256;                        // weight columns per CTA
+constexpr int kWideWarps = 8;                      // two consumer warpgroups
+constexpr int kWideConsumers = 32 * kWideWarps;
+constexpr int kWideThreads = kWideConsumers + 32;  // + the producer warp
+constexpr int kWideStages = 4;
+constexpr int kWideQBytes = kBK * kWideN;          // int8, two boxes
+constexpr int kWideXBytes = kWideM * kBK * 2;      // bf16 [128 m][64 k]
+constexpr int kWideStageBytes = kWideQBytes + kWideXBytes;
+constexpr int kBPanelBytes = kBK * 128;            // bf16 [64 k][64 n]
+constexpr int kBTileBytes = 4 * kBPanelBytes;      // [64 k][256 n]
+constexpr int kWideBOff = kWideStages * kWideStageBytes;
+constexpr int kWideBarOff = kWideBOff + 2 * kBTileBytes;
+constexpr int kWideSmem = kWideBarOff + 16 * kWideStages + 1024;
+
+// Grid: (column tiles of 256 of every weight, 1, M tiles of 128). Each
+// stage of the ring holds the weight's int8 [64 k][256 n] (two boxes) and
+// x's [128 m][64 k]; two bf16 B tiles alternate. Iteration i starts the
+// wgmmas of step i on B tile i & 1, dequantizes step i + 1 into the other
+// tile while they run, then waits for them and meets the other warpgroup
+// at a named barrier. 256 columns per CTA: with 128, each CTA read as many
+// bytes from L2 per operation as kept the tensor cores at ~40%.
+template <typename OutT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    w8a16_wide_kernel(__grid_constant__ const CUtensorMap x_map,
+                      __grid_constant__ const CUtensorMap w_map0,
+                      __grid_constant__ const CUtensorMap w_map1,
+                      __grid_constant__ const CUtensorMap w_map2,
+                      const Weights ws, int M, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t bar0 = base + kWideBarOff;
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kWideStages + s); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Target tg = target_of(ws, blockIdx.x, kWideN);
+  const int m0 = blockIdx.z * kWideM, n_k = K / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWideWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kWideWarps) {
+    if (lane != 0) return;
+    const CUtensorMap* wm =
+        tg.j == 0 ? &w_map0 : tg.j == 1 ? &w_map1 : &w_map2;
+    prefetch_map(wm);
+    prefetch_map(&x_map);
+    for (int i = 0; i < n_k; ++i) {
+      const int s = i % kWideStages, use = i / kWideStages;
+      if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+      const uint32_t st = base + s * kWideStageBytes;
+      mbar_expect_tx(full(s), kWideStageBytes);
+      tma_load_2d(st, wm, full(s), tg.n0, i * kBK);
+      tma_load_2d(st + kQTileBytes, wm, full(s), tg.n0 + kBN, i * kBK);
+      tma_load_2d(st + kWideQBytes, &x_map, full(s), i * kBK, m0);
+    }
+    return;
+  }
+
+  // The dequantize: thread ct takes 16-byte chunk cc (columns 16 cc + 0..15;
+  // box cc / 8) of k rows r0 + 16 jr (jr = 0..3); eight lanes in a row cover
+  // eight k rows, so the swizzled reads and writes are free of bank
+  // conflicts. Its scales as the bf16 pairs of adjacent columns (zero past
+  // N; N % 16 == 0).
+  const int ct = threadIdx.x, cc = (ct >> 3) & 15;
+  const int r0 = (ct & 7) + 8 * (ct >> 7);
+  uint32_t sc[8];
+  {
+    uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0;
+    const int c = tg.n0 + 16 * cc;
+    if (c < tg.N) {
+      v0 = *reinterpret_cast<const uint4*>(tg.scale + c);
+      v1 = *reinterpret_cast<const uint4*>(tg.scale + c + 8);
+    }
+    sc[0] = v0.x, sc[1] = v0.y, sc[2] = v0.z, sc[3] = v0.w;
+    sc[4] = v1.x, sc[5] = v1.y, sc[6] = v1.z, sc[7] = v1.w;
+  }
+  auto dequant = [&](int s, int buf) {
+    const uint8_t* const q =
+        smem + s * kWideStageBytes + (cc >> 3) * kQTileBytes;
+    uint8_t* const b =
+        smem + kWideBOff + buf * kBTileBytes + (cc >> 2) * kBPanelBytes;
+    const int qc = cc & 7, ch = 2 * (cc & 3);  // box chunk; panel chunks
+#pragma unroll
+    for (int jr = 0; jr < 4; ++jr) {
+      const int r = r0 + 16 * jr;
+      const uint4 w =
+          *reinterpret_cast<const uint4*>(q + r * 128 + ((qc ^ (r & 7)) << 4));
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+      uint32_t d[8];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t u = words[p] ^ 0x80808080u;
+        d[2 * p] = scale_pair(code_f32(u, 0), code_f32(u, 1), sc[2 * p]);
+        d[2 * p + 1] =
+            scale_pair(code_f32(u, 2), code_f32(u, 3), sc[2 * p + 1]);
+      }
+      *reinterpret_cast<uint4*>(b + r * 128 + ((ch ^ (r & 7)) << 4)) =
+          make_uint4(d[0], d[1], d[2], d[3]);
+      *reinterpret_cast<uint4*>(b + r * 128 + (((ch + 1) ^ (r & 7)) << 4)) =
+          make_uint4(d[4], d[5], d[6], d[7]);
+    }
+  };
+  auto consumers_sync = [] {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWideConsumers) : "memory");
+  };
+
+  const int wg = warp >> 2;  // rows 64 wg .. 64 wg + 63 of the tile
+  float acc[128];
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  mbar_wait(full(0), 0);
+  dequant(0, 0);
+  fence_proxy_async();
+  consumers_sync();
+  for (int i = 0; i < n_k; ++i) {
+    const int s = i % kWideStages;
+    const uint32_t xs =
+        base + s * kWideStageBytes + kWideQBytes + wg * 64 * 128;
+    const uint32_t bs = base + kWideBOff + (i & 1) * kBTileBytes;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_m64n256k16_ss_tb(acc, sw128_desc(xs + 32 * kk, 16, 1024),
+                             sw128_desc(bs + kk * 16 * 128, kBPanelBytes,
+                                        1024));
+    wgmma_commit();
+    if (i + 1 < n_k) {
+      const int s1 = (i + 1) % kWideStages;
+      mbar_wait(full(s1), ((i + 1) / kWideStages) & 1);
+      dequant(s1, (i + 1) & 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));  // step i's x and codes are used
+    fence_proxy_async();
+    consumers_sync();
+  }
+
+  // Element 4 j + 2 i + c: row 16 (warp % 4) + gid + 8 i of the
+  // warpgroup's 64, column 8 j + 2 tig + c.
+  OutT* const out = static_cast<OutT*>(tg.out);
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + 64 * wg + 16 * (warp & 3) + gid + 8 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = tg.n0 + 8 * j + 2 * tig;
+      if (n < tg.N)
+        store_pair(out + (size_t)m * tg.N + n, acc[4 * j + 2 * i],
+                   acc[4 * j + 2 * i + 1]);
+    }
   }
 }
 
@@ -444,13 +749,11 @@ constexpr int kFmaThreads = 256;
 constexpr int kFmaBM = 32, kFmaBN = 64, kFmaRows = kFmaBM * kFmaBN /
                                                    kFmaThreads;
 
-// Grid and partials as the mma kernel's, with BM x BN = 32 x 64: thread
-// column tid % 64, rows 8 (tid / 64) + 0..7 of the tile, k in increasing
-// order over the split's k-steps.
+// Grid: (column tiles of 64, 1, M tiles of 32): thread column tid % 64,
+// rows 8 (tid / 64) + 0..7 of the tile, k in increasing order.
 __global__ void __launch_bounds__(kFmaThreads)
-    w8a16_fma_kernel(const float* __restrict__ x, const Weights ws,
-                     float* __restrict__ part, int* __restrict__ counters,
-                     int M, int K, int split) {
+    w8a16_fma_kernel(const float* __restrict__ x, const Weights ws, int M,
+                     int K) {
   const Target tg = target_of(ws, blockIdx.x, kFmaBN);
   const int8_t* const q = tg.q;
   float* const out = static_cast<float*>(tg.out);
@@ -459,12 +762,10 @@ __global__ void __launch_bounds__(kFmaThreads)
             row0 = (tid / kFmaBN) * kFmaRows;
   const int n = tg.n0 + col, m0 = blockIdx.z * kFmaBM;
   const float s = n < N ? __bfloat162float(tg.scale[n]) : 0.f;
-  int k0, k1;
-  split_range(K / kBK, split, blockIdx.y, &k0, &k1);
   float acc[kFmaRows];
 #pragma unroll
   for (int r = 0; r < kFmaRows; ++r) acc[r] = 0.f;
-  for (int k = k0 * kBK; k < k1 * kBK; ++k) {
+  for (int k = 0; k < K; ++k) {
     const float w = n < N ? __bfloat162float(__float2bfloat16_rn(
                                 (float)q[(size_t)k * N + n] * s))
                           : 0.f;
@@ -475,121 +776,256 @@ __global__ void __launch_bounds__(kFmaThreads)
       acc[r] = fmaf(xv, w, acc[r]);
     }
   }
-  if (split == 1) {
-    for (int r = 0; r < kFmaRows; ++r) {
-      const int m = m0 + row0 + r;
-      if (m < M && n < N) out[(size_t)m * N + n] = acc[r];
-    }
-    return;
+  for (int r = 0; r < kFmaRows; ++r) {
+    const int m = m0 + row0 + r;
+    if (m < M && n < N) out[(size_t)m * N + n] = acc[r];
   }
-  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-  float* const tp = part + (size_t)tile * split * kFmaBM * kFmaBN;
-  for (int r = 0; r < kFmaRows; ++r)
-    tp[((size_t)blockIdx.y * kFmaBM + row0 + r) * kFmaBN + col] = acc[r];
-  if (last_to_arrive(counters + tile, split))
-    sum_partials<kFmaBM, kFmaBN, kFmaThreads>(tp, split, out, m0, tg.n0, M,
-                                              N);
 }
 
-template <class G, typename OutT>
-cudaError_t launch_mma(const void* x, const Weights& ws, void* part,
-                       void* counters, int M, int K, int split,
-                       cudaStream_t st) {
-  auto kernel = w8a16_mma_kernel<G, OutT>;
-  static bool ready = false;  // one attribute call per instantiation
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+// ---- host ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point) through the runtime,
+// so the build needs no -lcuda.
+cudaError_t encode_fn(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
     if (err != cudaSuccess) return err;
-    ready = true;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
   }
-  const dim3 grid(ws.tile0[ws.count], split, (M + G::BM - 1) / G::BM);
-  kernel<<<grid, G::kThreads, G::kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), ws, static_cast<float*>(part),
-      static_cast<int*>(counters), M, K, split);
+  *out = fn;
+  return cudaSuccess;
+}
+
+// A row-major [rows, cols] matrix as a 2-D tensor map, boxes of box_cols x
+// box_rows (box_cols * elt = 128 bytes), 128-byte swizzled, zero-filled past
+// the matrix.
+cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elt,
+                     const void* ptr, long long cols, long long rows,
+                     int box_cols, int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * elt)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult res = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, estride,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// What a launch over a set of weights needs besides x, M and the output:
+// made once per set (ops/w8a16.py caches it by the weights' pointers and
+// shapes) and copied by value at each launch.
+struct alignas(64) Plan {
+  CUtensorMap w_map[kMaxWeights];    // bf16 activations only
+  Weights ws;                        // out[] set at each launch
+  long long out_off[kMaxWeights];    // output i at out + M * out_off[i]
+  int K, x_dtype, out_dtype, wide, split;
+};
+
+template <class Kernel>
+cudaError_t raise_smem(Kernel kernel, int bytes, bool* ready) {
+  if (*ready) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *ready = true;
+  return err;
+}
+
+template <typename OutT>
+cudaError_t launch_small(const CUtensorMap& x_map, Plan& p, int M,
+                         cudaStream_t st) {
+  auto kernel = w8a16_small_kernel<OutT>;
+  static bool ready = false;  // one attribute call per instantiation
+  cudaError_t err = raise_smem(kernel, kSmallSmem, &ready);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.ws.tile0[p.ws.count], p.split,
+                     (M + kSmallM - 1) / kSmallM);
+  cfg.blockDim = dim3(kSmallThreads);
+  cfg.dynamicSmemBytes = kSmallSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.split > 1 ? 1 : 0;
+  void* args[] = {const_cast<CUtensorMap*>(&x_map), &p.w_map[0],
+                  &p.w_map[1], &p.w_map[2], &p.ws, &M, &p.K, &p.split};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
+                            args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_wide(const CUtensorMap& x_map, const Plan& p, int M,
+                        cudaStream_t st) {
+  auto kernel = w8a16_wide_kernel<OutT>;
+  static bool ready = false;
+  const cudaError_t err = raise_smem(kernel, kWideSmem, &ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.ws.tile0[p.ws.count], 1, (M + kWideM - 1) / kWideM);
+  kernel<<<grid, kWideThreads, kWideSmem, st>>>(
+      x_map, p.w_map[0], p.w_map[1], p.w_map[2], p.ws, M, p.K);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out_i [M, n_i] = x [M, K] . dequant(q_i [K, n_i] int8, scale_i [n_i] bf16)
-// for the `count` (1..3) weights of q, scale, out and n, in one launch; all
-// contiguous and 16-byte aligned. x_dtype 0 = f32 (out f32, the FMA
-// kernel), 1 = bf16 (out_dtype 0 = f32, 1 = bf16; the tensor-core kernel,
-// tile 32 x 64 or, with wide = 1, 128 x 128 and split 1). K % 64 == 0,
-// n_i % 16 == 0, 1 <= split <= K / 64. With split > 1, part holds the
-// partial tiles ([M tiles, column tiles, split, BM, BN] f32) and counters
-// one zero int per (M tile, column tile), which the kernel leaves zero.
-extern "C" int grove_w8a16_matmul(const void* x, const void* const* q,
-                                  const void* const* scale, void* const* out,
-                                  const int* n, int count, void* part,
-                                  void* counters, int x_dtype, int out_dtype,
-                                  int wide, int M, int K, int split,
-                                  void* stream) {
-  if (M <= 0 || K <= 0 || K % kBK != 0 || count < 1 ||
-      count > kMaxWeights || split < 1 || split > K / kBK ||
-      (split > 1 && (!part || !counters)))
-    return (int)cudaErrorInvalidValue;
-  const int bn = x_dtype == 0 ? kFmaBN : wide ? Wide::BN : Small::BN;
-  Weights ws{};
-  ws.count = count;
-  for (int i = 0; i < count; ++i) {
-    if (n[i] <= 0 || n[i] % 16 != 0) return (int)cudaErrorInvalidValue;
-    ws.q[i] = static_cast<const int8_t*>(q[i]);
-    ws.scale[i] = static_cast<const __nv_bfloat16*>(scale[i]);
-    ws.out[i] = out[i];
-    ws.n[i] = n[i];
-    ws.tile0[i + 1] = ws.tile0[i] + (n[i] + bn - 1) / bn;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) {
-    if (out_dtype != 0 || wide) return (int)cudaErrorInvalidValue;
-    const dim3 grid(ws.tile0[count], split, (M + kFmaBM - 1) / kFmaBM);
-    w8a16_fma_kernel<<<grid, kFmaThreads, 0, st>>>(
-        static_cast<const float*>(x), ws, static_cast<float*>(part),
-        static_cast<int*>(counters), M, K, split);
-    return (int)cudaGetLastError();
-  }
-  if (x_dtype != 1 || (out_dtype != 0 && out_dtype != 1) ||
+extern "C" int grove_w8a16_plan_bytes() { return (int)sizeof(Plan); }
+
+// Plan a launch of x [M, K] (x_dtype 0 = f32, 1 = bf16) times the `count`
+// (1..3) weights q_i [K, n_i] int8 with scales_i [n_i] bf16 (contiguous,
+// 16-byte aligned), outputs of out_dtype (0 = f32, 1 = bf16; f32 x takes an
+// f32 output). wide = 1: the wgmma kernel (bf16 x, split 1); else bf16 x
+// takes the small kernel with `split` in 1, 2, 4, 8 (at most K / 64) and f32
+// x the FMA kernel (split 1). K % 64 == 0, n_i % 16 == 0. Writes
+// grove_w8a16_plan_bytes() bytes to `plan`.
+extern "C" int grove_w8a16_plan(const void* const* q,
+                                const void* const* scale, const int* n,
+                                int count, int K, int x_dtype, int out_dtype,
+                                int wide, int split, void* plan) {
+  const bool pow2 = split == 1 || split == 2 || split == 4 || split == 8;
+  if (K <= 0 || K % kBK != 0 || count < 1 || count > kMaxWeights || !pow2 ||
+      split > K / kBK || (x_dtype != 0 && x_dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1) ||
+      (x_dtype == 0 && (out_dtype != 0 || wide || split != 1)) ||
       (wide && split != 1))
     return (int)cudaErrorInvalidValue;
-  if (wide)
-    return out_dtype ? (int)launch_mma<Wide, __nv_bfloat16>(
-                           x, ws, part, counters, M, K, split, st)
-                     : (int)launch_mma<Wide, float>(x, ws, part, counters, M,
-                                                    K, split, st);
-  return out_dtype ? (int)launch_mma<Small, __nv_bfloat16>(
-                         x, ws, part, counters, M, K, split, st)
-                   : (int)launch_mma<Small, float>(x, ws, part, counters, M, K,
-                                                   split, st);
+  Plan p;
+  memset(&p, 0, sizeof(p));
+  p.K = K, p.x_dtype = x_dtype, p.out_dtype = out_dtype, p.wide = wide;
+  p.split = split;
+  p.ws.count = count;
+  const int bn = x_dtype == 0 ? kFmaBN : wide ? kWideN : kBN;
+  long long off = 0;
+  for (int i = 0; i < count; ++i) {
+    if (n[i] <= 0 || n[i] % 16 != 0) return (int)cudaErrorInvalidValue;
+    p.ws.q[i] = static_cast<const int8_t*>(q[i]);
+    p.ws.scale[i] = static_cast<const __nv_bfloat16*>(scale[i]);
+    p.ws.n[i] = n[i];
+    p.ws.tile0[i + 1] = p.ws.tile0[i] + (n[i] + bn - 1) / bn;
+    p.out_off[i] = off;
+    off += n[i];
+    if (x_dtype == 1) {
+      const cudaError_t err =
+          make_map(&p.w_map[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q[i], n[i],
+                   K, kBN, kBK);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  memcpy(plan, &p, sizeof(p));
+  return 0;
 }
 
-// Tile rows, tile columns, registers, local (spill) bytes and dynamic shared
-// memory of a build, into out[5]: which = 0 the 32 x 64 tensor-core kernel,
-// 1 the 128 x 128 one (both with bf16 output), 2 the FMA kernel.
+// out: the outputs of a plan, one after another ([M, n_i] each). x and out
+// contiguous and 16-byte aligned.
+extern "C" int grove_w8a16_run(const void* plan, const void* x, void* out,
+                               int M, void* stream) {
+  Plan p;
+  memcpy(&p, plan, sizeof(p));
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  const int elt = p.out_dtype == 0 ? 4 : 2;
+  for (int i = 0; i < p.ws.count; ++i)
+    p.ws.out[i] = static_cast<char*>(out) + (size_t)M * p.out_off[i] * elt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.x_dtype == 0) {
+    const dim3 grid(p.ws.tile0[p.ws.count], 1, (M + kFmaBM - 1) / kFmaBM);
+    w8a16_fma_kernel<<<grid, kFmaThreads, 0, st>>>(
+        static_cast<const float*>(x), p.ws, M, p.K);
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap x_map;
+  const cudaError_t err =
+      make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.K, M, kBK,
+               p.wide ? kWideM : kSmallM);
+  if (err != cudaSuccess) return (int)err;
+  if (p.wide)
+    return p.out_dtype ? (int)launch_wide<__nv_bfloat16>(x_map, p, M, st)
+                       : (int)launch_wide<float>(x_map, p, M, st);
+  return p.out_dtype ? (int)launch_small<__nv_bfloat16>(x_map, p, M, st)
+                     : (int)launch_small<float>(x_map, p, M, st);
+}
+
+// A build's tile rows and columns, registers, local (spill) bytes, dynamic
+// shared memory, largest cluster and residency, into out[7]: which = 0 the
+// small kernel (residency: clusters of kMaxSplit resident at once, by
+// cudaOccupancyMaxActiveClusters), 1 the wide one, 2 the FMA kernel (both:
+// CTAs per SM). The tensor-core builds are those with bf16 output.
 extern "C" int grove_w8a16_info(int which, int* out) {
   const void* fn;
-  int bm, bn, smem;
+  int bm, bn, smem, threads, cluster = 1;
+  cudaError_t err = cudaSuccess;
   if (which == 0) {
-    fn = reinterpret_cast<const void*>(w8a16_mma_kernel<Small, __nv_bfloat16>);
-    bm = Small::BM, bn = Small::BN, smem = Small::kSmem;
+    static bool ready = false;
+    err = raise_smem(w8a16_small_kernel<__nv_bfloat16>, kSmallSmem, &ready);
+    fn = reinterpret_cast<const void*>(w8a16_small_kernel<__nv_bfloat16>);
+    bm = kSmallM, bn = kBN, smem = kSmallSmem, threads = kSmallThreads;
+    cluster = kMaxSplit;
   } else if (which == 1) {
-    fn = reinterpret_cast<const void*>(w8a16_mma_kernel<Wide, __nv_bfloat16>);
-    bm = Wide::BM, bn = Wide::BN, smem = Wide::kSmem;
+    static bool ready = false;
+    err = raise_smem(w8a16_wide_kernel<__nv_bfloat16>, kWideSmem, &ready);
+    fn = reinterpret_cast<const void*>(w8a16_wide_kernel<__nv_bfloat16>);
+    bm = kWideM, bn = kWideN, smem = kWideSmem, threads = kWideThreads;
   } else if (which == 2) {
     fn = reinterpret_cast<const void*>(w8a16_fma_kernel);
-    bm = kFmaBM, bn = kFmaBN, smem = 0;
+    bm = kFmaBM, bn = kFmaBN, smem = 0, threads = kFmaThreads;
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int resident = 0;
+  if (cluster > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, cluster, 1);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute a[1];
+    a[0].id = cudaLaunchAttributeClusterDimension;
+    a[0].val.clusterDim.x = 1;
+    a[0].val.clusterDim.y = cluster;
+    a[0].val.clusterDim.z = 1;
+    cfg.attrs = a;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&resident, fn, &cfg);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn,
+                                                        threads, smem);
+  }
   if (err != cudaSuccess) return (int)err;
   out[0] = bm;
   out[1] = bn;
   out[2] = attr.numRegs;
   out[3] = (int)attr.localSizeBytes;
   out[4] = smem;
+  out[5] = cluster;
+  out[6] = resident;
   return 0;
 }
 

@@ -13,9 +13,9 @@ then the product at JAX's promoted type (bf16 for the layer projections of
 a bf16 model, f32 for the LM head's ``preferred_element_type=f32`` and for
 an f32 model). ``w8a16_matmul`` runs the kernel
 (``grove_tpu_torch/csrc/w8a16_gemm.cu``) on CUDA tensors, which forms the
-same bf16 weight in shared memory and never writes it to device memory,
-and the plain version on CPU tensors. ``launches`` on the wrapper counts
-its launches.
+same bf16 weight in registers (or, above 256 rows, in shared memory) and
+never writes it to device memory, and the plain version on CPU tensors.
+``launches`` on the wrapper counts its launches.
 
 Shapes: x [M, K], the weight [K, N] as stored (the JAX layout: ``wq`` is
 [d, h * hd], ``wo`` [h * hd, d], ``lm_head`` [d, V]; none is transposed),
@@ -29,9 +29,17 @@ prefill chunk, the lanes decode and the verify chunk of speculative
 decoding) the partition of K (``split_count``: the split count and the
 64-deep k-step), the order of the k-steps and the order of the split sum
 depend on K and the launch's weights only, so an output row's bits depend
-only on its own input row and never on M. Above 256 (the lanes prefill, M = 4,096) the kernel
-takes 128 x 128 tiles and no split, and a row's bits may differ from the
-same row's at M <= 256 (by the split sum's rounding).
+only on its own input row and never on M. Above 256 (the lanes prefill, M
+= 4,096) the kernel takes 128 x 256 ``wgmma`` tiles and no split, and a
+row's bits may differ from the same row's at M <= 256 (by the split sum's
+rounding).
+
+Host time. A launch's weight-side arguments (pointers, column counts, the
+weights' TMA tensor maps) are a plan, made once and cached by the weights'
+pointers, shapes and strides and the launch's types; a call then allocates
+one output buffer and makes one foreign call, which also encodes x's map.
+No allocation besides the output and no host sync, so a call is safe
+inside a CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -44,13 +52,16 @@ import torch
 from grove_tpu_torch.ops import _build
 
 BK = 64                 # k-step depth; K must be a multiple
-SMALL_TILE = (32, 64)   # rows x columns per CTA for M <= ROW_INVARIANT_M
-WIDE_TILE = (128, 128)  # above it (bf16 activations)
+SMALL_TILE = (32, 128)  # tokens x weight columns per CTA up to 256 rows
+WIDE_TILE = (128, 256)  # above it (bf16 activations)
+FMA_TILE = (32, 64)     # f32 activations (the CUDA-core kernel)
 ROW_INVARIANT_M = 256
-FILL_CTAS = 264         # two CTAs per SM of an H100's 132
+SMS = 132               # streaming multiprocessors of an H100
+RESIDENT_CTAS = 3 * SMS  # small-kernel CTAs resident at once (3 per SM)
+MAX_SPLIT = 8           # the split's CTAs are one cluster: 8 is portable
 MIN_SPLIT_STEPS = 2     # k-steps per split at least
-MAX_COUNTERS = 4096     # split-K arrival counters per device
 MAX_WEIGHTS = 3         # weights sharing x in one launch
+MAX_PLANS = 4096        # cached launch plans
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -78,73 +89,85 @@ def w8a16_matmul_group_ref(x: torch.Tensor, weights,
     return [w8a16_matmul_ref(x, q, s, out_dtype) for q, s in weights]
 
 
+def fragment_column(r: int) -> int:
+    """The weight column, within its 16-column mma tile, that row ``r``
+    (0..15) of the small kernel's swapped A fragment holds (and that row
+    ``r`` of its accumulator belongs to).
+
+    The int8 tile [k][n] is read by ``ldmatrix.trans`` as b16 pairs of
+    columns: lane (gid = lane // 4, tig = lane % 4) gets the codes of
+    columns 2 gid and 2 gid + 1 at k = 2 tig and 2 tig + 1. A byte permute
+    pairs them by column: column 2 gid becomes fragment row gid (A
+    registers a0, a2) and column 2 gid + 1 row gid + 8 (a1, a3), the rows
+    m16n8k16's A layout gives that lane. ``csrc/w8a16_gemm.cu`` cites this
+    map."""
+    return 2 * (r % 8) + r // 8
+
+
 def split_count(K: int, ns) -> int:
     """How many parts K splits into for M <= ROW_INVARIANT_M: from K and
-    the launch's weights (``ns``, their column counts) alone. Enough
-    (column tile, split) CTAs to fill the card, with at least
-    ``MIN_SPLIT_STEPS`` k-steps each."""
-    want = -(-FILL_CTAS // column_tiles(ns))
-    return max(1, min(want, (K // BK) // MIN_SPLIT_STEPS))
+    the launch's weights (``ns``, their column counts) alone. The parts of
+    one column tile are one thread-block cluster, which sums them in
+    distributed shared memory, each rank owning 128 / split columns of the
+    tile: so the split is a power of two up to ``MAX_SPLIT`` (whole
+    16-column mma tiles per rank, the portable cluster size). It doubles
+    while the doubled (column tile, split) CTAs still fit in one wave
+    (``RESIDENT_CTAS``) and each part keeps at least ``MIN_SPLIT_STEPS``
+    k-steps: more CTAs keep more weight bytes in flight per SM."""
+    tiles, steps = column_tiles(ns), K // BK
+    split = 1
+    while (split < MAX_SPLIT and 2 * split * tiles <= RESIDENT_CTAS
+           and 2 * split * MIN_SPLIT_STEPS <= steps):
+        split *= 2
+    return split
 
 
 def partition(M: int, K: int, ns,
               x_dtype: torch.dtype) -> tuple[bool, int, tuple[int, int]]:
     """(wide tile, split count, CTA tile) of a launch over weights of
-    ``ns`` columns. f32 activations take the CUDA-core kernel, whose tile is
-    the small one at every M."""
-    small = M <= ROW_INVARIANT_M
-    wide = not small and x_dtype == torch.bfloat16
-    return (wide, split_count(K, ns) if small else 1,
-            WIDE_TILE if wide else SMALL_TILE)
+    ``ns`` columns. f32 activations take the CUDA-core kernel, unsplit, at
+    every M."""
+    if x_dtype != torch.bfloat16:
+        return False, 1, FMA_TILE
+    if M <= ROW_INVARIANT_M:
+        return False, split_count(K, ns), SMALL_TILE
+    return True, 1, WIDE_TILE
 
 
 @functools.lru_cache(maxsize=1)
 def _kernel():
     lib = _build.load("w8a16_gemm")
-    fn = lib.grove_w8a16_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
-        ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    plan = lib.grove_w8a16_plan
+    plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    run = lib.grove_w8a16_run
+    run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    lib.grove_w8a16_plan_bytes.restype = ctypes.c_int
     err_str = lib.grove_w8a16_error_string
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
     info = lib.grove_w8a16_info
     info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     info.restype = ctypes.c_int
-    return fn, err_str, info
+    return plan, run, lib.grove_w8a16_plan_bytes(), err_str, info
 
 
-def kernel_info(which: str) -> dict[str, int]:
-    """Tile, registers and local (spill) bytes per thread and dynamic shared
-    memory per CTA of the built ``small`` or ``wide`` tensor-core kernel or
-    the ``fma`` kernel (needs the card)."""
-    _, err_str, info = _kernel()
-    out = (ctypes.c_int * 5)()
+def kernel_info(which: str) -> dict:
+    """Tile, registers and local (spill) bytes per thread, dynamic shared
+    memory per CTA, the largest cluster and the residency (``small``:
+    clusters of that size resident at once; ``wide`` and ``fma``: CTAs per
+    SM) of the built kernel (needs the card)."""
+    *_, err_str, info = _kernel()
+    out = (ctypes.c_int * 7)()
     err = info({"small": 0, "wide": 1, "fma": 2}[which], out)
     if err != 0:
         raise RuntimeError(f"w8a16 kernel info failed: "
                            f"{err_str(err).decode()} ({err})")
     return {"tile": (out[0], out[1]), "registers": out[2],
-            "local_bytes": out[3], "smem_bytes": out[4]}
-
-
-_counters: dict[torch.device, torch.Tensor] = {}
-
-
-def _counter_buf(device: torch.device) -> torch.Tensor:
-    """The split-K arrival counters of ``device``: zeroed once, and every
-    launch leaves them zero (the last CTA of a tile resets its own). Made at
-    the first split call, which must not be inside a graph capture (the
-    engines run each step eagerly before capturing it)."""
-    buf = _counters.get(device)
-    if buf is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the w8a16 split-K counters must exist before "
-                               "a CUDA graph capture: run the call once "
-                               "eagerly first")
-        buf = torch.zeros((MAX_COUNTERS,), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
+            "local_bytes": out[3], "smem_bytes": out[4], "cluster": out[5],
+            "resident": out[6]}
 
 
 def _check(x: torch.Tensor, weights, out_dtype: torch.dtype) -> None:
@@ -176,7 +199,12 @@ def _check(x: torch.Tensor, weights, out_dtype: torch.dtype) -> None:
         raise ValueError(f"w8a16 inputs span devices {devs}")
 
 
-def _launch(x, weights, out_dtype) -> list[torch.Tensor]:
+def _make_plan(x, weights, out_dtype) -> tuple:
+    """The launch plan of x's shape and type over ``weights``: (the C plan's
+    address, the weights' column counts, the first column of each among
+    all outputs, their total, the buffer that holds the plan). Checks
+    everything the kernel needs of the weights."""
+    _check(x, weights, out_dtype)
     M, K = x.shape
     ns = [q.shape[1] for q, _ in weights]
     if K % BK or any(n % 16 for n in ns):
@@ -189,38 +217,62 @@ def _launch(x, weights, out_dtype) -> list[torch.Tensor]:
         if q.data_ptr() % 16 or scale.data_ptr() % 16:
             raise ValueError("the int8 weight and its scales must start "
                              "16-byte aligned")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # a view at an odd offset: rows load by 16 bytes
-        x = x.clone()
-    outs = [torch.empty((M, n), dtype=out_dtype, device=x.device)
-            for n in ns]
-    wide, split, (bm, bn) = partition(M, K, ns, x.dtype)
-    part = counters = None
-    if split > 1:
-        tiles = -(-M // bm) * column_tiles(ns, bn)
-        if tiles > MAX_COUNTERS:
-            raise ValueError(f"{tiles} split tiles exceed the {MAX_COUNTERS} "
-                             f"counters")
-        counters = _counter_buf(x.device)
-        part = torch.empty((tiles * split * bm * bn,), dtype=torch.float32,
-                           device=x.device)
+    wide, split, _ = partition(M, K, ns, x.dtype)
+    plan, _, nbytes, err_str, _ = _kernel()
     count = len(weights)
     ptrs = ctypes.c_void_p * count
-    fn, err_str, _ = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), ptrs(*(q.data_ptr() for q, _ in weights)),
-                 ptrs(*(s.data_ptr() for _, s in weights)),
-                 ptrs(*(o.data_ptr() for o in outs)),
-                 (ctypes.c_int * count)(*ns), count,
-                 None if part is None else part.data_ptr(),
-                 None if counters is None else counters.data_ptr(),
-                 _X_CODES[x.dtype], _OUT_CODES[out_dtype], int(wide), M, K,
-                 split, stream)
+    buf = ctypes.create_string_buffer(nbytes)
+    err = plan(ptrs(*(q.data_ptr() for q, _ in weights)),
+               ptrs(*(s.data_ptr() for _, s in weights)),
+               (ctypes.c_int * count)(*ns), count, K, _X_CODES[x.dtype],
+               _OUT_CODES[out_dtype], int(wide), split, buf)
+    if err != 0:
+        raise RuntimeError(f"w8a16 launch plan failed: "
+                           f"{err_str(err).decode()} ({err})")
+    offs = [sum(ns[:i]) for i in range(count)]
+    return ctypes.addressof(buf), ns, offs, sum(ns), buf
+
+
+_plans: dict[tuple, tuple] = {}
+
+
+def _plan_key(x, weights, out_dtype) -> tuple:
+    """What a launch plan depends on: x's device, type, K and kernel (wide
+    or not), the output type, and each weight's and scale's pointer, shape,
+    strides and type."""
+    M, K = x.shape
+    wide = M > ROW_INVARIANT_M and x.dtype == torch.bfloat16
+    return (x.get_device(), x.dtype, out_dtype, wide, K) + tuple(
+        (q.data_ptr(), q.shape, q.stride(), q.dtype, s.data_ptr(), s.shape,
+         s.stride(), s.dtype) for q, s in weights)
+
+
+def _launch(x, weights, out_dtype) -> list[torch.Tensor]:
+    M = x.shape[0]
+    key = _plan_key(x, weights, out_dtype)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _make_plan(x, weights, out_dtype)
+        if len(_plans) >= MAX_PLANS:
+            _plans.clear()
+        _plans[key] = plan
+    addr, ns, offs, total, _ = plan
+    if not x.is_contiguous():
+        x = x.contiguous()
+    elif x.data_ptr() % 16:  # a view at an odd offset: TMA reads 16-byte rows
+        x = x.clone()
+    # One allocation for all outputs; each is a contiguous [M, n] view.
+    shape = (M, total) if len(ns) == 1 else (M * total,)
+    out = torch.empty(shape, dtype=out_dtype, device=x.device)
+    _, run, _, err_str, _ = _kernel()
+    err = run(addr, x.data_ptr(), out.data_ptr(), M,
+              torch._C._cuda_getCurrentRawStream(key[0]))
     if err != 0:
         raise RuntimeError(f"w8a16 kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")
-    return outs
+    if len(ns) == 1:
+        return [out]
+    return [out.as_strided((M, n), (n, 1), M * o) for n, o in zip(ns, offs)]
 
 
 def w8a16_matmul_group(x: torch.Tensor, weights,
@@ -234,22 +286,23 @@ def w8a16_matmul_group(x: torch.Tensor, weights,
     CUDA tensors run the hand-written kernel, one launch for all of them;
     CPU tensors run ``w8a16_matmul_ref`` on each. Anything else raises, on
     either route: mixed devices, other types, and on the card a shape the
-    kernel does not take."""
+    kernel does not take (checked when the launch's plan is made; a plan is
+    reused only for the same pointers, shapes, strides and types)."""
     weights = list(weights)
     if out_dtype is None and weights:
         out_dtype = torch.promote_types(x.dtype, weights[0][1].dtype)
+    if x.is_cuda and weights and x.dim() == 2 and x.shape[0]:
+        outs = _launch(x, weights, out_dtype)
+        w8a16_matmul.launches += 1
+        return outs
     _check(x, weights, out_dtype)
     if x.device.type == "cpu":
         return w8a16_matmul_group_ref(x, weights, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"w8a16 runs on cuda or cpu tensors, not "
                          f"{x.device}")
-    if x.shape[0] == 0:
-        return [torch.empty((0, q.shape[1]), dtype=out_dtype,
-                            device=x.device) for q, _ in weights]
-    outs = _launch(x, weights, out_dtype)
-    w8a16_matmul.launches += 1
-    return outs
+    return [torch.empty((0, q.shape[1]), dtype=out_dtype, device=x.device)
+            for q, _ in weights]
 
 
 def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

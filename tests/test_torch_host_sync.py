@@ -26,7 +26,8 @@ STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick")
 WRAPPERS = {
     "w8a16_matmul": (w8a16, ("w8a16_matmul", "w8a16_matmul_group",
                              "_check", "_launch", "partition", "split_count",
-                             "column_tiles", "_counter_buf")),
+                             "column_tiles", "_make_plan", "_plan_key",
+                             "fragment_column")),
     "paged_scatter": (kvquant, ("paged_scatter", "_check_rows")),
     "paged_scatter_q": (kvquant, ("paged_scatter_q", "_check", "_check_rows",
                                   "_launch")),

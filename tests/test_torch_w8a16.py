@@ -189,36 +189,85 @@ LLAMA_1B_LAUNCHES = [  # (K, N of each weight) of llama-1b's GEMM launches
 @pytest.mark.parametrize("K,ns", LLAMA_1B_LAUNCHES)
 def test_partition_depends_only_on_the_weights_up_to_256_rows(K, ns):
     """Row invariance by construction: every M <= 256 takes the same tile
-    shape and split of K; the split leaves each part at least
-    MIN_SPLIT_STEPS k-steps and fits the arrival counters."""
+    and split of K. The split is a power of two of at most MAX_SPLIT (one
+    cluster, each rank owning whole 16-column tiles) and leaves each part
+    at least MIN_SPLIT_STEPS k-steps."""
     parts = {w8a16.partition(M, K, ns, torch.bfloat16)
              for M in range(1, w8a16.ROW_INVARIANT_M + 1)}
     assert len(parts) == 1
     wide, split, (bm, bn) = parts.pop()
     assert not wide and (bm, bn) == w8a16.SMALL_TILE
     assert split == w8a16.split_count(K, ns)
-    assert 1 <= split <= (K // w8a16.BK) // w8a16.MIN_SPLIT_STEPS
-    tiles = -(-w8a16.ROW_INVARIANT_M // bm) * w8a16.column_tiles(ns, bn)
-    assert split == 1 or tiles <= w8a16.MAX_COUNTERS
-    # f32 activations split K the same way at these M.
-    assert w8a16.partition(32, K, ns, torch.float32)[1] == split
+    assert split in (1, 2, 4, 8) and split <= w8a16.MAX_SPLIT
+    assert split <= (K // w8a16.BK) // w8a16.MIN_SPLIT_STEPS
+    assert (bn // split) % 16 == 0  # each rank's columns: whole mma tiles
+    # f32 activations: the CUDA-core kernel, unsplit, at every M.
+    for M in (1, 32, 4096):
+        assert w8a16.partition(M, K, ns, torch.float32) == (
+            False, 1, w8a16.FMA_TILE)
     # Above 256 rows: the wide tile, no split.
     assert w8a16.partition(4096, K, ns, torch.bfloat16) == (
         True, 1, w8a16.WIDE_TILE)
 
 
 def test_split_fills_the_card_where_columns_are_few():
-    """N = 1,024 gives 16 column tiles of 64; the split brings the CTAs to
-    at least the SM count (132), never beyond two per SM's worth of
-    parts."""
+    """N = 1,024 gives 8 column tiles of 128; the split doubles while the
+    doubled CTAs fit in one wave at three per SM, up to the cluster's 8 and
+    while each part keeps two k-steps: the CTAs reach the SM count (132)
+    wherever the cluster and K allow, and never exceed one wave."""
     for K, ns in LLAMA_1B_LAUNCHES:
         n_tiles = w8a16.column_tiles(ns)
         split = w8a16.split_count(K, ns)
-        assert n_tiles * split >= 132
-        assert split == 1 or n_tiles * (split - 1) < w8a16.FILL_CTAS
-    assert w8a16.split_count(2048, (32000,)) == 1
+        steps = K // w8a16.BK
+        assert (n_tiles * split >= w8a16.SMS or split == w8a16.MAX_SPLIT
+                or 2 * split * w8a16.MIN_SPLIT_STEPS > steps)
+        assert split == 1 or n_tiles * split <= w8a16.RESIDENT_CTAS
+        assert (split == w8a16.MAX_SPLIT
+                or 2 * split * n_tiles > w8a16.RESIDENT_CTAS
+                or 2 * split * w8a16.MIN_SPLIT_STEPS > steps)
+    # llama-1b: QKV 32 tiles, wo and w_down 16, gate/up 88, the head 250.
+    assert [w8a16.split_count(K, ns) for K, ns in LLAMA_1B_LAUNCHES] == [
+        8, 8, 4, 8, 1, 8]
     assert w8a16.split_count(64, (64,)) == 1  # test-tiny: one k-step
+    assert w8a16.split_count(256, (64,)) == 2  # two k-steps per part
     assert w8a16.column_tiles((32, 64, 48)) == 3  # a tile per ragged weight
+    assert w8a16.column_tiles((32, 64, 48), 64) == 3
+
+
+def _trans_register(tile, lane, k0):
+    """What ``ldmatrix.trans`` of the int8 tile ``tile`` [k][16 columns],
+    seen as an 8 x 8 b16 matrix of column pairs at k rows k0 .. k0 + 7,
+    gives ``lane``: stored element (row 2 tig + e, b16 column gid) for e =
+    0, 1, as four bytes (k, c), (k, c + 1), (k + 1, c), (k + 1, c + 1)."""
+    gid, tig = lane // 4, lane % 4
+    k, c = k0 + 2 * tig, 2 * gid
+    return [tile[k, c], tile[k, c + 1], tile[k + 1, c], tile[k + 1, c + 1]]
+
+
+@pytest.mark.parametrize("r", range(16))
+def test_swapped_fragment_row_holds_its_mapped_column(r):
+    """The small kernel's A fragment, built as csrc/w8a16_gemm.cu builds it
+    (``dequant_a``: bytes 0 and 2 of an ldmatrix.trans register make the
+    row-gid register, bytes 1 and 3 the row gid + 8 one; k 0..7 feed a0/a1,
+    k 8..15 a2/a3), holds in row r the 16 k values of weight column
+    ``fragment_column(r)``, at the k positions m16n8k16's A layout gives
+    (a0: row gid, k 2 tig, 2 tig + 1; a1: row gid + 8; a2, a3: k + 8)."""
+    tile = np.arange(16 * 16).reshape(16, 16)  # [k][column], all distinct
+    got = {}
+    for lane in range(32):
+        gid, tig = lane // 4, lane % 4
+        for half, k0 in ((0, 0), (1, 8)):  # a0/a1, then a2/a3
+            b = _trans_register(tile, lane, k0)
+            for row, pair in ((gid, (b[0], b[2])), (gid + 8, (b[1], b[3]))):
+                for e, v in enumerate(pair):
+                    got[(row, 8 * half + 2 * tig + e)] = v
+    col = w8a16.fragment_column(r)
+    assert [got[(r, k)] for k in range(16)] == list(tile[:, col])
+    # A permutation of the 16 columns, which the epilogue undoes: row gid
+    # is column 2 gid, row gid + 8 column 2 gid + 1.
+    assert sorted(w8a16.fragment_column(i) for i in range(16)) == list(
+        range(16))
+    assert col == (2 * r if r < 8 else 2 * (r - 8) + 1)
 
 
 # ---- on the card ----
@@ -246,7 +295,12 @@ def _cuda_args(gen, M, K, N, dtype):
     (32, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
     (7, 128, (64, 32, 48), torch.bfloat16, torch.float32),
     (300, 2048, (1024, 512), torch.bfloat16, torch.bfloat16),
-    (9, 64, (256, 32), torch.float32, torch.float32)])
+    (9, 64, (256, 32), torch.float32, torch.float32),
+    (1, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (8, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (64, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
+    (256, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (4096, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16)])
 def test_kernel_matches_plain_on_cuda(M, K, N, dtype, out):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
@@ -272,7 +326,8 @@ def test_kernel_matches_plain_on_cuda(M, K, N, dtype, out):
 
 @pytest.mark.parametrize("K,ns,out", [
     (2048, (2048, 1024, 1024), torch.bfloat16), (2048, (2048,), torch.bfloat16),
-    (2048, (32000,), torch.float32)])
+    (2048, (32000,), torch.float32), (2048, (5632, 5632), torch.bfloat16),
+    (5632, (2048,), torch.bfloat16)])
 def test_rows_do_not_depend_on_m_on_cuda(K, ns, out):
     """Each row of a launch with M rows equals, bit for bit, the same row
     inside a launch with 256 rows."""
@@ -282,7 +337,7 @@ def test_rows_do_not_depend_on_m_on_cuda(K, ns, out):
     weights = [_cuda_args(gen, 1, K, n, torch.bfloat16)[1:] for n in ns]
     x = _cuda_args(gen, 256, K, 16, torch.bfloat16)[0]
     whole = w8a16.w8a16_matmul_group(x, weights, out)
-    for M in (1, 2, 7, 8, 31, 32, 33, 64, 128):
+    for M in (1, 2, 7, 8, 31, 32, 33, 64, 128, 255):
         for a, w in zip(w8a16.w8a16_matmul_group(x[:M], weights, out),
                         whole):
             assert torch.equal(a, w[:M]), M
