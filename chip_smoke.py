@@ -14,7 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      bounds, their plain versions and a gather +
      scaled_dot_product_attention yardstick, and a bitwise check that a
      bf16 row depends only on its position (chunk offset, table width,
-     decode vs chunk); the same over int8 pools (the int8 kernels), the
+     decode vs chunk); the same over int8 pools (the int8 kernels, each
+     timed beside the bf16 kernel on the same pools dequantized, with both
+     builds' registers, spills and shared memory), the
      quantizing scatter and the model-dtype scatter bitwise against their
      plain versions (rows past the table's width and invalid rows in the
      null block), each timed at its serving shape (the model-dtype one
@@ -402,11 +404,11 @@ def profile_path(eng, prompts, card: str, prefill_ms: float,
 
 
 def profile_window(name: str, fn, wall_ms: float, card: str,
-                   kernels: tuple[str, ...], top: int = 10) -> None:
+                   kernels: tuple[str, ...], top: int = 10) -> dict:
     """Device time by kernel for one call of ``fn``. The profiler slows the
     host, so the busy share is taken against ``wall_ms``, the unprofiled
     wall time of the same work; ``kernels`` name the hand-written kernels
-    whose share is reported."""
+    whose share is reported. Returns their device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -436,13 +438,16 @@ def profile_window(name: str, fn, wall_ms: float, card: str,
         log(f"profile: {name}:   {dev_us / 1e3:9.3f} ms "
             f"{100 * dev_us / 1e3 / busy_ms:5.1f}% x{count:<5d} "
             f"{key[:90]}")
+    out = {}
     for kernel in kernels:
         k_us = sum(r[0] for r in rows if kernel in r[2])
         k_n = sum(r[1] for r in rows if kernel in r[2])
+        out[kernel] = k_us / 1e3
         log(f"profile: {name}: {kernel} {k_us / 1e3:.3f} ms in {k_n} "
             f"launches, {100 * k_us / 1e3 / busy_ms:.1f}% of device busy, "
             f"{100 * k_us / 1e3 / wall_ms:.1f}% of the unprofiled wall on "
             f"{card}")
+    return out
 
 
 def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -616,8 +621,8 @@ def time_paged(label, kernel, plain, yard, bound, card: str,
 
 
 def paged_build_info() -> None:
-    """Registers, spills and shared memory of every paged kernel build; the
-    bf16 tensor-core builds must not spill."""
+    """Registers, spills, shared memory and ring stages of every paged
+    kernel build; the bf16 tensor-core builds must not spill."""
     import torch
     from grove_tpu_torch.ops.paged import kernel_info
     for which, dt, d, q8 in (("partial", "float32", 128, False),
@@ -626,14 +631,17 @@ def paged_build_info() -> None:
                              ("partial", "float32", 128, True),
                              ("partial", "bfloat16", 64, True),
                              ("partial", "bfloat16", 128, True),
+                             ("partial_chunk", "bfloat16", 64, True),
+                             ("partial_chunk", "bfloat16", 128, True),
                              ("combine", "float32", 128, False),
                              ("combine", "bfloat16", 128, False)):
         info = kernel_info(which, getattr(torch, dt), d, int8_pool=q8)
         pool = "int8 pool" if q8 else "pool of q's type"
+        ring = f", {info['stages']} stages" if info["stages"] else ""
         log(f"kernels: build paged {which} {dt} d<={d} {pool}: "
             f"{info['registers']} registers, {info['local_bytes']} bytes "
             f"local (spill) per thread, {info['smem_bytes']} bytes dynamic "
-            f"shared memory per CTA")
+            f"shared memory per CTA{ring}")
         if dt == "bfloat16" and info["local_bytes"]:
             raise AssertionError(f"the bf16 paged {which} kernel spills "
                                  f"({pool})")
@@ -913,6 +921,37 @@ def check_scatter_q(gen, card: str) -> dict:
             "yardstick_ms": None}
 
 
+# What bound the int8 kernels before their redesign (PERF.md section 6,
+# step 0): the PR 5 kernel and three variants of it, ms at the serving
+# shapes on one NVIDIA H100 80GB HBM3 at 700 W.
+STEP0_Q8 = (("as it was", 0.05952, 0.02564),
+            ("with a dequantize that does no arithmetic", 0.05334, 0.02324),
+            ("without mma and softmax", 0.05352, 0.01809),
+            ("copies only", 0.04647, 0.01584))
+
+
+def beside_bf16(label, ms, kq, vq, ks, vs, bf16_call, c: int,
+                card: str) -> None:
+    """The bf16 kernel at the int8 kernel's shape, on the int8 pools
+    dequantized to bf16, timed in the same run; both builds' registers,
+    spills and shared memory."""
+    import torch
+    from grove_tpu_torch.ops.paged import kernel_info
+    kb = (kq.float() * ks[..., None]).to(torch.bfloat16)
+    vb = (vq.float() * vs[..., None]).to(torch.bfloat16)
+    bf16_ms = time_ms(lambda: bf16_call(kb, vb))
+    which = "partial_chunk" if c > 1 else "partial"
+    q8 = kernel_info(which, torch.bfloat16, kq.shape[3], int8_pool=True)
+    bf = kernel_info(which, torch.bfloat16, kq.shape[3])
+    log(f"kernels: {label}: int8 {ms} ms ({q8['registers']} registers, "
+        f"{q8['local_bytes']} bytes spill, {q8['smem_bytes']} bytes shared "
+        f"memory, {q8['stages']} stages) beside the bf16 kernel "
+        f"{bf16_ms} ms at the same shape ({bf['registers']} registers, "
+        f"{bf['local_bytes']} bytes spill, {bf['smem_bytes']} bytes shared "
+        f"memory): int8 at {bf16_ms / ms:.2f}x the bf16 kernel's speed on "
+        f"{card}")
+
+
 def phase_int8_kernels(seed: int, card: str) -> list[dict]:
     """The quantizing scatter, then both paged kernels over int8 pools
     against their plain versions (f32 and bf16 queries), the bf16 row
@@ -920,10 +959,17 @@ def phase_int8_kernels(seed: int, card: str) -> list[dict]:
     shapes. Returns the three kernel-table rows."""
     import numpy as np
     import torch
-    from grove_tpu_torch.ops.paged import (paged_chunk_attention_q8,
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                           paged_chunk_attention_q8,
                                            paged_chunk_attention_ref,
+                                           paged_decode_attention,
                                            paged_decode_attention_q8,
                                            paged_decode_attention_ref)
+    for name, dec_ms, chunk_ms in STEP0_Q8:
+        log(f"kernels: int8 step 0, the PR 5 kernel {name}: decode "
+            f"{dec_ms} ms, chunk {chunk_ms} ms at the serving shapes "
+            f"(earlier lines: measured once by a scratch copy, PERF.md "
+            f"section 6; not re-run here)")
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     rng = np.random.default_rng(seed + 9)
     rows = [check_scatter_q(gen, card)]
@@ -986,6 +1032,9 @@ def phase_int8_kernels(seed: int, card: str) -> list[dict]:
         paged_bound_ms(total, B, h * total, n_kv, h, d, q.dtype, int8=True),
         card, "index_select of each int8 pool and its scales, dequantize, "
         "scaled_dot_product_attention")
+    beside_bf16(label, t["ms"], kq, vq, ks, vs,
+                lambda k, v: paged_decode_attention(q, k, v, tables, lens),
+                1, card)
     rows.append({"name": "paged_decode_attention_q8", "route": "cuda",
                  "source": "grove_tpu_torch/csrc/paged_attn.cu",
                  "replaces": "grove_tpu/models/llama.py:634",
@@ -1019,6 +1068,9 @@ def phase_int8_kernels(seed: int, card: str) -> list[dict]:
         paged_bound_ms(off + c, c, pairs, n_kv, h, d, q.dtype, int8=True),
         card, "index_select of each int8 pool and its scales, dequantize, "
         "scaled_dot_product_attention")
+    beside_bf16(label, t["ms"], kq, vq, ks, vs,
+                lambda k, v: paged_chunk_attention(q, k, v, tables, offs),
+                c, card)
     rows.append({"name": "paged_chunk_attention_q8", "route": "cuda",
                  "source": "grove_tpu_torch/csrc/paged_attn.cu",
                  "replaces": "grove_tpu/models/llama.py:707",
@@ -1715,8 +1767,15 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             f"run({bench_steps}) in {decode_s * 1e3:.1f} ms, "
             f"{decode_s * 1e3 / bench_steps:.3f} ms per step) on {card}")
         if on_cuda:
-            profile_window(f"paged decode ({label})", lambda: eng.run(8),
-                           decode_s * 1e3 / bench_steps * 8, card, kernels)
+            ms = profile_window(f"paged decode ({label})",
+                                lambda: eng.run(8),
+                                decode_s * 1e3 / bench_steps * 8, card,
+                                kernels)
+            log(f"paged: {label}: paged attention kernel (pass 1, "
+                f"{'int8' if eng.kv_quant == 'int8' else 'model-dtype'} KV) "
+                f"{ms['paged_partial']:.3f} ms and its "
+                f"combine {ms['paged_combine']:.3f} ms of device time per "
+                f"8 decode steps on {card}")
 
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()

@@ -96,21 +96,42 @@
 // int8 pools (GROVE_KV_QUANT=int8; the JAX package's _paged_gather_q,
 // grove_tpu/models/llama.py:553): rows of int8 codes with one f32 scale per
 // (slot, kv head) beside the pool. Each K/V value dequantizes as the plain
-// version does, (float)code * scale in f32 rounded once to the query's type,
-// and from there on both kernels run exactly as for a pool of that type: in
-// f32 the tile loads multiply by the row's scale. In bf16 the producer warp
-// copies each tile's raw int8 rows and f32 scales into the ring with
-// cp.async (in place of the TMA: an int8 box would not fill the 128-byte
-// swizzle row, and the scale rows would need boxes of their own), each lane
-// arriving on the stage's full barrier when its copies land; each consumer
-// warp then dequantizes its own kv head's K and V rows of the stage into a
-// private bf16 tile, laid out and swizzled as a TMA'd bf16 panel, frees the
-// stage, and runs the unchanged ldmatrix/mma code on that tile. (A first
-// design had the producer warp load, dequantize and store every tile
-// itself: one warp's instruction rate bound it at 8% of the byte bound.)
-// So a row's numbers still depend only on its position, and a decode row
-// at length p + 1 equals the chunk row at p bitwise. What bounds it:
-// bytes, d + 4 per row and kv head for K and for V, about half of bf16's.
+// version does, (float)code * scale in f32 rounded once to the query's type.
+// In f32 the tile loads multiply by the row's scale. In bf16 the persistent
+// kernel above runs over the int8 rows (kQ8):
+//   1. Loads. The producer's lane 0 loads each tile's raw rows by TMA, one
+//      box of (box_pos positions x the item's kv heads x d bytes) per K or V
+//      and pool block, 128-byte swizzled at d = 128, where a row is exactly
+//      one swizzle row. The scales ([nb, bs, n_kv] f32, too narrow a row for
+//      a box at one kv head) come by cp.async from the 32 lanes on the same
+//      full barrier. Where d % 16 != 0 no box fits a row and the lanes copy
+//      the rows by cp.async too.
+//   2. No bf16 staging tile. Each lane builds its bf16 B fragments from the
+//      int8 codes in registers. K (keys on n, d on k): lane (gid, tig) reads
+//      2 kNT bytes of key gid's row from byte 2 kNT tig, and k step ks takes
+//      d = 2 kNT tig + 4 ks + 0..3, a fixed permutation of d that q's A
+//      fragments take too (q8_column in ops/paged.py), so every score sums
+//      the same terms. V (keys on k): ldmatrix.trans over the int8 rows read
+//      as b16 hands a lane two adjacent columns of keys 2 tig and 2 tig + 1,
+//      which split by byte into the B fragments of two 8-column tiles
+//      (column 16 c + 2 n + e of tile 2 c + e, q8_output_column). dq4 makes
+//      four codes exact f32 by byte permutes, multiplies each by its key's
+//      scale and rounds once to bf16.
+//   3. Once per tile. A decode item's four warps each hold one kv head; a
+//      chunk item's four warps share one (RT > 1: kShare), and each builds a
+//      quarter of the tile's fragments (k steps and V column pairs equal to
+//      rt mod RT) into a double-buffered exchange in shared memory, then one
+//      named barrier, then every warp reads them all. Those are the
+//      fragments a lone warp builds, in the same order, so a decode row at
+//      length p + 1 still equals the chunk row at p bitwise.
+//   4. The staging tiles' shared memory went to the ring: as many stages, up
+//      to 8, as keep two CTAs per SM (6 of 17,408 bytes at a llama-1b
+//      decode step, 8 of 5,120 at a chunk).
+// What bounds it on an H100 (PERF.md): at a decode step the copies and how
+// evenly the items fall on the CTAs (with its consumers idle the kernel
+// takes two thirds of its time), then the consumers' instructions (about
+// four per code to dequantize); at a chunk of one sequence the latency of
+// the 8 tiles an item walks in series.
 //
 // C entry points return cudaGetLastError() after their launches (or the
 // error that kept them from launching); they launch on the given stream
@@ -443,6 +464,10 @@ constexpr int kMaxBoxes = 128;       // boxes of one span (table entries)
 constexpr int kMaxStageBytes = 2 * 2 * 16 * 1024;
 constexpr int kChunkRows = 64;       // query rows of one kv head per item
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxStagesQ8 = 8;      // int8 ring depth, at most
+constexpr int kBarBytes = 128;       // full and empty barriers of the ring
+constexpr int kSmemPerCta = 233472 / 2 - 1024;  // two CTAs per SM
+constexpr int kXchGroupBytes = 32 * 16;  // four fragment words of each lane
 
 // How a call is cut into work items. An item holds qpos positions of the
 // chunk (1 for decode) of HB kv heads over one key span: R = qpos * g
@@ -451,14 +476,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 // block, HB heads), 128-byte swizzled: box_pos = gcd(bs, kTile), so a box
 // never straddles two blocks, kTile / box_pos of them per tile and
 // 64-column panel, each in its own 1024-byte-aligned slot.
-// int8 pools: a stage holds the raw rows [K or V][head][position][dr]
-// (dr = d rounded up to 16 bytes), then their f32 scales [K or V][head]
-// [position]; stg_bytes is one consumer warp's bf16 K + V tile (0 for a
-// bf16 pool).
+// int8 pools: a stage holds K's raw rows, then V's, each kTile / box_pos
+// boxes of (box_pos positions x HB heads) rows of dr bytes (d rounded up to
+// 16), box j at j * slot; then the rows' f32 scales [K or V][head]
+// [position]. The ring is `stages` deep (3 for bf16), and xch_bytes is the
+// shared-fragment exchange of kShare builds (0 otherwise).
 struct Geo {
   int B, C, W, H, n_kv, d, nb, bs;
   int g, qpos, R, RT, HB, split, n_split, causal;
-  int n_panels, box_pos, slot, panel_bytes, stage_bytes, stg_bytes;
+  int n_panels, box_pos, slot, panel_bytes, stage_bytes, stages;
+  int dr, q8_tma, q8_swz, xch_bytes;
   float scale;
 };
 
@@ -475,16 +502,34 @@ __host__ __device__ __forceinline__ int q8_row_bytes(int d) {
   return (d + 15) & ~15;
 }
 
-// Stage and staging bytes of a call's geometry (HB, n_panels, d and
-// panel_bytes set).
-inline void set_stage_bytes(Geo& gm, bool q8) {
-  if (q8) {
-    gm.stage_bytes = 2 * gm.HB * kTile * (q8_row_bytes(gm.d) + 4);
-    gm.stg_bytes = 2 * gm.n_panels * kTile * kRowBytes;
-  } else {
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Ring of a call's geometry (HB, RT, box_pos, n_panels, d and panel_bytes
+// set). A bf16 pool: three stages of K and V panels. An int8 pool: boxes by
+// TMA where d % 16 == 0 (rows of d bytes, 128-byte swizzled at d = 128, so
+// slots and stages are 1024-byte aligned), else by cp.async; as many
+// stages, up to kMaxStagesQ8, as leave two CTAs per SM (the SM's 228 KB,
+// 1 KB reserved per CTA); where several warps share a kv head (RT > 1), a
+// double-buffered exchange of one tile's dequantized fragments per head.
+inline void set_ring(Geo& gm, bool q8) {
+  gm.xch_bytes = 0;
+  if (!q8) {
     gm.stage_bytes = 2 * gm.n_panels * gm.panel_bytes;
-    gm.stg_bytes = 0;
+    gm.stages = kStages;
+    return;
   }
+  gm.dr = q8_row_bytes(gm.d);
+  gm.q8_tma = gm.d % 16 == 0;
+  gm.q8_swz = gm.q8_tma && gm.dr == kRowBytes ? 7 : 0;
+  const int box = gm.box_pos * gm.HB * gm.dr;
+  gm.slot = gm.q8_tma ? round_up(box, gm.q8_swz ? 1024 : 128) : box;
+  gm.stage_bytes = round_up(
+      2 * (kTile / gm.box_pos) * gm.slot + 2 * gm.HB * kTile * 4, 1024);
+  const int nt = gm.d <= 64 ? 8 : 16;
+  if (gm.RT > 1) gm.xch_bytes = 2 * gm.HB * nt * kXchGroupBytes;
+  gm.stages = min(kMaxStagesQ8,
+                  (kSmemPerCta - kBarBytes - gm.xch_bytes - 1024) /
+                      gm.stage_bytes);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -537,12 +582,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
@@ -602,18 +641,59 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Code i of the four int8 codes of w, as f32. A code x becomes the f32
+// 2^23 + (x + 128) by one XOR and one byte permute, less 2^23 + 128:
+// exactly x, without the conversion unit's quarter rate.
+__device__ __forceinline__ float code_f32(uint32_t w, int i) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7540 + i)) -
+         8388736.0f;
+}
+
 // The four int8 codes of w, each times s in f32 and rounded once to bf16
-// (the plain version's dequantize), as two bf16 pairs. A code x becomes the
-// f32 2^23 + (x + 128) by one byte permute, less 2^23 + 128: exactly x,
-// without the conversion unit's quarter rate.
+// (the plain version's dequantize), as two bf16 pairs.
 __device__ __forceinline__ uint2 dq4(uint32_t w, float s) {
-  const uint32_t u = w ^ 0x80808080u;  // x + 128 in each byte
   float f[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
-            8388736.0f) * s;
+  for (int i = 0; i < 4; ++i) f[i] = code_f32(w, i) * s;
   return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+// An ldmatrix.trans register over int8 V rows (bytes: key k columns c,
+// c + 1, then key k + 1 columns c, c + 1), dequantized with the two keys'
+// scales as dq4 does, into the B-fragment halves of two 8-column n-tiles:
+// x = column c (keys k, k + 1), y = column c + 1.
+__device__ __forceinline__ uint2 dq4_keys(uint32_t w, float s_lo,
+                                          float s_hi) {
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = code_f32(w, i) * (i < 2 ? s_lo : s_hi);
+  return make_uint2(pack_bf16(f[0], f[2]), pack_bf16(f[1], f[3]));
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The consumer warps' barrier (id 1; 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -674,81 +754,66 @@ __device__ __forceinline__ void span_blocks(int (&blk)[kMaxBoxes / 32],
   }
 }
 
-// int8 pools, producer: start the cp.async copies of the tile [t0, t0 +
-// kTile) of item w into stage `st` (a shared address): the raw rows
-// [K or V][head][position] * dr, then their scales. Lanes 2 p and 2 p + 1
-// take position t0 + p: both halves of each 32-byte sector of its rows
-// (16-byte pieces, 8-byte where d is not a multiple of 16), and the even
-// or odd rows' scales. Positions at or past the item's last key are not
-// copied: they keep earlier finite rows (or the zeros of the start), which
-// P = 0 multiplies away.
-__device__ __forceinline__ void copy_stage_q8(
-    uint32_t st, const Item& w, int t0, const int (&blk)[kMaxBoxes / 32],
-    const Geo& gm, const Q8Pools& q8, int lane) {
-  const int d = gm.d, dr = q8_row_bytes(d);
-  const int piece = (d & 15) ? 8 : 16, ppr = d / piece;
-  const int p = lane >> 1, sub = lane & 1;
-  // The block of position t0 + p, from the span's boxes (whole warp).
+// int8 pools: byte offset, inside K's (or V's) half of a stage, of the row
+// of position p (of the tile) and item head h.
+__device__ __forceinline__ uint32_t row_q8(const Geo& gm, int p, int h) {
+  return (p / gm.box_pos) * gm.slot +
+         (h * gm.box_pos + p % gm.box_pos) * gm.dr;
+}
+
+// The pool block of position t0 + p of item w, from the span's boxes
+// (blk, as span_blocks loads them). Every lane of the warp must call it.
+__device__ __forceinline__ int block_at(const int (&blk)[kMaxBoxes / 32],
+                                        const Item& w, int t0, int p,
+                                        const Geo& gm) {
   const int bx = (t0 - w.k_begin + p) / gm.box_pos;
   const int e0 = __shfl_sync(0xffffffffu, blk[0], bx & 31);
   const int e1 = __shfl_sync(0xffffffffu, blk[1], bx & 31);
   const int e2 = __shfl_sync(0xffffffffu, blk[2], bx & 31);
   const int e3 = __shfl_sync(0xffffffffu, blk[3], bx & 31);
-  const int e = bx < 32 ? e0 : bx < 64 ? e1 : bx < 96 ? e2 : e3;
+  return bx < 32 ? e0 : bx < 64 ? e1 : bx < 96 ? e2 : e3;
+}
+
+// int8 pools, producer: start the cp.async copies of the f32 scales of the
+// tile [t0, t0 + kTile) of item w into `scales` ([K or V][head][position]):
+// lane l takes position l % 16 of every other (K or V, head) row. Positions
+// at or past the item's last key are not copied: they keep earlier finite
+// values (or the zeros of the start), which P = 0 multiplies away.
+__device__ __forceinline__ void copy_scales_q8(
+    uint32_t scales, const Item& w, int t0, const int (&blk)[kMaxBoxes / 32],
+    const Geo& gm, const Q8Pools& q8, int lane) {
+  const int p = lane & 15;
+  const int e = block_at(blk, w, t0, p, gm);
   const int pos = t0 + p;
   if (pos >= w.k_end) return;
   const size_t slot = (size_t)e * gm.bs + pos % gm.bs;
-  const uint32_t scales = st + 2 * gm.HB * kTile * dr;
-  for (int hw = 0; hw < 2 * gm.HB; ++hw) {  // (K or V) * HB + head
+  for (int hw = lane >> 4; hw < 2 * gm.HB; hw += 2) {  // (K or V) * HB + h
     const int which = hw >= gm.HB ? 1 : 0;
     const size_t row = slot * gm.n_kv + w.kv0 + hw - which * gm.HB;
-    const int8_t* src = (which ? q8.v : q8.k) + row * d;
-    const uint32_t dst = st + (hw * kTile + p) * dr;
-    for (int c = sub; c < ppr; c += 2) {
-      if (piece == 16)
-        cp_async16(dst + 16 * c, src + 16 * c);
-      else
-        cp_async8(dst + 8 * c, src + 8 * c);
-    }
-    if ((hw & 1) == sub)
-      cp_async4(scales + 4 * (hw * kTile + p), (which ? q8.vs : q8.ks) + row);
+    cp_async4(scales + 4 * (hw * kTile + p), (which ? q8.vs : q8.ks) + row);
   }
 }
 
-// int8 pools, consumer: dequantize head hl's K and V rows of the landed
-// stage `st` into the warp's bf16 tile `stg`: K then V, each n_panels
-// panels of kTile 128-byte rows, 16-byte chunk c of row p at c ^ (p & 7)
-// (the 128-byte swizzle, so ldmatrix reads it as it reads a TMA'd bf16
-// tile). Lanes 2 p and 2 p + 1 take row p, 16 codes at a time (one 16-byte
-// shared load, four dq4, two 16-byte stores), starting 2 p units in, so
-// the eight lanes of a shared-memory phase touch eight distinct banks.
-__device__ __forceinline__ void dequant_stage_q8(const uint8_t* st,
-                                                 uint8_t* stg, const Geo& gm,
-                                                 int hl, int lane) {
-  const int dr = q8_row_bytes(gm.d), upr = dr / 16;
-  const int p = lane >> 1, sub = lane & 1, rot = (2 * p) % upr;
-  const float* scales =
-      reinterpret_cast<const float*>(st + 2 * gm.HB * kTile * dr);
-  const int v_half = gm.n_panels * kTile * kRowBytes;
-  const int swz = p & 7;
-#pragma unroll
-  for (int which = 0; which < 2; ++which) {
-    const int sr = (which * gm.HB + hl) * kTile + p;
-    const uint8_t* src = st + sr * dr;
-    const float s = scales[sr];
-    uint8_t* row = stg + which * v_half + p * kRowBytes;
-    for (int k = sub; k < upr; k += 2) {
-      const int c = k + rot < upr ? k + rot : k + rot - upr;
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + 16 * c);
-      const uint2 a = dq4(raw.x, s), b = dq4(raw.y, s);
-      const uint2 e = dq4(raw.z, s), f = dq4(raw.w, s);
-      uint8_t* dst = row + (c >> 2) * (kTile * kRowBytes);
-      const int chunk = 2 * (c & 3);
-      *reinterpret_cast<uint4*>(dst + ((chunk ^ swz) << 4)) =
-          make_uint4(a.x, a.y, b.x, b.y);
-      *reinterpret_cast<uint4*>(dst + (((chunk + 1) ^ swz) << 4)) =
-          make_uint4(e.x, e.y, f.x, f.y);
-    }
+// int8 pools where d % 16 != 0 (no TMA: a row is not a whole number of
+// 16-byte units), producer: the cp.async copies of the tile's raw rows, laid
+// out as the TMA path lays them (row_q8). Lanes 2 p and 2 p + 1 take
+// position t0 + p, alternate 8-byte pieces of each of its rows.
+__device__ __forceinline__ void copy_rows_q8(
+    uint32_t st, const Item& w, int t0, const int (&blk)[kMaxBoxes / 32],
+    const Geo& gm, const Q8Pools& q8, int lane) {
+  const int d = gm.d, ppr = d / 8;
+  const int p = lane >> 1, sub = lane & 1;
+  const int e = block_at(blk, w, t0, p, gm);
+  const int pos = t0 + p;
+  if (pos >= w.k_end) return;
+  const size_t slot = (size_t)e * gm.bs + pos % gm.bs;
+  const uint32_t half = (kTile / gm.box_pos) * gm.slot;
+  for (int hw = 0; hw < 2 * gm.HB; ++hw) {
+    const int which = hw >= gm.HB ? 1 : 0, h = hw - which * gm.HB;
+    const int8_t* src =
+        (which ? q8.v : q8.k) + (slot * gm.n_kv + w.kv0 + h) * d;
+    const uint32_t dst = st + which * half + row_q8(gm, p, h);
+    for (int c = sub; c < ppr; c += 2) cp_async8(dst + 8 * c, src + 8 * c);
   }
 }
 
@@ -763,12 +828,15 @@ __device__ __forceinline__ void dequant_stage_q8(const uint8_t* st,
 // the same items and load an item's q before they wait for its first tile.
 // Rows are numbered r = position-in-item * g + head-in-group, as in the f32
 // kernel, and the partial layout is the same, with m in the log2 domain.
-// kNT: 8-column tiles of the head dim (d <= 8 * kNT). kQ8: int8 pools, whose
-// raw rows and scales the producer copies into the ring with cp.async (the
-// tensor maps are unused; a full barrier takes one arrival per producer
-// lane) and each consumer warp dequantizes into its own bf16 tile, after
-// the ring and its barriers (dequant_stage_q8).
-template <int kNT, bool kQ8>
+// kNT: 8-column tiles of the head dim (d <= 8 * kNT). kQ8: int8 pools (the
+// header's int8 design): lane 0 loads each tile's rows by TMA (all lanes by
+// cp.async where d % 16 != 0) and every producer lane copies scales by
+// cp.async, so a full barrier takes one arrival per producer lane plus the
+// expect-tx arrival where the TMA loads; the consumers build bf16 B
+// fragments from the int8 rows in registers. kShare (int8, RT > 1): the RT
+// warps of a kv head each build 1 / RT of the tile's fragments and exchange
+// them through shared memory.
+template <int kNT, bool kQ8, bool kShare>
 __global__ void __launch_bounds__(kThreadsB, 2)
     paged_partial_mma_kernel(__grid_constant__ const CUtensorMap k_map,
                              __grid_constant__ const CUtensorMap v_map,
@@ -786,55 +854,38 @@ __global__ void __launch_bounds__(kThreadsB, 2)
   const int consumers = gm.HB * gm.RT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = gm.d;
-  const int ring = kStages * gm.stage_bytes;
-  const int half = gm.stage_bytes / 2;  // K, then V, of one stage
+  const int stages = kQ8 ? gm.stages : kStages;
+  const int ring = stages * gm.stage_bytes;
+  const int half = kQ8 ? (kTile / gm.box_pos) * gm.slot  // K, then V
+                       : gm.stage_bytes / 2;
 
   const uint32_t bar0 = base + ring;
   auto full = [&](int s) { return bar0 + 8 * s; };
-  auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
+  auto empty = [&](int s) { return bar0 + 8 * (stages + s); };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), kQ8 ? 32 : 1);
+    for (int s = 0; s < stages; ++s) {
+      // int8: the TMA's expect-tx arrival (where it loads the rows) and one
+      // cp.async arrival per producer lane.
+      mbar_init(full(s), kQ8 ? 32 + gm.q8_tma : 1);
       mbar_init(empty(s), consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Zero the ring and the staging tiles: rows and columns a tile does not
-  // load then hold finite values.
+  // Zero the ring: rows and columns a tile does not load then hold finite
+  // values.
   for (int o = 16 * threadIdx.x; o < ring; o += 16 * kThreadsB)
     *reinterpret_cast<uint4*>(smem + o) = make_uint4(0u, 0u, 0u, 0u);
-  for (int o = 16 * threadIdx.x; o < kConsumerWarps * gm.stg_bytes;
-       o += 16 * kThreadsB)
-    *reinterpret_cast<uint4*>(smem + ring + 64 + o) =
-        make_uint4(0u, 0u, 0u, 0u);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   int g = 0;  // tiles of this CTA so far (the ring's stage and phase)
-  if (warp == kConsumerWarps && kQ8) {
-    for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-      const Item w = item_at(it, gm, per_seq);
-      if (w.n_tiles == 0) continue;
-      int blk[kMaxBoxes / 32];
-      span_blocks(blk, w, tables + (size_t)w.b * gm.W, gm, lane);
-      for (int t = 0; t < w.n_tiles; ++t) {
-        const int s = g % kStages, use = g / kStages;
-        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
-        ++g;
-        copy_stage_q8(base + s * gm.stage_bytes, w, w.k_begin + t * kTile,
-                       blk, gm, q8, lane);
-        cp_async_arrive(full(s));
-      }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    return;
-  }
   if (warp == kConsumerWarps) {
-    if (lane == 0) {
+    if (lane == 0 && (!kQ8 || gm.q8_tma)) {
       prefetch_map(&k_map);
       prefetch_map(&v_map);
     }
-    const uint32_t box_bytes = gm.box_pos * gm.HB * kRowBytes;
+    const uint32_t box_bytes =
+        gm.box_pos * gm.HB * (kQ8 ? gm.dr : kRowBytes);
     const int tile_boxes = kTile / gm.box_pos;
     for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
       const Item w = item_at(it, gm, per_seq);
@@ -842,34 +893,50 @@ __global__ void __launch_bounds__(kThreadsB, 2)
       int blk[kMaxBoxes / 32];
       span_blocks(blk, w, tables + (size_t)w.b * gm.W, gm, lane);
       for (int t = 0; t < w.n_tiles; ++t) {
-        const int s = g % kStages, use = g / kStages;
+        const int s = g % stages, use = g / stages;
         if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
         ++g;
         const int t0 = w.k_begin + t * kTile;
-        const int boxes = (min(kTile, w.k_end - t0) + gm.box_pos - 1) /
-                          gm.box_pos;
-        if (lane == 0)
-          mbar_expect_tx(full(s), 2 * gm.n_panels * boxes * box_bytes);
-        for (int j = 0; j < boxes; ++j) {
-          const int bx = t * tile_boxes + j;  // box of the span
-          const int mine = bx < 32   ? blk[0]
-                           : bx < 64 ? blk[1]
-                           : bx < 96 ? blk[2]
-                                     : blk[3];
-          const int e = __shfl_sync(0xffffffffu, mine, bx & 31);
-          if (lane == 0) {
-            const int p0 = (t0 + j * gm.box_pos) % gm.bs;
-            const uint32_t dst = base + s * gm.stage_bytes + j * gm.slot;
-            for (int pn = 0; pn < gm.n_panels; ++pn) {
-              tma_load_4d(dst + pn * gm.panel_bytes, &k_map, full(s),
-                          pn * kPanelCols, p0, w.kv0, e);
-              tma_load_4d(dst + half + pn * gm.panel_bytes, &v_map, full(s),
-                          pn * kPanelCols, p0, w.kv0, e);
+        const uint32_t st = base + s * gm.stage_bytes;
+        if (kQ8 && !gm.q8_tma) {
+          copy_rows_q8(st, w, t0, blk, gm, q8, lane);
+        } else {
+          const int boxes = (min(kTile, w.k_end - t0) + gm.box_pos - 1) /
+                            gm.box_pos;
+          if (lane == 0)
+            mbar_expect_tx(full(s), 2 * (kQ8 ? 1 : gm.n_panels) * boxes *
+                                        box_bytes);
+          for (int j = 0; j < boxes; ++j) {
+            const int bx = t * tile_boxes + j;  // box of the span
+            const int mine = bx < 32   ? blk[0]
+                             : bx < 64 ? blk[1]
+                             : bx < 96 ? blk[2]
+                                       : blk[3];
+            const int e = __shfl_sync(0xffffffffu, mine, bx & 31);
+            if (lane == 0) {
+              const int p0 = (t0 + j * gm.box_pos) % gm.bs;
+              const uint32_t dst = st + j * gm.slot;
+              if (kQ8) {
+                tma_load_4d(dst, &k_map, full(s), 0, p0, w.kv0, e);
+                tma_load_4d(dst + half, &v_map, full(s), 0, p0, w.kv0, e);
+              } else {
+                for (int pn = 0; pn < gm.n_panels; ++pn) {
+                  tma_load_4d(dst + pn * gm.panel_bytes, &k_map, full(s),
+                              pn * kPanelCols, p0, w.kv0, e);
+                  tma_load_4d(dst + half + pn * gm.panel_bytes, &v_map,
+                              full(s), pn * kPanelCols, p0, w.kv0, e);
+                }
+              }
             }
           }
         }
+        if (kQ8) {
+          copy_scales_q8(st + 2 * half, w, t0, blk, gm, q8, lane);
+          cp_async_arrive(full(s));
+        }
       }
     }
+    if (kQ8) asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
   if (warp >= consumers) return;
@@ -881,19 +948,37 @@ __global__ void __launch_bounds__(kThreadsB, 2)
   const int gid = lane >> 2, tig = lane & 3;
   const int nt = d / 8;
   // ldmatrix: lane supplies the address of row lane % 8 of matrix lane / 8.
-  // K matrices: keys 8 (mi >> 1) + 0..7, columns 16 ks + 8 (mi & 1) +
+  // bf16: K matrices: keys 8 (mi >> 1) + 0..7, columns 16 ks + 8 (mi & 1) +
   // 0..7; V matrices (transposed): keys 8 (mi & 1) + 0..7, columns
   // 16 np + 8 (mi >> 1) + 0..7. The 16-byte chunk c of a row sits at chunk
   // c ^ (row & 7) (the 128-byte swizzle; slots are 1024-byte aligned).
-  // int8 pools: the same, in the warp's own tile of kTile rows per panel.
+  // int8: V matrices (transposed, the bytes read as b16 pairs): keys
+  // 8 (mi & 1) + 0..7, bytes 32 G + 16 (mi >> 1) + 0..15; K rows are read
+  // by each lane itself, keys gid and 8 + gid. Chunks swizzled alike where
+  // the TMA swizzles (q8_swz).
   const int mi = lane >> 3, mr = lane & 7;
-  const uint32_t k_row = kQ8 ? (8 * (mi >> 1) + mr) * kRowBytes
-                             : row_offset(gm, 8 * (mi >> 1) + mr, hl);
-  const uint32_t v_row = kQ8 ? (8 * (mi & 1) + mr) * kRowBytes
+  const uint32_t k_row = kQ8 ? 0u : row_offset(gm, 8 * (mi >> 1) + mr, hl);
+  const uint32_t v_row = kQ8 ? row_q8(gm, 8 * (mi & 1) + mr, hl)
                              : row_offset(gm, 8 * (mi & 1) + mr, hl);
-  const uint32_t panel = kQ8 ? kTile * kRowBytes : gm.panel_bytes;
-  uint8_t* const stg = smem + ring + 64 + warp * gm.stg_bytes;
-  const uint32_t k_swz = (k_row >> 7) & 7, v_swz = (v_row >> 7) & 7;
+  const uint32_t panel = gm.panel_bytes;
+  const uint32_t k_swz = (k_row >> 7) & 7;
+  const uint32_t v_swz = (v_row >> 7) & (kQ8 ? gm.q8_swz : 7);
+  // int8: lane (gid, tig)'s K bytes are kSeg of each of its keys' rows from
+  // byte kSeg * tig: word ks of them, codes of d = kSeg tig + 4 ks + 0..3,
+  // is the B fragment (b0: 0, 1; b1: 2, 3) of k step ks; q's A fragments
+  // take the same d (q8_column).
+  constexpr int kSeg = 2 * kNT;
+  uint32_t kq_row[2] = {0u, 0u}, kq_swz[2] = {0u, 0u};
+  if (kQ8) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      kq_row[j] = row_q8(gm, 8 * j + gid, hl);
+      kq_swz[j] = (kq_row[j] >> 7) & gm.q8_swz;
+    }
+  }
+  const uint32_t xch_head =
+      base + ring + kBarBytes + hl * kNT * kXchGroupBytes + lane * 16;
+  const uint32_t xch_buf = gm.HB * kNT * kXchGroupBytes;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
     const Item w = item_at(it, gm, per_seq);
     if (w.n_tiles == 0) continue;
@@ -912,13 +997,15 @@ __global__ void __launch_bounds__(kThreadsB, 2)
     }
     // qs = q * d^-0.5 rounded to bf16, as A fragments: register x of k
     // step ks is row gid + 8 (x & 1), columns 16 ks + 8 (x >> 1) + 2 tig,
-    // + 1.
+    // + 1 (int8: kSeg tig + 4 ks + 2 (x >> 1), + 1).
     uint32_t qa[kNT / 2][4];
 #pragma unroll
     for (int ks = 0; ks < kNT / 2; ++ks)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int i = x & 1, col = 16 * ks + 8 * (x >> 1) + 2 * tig;
+        const int i = x & 1;
+        const int col = kQ8 ? kSeg * tig + 4 * ks + 2 * (x >> 1)
+                            : 16 * ks + 8 * (x >> 1) + 2 * tig;
         float lo = 0.f, hi = 0.f;
         if (row_ok[i] && col < d) {
           const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
@@ -937,21 +1024,83 @@ __global__ void __launch_bounds__(kThreadsB, 2)
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
     for (int t = 0; t < w.n_tiles; ++t, ++g) {
-      const int s = g % kStages;
-      mbar_wait(full(s), (g / kStages) & 1);
+      const int s = g % stages;
+      mbar_wait(full(s), (g / stages) & 1);
       const int t0 = w.k_begin + t * kTile;
-      uint32_t kst = base + s * gm.stage_bytes, vst = kst + half;
-      if (kQ8) {  // dequantize, then free the stage at once
-        __syncwarp();  // the previous tile's ldmatrix reads are done
-        dequant_stage_q8(smem + s * gm.stage_bytes, stg, gm, hl, lane);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty(s));
-        kst = smem_addr(stg);
-        vst = kst + gm.n_panels * panel;
+      const uint32_t kst = base + s * gm.stage_bytes, vst = kst + half;
+
+      // int8, each warp alone: the raw K codes (kraw[j][ks]: key 8 j + gid)
+      // and the keys' scales into registers; V's ldmatrix registers (vraw)
+      // at the P.V product, after which the stage is free.
+      // int8, kShare: this warp's share of the fragments (k steps and V
+      // column groups G equal to rt modulo RT) into the exchange, then the
+      // stage is free; after the consumers' barrier each warp reads them all.
+      uint32_t kraw[2][kNT / 2];
+      uint32_t vraw[4];
+      float sk[2], sv[4];
+      const uint32_t xch = xch_head + (g & 1) * xch_buf;
+      if (kQ8) {
+        const uint32_t scl = kst + 2 * half;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          sk[j] = __uint_as_float(lds32(scl + 4 * (hl * kTile + 8 * j + gid)));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sv[j] = __uint_as_float(lds32(
+              scl + 4 * ((gm.HB + hl) * kTile + 2 * tig + (j & 1) +
+                         8 * (j >> 1))));
+        if (!kShare) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int u = 0; u < kNT / 8; ++u) {
+              const int c = (kNT / 8) * tig + u;
+              const uint4 v =
+                  16 * c < gm.dr
+                      ? lds128(kst + kq_row[j] + ((c ^ kq_swz[j]) << 4))
+                      : make_uint4(0u, 0u, 0u, 0u);
+              kraw[j][4 * u] = v.x;
+              kraw[j][4 * u + 1] = v.y;
+              kraw[j][4 * u + 2] = v.z;
+              kraw[j][4 * u + 3] = v.w;
+            }
+        } else {
+          for (int ks = rt; ks < kNT / 2; ks += gm.RT) {
+            const int b = kSeg * tig + 4 * ks;
+            uint32_t wd[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              wd[j] = b < gm.dr ? lds32(kst + kq_row[j] +
+                                        (((b >> 4) ^ kq_swz[j]) << 4) +
+                                        (b & 15))
+                                : 0u;
+            const uint2 f0 = dq4(wd[0], sk[0]), f1 = dq4(wd[1], sk[1]);
+            sts128(xch + ks * kXchGroupBytes,
+                   make_uint4(f0.x, f0.y, f1.x, f1.y));
+          }
+          for (int G = rt; G < kNT / 4 && 32 * G < gm.dr; G += gm.RT) {
+            const int c0 = 2 * G + (mi >> 1);
+            const int c = 16 * c0 < gm.dr ? c0 : 0;
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, vst + v_row + ((c ^ v_swz) << 4));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint2 lo = dq4_keys(r[2 * h], sv[0], sv[1]);
+              const uint2 hi = dq4_keys(r[2 * h + 1], sv[2], sv[3]);
+              sts128(xch + (kNT / 2 + 2 * G + h) * kXchGroupBytes,
+                     make_uint4(lo.x, hi.x, lo.y, hi.y));
+            }
+          }
+        }
+        if (kShare) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty(s));
+          consumers_sync(32 * consumers);
+        }
       }
 
       // S = qs K^T: score tile j covers keys 8 j .. 8 j + 7 of the tile;
-      // ldmatrix registers 0, 1 are tile 0's B fragment, 2, 3 tile 1's.
+      // bf16: ldmatrix registers 0, 1 are tile 0's B fragment, 2, 3 tile 1's.
       float sc[2][4];
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -959,11 +1108,20 @@ __global__ void __launch_bounds__(kThreadsB, 2)
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < kNT / 2; ++ks) {
-        if (16 * ks < d) {
-          const int pn = ks >> 2, chunk = 2 * (ks & 3) + (mi & 1);
+        if (kQ8 || 16 * ks < d) {
           uint32_t kb[4];
-          ldmatrix_x4(kb, kst + pn * panel + k_row +
-                              ((chunk ^ k_swz) << 4));
+          if (!kQ8) {
+            const int pn = ks >> 2, chunk = 2 * (ks & 3) + (mi & 1);
+            ldmatrix_x4(kb, kst + pn * panel + k_row +
+                                ((chunk ^ k_swz) << 4));
+          } else if (!kShare) {
+            const uint2 f0 = dq4(kraw[0][ks], sk[0]);
+            const uint2 f1 = dq4(kraw[1][ks], sk[1]);
+            kb[0] = f0.x; kb[1] = f0.y; kb[2] = f1.x; kb[3] = f1.y;
+          } else {
+            const uint4 f = lds128(xch + ks * kXchGroupBytes);
+            kb[0] = f.x; kb[1] = f.y; kb[2] = f.z; kb[3] = f.w;
+          }
           mma_bf16(sc[0], qa[ks], kb[0], kb[1]);
           mma_bf16(sc[1], qa[ks], kb[2], kb[3]);
         }
@@ -983,6 +1141,7 @@ __global__ void __launch_bounds__(kThreadsB, 2)
           tile_m[i] = fmaxf(tile_m[i], v);
         }
       float corr[2], row_sum[2] = {0.f, 0.f};
+      bool rescale = false;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         tile_m[i] =
@@ -996,6 +1155,7 @@ __global__ void __launch_bounds__(kThreadsB, 2)
         corr[i] = m[i] == kNegInf
                       ? 0.f
                       : (m[i] == m_new ? 1.f : ex2(m[i] - m_new));
+        rescale |= m[i] != kNegInf && corr[i] != 1.f;
         m[i] = m_new;
       }
 #pragma unroll
@@ -1009,12 +1169,16 @@ __global__ void __launch_bounds__(kThreadsB, 2)
         }
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + row_sum[i];
+      // int8: skip the rescale when no row of the warp moved a max it had
+      // (acc times 1, or an acc still 0): the same bits, fewer instructions.
+      if (!kQ8 || __any_sync(0xffffffffu, rescale)) {
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        acc[n][0] *= corr[0];
-        acc[n][1] *= corr[0];
-        acc[n][2] *= corr[1];
-        acc[n][3] *= corr[1];
+        for (int n = 0; n < kNT; ++n) {
+          acc[n][0] *= corr[0];
+          acc[n][1] *= corr[0];
+          acc[n][2] *= corr[1];
+          acc[n][3] *= corr[1];
+        }
       }
       // P as the bf16 A fragment of P.V: keys 2 tig.. of tile 0, then of
       // tile 1 (8 + 2 tig..), rows gid and gid + 8.
@@ -1023,21 +1187,52 @@ __global__ void __launch_bounds__(kThreadsB, 2)
                               pack_bf16(sc[1][0], sc[1][1]),
                               pack_bf16(sc[1][2], sc[1][3])};
 
-      // O += P V; ldmatrix registers 0, 1 are the B fragment of column
-      // tile 2 np, 2, 3 of tile 2 np + 1.
+      // O += P V. bf16: ldmatrix registers 0, 1 are the B fragment of
+      // column tile 2 np, 2, 3 of tile 2 np + 1. int8: accumulator tile
+      // 2 c + e holds the columns 16 c + 2 n + e (n its column), c a
+      // 16-byte chunk of the rows (q8_output_column): lane gid's B fragment
+      // is column 16 c + 2 gid + e of the chunk's ldmatrix registers.
+      if (!kQ8) {
 #pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        if (2 * np < nt) {
-          const int pn = np >> 2, chunk = 2 * (np & 3) + (mi >> 1);
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vst + pn * panel + v_row +
-                                    ((chunk ^ v_swz) << 4));
-          mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
-          mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
+        for (int np = 0; np < kNT / 2; ++np) {
+          if (2 * np < nt) {
+            const int pn = np >> 2, chunk = 2 * (np & 3) + (mi >> 1);
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vst + pn * panel + v_row +
+                                      ((chunk ^ v_swz) << 4));
+            mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
+            mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+      } else {
+#pragma unroll
+        for (int c = 0; c < kNT / 2; ++c) {
+          if (16 * c < gm.dr) {
+            uint32_t vb[4];
+            if (!kShare) {
+              if ((c & 1) == 0) {
+                const int c1 = 16 * (c + (mi >> 1)) < gm.dr ? c + (mi >> 1)
+                                                           : 0;
+                ldmatrix_x4_trans(vraw, vst + v_row + ((c1 ^ v_swz) << 4));
+              }
+              const uint2 lo = dq4_keys(vraw[2 * (c & 1)], sv[0], sv[1]);
+              const uint2 hi = dq4_keys(vraw[2 * (c & 1) + 1], sv[2], sv[3]);
+              vb[0] = lo.x; vb[1] = hi.x; vb[2] = lo.y; vb[3] = hi.y;
+            } else {
+              const uint4 f = lds128(xch + (kNT / 2 + c) * kXchGroupBytes);
+              vb[0] = f.x; vb[1] = f.y; vb[2] = f.z; vb[3] = f.w;
+            }
+            mma_bf16(acc[2 * c], pa, vb[0], vb[1]);
+            mma_bf16(acc[2 * c + 1], pa, vb[2], vb[3]);
+          }
+        }
+        if (!kShare) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty(s));
         }
       }
-      __syncwarp();
-      if (!kQ8 && lane == 0) mbar_arrive(empty(s));
     }
 
     // (acc, m, l) of each valid row, l summed over the quad.
@@ -1048,11 +1243,23 @@ __global__ void __launch_bounds__(kThreadsB, 2)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       if (!row_ok[i]) continue;
       float* out = part + (row_idx[i] * gm.n_split + span) * (d + 2);
+      if (!kQ8) {
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
-        if (n < nt)
-          *reinterpret_cast<float2*>(out + 8 * n + 2 * tig) =
-              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+        for (int n = 0; n < kNT; ++n)
+          if (n < nt)
+            *reinterpret_cast<float2*>(out + 8 * n + 2 * tig) =
+                make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kNT / 2; ++c)
+          if (16 * c + 4 * tig < d) {
+            float* o = out + 16 * c + 4 * tig;
+            *reinterpret_cast<float2*>(o) =
+                make_float2(acc[2 * c][2 * i], acc[2 * c + 1][2 * i]);
+            *reinterpret_cast<float2*>(o + 2) =
+                make_float2(acc[2 * c][2 * i + 1], acc[2 * c + 1][2 * i + 1]);
+          }
+      }
       if (tig == 0) {
         out[d] = m[i];
         out[d + 1] = l[i];
@@ -1094,36 +1301,41 @@ cudaError_t encode_fn(EncodeTiled* out) {
 // One layer's pool [nb, bs, n_kv, d] as a rank-4 tensor map over (d,
 // position in block, kv head, block), boxes of (64 columns, box_pos
 // positions, HB heads, one block), 128-byte swizzled; columns past d load
-// as zeros.
-cudaError_t make_pool_map(CUtensorMap* map, const void* pool, const Geo& gm) {
+// as zeros. An int8 pool (q8): boxes of whole rows (d bytes, d % 16 == 0),
+// 128-byte swizzled where d = 128.
+cudaError_t make_pool_map(CUtensorMap* map, const void* pool, const Geo& gm,
+                          bool q8) {
   EncodeTiled encode;
   const cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
+  const cuuint64_t elt = q8 ? 1 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)gm.d, (cuuint64_t)gm.bs,
                               (cuuint64_t)gm.n_kv, (cuuint64_t)gm.nb};
-  const cuuint64_t strides[3] = {(cuuint64_t)gm.n_kv * gm.d * 2,
-                                 (cuuint64_t)gm.d * 2,
-                                 (cuuint64_t)gm.bs * gm.n_kv * gm.d * 2};
-  const cuuint32_t box[4] = {kPanelCols, (cuuint32_t)gm.box_pos,
-                             (cuuint32_t)gm.HB, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)gm.n_kv * gm.d * elt,
+                                 (cuuint64_t)gm.d * elt,
+                                 (cuuint64_t)gm.bs * gm.n_kv * gm.d * elt};
+  const cuuint32_t box[4] = {q8 ? (cuuint32_t)gm.d : (cuuint32_t)kPanelCols,
+                             (cuuint32_t)gm.box_pos, (cuuint32_t)gm.HB, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(pool), dims,
-      strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(pool), dims, strides, box, estride,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      q8 && !gm.q8_swz ? CU_TENSOR_MAP_SWIZZLE_NONE
+                       : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The ring, its barriers (64 bytes), the int8 staging tiles, and the slack
-// of the 1024-byte alignment.
+// The ring, its barriers, the int8 fragment exchange, and the slack of the
+// 1024-byte alignment.
 int smem_bytes(const Geo& gm) {
-  return kStages * gm.stage_bytes + 64 + kConsumerWarps * gm.stg_bytes +
-         1024;
+  return gm.stages * gm.stage_bytes + kBarBytes + gm.xch_bytes + 1024;
 }
-constexpr int kMaxSmemBytes = kStages * kMaxStageBytes + 64 + 1024;
+constexpr int kMaxSmemBytes = kStages * kMaxStageBytes + kBarBytes + 1024;
 
-template <int kNT, bool kQ8>
+template <int kNT, bool kQ8, bool kShare>
 cudaError_t launch_partial(const CUtensorMap (&maps)[2], const Q8Pools& q8,
                            const void* q, const int* tables,
                            const int* per_seq, float* part, const Geo& gm,
@@ -1136,7 +1348,7 @@ cudaError_t launch_partial(const CUtensorMap (&maps)[2], const Q8Pools& q8,
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                    dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(paged_partial_mma_kernel<kNT, kQ8>,
+      err = cudaFuncSetAttribute(paged_partial_mma_kernel<kNT, kQ8, kShare>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxSmemBytes);
     if (err != cudaSuccess) {
@@ -1148,7 +1360,7 @@ cudaError_t launch_partial(const CUtensorMap (&maps)[2], const Q8Pools& q8,
   // (the SM's 228 KB, 1 KB reserved per CTA), else one.
   const int smem = smem_bytes(gm);
   const int per_sm = 2 * (smem + 1024) <= 233472 ? 2 : 1;
-  paged_partial_mma_kernel<kNT, kQ8>
+  paged_partial_mma_kernel<kNT, kQ8, kShare>
       <<<min(n_items, per_sm * n_sm), kThreadsB, smem, stream>>>(
           maps[0], maps[1], static_cast<const __nv_bfloat16*>(q), tables,
           per_seq, part, gm, q8);
@@ -1157,15 +1369,11 @@ cudaError_t launch_partial(const CUtensorMap (&maps)[2], const Q8Pools& q8,
 
 int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
-// Pass 1 for bf16 over [b, C, H, d] queries; returns the launch error.
-// With scales (ks, vs non-null) k and v are int8 pools.
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const float* ks, const float* vs,
-                        const int* tables, const int* per_seq, float* part,
-                        int b, int C, int W, int H, int n_kv, int d, int nb,
-                        int bs, int split_keys, int causal, float scale,
-                        cudaStream_t stream) {
-  Geo gm;
+// The work items and ring of a bf16 call over [b, C, H, d] queries and a
+// pool of bf16 or (q8) int8 rows; false if the split is not one the kernel
+// takes.
+bool make_geo(Geo& gm, int b, int C, int W, int H, int n_kv, int d, int nb,
+              int bs, int split_keys, int causal, float scale, bool q8) {
   gm.B = b; gm.C = C; gm.W = W; gm.H = H; gm.n_kv = n_kv; gm.d = d;
   gm.nb = nb; gm.bs = bs; gm.split = split_keys; gm.causal = causal;
   gm.scale = scale;
@@ -1184,31 +1392,61 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     }
   gm.box_pos = gcd(bs, kTile);
   if (split_keys % kTile != 0 || split_keys / gm.box_pos > kMaxBoxes)
-    return cudaErrorInvalidValue;
+    return false;
   gm.slot = (gm.box_pos * gm.HB * kRowBytes + 1023) / 1024 * 1024;
   gm.panel_bytes = kTile / gm.box_pos * gm.slot;
-  set_stage_bytes(gm, ks != nullptr);
+  set_ring(gm, q8);
+  return gm.stages >= 2;
+}
+
+template <int kNT>
+cudaError_t launch_q8(const CUtensorMap (&maps)[2], const Q8Pools& q8,
+                      const void* q, const int* tables, const int* per_seq,
+                      float* part, const Geo& gm, int n_items,
+                      cudaStream_t stream) {
+  if (gm.RT > 1)
+    return launch_partial<kNT, true, true>(maps, q8, q, tables, per_seq,
+                                           part, gm, n_items, stream);
+  return launch_partial<kNT, true, false>(maps, q8, q, tables, per_seq, part,
+                                          gm, n_items, stream);
+}
+
+// Pass 1 for bf16 over [b, C, H, d] queries; returns the launch error.
+// With scales (ks, vs non-null) k and v are int8 pools.
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const float* ks, const float* vs,
+                        const int* tables, const int* per_seq, float* part,
+                        int b, int C, int W, int H, int n_kv, int d, int nb,
+                        int bs, int split_keys, int causal, float scale,
+                        cudaStream_t stream) {
+  const bool q8 = ks != nullptr;
+  Geo gm;
+  if (!make_geo(gm, b, C, W, H, n_kv, d, nb, bs, split_keys, causal, scale,
+                q8))
+    return cudaErrorInvalidValue;
   const int n_items =
       gm.n_split * ((C + gm.qpos - 1) / gm.qpos) * (n_kv / gm.HB) * b;
   CUtensorMap maps[2] = {};
-  if (ks != nullptr) {  // int8: the producer copies rows by cp.async
-    const Q8Pools q8 = {static_cast<const int8_t*>(k),
-                        static_cast<const int8_t*>(v), ks, vs};
-    if (d <= 64)
-      return launch_partial<8, true>(maps, q8, q, tables, per_seq, part, gm,
-                                     n_items, stream);
-    return launch_partial<16, true>(maps, q8, q, tables, per_seq, part, gm,
-                                    n_items, stream);
+  if (!q8 || gm.q8_tma) {
+    cudaError_t err = make_pool_map(&maps[0], k, gm, q8);
+    if (err == cudaSuccess) err = make_pool_map(&maps[1], v, gm, q8);
+    if (err != cudaSuccess) return err;
   }
-  cudaError_t err = make_pool_map(&maps[0], k, gm);
-  if (err == cudaSuccess) err = make_pool_map(&maps[1], v, gm);
-  if (err != cudaSuccess) return err;
+  if (q8) {
+    const Q8Pools pools = {static_cast<const int8_t*>(k),
+                           static_cast<const int8_t*>(v), ks, vs};
+    if (d <= 64)
+      return launch_q8<8>(maps, pools, q, tables, per_seq, part, gm, n_items,
+                          stream);
+    return launch_q8<16>(maps, pools, q, tables, per_seq, part, gm, n_items,
+                         stream);
+  }
   const Q8Pools none = {nullptr, nullptr, nullptr, nullptr};
   if (d <= 64)
-    return launch_partial<8, false>(maps, none, q, tables, per_seq, part, gm,
-                                    n_items, stream);
-  return launch_partial<16, false>(maps, none, q, tables, per_seq, part, gm,
-                                   n_items, stream);
+    return launch_partial<8, false, false>(maps, none, q, tables, per_seq,
+                                           part, gm, n_items, stream);
+  return launch_partial<16, false, false>(maps, none, q, tables, per_seq,
+                                          part, gm, n_items, stream);
 }
 
 }  // namespace hopper
@@ -1307,39 +1545,45 @@ extern "C" int grove_paged_chunk(const void* q, const void* k, const void* v,
                   W, H, n_kv, d, nb, bs, split_keys, 1, scale, stream);
 }
 
-// Per-thread registers, local (spill) bytes and dynamic shared memory per
-// CTA of a built kernel, into out[3]: which = 0 the partial kernel that
-// takes dtype at head dim d (bf16: the d <= 64 or d <= 128 build) over a
-// pool of q's type (q8 = 0) or an int8 pool (q8 = 1), 1 the combine kernel
-// for dtype.
+// Per-thread registers, local (spill) bytes, dynamic shared memory per CTA
+// and ring stages of a built kernel, into out[4]: which = 0 the partial
+// kernel that takes dtype at head dim d (bf16: the d <= 64 or d <= 128
+// build) over a pool of q's type (q8 = 0) or an int8 pool (q8 = 1), as a
+// decode step of 8 kv heads x 2 query heads at block size 16 runs it;
+// which = 2 the same for a chunk of 32 positions (int8: the kShare build);
+// which = 1 the combine kernel for dtype.
 extern "C" int grove_paged_info(int which, int dtype, int d, int q8,
                                 int* out) {
   const void* fn = nullptr;
-  int smem = 0;
-  if (which == 0 && dtype == 0) {
+  int smem = 0, stages = 0;
+  if ((which == 0 || which == 2) && dtype == 0) {
     fn = q8 ? reinterpret_cast<const void*>(paged_partial_kernel<int8_t>)
             : reinterpret_cast<const void*>(paged_partial_kernel<float>);
     smem = (int)smem_bytes(kMaxRows, d);
-  } else if (which == 0 && dtype == 1) {
-    if (q8)
+  } else if ((which == 0 || which == 2) && dtype == 1) {
+    hopper::Geo gm;
+    if (!hopper::make_geo(gm, 1, which == 2 ? 32 : 1, 1, 16, 8, d, 1, 16,
+                          128, which == 2, 1.f, q8 != 0))
+      return (int)cudaErrorInvalidValue;
+    const bool share = q8 && gm.RT > 1;
+    using hopper::paged_partial_mma_kernel;
+    if (q8 && share)
       fn = d <= 64 ? reinterpret_cast<const void*>(
-                         hopper::paged_partial_mma_kernel<8, true>)
+                         paged_partial_mma_kernel<8, true, true>)
                    : reinterpret_cast<const void*>(
-                         hopper::paged_partial_mma_kernel<16, true>);
+                         paged_partial_mma_kernel<16, true, true>);
+    else if (q8)
+      fn = d <= 64 ? reinterpret_cast<const void*>(
+                         paged_partial_mma_kernel<8, true, false>)
+                   : reinterpret_cast<const void*>(
+                         paged_partial_mma_kernel<16, true, false>);
     else
       fn = d <= 64 ? reinterpret_cast<const void*>(
-                         hopper::paged_partial_mma_kernel<8, false>)
+                         paged_partial_mma_kernel<8, false, false>)
                    : reinterpret_cast<const void*>(
-                         hopper::paged_partial_mma_kernel<16, false>);
-    // At block size 16 with the widest kv head group that d allows.
-    hopper::Geo gm;
-    gm.n_panels = (d + hopper::kPanelCols - 1) / hopper::kPanelCols;
-    gm.HB = min(hopper::kConsumerWarps,
-                hopper::kMaxHeadPanels / gm.n_panels);
-    gm.d = d;
-    gm.panel_bytes = hopper::kTile * gm.HB * hopper::kRowBytes;
-    hopper::set_stage_bytes(gm, q8 != 0);
+                         paged_partial_mma_kernel<16, false, false>);
     smem = hopper::smem_bytes(gm);
+    stages = gm.stages;
   } else if (which == 1 && dtype == 0) {
     fn = reinterpret_cast<const void*>(paged_combine_kernel<float, false>);
   } else if (which == 1 && dtype == 1) {
@@ -1354,6 +1598,7 @@ extern "C" int grove_paged_info(int which, int dtype, int d, int q8,
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = smem;
+  out[3] = stages;
   return 0;
 }
 

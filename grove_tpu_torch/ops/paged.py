@@ -34,11 +34,13 @@ f32 scale, ops/kvquant.py) go through ``paged_decode_attention_q8`` and
 ``paged_chunk_attention_q8``. Their plain versions dequantize the gathered
 rows as the JAX package's ``_paged_gather_q`` does (``paged_gather_q``: f32
 product, one rounding to the query's type), then attend as above. The
-kernels dequantize the same way as rows load, then run the same per-row
-instructions as for a model-dtype pool: in bf16 the producer warp copies the
-raw int8 rows and scales into the ring with ``cp.async`` and each consumer
-warp dequantizes its kv head's rows into a bf16 tile laid out as TMA lays
-out a bf16 pool's; f32 dequantizes in its tile loads.
+kernels dequantize the same way: in bf16 the producer warp loads the raw
+int8 rows by TMA (``cp.async`` where d % 16 != 0) and their scales by
+``cp.async`` into a ring as deep as shared memory allows, and the consumers
+build the bf16 mma operands from the int8 codes in registers (a chunk's
+warps each build a quarter of a tile's and share them), with their own
+column maps (``q8_column``, ``q8_output_column``; ``q8_geometry`` mirrors
+the ring); f32 dequantizes in its tile loads.
 
 Each wrapper takes its kernel for CUDA tensors and the plain version for
 CPU tensors; anything else raises. ``launches`` on each wrapper counts its
@@ -49,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -188,18 +191,86 @@ def _kernel():
 def kernel_info(which: str, dtype: torch.dtype,
                 head_dim: int = MAX_HEAD_DIM,
                 int8_pool: bool = False) -> dict[str, int]:
-    """Registers and local (spill) bytes per thread and dynamic shared
-    memory per CTA of the built ``partial`` (pass 1) or ``combine`` (pass
-    2) kernel that a call with query ``dtype``, ``head_dim`` and a
-    model-dtype or int8 pool runs (needs the card)."""
+    """Registers and local (spill) bytes per thread, dynamic shared memory
+    per CTA and ring stages of a built kernel (needs the card): ``partial``
+    (pass 1) as a decode step of llama-1b's heads (8 kv heads x 2) runs it,
+    ``partial_chunk`` as a chunk of 32 positions does (over an int8 pool,
+    the build whose warps share each tile's fragments), or ``combine``
+    (pass 2), for query ``dtype``, ``head_dim`` and a model-dtype or int8
+    pool."""
     _, _, err_str, info = _kernel()
-    out = (ctypes.c_int * 3)()
-    err = info({"partial": 0, "combine": 1}[which], _DTYPE_CODES[dtype],
-               head_dim, int(int8_pool), out)
+    out = (ctypes.c_int * 4)()
+    err = info({"partial": 0, "combine": 1, "partial_chunk": 2}[which],
+               _DTYPE_CODES[dtype], head_dim, int(int8_pool), out)
     if err != 0:
         raise RuntimeError(f"paged kernel info failed: "
                            f"{err_str(err).decode()} ({err})")
-    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2]}
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
+            "stages": out[3]}
+
+
+# ---- the int8 kernel's geometry and fragment maps (csrc/paged_attn.cu) ----
+
+TILE = 16                 # positions per K/V tile (one mma k step)
+CONSUMER_WARPS = 4
+CHUNK_ROWS = 64           # query rows of one kv head per chunk work item
+MAX_STAGES_Q8 = 8
+SMEM_PER_CTA = 233472 // 2 - 1024   # two CTAs per SM, 1 KB reserved each
+BAR_BYTES = 128
+
+
+def q8_geometry(c: int, h: int, n_kv: int, d: int, bs: int) -> dict:
+    """The bf16 kernel's work item and ring over an int8 pool, as
+    ``make_geo`` in csrc/paged_attn.cu computes them for a call of ``c``
+    query positions per sequence: kv heads per item (``hb``), 16-row tiles
+    per head (``rt``; > 1 is the build whose warps share each tile's
+    fragments), positions per TMA box, stage bytes, ring stages, exchange
+    bytes, dynamic shared memory and CTAs per SM. ``tma``: rows by TMA
+    (d % 16 == 0), else by cp.async; ``swizzle``: 128-byte swizzled rows
+    (d = 128)."""
+    g = h // n_kv
+    qpos = max(1, min(c, CHUNK_ROWS // g))
+    rt = -(-qpos * g // 16)
+    panels = -(-d // 64)
+    hb = next((x for x in range(n_kv, 1, -1) if n_kv % x == 0
+               and x * rt <= CONSUMER_WARPS and x * panels <= 8), 1)
+    box_pos = math.gcd(bs, TILE)
+    dr = -(-d // 16) * 16
+    tma = d % 16 == 0
+    swizzle = tma and dr == 128
+    box = box_pos * hb * dr
+    align = 1024 if swizzle else 128
+    slot = -(-box // align) * align if tma else box
+    stage = -(-(2 * (TILE // box_pos) * slot + 2 * hb * TILE * 4) // 1024)
+    stage *= 1024
+    nt = 8 if d <= 64 else 16
+    xch = 2 * hb * nt * 512 if rt > 1 else 0
+    stages = min(MAX_STAGES_Q8, (SMEM_PER_CTA - BAR_BYTES - xch - 1024)
+                 // stage)
+    smem = stages * stage + BAR_BYTES + xch + 1024
+    return {"hb": hb, "rt": rt, "box_pos": box_pos, "tma": tma,
+            "swizzle": swizzle, "slot": slot, "stage_bytes": stage,
+            "stages": stages, "xch_bytes": xch, "smem_bytes": smem,
+            "ctas_per_sm": 2 if 2 * (smem + 1024) <= 233472 else 1}
+
+
+def q8_column(tig: int, ks: int, j: int, d: int) -> int:
+    """The head-dim column that lane 4 gid + tig's score fragments hold
+    in k step ``ks``, element ``j`` (0, 1: register b0 of
+    K's B fragment and a0 / a1 of q's A fragment; 2, 3: b1 and a2 / a3):
+    each lane reads its own 2 * kNT bytes of a key's int8 row, so k step
+    ks takes the columns 2 kNT tig + 4 ks + 0..3 of the four lanes. Both
+    operands use the map, so a score still sums q[c] k[c] over every c."""
+    nt = 8 if d <= 64 else 16
+    return 2 * nt * tig + 4 * ks + j
+
+
+def q8_output_column(c: int, e: int, n: int) -> int:
+    """The head-dim column of column ``n`` (0..7) of the int8 kernel's P.V
+    accumulator tile 2 c + e: ldmatrix.trans over a 16-byte chunk ``c`` of
+    int8 V rows hands lane gid columns 16 c + 2 gid and + 1 of two keys,
+    the B fragments of tiles 2 c (e = 0) and 2 c + 1 (e = 1)."""
+    return 16 * c + 2 * n + e
 
 
 def _kernel_args(q, k_pool, v_pool, tables, per_seq, scales):

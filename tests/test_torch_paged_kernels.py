@@ -96,6 +96,121 @@ def test_span_count_and_scratch_size():
     assert part.numel() == 2 * 3 * 8 * paged.n_spans(5, 4) * 18
 
 
+# ---- the int8 kernel's fragment maps and geometry (csrc/paged_attn.cu) ----
+
+def _a_layout(lane):
+    """m16n8k16's A fragment: (row, k) of registers a0, a0', a1, a1', a2,
+    a2', a3, a3' of ``lane`` (' the high bf16 half)."""
+    gid, tig = lane // 4, lane % 4
+    return [(gid + 8 * (x & 1), 2 * tig + 8 * (x >> 1) + e)
+            for x in range(4) for e in range(2)]
+
+
+def _b_layout(lane):
+    """m16n8k16's B fragment: (k, n) of b0, b0', b1, b1' of ``lane``."""
+    gid, tig = lane // 4, lane % 4
+    return [(2 * tig + 8 * h + e, gid) for h in range(2) for e in range(2)]
+
+
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_int8_score_terms_pair_the_same_column(d):
+    """S = qs K^T over an int8 pool: lane (gid, tig) reads the bytes
+    [2 kNT tig, 2 kNT (tig + 1)) of its keys' rows, word ks of them (bytes
+    4 ks .. 4 ks + 3, dq4: b0 = bytes 0, 1, b1 = 2, 3) is K's B fragment of
+    k step ks, and q's A fragment takes the columns ``q8_column`` names.
+    Every score then sums q[c] k[key, c] over each column c once."""
+    nt = 8 if d <= 64 else 16
+    kd = 8 * nt
+    terms = {}  # (row, key) -> [(q column, k column)]
+    for ks in range(nt // 2):
+        a, b = {}, {}
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            for (r, k), j in zip(_a_layout(lane), (0, 1, 0, 1, 2, 3, 2, 3)):
+                a[(r, k)] = paged.q8_column(tig, ks, j, d)
+            seg = 2 * nt * tig + 4 * ks  # the lane's word ks
+            for (k, n), byte in zip(_b_layout(lane), range(4)):
+                b[(k, n)] = (n, seg + byte)  # key n of the 8-key tile
+        for r in range(16):
+            for n in range(8):
+                for k in range(16):
+                    key, col = b[(k, n)]
+                    assert key == n
+                    terms.setdefault((r, n), []).append((a[(r, k)], col))
+    for pairs in terms.values():
+        assert all(qc == kc for qc, kc in pairs)
+        assert sorted(qc for qc, _ in pairs) == list(range(kd))
+
+
+def _trans_bytes(rows, lane):
+    """``ldmatrix.trans`` of 8 int8 rows x 16 bytes read as an 8 x 8 b16
+    matrix: lane (gid, tig) gets b16 column gid of rows 2 tig and
+    2 tig + 1, as bytes (row, byte): (2 tig, 2 gid), (2 tig, 2 gid + 1),
+    (2 tig + 1, 2 gid), (2 tig + 1, 2 gid + 1)."""
+    gid, tig = lane // 4, lane % 4
+    return [(rows[2 * tig + i // 2], 2 * gid + i % 2) for i in range(4)]
+
+
+@pytest.mark.parametrize("c", range(8))
+def test_int8_output_terms_pair_each_key_with_one_column(c):
+    """O += P V over an int8 pool: ldmatrix.trans over the 16-byte chunk c
+    of keys 0..7 (register r0) and 8..15 (r1), dq4_keys splitting each
+    register by byte column (x: bytes 0, 2; y: 1, 3), b0 / b1 of
+    accumulator tile 2 c + e. Each output column sums p[key] v[key, col]
+    over all 16 keys once, col as ``q8_output_column`` says, and the
+    kernel's four stores per row (acc[2 c][0], acc[2 c + 1][0],
+    acc[2 c][1], acc[2 c + 1][1]) land on columns 16 c + 4 tig + 0..3."""
+    for e in range(2):
+        b = {}
+        for lane in range(32):
+            r0 = _trans_bytes(list(range(8)), lane)
+            r1 = _trans_bytes(list(range(8, 16)), lane)
+            halves = [(r0[e], r0[2 + e]), (r1[e], r1[2 + e])]
+            for (k, n), (key, byte) in zip(_b_layout(lane),
+                                           [x for h in halves for x in h]):
+                b[(k, n)] = (key, 16 * c + byte)
+        for n in range(8):
+            keys = [b[(k, n)][0] for k in range(16)]
+            cols = {b[(k, n)][1] for k in range(16)}
+            assert keys == list(range(16))  # P's k order: the keys in order
+            assert cols == {paged.q8_output_column(c, e, n)}
+    for tig in range(4):
+        stored = [paged.q8_output_column(c, e, 2 * tig + i)
+                  for i, e in ((0, 0), (0, 1), (1, 0), (1, 1))]
+        assert stored == [16 * c + 4 * tig + i for i in range(4)]
+    assert sorted(paged.q8_output_column(cc, e, n) for cc in range(8)
+                  for e in range(2) for n in range(8)) == list(range(128))
+
+
+def test_int8_geometry():
+    """The int8 ring at llama-1b: a decode step's items hold 4 kv heads,
+    one warp each, in 17,408-byte stages (two 8 KB boxes, one per K and V,
+    and 512 bytes of scales), six deep; a chunk's items one kv head over
+    four warps that share each tile's fragments (a 16 KB exchange), eight
+    stages of 5,120 bytes. Every call shape the tests and the engine make
+    keeps two CTAs per SM and at least two stages."""
+    dec = paged.q8_geometry(1, 16, 8, 128, 16)
+    assert (dec["hb"], dec["rt"], dec["stage_bytes"], dec["stages"],
+            dec["xch_bytes"], dec["smem_bytes"]) == (4, 1, 17408, 6, 0,
+                                                     105600)
+    assert dec["tma"] and dec["swizzle"] and dec["slot"] == 8192
+    chunk = paged.q8_geometry(32, 16, 8, 128, 16)
+    assert (chunk["hb"], chunk["rt"], chunk["stage_bytes"], chunk["stages"],
+            chunk["xch_bytes"]) == (1, 4, 5120, 8, 16384)
+    tiny = paged.q8_geometry(40, 12, 4, 8, 4)  # d = 8: rows by cp.async
+    assert not tiny["tma"] and tiny["slot"] == 4 * 16
+    assert not paged.q8_geometry(1, 8, 2, 64, 32)["swizzle"]
+    for c in (1, 2, 5, 7, 32, 40):
+        for h, n_kv in ((16, 8), (8, 1), (12, 4), (8, 8), (32, 2), (16, 2)):
+            for d in (8, 24, 64, 120, 128):
+                for bs in (4, 16, 32):
+                    geo = paged.q8_geometry(c, h, n_kv, d, bs)
+                    assert geo["ctas_per_sm"] == 2
+                    assert 2 <= geo["stages"] <= paged.MAX_STAGES_Q8
+                    assert geo["hb"] * geo["rt"] <= paged.CONSUMER_WARPS
+                    assert geo["stage_bytes"] % 1024 == 0
+
+
 # ---- the kernels themselves (need a CUDA card) ----
 
 def _cuda_pools(gen, nb, bs, n_kv, d, dtype):
@@ -251,7 +366,9 @@ def test_int8_cpu_calls_never_count_a_launch():
                                        (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("b,h,n_kv,d,w,bs", [
     (5, 16, 8, 128, 8, BS), (4, 8, 1, 64, 2, BS), (4, 12, 4, 8, 3, BS),
-    (10, 16, 8, 128, 32, 16)])
+    (10, 16, 8, 128, 32, 16),
+    (32, 16, 8, 128, 64, 16),   # llama-1b's decode shape
+    (6, 8, 2, 64, 8, 32)])      # d = 64, block size 32
 def test_int8_kernels_match_plain_on_cuda(dtype, tol, b, h, n_kv, d, w, bs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
@@ -309,6 +426,21 @@ def test_scatter_q_kernel_is_bitwise_plain_on_cuda(dtype):
     paged_scatter_q_ref(ref[1], ref[3], v, tables, pos, valid)
     for a, b in zip(mine, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which,c", [("partial", 1), ("partial_chunk", 32)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_build_matches_its_geometry_on_cuda(which, c, d):
+    """The built int8 kernels' shared memory and ring depth are what
+    ``q8_geometry`` says (llama-1b's heads, block size 16), and they do not
+    spill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    info = paged.kernel_info(which, torch.bfloat16, d, int8_pool=True)
+    geo = paged.q8_geometry(c, 16, 8, d, 16)
+    assert (info["smem_bytes"], info["stages"]) == (geo["smem_bytes"],
+                                                    geo["stages"])
+    assert info["local_bytes"] == 0
 
 
 def test_bf16_int8_rows_depend_only_on_position_on_cuda():
