@@ -25,8 +25,8 @@ from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
                                            pick_causal_attention)
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
-from grove_tpu_torch.ops.kvquant import paged_scatter, paged_scatter_q
-from grove_tpu_torch.ops.kvquant import paged_scatter_ref as _paged_scatter
+from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
+                                         paged_rope_scatter_q)
 from grove_tpu_torch.ops.norms import rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
@@ -172,10 +172,17 @@ def _proj(eq: str, x: torch.Tensor, w) -> torch.Tensor:
     return torch.einsum(eq, x.to(dt), w.to(dt))
 
 
-def _qkv(cfg: LlamaConfig, x, lp, cos, sin, positions):
-    """Pre-norm + QKV projections + rope. Shared by prefill and decode."""
+def _qkv_proj(cfg: LlamaConfig, x, lp):
+    """Pre-norm + QKV projections, before rope (the paged path ropes
+    inside its KV write)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _projs("bsd,dhk->bshk", h, [lp["wq"], lp["wk"], lp["wv"]])
+    return _projs("bsd,dhk->bshk", h, [lp["wq"], lp["wk"], lp["wv"]])
+
+
+def _qkv(cfg: LlamaConfig, x, lp, cos, sin, positions):
+    """Pre-norm + QKV projections + rope. Shared by the lanes engine's
+    prefill and decode."""
+    q, k, v = _qkv_proj(cfg, x, lp)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     return q, k, v
@@ -308,14 +315,15 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
 # plain versions (the JAX composition: ``_paged_gather``, which is
 # ops/paged.py's ``paged_gather``, then dense attention) on CPU tensors.
 #
-# The write is ops/kvquant.py's scatter (``_paged_scatter`` here is its plain
-# version, the JAX package's function), one kernel for K and V on CUDA
-# tensors.
+# Rope and the write are one call, ops/kvquant.py's ``paged_rope_scatter``
+# (``_q`` for an int8 pool): one kernel per layer on CUDA tensors, and on
+# CPU tensors its plain version, the JAX package's ``apply_rope`` on q and
+# k and then its ``_paged_scatter`` (``_q``).
 #
 # int8 paged KV (GROVE_KV_QUANT=int8): the pools hold int8 rows with a
 # per-(slot, head) f32 scale beside them ([layers, num_blocks, bs, n_kv],
 # ``k_scale``/``v_scale``). The write quantizes (the JAX package's
-# ``_paged_scatter_q``: ops/kvquant.py, a kernel on CUDA tensors),
+# ``_paged_scatter_q``, inside the same kernel),
 # attention dequantizes as it reads (``_paged_gather_q``'s arithmetic:
 # ops/paged.py, inside the paged kernels).
 
@@ -347,15 +355,18 @@ def paged_block_copy_q(dst_k: torch.Tensor, dst_v: torch.Tensor,
     paged_block_copy(dst_ks, dst_vs, src_ks, src_vs, src, dst)
 
 
-def _write_and_attend(q, k, v, kc, vc, ks, vs, tables, positions, per_seq,
-                      valid, decode: bool):
-    """One layer's paged K/V write and attention, over a model-dtype pool
-    (``ks`` None) or an int8 pool with its scales."""
+def _write_and_attend(q, k, v, cos, sin, kc, vc, ks, vs, tables, positions,
+                      per_seq, valid, decode: bool):
+    """One layer's rope, paged K/V write and attention, over a model-dtype
+    pool (``ks`` None) or an int8 pool with its scales. q, k, v come from
+    the projections unroped."""
     if ks is None:
-        paged_scatter(kc, vc, k, v, tables, positions, valid)
+        q = paged_rope_scatter(kc, vc, q, k, v, cos, sin, tables, positions,
+                               valid)
         attn = paged_decode_attention if decode else paged_chunk_attention
         return attn(q, kc, vc, tables, per_seq)
-    paged_scatter_q(kc, vc, ks, vs, k, v, tables, positions, valid)
+    q = paged_rope_scatter_q(kc, vc, ks, vs, q, k, v, cos, sin, tables,
+                             positions, valid)
     attn = paged_decode_attention_q8 if decode else paged_chunk_attention_q8
     return attn(q, kc, vc, ks, vs, tables, per_seq)
 
@@ -384,9 +395,9 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
-        q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+        q, k, v = _qkv_proj(cfg, x, lp)
         attn = _write_and_attend(
-            q, k, v, kv_k[i], kv_v[i],
+            q, k, v, cos, sin, kv_k[i], kv_v[i],
             None if k_scale is None else k_scale[i],
             None if v_scale is None else v_scale[i], tables, positions,
             new_lengths, None, decode=True)
@@ -442,9 +453,9 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
-        q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+        q, k, v = _qkv_proj(cfg, x, lp)
         attn = _write_and_attend(
-            q, k, v, kv_k[i], kv_v[i],
+            q, k, v, cos, sin, kv_k[i], kv_v[i],
             None if k_scale is None else k_scale[i],
             None if v_scale is None else v_scale[i], tables, positions,
             offsets, valid, decode=False)

@@ -40,7 +40,8 @@ from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.models import llama
 from grove_tpu_torch.models.llama import LlamaConfig
 from grove_tpu_torch.ops.kvcache import KVCache
-from grove_tpu_torch.ops.kvquant import paged_scatter, paged_scatter_q
+from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
+                                         paged_rope_scatter_q)
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
                                        paged_decode_attention,
@@ -55,7 +56,7 @@ from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
 # launches, by wrapper.
 _KERNEL_WRAPPERS = (paged_decode_attention, paged_chunk_attention,
                     paged_decode_attention_q8, paged_chunk_attention_q8,
-                    paged_scatter_q, paged_scatter, w8a16_matmul)
+                    paged_rope_scatter_q, paged_rope_scatter, w8a16_matmul)
 
 
 @dataclasses.dataclass(frozen=True)

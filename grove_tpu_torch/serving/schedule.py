@@ -22,7 +22,7 @@ graphs; this module owns the decisions:
   stall TPOT for at most one chunk's wall time, never the whole
   prefill. Capacity is ensured for the chunk's VALID tokens only; the
   padded tail scatters into the null block via the kernel's
-  ``n_valid`` mask (models/llama._paged_scatter — without the mask,
+  ``n_valid`` mask (ops/kvquant.scatter_slots — without the mask,
   the clipped scatter corrupted a real block's tokens, found the hard
   way in kernel bring-up).
 - **Preemption by recompute.** When decode needs a block and the pool

@@ -28,9 +28,16 @@ WRAPPERS = {
                              "_check", "_launch", "partition", "split_count",
                              "column_tiles", "_make_plan", "_plan_key",
                              "fragment_column")),
-    "paged_scatter": (kvquant, ("paged_scatter", "_check_rows")),
-    "paged_scatter_q": (kvquant, ("paged_scatter_q", "_check", "_check_rows",
-                                  "_launch")),
+    "paged_scatter": (kvquant, ("paged_scatter", "_check_rows", "_route",
+                                "_launch", "_make_plan", "_aligned")),
+    "paged_scatter_q": (kvquant, ("paged_scatter_q", "_check_scales",
+                                  "_check_rows", "_route", "_launch",
+                                  "_make_plan", "_aligned")),
+    "paged_rope_scatter": (kvquant, ("paged_rope_scatter",
+                                     "paged_rope_scatter_q", "_check_rows",
+                                     "_check_scales", "_check_rope",
+                                     "_route", "_launch", "_make_plan",
+                                     "_aligned")),
     "paged_attention": (paged, ("paged_decode_attention",
                                 "paged_chunk_attention",
                                 "paged_decode_attention_q8",

@@ -21,7 +21,7 @@ from grove_tpu.models import llama as jllama
 from grove_tpu.ops import attention as jattn
 from grove_tpu_torch.convert import params_from_numpy
 from grove_tpu_torch.models import llama as tllama
-from grove_tpu_torch.ops import paged
+from grove_tpu_torch.ops import kvquant, paged
 
 # Small shapes: one intra-op thread keeps these tests from crowding the
 # timing-sensitive control-plane tests that run beside them in parallel.
@@ -74,10 +74,10 @@ def test_paged_scatter_is_bitwise_jax(offset, n_valid):
         jnp.asarray(k[0]), jnp.asarray(kv), jnp.asarray(TABLES),
         jnp.asarray(pos), valid=jnp.asarray(valid)))
     got = torch.from_numpy(k[0].copy())
-    out = tllama._paged_scatter(got, torch.from_numpy(kv),
-                                torch.from_numpy(TABLES),
-                                torch.from_numpy(pos),
-                                valid=torch.from_numpy(valid.copy()))
+    out = kvquant.paged_scatter_ref(got, torch.from_numpy(kv),
+                                    torch.from_numpy(TABLES),
+                                    torch.from_numpy(pos),
+                                    valid=torch.from_numpy(valid.copy()))
     assert out is got  # in place
     # Colliding (rerouted) rows land only in the null block, whose
     # contents are garbage by design: compare every other block bitwise.
@@ -105,8 +105,8 @@ def test_only_rerouted_rows_collide_and_only_in_the_null_block():
         valid = pos < torch.from_numpy(n_backed)[:, None] * BS
         k = torch.zeros((NB, BS, 1, 1))
         rows = torch.arange(b * c, dtype=torch.float32).reshape(b, c, 1, 1)
-        tllama._paged_scatter(k, rows + 1, torch.from_numpy(tables), pos,
-                              valid=valid)
+        kvquant.paged_scatter_ref(k, rows + 1, torch.from_numpy(tables), pos,
+                                  valid=valid)
         # Each valid row is the only writer of its slot, in a real block.
         flat = k.reshape(-1)
         for i, r in enumerate((rows + 1).reshape(-1)):
