@@ -62,7 +62,21 @@ Phases, each printing its own lines; any failure exits non-zero:
   8. paged model: llama-1b bf16 decode_step_paged and prefill_chunk_paged
      logits with int8 weights through the kernels vs their plain versions;
      then 8 sequences' decode logits alone vs inside a batch of 32,
-     bitwise, naming the first op whose rows differ (reported).
+     bitwise, naming the first op whose rows differ (reported);
+  9. speculative serve: llama-1b, int8 weights, batch 32, 32 requests of
+     64-1,024 prompt tokens and 64 new tokens each through
+     make_engine(spec_decode=True, spec_k=3): self-draft over a bf16 and an
+     int8 pool and the tiny draft over a bf16 pool give the tokens of spec
+     off per request, every spec graph captured at warmup and none during
+     traffic, the kernels' launches per dispatch as counted (self-draft: k
+     decode steps and one verify chunk; tiny draft: its own pool, its
+     chunk replay); a full batch of 512-token prompts decoding, spec
+     against off tokens/s over each pool with a profiled window; k = 7 at
+     batch 32 (the verify's GEMM at M = 256) equal to spec off; bf16
+     weights (cuBLAS projections) spec vs off and the first op whose rows
+     depend on M (reported). Phase 3 also checks and times the chunk
+     kernels at the verify shape (b = 32, c = 4, per-sequence offsets).
+Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
 """
 
@@ -535,6 +549,7 @@ PAGED_CHUNK = 32                          # the engine's default chunk
 SERVE_DECODE = (32, 64, 512, 1024)        # B, W, shortest and longest length
 LONG_DECODE = (32, 128, 1536, 2048)       # at the engine's max_len of 2048
 SERVE_CHUNK_OFFSET = 992                  # b = 1, c = 32, W = 64
+SPEC_VERIFY = (32, 4, 64, 512, 1020)      # b, c = k + 1, W, lengths lo..hi
 
 
 def paged_pools(gen, lengths, W, n_kv, d, dtype, spare: int = 3):
@@ -716,6 +731,88 @@ def check_row_invariance(gen, int8: bool = False) -> None:
                              "position")
 
 
+def time_verify_shape(gen, rng, card: str, int8: bool = False) -> dict:
+    """The chunk kernel at the speculative verify shape (SPEC_VERIFY: b =
+    32 sequences at their own offsets, c = 4 rows each, llama-1b's heads,
+    bf16 queries): against its plain version, decode row at length p + 1
+    against the chunk's row at p bitwise, then timed beside its bound, its
+    plain version, the gather + SDPA yardstick and the decode kernel over
+    the same sequences (one query each at the chunk's first position).
+    Returns the verify columns of the chunk kernel's row."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.ops import paged
+    b, c, W, lo, hi = SPEC_VERIFY
+    n_kv, g, d = 8, 2, 128
+    h = n_kv * g
+    dtype = torch.bfloat16
+    lengths = rng.integers(lo, hi + 1, size=b).astype(np.int32)
+    pool = "int8 pool" if int8 else "bf16 pool"
+    if int8:
+        kq, vq, ks, vs, tables = int8_pools(gen, lengths + c, W, n_kv, d)
+
+        def chunk(q, offs):
+            return paged.paged_chunk_attention_q8(q, kq, vq, ks, vs, tables,
+                                                  offs)
+
+        def chunk_ref(q, offs):
+            return paged.paged_chunk_attention_ref(q, kq, vq, tables, offs,
+                                                   ks, vs)
+
+        def decode(q, lens):
+            return paged.paged_decode_attention_q8(q, kq, vq, ks, vs, tables,
+                                                   lens)
+
+        def yard(q):
+            return gather_q_sdpa(q, kq, vq, ks, vs, idx, mask)
+    else:
+        k, v, tables = paged_pools(gen, lengths + c, W, n_kv, d, dtype)
+
+        def chunk(q, offs):
+            return paged.paged_chunk_attention(q, k, v, tables, offs)
+
+        def chunk_ref(q, offs):
+            return paged.paged_chunk_attention_ref(q, k, v, tables, offs)
+
+        def decode(q, lens):
+            return paged.paged_decode_attention(q, k, v, tables, lens)
+
+        def yard(q):
+            return gather_sdpa(q, k, v, idx, mask)
+    offs = torch.from_numpy(lengths).cuda()
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(dtype)
+    idx = tables.reshape(-1).long()
+    mask = (torch.arange(W * PAGED_BS, device="cuda")[None, None, :]
+            <= (offs[:, None] + torch.arange(c, device="cuda")[None, :]
+                )[:, :, None].long())[:, None]
+    label = (f"paged chunk verify shape ({pool}) b={b} c={c} W={W} "
+             f"lengths {lo}..{hi} h={h} n_kv={n_kv} d={d} bf16")
+    out = chunk(q, offs)
+    err = check_paged(out, chunk_ref(q, offs), label, "bfloat16")
+    same = all(torch.equal(decode(q[:, i:i + 1].contiguous(), offs + i + 1)
+                           [:, 0], out[:, i]) for i in range(c))
+    log(f"kernels: bf16 row invariance ({pool}): decode at length p + 1 vs "
+        f"verify chunk row p at b={b} c={c}: "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"verify rows differ from decode rows ({pool})")
+    kv_rows = int(lengths.sum()) + b * c
+    pairs = h * sum(int(n) * c + c * (c + 1) // 2 for n in lengths)
+    t = time_paged(label, lambda: chunk(q, offs), lambda: chunk_ref(q, offs),
+                   lambda: yard(q), paged_bound_ms(
+                       kv_rows, b * c, pairs, n_kv, h, d, dtype, int8=int8),
+                   card)
+    q1 = q[:, :1].contiguous()
+    dec_ms = time_ms(lambda: decode(q1, offs + 1))
+    log(f"kernels: {label}: the decode kernel over the same sequences (one "
+        f"query each, lengths + 1) {dec_ms} ms; verify / decode "
+        f"{t['ms'] / dec_ms:.2f}x on {card}")
+    return {"verify_ms": t["ms"], "verify_plain_ms": t["plain_ms"],
+            "verify_bound_ms": t["bound_ms"],
+            "verify_yardstick_ms": t["yardstick_ms"],
+            "verify_decode_ms": dec_ms, "verify_max_abs_err": err}
+
+
 def phase_paged_kernels(seed: int, card: str) -> list[dict]:
     """Both paged kernels against their plain versions at f32 and bf16,
     the bf16 row-invariance check, then timed at the serving shapes and at
@@ -816,13 +913,16 @@ def phase_paged_kernels(seed: int, card: str) -> list[dict]:
         lambda: paged_chunk_attention_ref(q, k, v, tables, offs),
         lambda: gather_sdpa(q, k, v, idx, mask),
         paged_bound_ms(off + c, c, pairs, n_kv, h, d, dtype), card)
+    verify = time_verify_shape(gen, rng, card)
     rows.append({"name": "paged_chunk_attention", "route": "cuda",
                  "source": "grove_tpu_torch/csrc/paged_attn.cu",
                  "replaces": "grove_tpu/models/llama.py:710",
-                 "launches": 0, "max_abs_err": max(err, errs["chunk"]),
+                 "launches": 0, "max_abs_err": max(
+                     err, errs["chunk"], verify["verify_max_abs_err"]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None, "yardstick_ms": t["yardstick_ms"]})
+                 "library_ms": None, "yardstick_ms": t["yardstick_ms"],
+                 **verify})
     return rows
 
 
@@ -1078,13 +1178,16 @@ def phase_int8_kernels(seed: int, card: str) -> list[dict]:
     beside_bf16(label, t["ms"], kq, vq, ks, vs,
                 lambda k, v: paged_chunk_attention(q, k, v, tables, offs),
                 c, card)
+    verify = time_verify_shape(gen, rng, card, int8=True)
     rows.append({"name": "paged_chunk_attention_q8", "route": "cuda",
                  "source": "grove_tpu_torch/csrc/paged_attn.cu",
                  "replaces": "grove_tpu/models/llama.py:707",
-                 "launches": 0, "max_abs_err": errs["chunk"],
+                 "launches": 0, "max_abs_err": max(
+                     errs["chunk"], verify["verify_max_abs_err"]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None, "yardstick_ms": t["yardstick_ms"]})
+                 "library_ms": None, "yardstick_ms": t["yardstick_ms"],
+                 **verify})
     return rows
 
 
@@ -1607,6 +1710,100 @@ def check_rope_scatter(gen, card: str) -> list[dict]:
         rows_out.append(row)
     return rows_out
 
+
+RMS_SHAPES = [                            # rows, d, x type, weight type
+    (32, 2048, "bfloat16", "bfloat16"),   # a decode step of llama-1b
+    (128, 2048, "bfloat16", "bfloat16"),  # its verify chunk at k = 3
+    (4096, 2048, "bfloat16", "bfloat16"),  # a lanes prefill, 32 x 128
+    (8, 512, "bfloat16", "bfloat16"),     # the tiny draft's width
+    (7, 64, "float32", "float32"),        # test-tiny
+    (5, 100, "float32", "bfloat16"),      # ragged d, mixed types
+    (3, 2048, "bfloat16", "float32"),
+]
+
+
+def check_rms_norm(gen, card: str) -> dict:
+    """The rms_norm kernel: its builds' registers and spills, against its
+    plain version (f32 1e-5; bf16 one output ulp, 2^-7 relative, after
+    another sum order),
+    rows bitwise independent of the number of rows (M = 1..256 and 4,096
+    against the same rows in one call), then timed at the decode shape
+    beside its bound, its plain version and torch's fused
+    ``F.rms_norm``. Returns its kernel-table row."""
+    import torch
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops import norms
+    for xt in ("float32", "bfloat16"):
+        for wt in ("float32", "bfloat16"):
+            info = norms.kernel_info(getattr(torch, xt), getattr(torch, wt))
+            log(f"kernels: build rms_norm x {xt} weight {wt}: "
+                f"{info['registers']} registers, {info['local_bytes']} "
+                f"bytes spill, no shared memory beyond 36 bytes")
+    err = 0.0
+    for rows, d, xt, wt in RMS_SHAPES:
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(
+            getattr(torch, xt)) * 3
+        w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(
+            getattr(torch, wt))
+        out, ref = norms.rms_norm(x, w), norms.rms_norm_ref(x, w)
+        e = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-5 if xt == "float32" else 2 ** -7  # bf16: one ulp
+        ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+        log(f"kernels: rms_norm rows={rows} d={d} x {xt} weight {wt} "
+            f"max_abs_err={e:.3e} rtol=atol={tol} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rms_norm kernel disagrees with its plain "
+                                 "version")
+        err = max(err, e)
+    x = torch.randn((4096, 2048), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((2048,), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    whole = norms.rms_norm(x, w)
+    base = norms.rms_norm(x[:256], w)
+    same = all(torch.equal(norms.rms_norm(x[:m], w), base[:m])
+               for m in (1, 2, 3, 4, 8, 12, 16, 31, 32, 64, 128, 256))
+    same = same and torch.equal(whole[:256], base)
+    # What the kernel replaced: torch's mean splits a row's sum by the
+    # number of rows, so the composition's rows may differ across M.
+    ref_base = norms.rms_norm_ref(x[:256], w)
+    ref_same = sum(torch.equal(norms.rms_norm_ref(x[:m], w), ref_base[:m])
+                   for m in (1, 2, 3, 4, 8, 12, 16, 31, 32, 64, 128))
+    log(f"kernels: rms_norm rows of M = 1..256 and 4096 against the same "
+        f"rows in one call: {'bitwise equal' if same else 'DIFFER'} (the "
+        f"plain composition: {ref_same} of 11 row counts bitwise equal to "
+        f"M = 256)")
+    if not same:
+        raise AssertionError("rms_norm rows depend on the number of rows")
+    x, w = x[:32].contiguous(), w
+    rows, d = x.shape
+    bound = (2 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S * 1e3
+    t = {"ms": time_ms(lambda: norms.rms_norm(x, w)),
+         "plain_ms": time_ms(lambda: norms.rms_norm_ref(x, w)),
+         "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-5))}
+    for name, value in t.items():
+        log(f"kernels: rms_norm decode shape rows={rows} d={d} bf16 "
+            f"{name}={value} on {card}")
+    log(f"kernels: rms_norm decode shape bound_ms={bound} (bytes; "
+        f"{100 * bound / t['ms']:.1f}% of it), {t['library_ms'] / t['ms']:.2f}x "
+        f"the speed of F.rms_norm, {t['plain_ms'] / t['ms']:.2f}x the plain "
+        f"composition's on {card}")
+    for rows_b in (128, 4096):
+        xb = torch.randn((rows_b, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        log(f"kernels: rms_norm rows={rows_b} d={d} bf16 ms="
+            f"{time_ms(lambda: norms.rms_norm(xb, w))} (plain "
+            f"{time_ms(lambda: norms.rms_norm_ref(xb, w))}, F.rms_norm "
+            f"{time_ms(lambda: F.rms_norm(xb, (d,), w, 1e-5))}) on {card}")
+    return {"name": "rms_norm", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/rms_norm.cu",
+            "replaces": "grove_tpu/ops/norms.py:10", "launches": 0,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+            "per": f"one call at the decode shape, {rows} rows of {d}"}
+
+
 def drive_paged(eng, want: int, max_iters: int = 100_000) -> None:
     for _ in range(max_iters):
         eng.admit_from_queue()
@@ -1799,7 +1996,7 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     import numpy as np
     import torch
     from grove_tpu_torch.models.llama import CONFIGS, init_params
-    from grove_tpu_torch.ops import kvquant, paged, w8a16
+    from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
     from grove_tpu_torch.serving.engine import PagedDecodeEngine, make_engine
 
     cfg = cfg or CONFIGS["llama-1b"]
@@ -1809,9 +2006,9 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 paged.paged_decode_attention_q8,
                 paged.paged_chunk_attention_q8, kvquant.paged_rope_scatter_q,
                 kvquant.paged_rope_scatter, kvquant.paged_scatter_q,
-                kvquant.paged_scatter, w8a16.w8a16_matmul)
+                kvquant.paged_scatter, w8a16.w8a16_matmul, norms.rms_norm)
     kernels = ("paged_partial", "paged_combine", "rope_scatter_kernel",
-               "w8a16")
+               "w8a16", "rms_norm_kernel")
     rng = np.random.default_rng(seed + 11)
     lens = rng.integers(prompt_lo, prompt_hi + 1, size=n_requests)
     prefix = rng.integers(0, cfg.vocab_size, size=shared)
@@ -1932,11 +2129,14 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 "paged_rope_scatter": 0 if q8 else n * (steps + chunks),
                 "paged_scatter_q": 0, "paged_scatter": 0,
                 "w8a16_matmul": (GEMMS_PER_LAYER * n + 1) * (steps + chunks)
-                if on_cuda else 0}
+                if on_cuda else 0,
+                "rms_norm": (2 * n + 1) * (steps + chunks) if on_cuda
+                else 0}
         log(f"paged: {label}: launches {counts} ({cfg.n_layers} per decode "
             f"step and per chunk for each attention kernel and the fused "
             f"rope + write, none of the write alone, "
-            f"{GEMMS_PER_LAYER * cfg.n_layers + 1} GEMM launches: {want}); "
+            f"{GEMMS_PER_LAYER * cfg.n_layers + 1} GEMM launches and "
+            f"{2 * cfg.n_layers + 1} of rms_norm: {want}); "
             f"graphs captured during "
             f"traffic: {eng.graphs_captured - captured0}")
         if counts != want:
@@ -1978,7 +2178,8 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 f"{'int8' if eng.kv_quant == 'int8' else 'model-dtype'} KV) "
                 f"{ms['paged_partial']:.3f} ms and its "
                 f"combine {ms['paged_combine']:.3f} ms, the fused rope + "
-                f"write {ms['rope_scatter_kernel']:.3f} ms of device time "
+                f"write {ms['rope_scatter_kernel']:.3f} ms, rms_norm "
+                f"{ms['rms_norm_kernel']:.3f} ms of device time "
                 f"per 8 decode steps; kernels per 8 decode steps "
                 f"{ms['count']} ({ms['count'] / (8 * cfg.n_layers):.1f} per "
                 f"layer and step), device busy {ms['busy_ms']:.3f} ms on "
@@ -2077,7 +2278,7 @@ def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
     import torch
     from grove_tpu_torch.models import llama
     from grove_tpu_torch.models.llama import CONFIGS, init_params
-    from grove_tpu_torch.ops import kvquant, paged, w8a16
+    from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
     from grove_tpu_torch.serving.quant import quantize_params
 
     cfg = cfg or CONFIGS["llama-1b"]
@@ -2103,7 +2304,8 @@ def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
     plain_fns = {"paged_decode_attention": paged.paged_decode_attention_ref,
                  "paged_chunk_attention": paged.paged_chunk_attention_ref,
                  "paged_rope_scatter": plain_write,
-                 "w8a16_matmul_group": w8a16.w8a16_matmul_group_ref}
+                 "w8a16_matmul_group": w8a16.w8a16_matmul_group_ref,
+                 "rms_norm": norms.rms_norm_ref}
 
     def run(plain: bool):
         saved = {name: getattr(llama, name) for name in plain_fns}
@@ -2209,6 +2411,379 @@ def batch_rows(cfg, params, seed: int, batch: int = 32, rows: int = 8,
            f"(traced in call order: {', '.join(traced)})"))
 
 
+# ---- speculative decoding on the paged engine ----
+
+SPEC_K = 3                                # draft tokens per dispatch
+SPEC_WRAPPERS = ("paged_decode_attention", "paged_chunk_attention",
+                 "paged_decode_attention_q8", "paged_chunk_attention_q8",
+                 "paged_rope_scatter", "paged_rope_scatter_q",
+                 "paged_scatter", "paged_scatter_q", "w8a16_matmul",
+                 "rms_norm")
+
+
+def spec_launches(cfg, dcfg, draft, int8_pool: bool, k: int, steps: int,
+                  chunks: int) -> dict[str, int]:
+    """The hand-written kernels' launches of a serve of ``steps`` decode
+    dispatches and ``chunks`` prefill chunks, int8 weights. Plain
+    (``draft`` None): per step and chunk one paged attention and one fused
+    write per layer, 4 GEMM launches per layer plus the head, and 2 rms_norm
+    per layer plus the final one. A self-draft dispatch: k decode steps and
+    one verify chunk over the target's pool, (k + 1) x 65 GEMM launches. A
+    tiny-draft dispatch: k draft steps and the chunk's replay (no head, so
+    no final norm) over the draft's model-dtype pool (its dense weights
+    take no GEMM launch), the target's verify chunk; each prefill chunk
+    replays through the draft too."""
+    L, G = cfg.n_layers, GEMMS_PER_LAYER * cfg.n_layers + 1
+    N = 2 * L + 1
+    q8, wq = ("_q8", "_q") if int8_pool else ("", "")
+    want = dict.fromkeys(SPEC_WRAPPERS, 0)
+
+    def add(name, n):
+        want[name] += n
+
+    if draft is None:
+        add("paged_decode_attention" + q8, L * steps)
+        add("paged_chunk_attention" + q8, L * chunks)
+        add("paged_rope_scatter" + wq, L * (steps + chunks))
+        add("w8a16_matmul", G * (steps + chunks))
+        add("rms_norm", N * (steps + chunks))
+    elif draft == "self":
+        add("paged_decode_attention" + q8, k * L * steps)
+        add("paged_chunk_attention" + q8, L * (steps + chunks))
+        add("paged_rope_scatter" + wq, (k + 1) * L * steps + L * chunks)
+        add("w8a16_matmul", (k + 1) * G * steps + G * chunks)
+        add("rms_norm", (k + 1) * N * steps + N * chunks)
+    else:
+        D = dcfg.n_layers
+        add("paged_chunk_attention" + q8, L * (steps + chunks))
+        add("paged_rope_scatter" + wq, L * (steps + chunks))
+        add("paged_decode_attention", k * D * steps)
+        add("paged_chunk_attention", D * (steps + chunks))
+        add("paged_rope_scatter", (k + 1) * D * steps + D * chunks)
+        add("w8a16_matmul", G * (steps + chunks))
+        add("rms_norm", N * (steps + chunks) + k * (2 * D + 1) * steps
+            + 2 * D * (steps + chunks))
+    return want
+
+
+def spec_rows(cfg, params, seed: int, batch: int = 32, c: int = SPEC_K + 1,
+              width: int = 64, device: str = "cuda") -> None:
+    """The first verify-chunk row of ``batch`` sequences (M = batch * c
+    rows through every projection) against a decode step of the same
+    sequences (M = batch), from the same pools: are row 0's logits bitwise
+    the decode's, and if not, which op (in call order) first gives that
+    row other bits. Reported, not asserted (with dense weights the
+    projections are cuBLAS's, whose rows may depend on M)."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama
+    traced = {"embed": "embed", "rms_norm": "rms_norm",
+              "_projs": "projection", "_proj": "projection",
+              "paged_rope_scatter": "rope + write",
+              "paged_decode_attention": "attention",
+              "paged_chunk_attention": "attention", "_logits": "head"}
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    rng = np.random.default_rng(seed + 23)
+    lens = torch.from_numpy(rng.integers(
+        1, min(width * PAGED_BS, cfg.max_seq_len) - c,
+        size=batch).astype(np.int32)).to(device)
+    tables = torch.from_numpy((1 + np.arange(batch * width, dtype=np.int32)
+                               ).reshape(batch, width)).to(device)
+    shape = (cfg.n_layers, 1 + batch * width, PAGED_BS, cfg.n_kv_heads,
+             cfg.head_dim)
+    k0 = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    v0 = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, c))
+                             .astype(np.int32)).to(device)
+
+    def run(verify: bool):
+        calls = []
+        saved = {name: getattr(llama, name) for name in traced}
+
+        def record(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                for t in out if isinstance(out, list) else [out]:
+                    # Each sequence's row 0 ([b, ...]); the decode head's
+                    # input is that row already.
+                    row = verify or name != "_logits"
+                    calls.append((traced[name], t[:, 0] if row else t))
+                return out
+            return call
+
+        for name in traced:
+            setattr(llama, name, record(name, saved[name]))
+        try:
+            k, v = k0.clone(), v0.clone()
+            if verify:
+                llama.verify_chunk_paged(cfg, params, chunk, k, v, tables,
+                                         lens)
+            else:
+                llama.decode_step_paged(cfg, params, chunk[:, 0], k, v,
+                                        tables, lens)
+        finally:
+            for name, fn in saved.items():
+                setattr(llama, name, fn)
+        return calls
+
+    dec, ver = run(False), run(True)
+    first = None
+    seen: dict[str, int] = {}
+    for (name, d), (_, w) in zip(dec, ver):
+        seen[name] = seen.get(name, 0) + 1
+        if first is None and not torch.equal(d, w):
+            first = (name, seen[name])
+    same = torch.equal(dec[-1][1], ver[-1][1])
+    log(f"spec: verify chunk row 0 (M = {batch * c}) vs a decode step "
+        f"(M = {batch}) of {batch} sequences, logits: "
+        f"{'bitwise equal' if same else 'DIFFER'} (max abs diff "
+        f"{(dec[-1][1] - ver[-1][1]).abs().max().item():.4e}); "
+        + ("every traced op's rows equal" if first is None else
+           f"first op whose rows differ: {first[0]}, call {first[1]} of it "
+           f"(traced in call order: embed, rms_norm, projections, rope + "
+           f"write, attention, head)"))
+
+
+def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
+                     n_requests: int = 32, batch: int = 32,
+                     max_len: int = 2048, new_tokens: int = 64,
+                     prompt_lo: int = 64, prompt_hi: int = 1024,
+                     bench_len: int = 512, bench_steps: int = 32,
+                     short_lo: int = 100, short_hi: int = 300,
+                     k: int = SPEC_K) -> dict[str, int]:
+    """Speculative serving: llama-1b with int8 weights through
+    ``make_engine(spec_decode=True)``, batch 32. (1) ``n_requests``
+    requests of prompt_lo..prompt_hi tokens, ``new_tokens`` each, spec off
+    and self-draft over a bf16 and an int8 pool, and the tiny draft over a
+    bf16 pool: tokens equal spec off's per request; graphs all captured at
+    warmup; (3) the kernels' launches of each serve equal ``spec_launches``
+    (the counts are zeroed before each serve). (2) A full batch of
+    ``bench_len``-token prompts decoding: tokens/s spec against off over
+    each pool, a profiled window of 8 dispatches. (4) k = 7 at B = 32 (the
+    verify's M = 256): spec == off tokens. (5) bf16 weights: spec == off
+    reported, and ``spec_rows``. Returns the kernels' launches summed over
+    the spec serves of (1). With ``device="cpu"`` and a small ``cfg`` the
+    same steps rehearse on the CPU (plain versions, eager steps, no launch
+    counted, no profile)."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models.llama import CONFIGS, draft_config, \
+        init_params
+    from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
+    from grove_tpu_torch.serving.engine import make_engine
+    from grove_tpu_torch.serving.quant import quantize_params
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    dcfg = draft_config(cfg)
+    on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    wrappers = [getattr(m, n) for n in SPEC_WRAPPERS
+                for m in (paged, kvquant, w8a16, norms) if hasattr(m, n)]
+    kernels = ("paged_partial", "paged_combine", "rope_scatter_kernel",
+               "w8a16", "rms_norm_kernel")
+    rng = np.random.default_rng(seed + 21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(prompt_lo, prompt_hi + 1,
+                                     size=n_requests)]
+    bench = rng.integers(0, cfg.vocab_size,
+                         (batch, bench_len)).astype(np.int32)
+    short_lens = rng.integers(short_lo, short_hi + 1,
+                              size=batch).astype(np.int32)
+    short = rng.integers(0, cfg.vocab_size,
+                         (batch, short_hi)).astype(np.int32)
+    gen = torch.Generator(device=device).manual_seed(seed + 21)
+    dense = init_params(cfg, gen, device=device)
+    qparams = quantize_params(dense)
+
+    def build(label, params, lo, hi, **kw):
+        t0 = time.perf_counter()
+        eng = make_engine(cfg, params, batch=batch, max_len=max_len,
+                          device=device, **kw)
+        span = eng.spec_k + 1 if eng.spec_decode else 1
+        widths = eng.decode_width_buckets(lo, hi + span)
+        chunk_widths = eng.decode_width_buckets(1, hi)
+        built = eng.warmup(widths=widths, prefill_widths=chunk_widths)
+        kind = ("spec off" if not eng.spec_decode else
+                f"spec k={eng.spec_k}, " + ("self-draft" if eng._self_draft
+                                            else "tiny draft "
+                                            f"({dcfg.n_layers} layers, "
+                                            f"d_model {dcfg.d_model})"))
+        log(f"spec: {label}: {kind}, {eng.kv_quant} KV, batch {batch}; "
+            f"warmup built {built} graphs ({'spec' if eng.spec_decode else 'decode'}"
+            f": batches {eng._sched.batch_buckets} x widths {widths}; "
+            f"chunks: widths {chunk_widths}; plain decode graphs "
+            f"{len(eng._steps)}) in {time.perf_counter() - t0:.2f} s, "
+            f"{eng.capture_bytes / 2**20:.1f} MiB of graph memory on {card}")
+        if eng.spec_decode and eng._steps:
+            raise AssertionError(f"{label}: a spec engine built plain steps")
+        return eng
+
+    def serve(eng, label, draft):
+        """The traffic; returns (tokens in submission order, counts)."""
+        for w in wrappers:
+            w.launches = 0
+        steps0, chunks0, cap0 = eng.steps, eng.chunks, eng.graphs_captured
+        n0 = len(eng.completed)
+        t = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        drive_paged(eng, n0 + n_requests)
+        sync()
+        wall = time.perf_counter() - t
+        counts = {w.__name__: w.launches for w in wrappers}
+        done = {r.rid: list(r.generated) for r in eng.completed[n0:]}
+        if sorted(done) != rids or any(
+                len(g) != new_tokens or not all(0 <= x < cfg.vocab_size
+                                                for x in g)
+                for g in done.values()):
+            raise AssertionError(f"{label}: wrong requests or tokens")
+        steps, chunks = eng.steps - steps0, eng.chunks - chunks0
+        st = eng.spec_stats()
+        log(f"spec: {label}: {n_requests} requests, "
+            f"{n_requests * new_tokens} tokens in {wall:.3f} s over "
+            f"{steps} decode dispatches and {chunks} prefill chunks"
+            + (f"; accepted per dispatch {st['accepted_per_dispatch']:.4f}, "
+               f"acceptance rate {st['acceptance_rate']:.4f}, buckets "
+               f"{sorted(st['per_bucket'])}" if st else "")
+            + f"; graphs captured during traffic "
+            f"{eng.graphs_captured - cap0} on {card}")
+        want = spec_launches(cfg, dcfg, draft, eng.kv.quantized, eng.spec_k,
+                             steps if on_cuda else 0,
+                             chunks if on_cuda else 0)
+        log(f"spec: {label}: launches {counts}; want {want}")
+        if counts != want:
+            raise AssertionError(f"{label}: kernel launches off the path")
+        if draft is not None:
+            per = spec_launches(cfg, dcfg, draft, eng.kv.quantized,
+                                eng.spec_k, 1, 0)
+            log(f"spec: {label}: launches per spec dispatch "
+                f"{ {n: v for n, v in per.items() if v} }")
+        if eng.graphs_captured != cap0:
+            raise AssertionError(f"{label}: graphs captured mid-traffic")
+        return [done[r] for r in rids], counts
+
+    def decode_bench(eng, label):
+        """A full batch decoding: tokens/s, then a profiled window of 8
+        dispatches."""
+        new = (eng.spec_k + 1) * (bench_steps + 16) + 16
+        eng.admit_prompts(bench, max_new_tokens=new)
+        eng.run(2)
+        sync()
+        c0 = eng.spec_stats().get("committed_tokens", 0)
+        t = time.perf_counter()
+        eng.run(bench_steps)
+        sync()
+        wall = time.perf_counter() - t
+        tokens = (eng.spec_stats()["committed_tokens"] - c0
+                  if eng.spec_decode else batch * bench_steps)
+        log(f"spec: {label}: decode {tokens / wall:.1f} tokens/s (batch "
+            f"{batch}, prompts of {bench_len}, run({bench_steps}) in "
+            f"{wall * 1e3:.1f} ms, {wall * 1e3 / bench_steps:.3f} ms per "
+            f"dispatch, {tokens} tokens) on {card}")
+        if not on_cuda:
+            return tokens / wall
+        ms = profile_window(f"spec decode ({label})", lambda: eng.run(8),
+                            wall * 1e3 / bench_steps * 8, card, kernels)
+        log(f"spec: {label}: per dispatch {ms['count'] / 8:.1f} kernels, "
+            f"{ms['busy_ms'] / 8:.3f} ms of device time (paged pass 1 "
+            f"{ms['paged_partial'] / 8:.3f}, combine "
+            f"{ms['paged_combine'] / 8:.3f}, fused write "
+            f"{ms['rope_scatter_kernel'] / 8:.3f}, GEMM "
+            f"{ms['w8a16'] / 8:.3f}, rms_norm {ms['rms_norm_kernel'] / 8:.3f})"
+            f" on {card}")
+        return tokens / wall
+
+    def compare(label, off, on):
+        for i, (a, b) in enumerate(zip(off, on)):
+            if a != b:
+                at = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                return f"{label}: DIFFER, first at request {i}, token {at}"
+        return None
+
+    # (1)-(3): token parity and launches; (2) the decode bench per pool.
+    def short_run(eng):
+        """A full batch at once (admit_prompts prefills every row first):
+        ``batch`` prompts of 100..300 tokens, 24 new tokens each."""
+        r0 = eng._next_rid
+        n0 = len(eng.completed)
+        eng.admit_prompts(short, max_new_tokens=short_new,
+                          lengths=short_lens)
+        drive_paged(eng, n0 + batch)
+        return [r.generated for r in sorted(eng.completed[n0:],
+                                            key=lambda r: r.rid - r0)]
+
+    short_new = 24
+    rates: dict[str, float] = {}  # spec off's decode tokens/s per pool
+    launches = dict.fromkeys(SPEC_WRAPPERS, 0)
+    hi = prompt_hi + new_tokens
+    for pool in ("off", "int8"):
+        off = build(f"{pool} KV, spec off", qparams, prompt_lo, hi,
+                    kv_quant=pool)
+        ref, _ = serve(off, f"{pool} KV, spec off", None)
+        if pool == "off":
+            ref7 = short_run(off)  # the k = 7 check's reference
+        rates[f"{pool} off"] = decode_bench(off, f"{pool} KV, spec off")
+        del off
+        torch.cuda.empty_cache()
+        runs = [("self", {"draft_params": "self"})]
+        if pool == "off":
+            runs.append(("tiny", {}))
+        for draft, kw in runs:
+            label = f"{pool} KV, {draft}-draft k={k}"
+            eng = build(label, qparams, prompt_lo, hi, kv_quant=pool,
+                        spec_decode=True, spec_k=k, **kw)
+            got, counts = serve(eng, label, draft)
+            bad = compare(label, ref, got)
+            log(f"spec: {label}: tokens vs spec off: "
+                f"{bad or 'equal for every request'}")
+            if bad:
+                raise AssertionError(bad)
+            for n, v in counts.items():
+                launches[n] += v
+            rate = decode_bench(eng, label)
+            log(f"spec: {pool} KV: decode tokens/s {draft}-draft k={k} "
+                f"{rate:.1f} against spec off {rates[f'{pool} off']:.1f}: "
+                f"{rate / rates[f'{pool} off']:.3f}x on {card}")
+            del eng
+            torch.cuda.empty_cache()
+
+    # (4) k = 7 at B = 32: the verify's GEMM at M = 256.
+    eng = build("off KV, self-draft k=7", qparams, short_lo,
+                short_hi + short_new,
+                kv_quant="off", spec_decode=True, spec_k=7,
+                draft_params="self")
+    got7 = short_run(eng)
+    buckets = sorted(eng.spec_stats()["per_bucket"])
+    bad = compare("k=7", ref7, got7)
+    log(f"spec: off KV, self-draft k=7 at batch {batch} (buckets {buckets}; "
+        f"verify M = {batch * 8} at b{batch}): tokens vs spec off: "
+        f"{bad or 'equal for every request'}")
+    if bad:
+        raise AssertionError(bad)
+    if not any(b.startswith(f"b{batch},") for b in buckets):
+        raise AssertionError(f"k=7: the batch never reached {batch}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (5) bf16 weights: the projections through cuBLAS. Reported only.
+    outs = []
+    for spec in (False, True):
+        kw = dict(spec_decode=True, spec_k=k, draft_params="self") \
+            if spec else {}
+        eng = build(f"bf16 weights, {'self-draft' if spec else 'spec off'}",
+                    dense, short_lo, short_hi + short_new, kv_quant="off",
+                    **kw)
+        outs.append(short_run(eng))
+        del eng
+        torch.cuda.empty_cache()
+    bad = compare("bf16 weights", *outs)
+    log(f"spec: bf16 weights (dense projections), self-draft k={k} vs spec "
+        f"off: {bad or 'tokens equal for every request'} (reported, not "
+        f"asserted)")
+    spec_rows(cfg, dense, seed, device=device)
+    spec_rows(cfg, qparams, seed, device=device)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2228,6 +2803,15 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(f"device: nvidia-smi name, power.limit: {card}")
 
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"time: {name} {now - t_phase[0]:.1f} s (total "
+            f"{now - t_start:.1f} s)")
+        t_phase[0] = now
+
     # 2. build
     t0 = time.perf_counter()
     build = _build.build_all()
@@ -2239,6 +2823,7 @@ def main() -> int:
                                        "spill", "error", "warning")):
                 log(f"build: {stem}: {line.strip()}")
 
+    phase_done("phases 1-2 (device, build)")
     # 3. kernels vs plain
     flash_row = phase_kernels(args.seed, card)
     paged_rows = phase_paged_kernels(args.seed, card)
@@ -2246,23 +2831,38 @@ def main() -> int:
     write_gen = torch.Generator(device="cuda").manual_seed(args.seed + 15)
     check_scatter(write_gen, card)
     paged_rows += check_rope_scatter(write_gen, card)
+    paged_rows.append(check_rms_norm(write_gen, card))
     paged_rows.append(phase_w8a16_kernels(args.seed, card))
+    phase_done("phase 3 (kernels)")
     # 4. the lanes path; 5. the flash and W8A16 kernels through the model
     lanes = phase_serve(args.seed, card)
     flash_row["launches"] = lanes["flash_causal_attention"]
     if not lanes["w8a16_matmul"]:
         raise AssertionError("w8a16_matmul never launched on the lanes path")
+    phase_done("phase 4 (lanes serve)")
     phase_model(args.seed, card)
+    phase_done("phase 5 (model)")
     # 6. paged parity; 7. the paged path (the default make_engine);
     # 8. the paged kernels through the model
     phase_paged_parity(args.seed)
+    phase_done("phase 6 (paged parity)")
     launches = phase_paged_serve(args.seed, card)
     for row in paged_rows:
         row["launches"] = launches[row["name"]]
         if not row["launches"]:
             raise AssertionError(f"{row['name']} never launched on the "
                                  f"paged path")
+    phase_done("phase 7 (paged serve)")
     phase_paged_model(args.seed, card)
+    phase_done("phase 8 (paged model)")
+    # 9. speculative decoding on the paged engine
+    spec = phase_spec_serve(args.seed, card)
+    for row in paged_rows:
+        row["spec_launches"] = spec[row["name"]]
+        if not row["spec_launches"]:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 f"spec path")
+    phase_done("phase 9 (speculative serve)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

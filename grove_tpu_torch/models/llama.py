@@ -86,6 +86,26 @@ CONFIGS: dict[str, LlamaConfig] = {
 }
 
 
+def draft_config(cfg: LlamaConfig) -> LlamaConfig:
+    """Shrink a target config into its speculative-decoding draft: a
+    quarter of the width and depth, the same vocab (acceptance compares
+    token ids), rope geometry, context budget and head_dim (so the draft's
+    pool shares the target's block geometry and tables; only n_kv and the
+    layer count differ)."""
+    n_heads = max(2, cfg.n_heads // 4)
+    n_kv = max(1, cfg.n_kv_heads // 4)
+    while n_heads % n_kv:  # GQA grouping needs an even split
+        n_kv -= 1
+    return dataclasses.replace(
+        cfg,
+        d_model=max(32, cfg.d_model // 4),
+        n_layers=max(1, cfg.n_layers // 4),
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        d_ff=max(64, cfg.d_ff // 4),
+    )
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
                 device: str | torch.device | None = None) -> Params:
     """Random params (layers stacked on axis 0): normal(0, 1) * fan_in**-0.5
@@ -235,7 +255,8 @@ def _logits(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def head(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head."""
+    """Final norm + LM head over every row of ``x`` [..., d]: f32
+    logits."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(x, params["lm_head"])
 
@@ -375,7 +396,8 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                       kv_k: torch.Tensor, kv_v: torch.Tensor,
                       tables: torch.Tensor, lengths: torch.Tensor,
                       k_scale: torch.Tensor | None = None,
-                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                      v_scale: torch.Tensor | None = None,
+                      limit: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step over block tables. tokens: [b]; pools:
     [layers, num_blocks, bs, n_kv, d]; tables: [b, w] int32; lengths: [b]
     int32 = tokens already in cache (the new token writes at that
@@ -383,11 +405,17 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     n_kv] f32) the pools are int8. Writes the new K/V (and scales) into the
     pools in place and returns the logits [b, vocab] f32.
 
+    ``limit`` [b] int32, when given, caps the writes: a row at a position
+    >= its limit writes into the null block instead (the speculative
+    draft's steps past a sequence's backed capacity). Without it every row
+    writes where its table says.
+
     Everything stays on the device and nothing is read back to the host,
     so the engine can capture the step in a CUDA graph: ``tables`` and
     ``lengths`` are read by the kernels from device memory. Attention reads
     only the w * bs window of the bucketed table width."""
     positions = lengths[:, None]  # [b, 1]
+    valid = None if limit is None else positions < limit[:, None]
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
                      tokens.device)
     x = embed(cfg, params, tokens[:, None])  # [b, 1, d]
@@ -400,7 +428,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             q, k, v, cos, sin, kv_k[i], kv_v[i],
             None if k_scale is None else k_scale[i],
             None if v_scale is None else v_scale[i], tables, positions,
-            new_lengths, None, decode=True)
+            new_lengths, valid, decode=True)
         x = _attn_out(x, attn, lp)
         x = _mlp_block(cfg, x, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -420,7 +448,8 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
                         kv_v: torch.Tensor, tables: torch.Tensor,
                         offset, logit_idx, n_valid=None,
                         k_scale: torch.Tensor | None = None,
-                        v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                        v_scale: torch.Tensor | None = None,
+                        logits: bool = True) -> torch.Tensor | None:
     """One chunked-prefill window over block tables, the pools written in
     place (int8 pools with ``k_scale``/``v_scale``, as in
     ``decode_step_paged``).
@@ -438,7 +467,9 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
     [b, vocab] f32 at row ``logit_idx``: the caller passes the last valid
     row for the chunk that completes the prompt. An index outside the chunk
     is clamped into it (the JAX package's ``take`` returns NaN rows there
-    instead; no caller passes one)."""
+    instead; no caller passes one). ``logits=False`` writes the pools only
+    and returns None (the speculative draft's replay of a chunk, whose
+    logits nobody reads)."""
     b, c = tokens.shape
     dev = tokens.device
     offset = _device_scalar(offset, dev)
@@ -461,6 +492,141 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
             offsets, valid, decode=False)
         x = _attn_out(x, attn, lp)
         x = _mlp_block(cfg, x, lp)
+    if not logits:
+        return None
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     row = x.index_select(1, logit_idx.clamp(0, c - 1))[:, 0]  # [b, d]
     return _logits(row, params["lm_head"])
+
+
+# ---- speculative decoding --------------------------------------------
+# Verifying k drafted tokens is a (k + 1)-wide chunk with logits at every
+# row and a per-sequence causal offset (each sequence sits at its own
+# length). Row i's logits depend only on cache rows < lengths + i and chunk
+# rows <= i, which hold what sequential greedy decoding would have written,
+# so the argmax of each row is the token sequential greedy emits there:
+# acceptance is exact, not approximate. That rests on each row's numbers
+# not depending on the rest of the batch: the projections' rows on M (the
+# W8A16 GEMM's for M <= 256, ops/w8a16.py ``partition``; a dense weight's
+# cuBLAS product gives no such promise), attention's rows on decode vs
+# chunk (csrc/paged_attn.cu's header), rms_norm's on the row count
+# (ops/norms.py) and the KV write's codes and scales on the row alone
+# (ops/kvquant.py).
+
+
+def verify_chunk_paged(cfg: LlamaConfig, params: Params,
+                       tokens: torch.Tensor, kv_k: torch.Tensor,
+                       kv_v: torch.Tensor, tables: torch.Tensor,
+                       lengths: torch.Tensor,
+                       limit: torch.Tensor | None = None,
+                       k_scale: torch.Tensor | None = None,
+                       v_scale: torch.Tensor | None = None,
+                       logits: bool = True) -> torch.Tensor | None:
+    """The target's verification chunk. tokens: [b, c] int32, row 0 the
+    last committed token and rows 1..c-1 the draft; row i writes its K/V at
+    position lengths[b] + i (into the pools, in place; int8 pools with
+    ``k_scale``/``v_scale``) and its logits predict position lengths[b] +
+    i + 1. ``limit`` [b] caps the writes per sequence (the least of max_len
+    and the table's backed capacity): rows at positions >= limit write into
+    the null block. Returns the f32 logits [b, c, vocab], or None with
+    ``logits=False`` (the tiny draft's replay of the chunk).
+
+    Nothing is read back to the host: the offsets and the valid mask are
+    device tensors, so the engine captures this inside its spec step."""
+    c = tokens.shape[1]
+    dev = tokens.device
+    positions = lengths[:, None] + torch.arange(c, dtype=torch.int32,
+                                                device=dev)[None, :]
+    valid = None if limit is None else positions < limit[:, None]
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    x = embed(cfg, params, tokens)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        q, k, v = _qkv_proj(cfg, x, lp)
+        attn = _write_and_attend(
+            q, k, v, cos, sin, kv_k[i], kv_v[i],
+            None if k_scale is None else k_scale[i],
+            None if v_scale is None else v_scale[i], tables, positions,
+            lengths, valid, decode=False)
+        x = _attn_out(x, attn, lp)
+        x = _mlp_block(cfg, x, lp)
+    if not logits:
+        return None
+    return head(cfg, params, x)
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row: the first index of the largest logit,
+    int32 (the engine's ``sample_tokens`` at temperature 0)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
+                    dparams: Params, tokens: torch.Tensor,
+                    kv_k: torch.Tensor, kv_v: torch.Tensor,
+                    draft_k: torch.Tensor | None,
+                    draft_v: torch.Tensor | None, tables: torch.Tensor,
+                    lengths: torch.Tensor, limit: torch.Tensor, spec_k: int,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None,
+                    self_draft: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One speculative decode step: draft ``spec_k`` tokens greedily with
+    the draft model (its own pool ``draft_k``/``draft_v``, addressed by the
+    same block tables), verify them and the input token in one
+    (spec_k + 1)-wide target chunk, and accept the longest agreeing prefix
+    plus one bonus token, the target's argmax after it. That is exactly
+    what sequential greedy decoding emits; rejected rows sit above the new
+    length, causally invisible, and the next step overwrites them.
+
+    ``limit`` [b] is each sequence's write cap; acceptance is clamped so
+    that the new length stays <= limit and every committed token's K/V row
+    is real. A padded row carries limit 0: its writes land in the null
+    block and its length stays.
+
+    ``self_draft``: the drafter is the target (dcfg/dparams are cfg/params)
+    and drafts straight over the target's pools (int8 ones too, with their
+    scales): its writes at lengths..lengths + k - 1 are what the verify
+    chunk writes there again, bit for bit, so no draft pool exists
+    (``draft_k``/``draft_v`` are None) and no draft replay runs. Otherwise
+    the draft replays the whole chunk into its pool afterwards (its own
+    steps wrote only their inputs' rows, so the last draft's row would stay
+    a hole), with no head.
+
+    Writes the pools in place and returns (out_tokens [b, spec_k + 1]
+    int32: the committed tokens, then -1; next_tokens [b]; new_lengths
+    [b]). Nothing is read back to the host."""
+    scales = dict(k_scale=k_scale, v_scale=v_scale) if self_draft else {}
+    pool_k, pool_v = (kv_k, kv_v) if self_draft else (draft_k, draft_v)
+    tokens = tokens.to(torch.int32)
+    tok, ln, drafts = tokens, lengths, []
+    for _ in range(spec_k):
+        tok = greedy_tokens(decode_step_paged(
+            dcfg, dparams, tok, pool_k, pool_v, tables, ln, limit=limit,
+            **scales))
+        drafts.append(tok)
+        ln = ln + 1
+    drafts = torch.stack(drafts, dim=1)                      # [b, k]
+    chunk = torch.cat([tokens[:, None], drafts], dim=1)      # [b, k + 1]
+    if not self_draft:
+        verify_chunk_paged(dcfg, dparams, chunk, draft_k, draft_v, tables,
+                           lengths, limit=limit, logits=False)
+    tgt = greedy_tokens(verify_chunk_paged(
+        cfg, params, chunk, kv_k, kv_v, tables, lengths, limit=limit,
+        k_scale=k_scale, v_scale=v_scale))                   # [b, k + 1]
+    agree = (drafts == tgt[:, :-1]).to(torch.int32)
+    m = torch.cumprod(agree, dim=1).sum(dim=1, dtype=torch.int32)
+    # Committed token i's K/V lives at lengths + i, which must be < limit;
+    # the bonus needs no row yet (it is the next step's input). A full or
+    # padded row (limit <= lengths) commits nothing.
+    m = torch.minimum(m, (limit - lengths - 1).clamp_min(0))
+    bonus = torch.take_along_dim(tgt, m[:, None].to(torch.long), dim=1)
+    idx = torch.arange(spec_k + 1, dtype=torch.int32,
+                       device=tokens.device)[None, :]
+    drafts_p = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    out = torch.where(idx == m[:, None], bonus, drafts_p)
+    out = torch.where(idx <= m[:, None], out, torch.full_like(out, -1))
+    new_lengths = torch.minimum(lengths + m + 1,
+                                torch.maximum(limit, lengths))
+    return out, bonus[:, 0], new_lengths

@@ -6,9 +6,11 @@ worker.
   KV blocks with per-request block tables (serving/kvcache.py), int8 or
   model-dtype pools, chunked prefill interleaved with decode, recompute
   preemption, and the prefix cache with copy-on-write
-  (serving/schedule.py); greedy or sampled decoding; one CUDA graph per
-  (batch, table width) decode bucket and one per prefill-chunk width,
-  where the JAX package compiles one ``jax.jit`` per bucket;
+  (serving/schedule.py); greedy or sampled decoding; speculative greedy
+  decoding (``GROVE_SPEC_DECODE=1``: a self-draft or a tiny draft model);
+  one CUDA graph per (batch, table width) decode or spec bucket and one
+  per prefill-chunk width, where the JAX package compiles one ``jax.jit``
+  per bucket;
 - ``DecodeEngine`` (``GROVE_ENGINE=lanes``): fixed decode batch lanes;
   inactive lanes compute too, so every step has the same shapes; prefill
   and decode are separate calls so that they can run in separate pods:
@@ -20,9 +22,9 @@ worker.
   the device;
 - a queue-depth metric hook feeds the control plane's autoscaler.
 
-Not ported yet, and raising when asked for (ROADMAP.md, queue 1):
-speculative decoding, tensor parallelism and disaggregated serving; the
-request and device observatories; the lanes worker's chunked prefill.
+Not ported yet, and raising when asked for (ROADMAP.md, queue 1): tensor
+parallelism and disaggregated serving; the request and device
+observatories; the lanes worker's chunked prefill.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from grove_tpu_torch.models.llama import LlamaConfig
 from grove_tpu_torch.ops.kvcache import KVCache
 from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
                                          paged_rope_scatter_q)
+from grove_tpu_torch.ops.norms import rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
                                        paged_decode_attention,
@@ -56,7 +59,8 @@ from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
 # launches, by wrapper.
 _KERNEL_WRAPPERS = (paged_decode_attention, paged_chunk_attention,
                     paged_decode_attention_q8, paged_chunk_attention_q8,
-                    paged_rope_scatter_q, paged_rope_scatter, w8a16_matmul)
+                    paged_rope_scatter_q, paged_rope_scatter, w8a16_matmul,
+                    rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +83,7 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator | None,
     categorical draw is Gumbel-max with noise from ``generator`` (on the
     logits' device); it does not reproduce the JAX package's draws."""
     if cfg.temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return llama.greedy_tokens(logits)
     scaled = logits / cfg.temperature
     if 0 < cfg.top_k < scaled.shape[-1]:
         kth = torch.topk(scaled, cfg.top_k, dim=-1).values[..., -1:]
@@ -584,6 +588,21 @@ class PagedDecodeEngine:
       per-width executables): static chunk tokens, table, offset, logit
       row and valid count go up in one pinned upload per tick, and a
       chunk that does not complete its prompt fetches nothing.
+    - **Speculative decoding** (``spec_decode=True`` or
+      ``GROVE_SPEC_DECODE=1``; ``spec_k`` or ``GROVE_SPEC_K``, default 3):
+      each decode dispatch drafts ``spec_k`` tokens, verifies them in one
+      (spec_k + 1)-wide target chunk and commits the longest agreeing
+      prefix plus a bonus token (``llama.spec_step_paged``): greedy only,
+      and bitwise the tokens of the plain engine. ``draft_params`` None
+      derives a tiny draft (``llama.draft_config``, random weights from a
+      generator seeded with ``sampler.seed + 1``) with its own model-dtype
+      pool, which each prefill chunk's graph fills too; ``"self"`` drafts
+      with the target over its own pool; a ``(cfg, params)`` pair is a
+      given draft. ``_get_spec(B, W)`` captures one graph per bucket that
+      reads the static tokens, lengths, tables and per-row ``limit`` (the
+      write cap, uploaded with the tables) and writes a static
+      [batch, spec_k + 1] out-token buffer; the committed counts stay on
+      the device until the window drains (``spec_stats``).
 
     Host discipline: the per-step dispatch path performs no device sync.
     Sampled tokens stay on the device; bookkeeping drains once per
@@ -613,16 +632,20 @@ class PagedDecodeEngine:
         _reject_unported(telemetry=telemetry, xprof=xprof, reqtrace=reqtrace)
         if mesh is not None:
             raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP.md, queue 1, "
-                "item 7)")
+                "tensor parallelism is not ported yet (ROADMAP.md, queue 1)")
         if spec_decode is None:
             spec_decode = os.environ.get("GROVE_SPEC_DECODE", "0") == "1"
-        if spec_decode or spec_k is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md, queue "
-                "1, item 3)")
+        self.spec_decode = bool(spec_decode)
+        if spec_k is None:
+            spec_k = int(os.environ.get("GROVE_SPEC_K", "3"))
+        self.spec_k = max(1, int(spec_k))
         self._sampler = sampler or SamplerConfig()
         self._sampling = self._sampler.temperature > 0.0
+        # Acceptance is an argmax-agreement test: under sampling there is
+        # no one token to agree with, so the combination is refused.
+        if self.spec_decode and self._sampling:
+            raise ValueError("speculative decoding is greedy-only "
+                             "(temperature must be 0)")
         if kv_quant is None:
             kv_quant = os.environ.get("GROVE_KV_QUANT", "off")
         self.cfg = cfg
@@ -634,6 +657,25 @@ class PagedDecodeEngine:
                                               self.device)
         self.params = _quantized(key_or_params, quant)
         self.quant = quant
+        # The draft: none (spec off), the target itself ("self"), a derived
+        # tiny draft (None) or a given (cfg, params) pair.
+        self._draft_cfg = self._draft_params = None
+        if self.spec_decode:
+            if draft_params is None:
+                self._draft_cfg = llama.draft_config(cfg)
+                dgen = torch.Generator(device=self.device).manual_seed(
+                    self._sampler.seed + 1)
+                self._draft_params = llama.init_params(
+                    self._draft_cfg, dgen, self.device)
+            elif isinstance(draft_params, str) and draft_params == "self":
+                self._draft_cfg, self._draft_params = cfg, self.params
+            else:
+                self._draft_cfg, self._draft_params = draft_params
+        self._self_draft = (self.spec_decode
+                            and self._draft_params is self.params)
+        self._spec_stats = {"draft_tokens": 0, "accepted_tokens": 0,
+                            "committed_tokens": 0, "dispatches": 0,
+                            "rows": 0, "per_bucket": {}}
         self.batch = batch          # max decode slots
         self.max_len = max_len or cfg.max_seq_len
         self.metric_hook = metric_hook
@@ -662,6 +704,16 @@ class PagedDecodeEngine:
                                  cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
                                  quant=kv_quant, device=self.device)
         self._alloc = BlockAllocator(num_blocks, block_size)
+        # A tiny draft keeps its own pool (never quantized: it is small, and
+        # int8 would cost draft accuracy), addressed by the target's block
+        # tables; a self-draft drafts over the target's pool.
+        self.draft_kv = None
+        if self.spec_decode and not self._self_draft:
+            dcfg = self._draft_cfg
+            self.draft_kv = PagedKV.create(dcfg.n_layers, num_blocks,
+                                           block_size, dcfg.n_kv_heads,
+                                           dcfg.head_dim, cfg.dtype,
+                                           device=self.device)
         if prefill_chunk is None:
             prefill_chunk = int(os.environ.get("GROVE_PAGED_CHUNK", 32))
         self.prefill_chunk = max(1, min(prefill_chunk, self.max_len))
@@ -688,9 +740,17 @@ class PagedDecodeEngine:
         self._len_buf = torch.zeros((batch,), dtype=torch.int32,
                                     device=self.device)
         self._table_bufs: dict[int, torch.Tensor] = {}
+        # Spec steps also read each row's write cap (0 for padded rows) and
+        # write the committed tokens, -1 past them.
+        self._limit_buf = torch.zeros((batch,), dtype=torch.int32,
+                                      device=self.device)
+        self._out_buf = torch.zeros((batch, self.spec_k + 1),
+                                    dtype=torch.int32, device=self.device)
         # One step per (batch bucket, width bucket): a captured graph's
-        # replay on the card, the eager step on the CPU.
+        # replay on the card, the eager step on the CPU. A spec engine
+        # builds spec steps only.
         self._steps: dict[tuple[int, int], Callable[[], None]] = {}
+        self._specs: dict[tuple[int, int], Callable[[], None]] = {}
         # Static prefill inputs, one int32 buffer uploaded once per chunk:
         # the chunk's c tokens, then offset, logit row and valid count,
         # then the table (its first W entries for width W). One chunk per
@@ -755,23 +815,69 @@ class PagedDecodeEngine:
         self._steps[key] = fn
         return fn
 
+    def _get_spec(self, B: int, W: int) -> Callable[[], None]:
+        """The speculative step of one (batch, width) bucket
+        (``llama.spec_step_paged``): reads the static tokens, lengths,
+        tables and limits, writes the pools in place, the committed tokens
+        into the static out-token buffer, and the next tokens and lengths
+        back into their buffers. One captured graph per bucket on the card
+        (the draft loop is a Python loop of a fixed ``spec_k`` inside the
+        capture), the eager step on the CPU."""
+        key = (B, W)
+        fn = self._specs.get(key)
+        if fn is not None:
+            return fn
+        cfg, params, kv, K = self.cfg, self.params, self.kv, self.spec_k
+        dcfg, dparams, draft = self._draft_cfg, self._draft_params, \
+            self.draft_kv
+        tokens, lengths = self._tok_buf[:B], self._len_buf[:B]
+        tables, limit = self._table_buf(W)[:B], self._limit_buf[:B]
+        out = self._out_buf[:B]
+        self_draft = self._self_draft
+
+        def spec() -> None:
+            committed, nxt, new_lengths = llama.spec_step_paged(
+                cfg, dcfg, params, dparams, tokens, kv.k, kv.v,
+                None if draft is None else draft.k,
+                None if draft is None else draft.v, tables, lengths, limit,
+                K, **kv.scales, self_draft=self_draft)
+            out.copy_(committed)
+            tokens.copy_(nxt)
+            lengths.copy_(new_lengths)
+
+        fn = self._capture(spec) if self.device.type == "cuda" else spec
+        self._specs[key] = fn
+        return fn
+
     def _get_prefill(self, W: int) -> Callable[[], torch.Tensor]:
         """The prefill chunk of table width ``W``: reads the static prefill
         buffer, writes the pools in place, returns the logits [1, vocab]
         (on the card, the captured graph's static output, valid until the
-        next replay)."""
+        next replay). With a tiny draft the same chunk (one graph) then
+        replays the tokens through the draft into its pool, with no head,
+        so that the draft has the history to draft from (prefix-cache hits
+        skip the matched blocks there too: stale draft rows cost acceptance
+        only, never tokens, since the target verifies)."""
         fn = self._prefills.get(W)
         if fn is not None:
             return fn
         cfg, params, kv, c = self.cfg, self.params, self.kv, \
             self.prefill_chunk
+        dcfg, dparams, draft = self._draft_cfg, self._draft_params, \
+            self.draft_kv
         buf = self._pf_buf
         tokens, table = buf[:c].view(1, c), buf[c + 3:c + 3 + W].view(1, W)
+        scalars = (buf[c:c + 1], buf[c + 1:c + 2], buf[c + 2:c + 3])
 
         def chunk() -> torch.Tensor:
-            return llama.prefill_chunk_paged(
-                cfg, params, tokens, kv.k, kv.v, table, buf[c:c + 1],
-                buf[c + 1:c + 2], buf[c + 2:c + 3], **kv.scales)
+            logits = llama.prefill_chunk_paged(
+                cfg, params, tokens, kv.k, kv.v, table, *scalars,
+                **kv.scales)
+            if draft is not None:
+                llama.prefill_chunk_paged(dcfg, dparams, tokens, draft.k,
+                                          draft.v, table, *scalars,
+                                          logits=False)
+            return logits
 
         fn = self._capture(chunk) if self.device.type == "cuda" else chunk
         self._prefills[W] = fn
@@ -788,7 +894,7 @@ class PagedDecodeEngine:
         attributes and every lazily built table happen outside the
         capture. That run reads the live static buffers and writes the
         pools' next K/V rows with the values the next real step writes
-        again; the token and length buffers it advances are restored
+        again; the token, length, limit and out-token buffers are restored
         before the capture. All graphs share one memory pool: no tensor
         allocated inside a capture outlives it, but the returned one. A
         sampling engine registers its generator with the graph, so each
@@ -801,14 +907,15 @@ class PagedDecodeEngine:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        saved = (self._tok_buf.clone(), self._len_buf.clone())
+        state = self._state_bufs()
+        saved = [t.clone() for t in state]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             step()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self._tok_buf.copy_(saved[0])
-        self._len_buf.copy_(saved[1])
+        for t, keep in zip(state, saved):
+            t.copy_(keep)
         graph = torch.cuda.CUDAGraph()
         if self._sampling:
             graph.register_generator_state(self._gen)
@@ -833,6 +940,11 @@ class PagedDecodeEngine:
 
         return replay
 
+    def _state_bufs(self) -> tuple[torch.Tensor, ...]:
+        """The static per-slot buffers a step reads or advances (tables
+        aside): tokens, lengths, limits and committed tokens."""
+        return (self._tok_buf, self._len_buf, self._limit_buf, self._out_buf)
+
     def _upload(self, dst: torch.Tensor, src: np.ndarray) -> None:
         """Copy a host array into a device buffer without waiting for the
         device: through pinned memory (whose block the caching host
@@ -856,25 +968,30 @@ class PagedDecodeEngine:
         (both ladders by default) over the null block, and run each once:
         tables all point at block 0 and lengths are 0, so every write
         lands in the one block no sequence owns, and the static buffers are
-        restored afterwards, so live state is untouched. Then capture and
-        run the prefill chunk of every width in ``prefill_widths`` (default
-        ``widths``, else the width ladder; ``[]`` skips them) over the null
-        block: no valid row, every write rerouted to block 0. Returns the
-        number of steps and chunks built: graphs captured on the card,
-        eager functions on the CPU. A deployment calls this at startup so
-        that traffic never pays a capture."""
+        restored afterwards, so live state is untouched. A spec engine
+        builds its spec steps instead, and never a plain one (their limits
+        are 0 too: every write is rerouted to the null block). Then capture
+        and run the prefill chunk of every width in ``prefill_widths``
+        (default ``widths``, else the width ladder; ``[]`` skips them) over
+        the null block: no valid row, every write rerouted to block 0.
+        Returns the number of steps and chunks built: graphs captured on
+        the card, eager functions on the CPU. A deployment calls this at
+        startup so that traffic never pays a capture."""
         self._cow_guard(())
         built = 0
-        saved = (self._tok_buf.clone(), self._len_buf.clone(),
+        state = self._state_bufs()
+        saved = ([t.clone() for t in state],
                  {W: t.clone() for W, t in self._table_bufs.items()})
+        steps, get = (self._specs, self._get_spec) if self.spec_decode \
+            else (self._steps, self._get_step)
         for B in batches or self._sched.batch_buckets:
             for W in widths or self._sched.width_buckets:
-                self._tok_buf[:B].zero_()
-                self._len_buf[:B].zero_()
+                for t in state:
+                    t[:B].zero_()
                 self._table_buf(W)[:B].zero_()
-                if (B, W) not in self._steps:
+                if (B, W) not in steps:
                     built += 1
-                self._get_step(B, W)()
+                get(B, W)()
         if prefill_widths is None:
             prefill_widths = widths or self._sched.width_buckets
         for W in prefill_widths:
@@ -882,11 +999,11 @@ class PagedDecodeEngine:
             if W not in self._prefills:
                 built += 1
             self._get_prefill(W)()
-        self._tok_buf.copy_(saved[0])
-        self._len_buf.copy_(saved[1])
-        for W, t in saved[2].items():
+        for t, keep in zip(state, saved[0]):
+            t.copy_(keep)
+        for W, t in saved[1].items():
             self._table_bufs[W].copy_(t)
-        for W in set(self._table_bufs) - set(saved[2]):
+        for W in set(self._table_bufs) - set(saved[1]):
             self._table_bufs[W].zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1018,7 +1135,7 @@ class PagedDecodeEngine:
             elif self._sched.running:
                 # Slots full with prompts still queued: decode the live
                 # set so that completions free slots.
-                self._decode_tick()
+                self._decode_or_spec_tick()
             self.admit_from_queue()
             stalled = stalled + 1 if self._admit_progress() == before \
                 else 0
@@ -1042,12 +1159,18 @@ class PagedDecodeEngine:
         if self._sched.has_prefill_work():
             self._prefill_tick()
         if self._sched.running:
-            self._decode_tick()
+            self._decode_or_spec_tick()
         elif self._pending or self._finishing:
             # The decode set emptied with a window in flight: fold it in
             # now (the last completion must not wait for more traffic).
             self._drain()
         self.ticks += 1
+
+    def _decode_or_spec_tick(self) -> None:
+        if self.spec_decode:
+            self._spec_tick()
+        else:
+            self._decode_tick()
 
     def run(self, steps: int) -> None:
         """Drive ``steps`` ticks, then drain and wait for the device."""
@@ -1194,26 +1317,7 @@ class PagedDecodeEngine:
         # finished/joined sequence forces one.
         needy = [s for s in sched.running if not s.blocks.ensure(s.pos + 1)]
         if needy:
-            self._drain()
-            if sched.ensure_decode_capacity():
-                self._composition_dirty = True
-                self._report_metric()
-            stuck = [s for s in sched.running
-                     if s.blocks.capacity < s.pos + 1]
-            for s in stuck:
-                # Reclaim from the prefill queue before truncating.
-                while s.blocks.capacity < s.pos + 1:
-                    victim = sched.evict_newest_prefilling()
-                    if victim is None:
-                        break
-                    self._requeue_prefill_victim(victim)
-                    s.blocks.ensure(s.pos + 1)
-                if s.blocks.capacity >= s.pos + 1:
-                    continue
-                # Truly un-growable: truncate rather than livelock.
-                sched.retire(s)
-                self._complete(s.req)
-                self._composition_dirty = True
+            self._grant_capacity(1)
             if not sched.running:
                 return
         sig = tuple(len(s.blocks.blocks) for s in self._run_order)
@@ -1244,6 +1348,90 @@ class PagedDecodeEngine:
                 self._composition_dirty = True
         if len(self._pending) >= self.host_sync_interval:
             self._drain()
+
+    def _spec_tick(self) -> None:
+        """The speculative decode tick: one spec step advances every
+        running sequence by 1..spec_k + 1 tokens. The committed count
+        stays on the device until the window drains, so the host's
+        bookkeeping here is conservative: ``seq.inflight`` grows by the
+        whole span per dispatch (a bound on the device's length), the
+        capacity and full checks use ``pos + inflight``, and ``_drain``
+        folds the true counts into ``pos``. No device sync on this path."""
+        sched = self._sched
+        span = self.spec_k + 1
+        # Cache-full: if the next dispatch could write past max_len for a
+        # sequence (its device length may be pos + inflight already), drain
+        # to learn the real positions and retire the truly full. The rest
+        # re-enter with exact positions, and the limits clamp their commits
+        # at max_len: the plain engine's one token at the edge.
+        if any(s.pos + s.inflight + span > self.max_len
+               for s in sched.running):
+            self._drain()
+            full = [s for s in sched.running if s.pos + 1 > self.max_len]
+            for s in full:
+                sched.retire(s)
+                self._complete(s.req)
+            if full:
+                self._composition_dirty = True
+                self._report_metric()
+            if not sched.running:
+                return
+        # Capacity: room for a whole span past each row's bound, capped at
+        # max_len (the limit truncates the commit of a row near the edge
+        # instead of growing its table past the width ladder). A shortfall
+        # falls back to one token's grant before it preempts.
+        needy = [s for s in sched.running
+                 if not s.blocks.ensure(min(s.pos + s.inflight + span,
+                                            self.max_len))]
+        if needy:
+            self._grant_capacity(span)
+            if not sched.running:
+                return
+        sig = tuple(len(s.blocks.blocks) for s in self._run_order)
+        if self._composition_dirty:
+            self._recompose()
+        elif sig != self._tables_sig:
+            self._refresh_tables()
+        if not sched.running:
+            return
+        B, W = self._cur_shape
+        self._cow_guard(self._run_order, span=span)
+        self._get_spec(B, W)()
+        # Each pending window keeps its own copy of the committed tokens
+        # (the next dispatch overwrites the static buffer).
+        self._pending.append((self._out_buf[:B].clone(), self._run_order,
+                              (B, W)))
+        self.steps += 1
+        for seq in self._run_order:
+            if not seq.req.done:
+                seq.inflight += span
+        if len(self._pending) >= self.host_sync_interval:
+            self._drain()
+
+    def _grant_capacity(self, span: int) -> None:
+        """A running sequence lacks room for its next dispatch: drain, then
+        grant every running sequence room for ``span`` more tokens
+        (preempting newest-first on shortfall; a span falls back to one
+        token before it preempts). A sequence still without room for one
+        token reclaims blocks from the prefill queue, and failing that is
+        truncated rather than left to livelock."""
+        sched = self._sched
+        self._drain()
+        if sched.ensure_decode_capacity(tokens_per_tick=span):
+            self._composition_dirty = True
+            self._report_metric()
+        for s in [s for s in sched.running if s.blocks.capacity < s.pos + 1]:
+            while s.blocks.capacity < s.pos + 1:
+                victim = sched.evict_newest_prefilling()
+                if victim is None:
+                    break
+                self._requeue_prefill_victim(victim)
+                s.blocks.ensure(s.pos + 1)
+            if s.blocks.capacity >= s.pos + 1:
+                continue
+            sched.retire(s)
+            self._complete(s.req)
+            self._composition_dirty = True
 
     def _recompose(self) -> None:
         """Rebuild the decode inputs after sequences joined or left: drain
@@ -1282,36 +1470,126 @@ class PagedDecodeEngine:
         self._push_tables(B, W)
 
     def _push_tables(self, B: int, W: int) -> None:
+        """Upload the tables of the running set; a spec engine's per-row
+        write caps go up with them, since they change only when a row's
+        blocks do: what its blocks (and max_len) hold, 0 for padded rows
+        (their writes all land in the null block)."""
         rows = pad_tables([s.blocks.blocks for s in self._run_order], W)
         full = np.full((B, W), NULL_BLOCK, np.int32)
         full[:len(self._run_order)] = rows
         self._upload(self._table_buf(W)[:B], full)
         self._tables_sig = tuple(len(s.blocks.blocks)
                                  for s in self._run_order)
+        if self.spec_decode:
+            limit = np.zeros((B,), np.int32)
+            limit[:len(self._run_order)] = [
+                min(self.max_len, n * self.block_size)
+                for n in self._tables_sig]
+            self._upload(self._limit_buf[:B], limit)
 
     def _drain(self) -> None:
         """Fold pending window tokens into their requests with one host
         fetch. Every pending step has the same batch bucket (it changes
         only in ``_recompose``, which drains first), so the window stacks
-        into one [steps, B] tensor."""
+        into one [steps, B] tensor ([steps, B, spec_k + 1] for spec
+        steps)."""
         if not self._pending:
             return
         toks = torch.stack([e[0] for e in self._pending]).cpu().numpy()
-        orders = [e[1] for e in self._pending]
+        entries = [e[1:] for e in self._pending]
         self._pending.clear()
-        for arr, order in zip(toks, orders):
-            for i, seq in enumerate(order):
-                req = seq.req
-                if req.done or len(req.generated) >= req.max_new_tokens:
-                    continue
-                tok = int(arr[i])
-                req.generated.append(tok)
-                seq.last_token = tok
+        spec_seqs: dict = {}   # insertion-ordered dedupe
+        for arr, entry in zip(toks, entries):
+            if len(entry) == 1:
+                for i, seq in enumerate(entry[0]):
+                    req = seq.req
+                    if req.done or len(req.generated) >= req.max_new_tokens:
+                        continue
+                    tok = int(arr[i])
+                    req.generated.append(tok)
+                    seq.last_token = tok
+                continue
+            self._fold_spec(arr, *entry, spec_seqs)
+        if spec_seqs:
+            retired = False
+            for seq in spec_seqs.values():
+                # A drain folds every pending window: pos is exact again.
+                seq.inflight = 0
+                if not seq.req.done and seq.finished() \
+                        and seq in self._sched.running:
+                    self._sched.retire(seq)
+                    self._complete(seq.req)
+                    self._composition_dirty = True
+                    retired = True
+            if retired:
+                self._report_metric()
         if self._finishing:
             for seq in self._finishing:
                 self._complete(seq.req)
             self._finishing = []
             self._report_metric()
+
+
+    def _fold_spec(self, arr: np.ndarray, order: tuple, bucket: tuple,
+                   spec_seqs: dict) -> None:
+        """Fold one spec window ([B, spec_k + 1]: each row's committed
+        tokens, then -1) into its sequences: the count advances ``pos``
+        (the device's length), the tokens join ``generated`` up to
+        max_new_tokens (an overshoot's rows are real K/V, but the request
+        is done and its extra tokens drop), and the acceptance counters
+        move."""
+        st = self._spec_stats
+        pb = st["per_bucket"].setdefault(
+            bucket, {"accepted_tokens": 0, "draft_tokens": 0,
+                     "committed_tokens": 0, "dispatches": 0, "rows": 0})
+        pb["dispatches"] += 1
+        st["dispatches"] += 1
+        for i, seq in enumerate(order):
+            req = seq.req
+            if req.done:
+                continue
+            row = arr[i]
+            toks = row[row >= 0]
+            n = len(toks)
+            seq.pos += n
+            spec_seqs[id(seq)] = seq
+            for d in (pb, st):
+                d["accepted_tokens"] += max(0, n - 1)
+                d["draft_tokens"] += self.spec_k
+                d["committed_tokens"] += n
+                d["rows"] += 1
+            for t in toks:
+                if len(req.generated) >= req.max_new_tokens:
+                    break
+                req.generated.append(int(t))
+            seq.n_generated = len(req.generated)
+            if n:
+                seq.last_token = int(toks[-1])
+
+    def spec_stats(self) -> dict:
+        """Speculative acceptance gauges; an empty dict with spec off. The
+        counters move at drains only, so they trail the device by at most
+        one window. ``accepted_per_dispatch`` is the mean number of tokens
+        committed per sequence per spec dispatch, the bonus included: 1.0
+        is the plain engine's, spec_k + 1 the ceiling."""
+        if not self.spec_decode:
+            return {}
+        st = self._spec_stats
+        drafted, accepted = st["draft_tokens"], st["accepted_tokens"]
+        rows = st["rows"]
+        return {"spec_k": self.spec_k,
+                "draft_tokens": drafted,
+                "accepted_tokens": accepted,
+                "committed_tokens": st["committed_tokens"],
+                "dispatches": st["dispatches"],
+                "rows": rows,
+                "acceptance_rate":
+                    accepted / drafted if drafted else 0.0,
+                "accepted_per_dispatch":
+                    st["committed_tokens"] / rows if rows else 0.0,
+                "per_bucket": {
+                    f"b{B},w{W}": dict(v)
+                    for (B, W), v in st["per_bucket"].items()}}
 
 
 def engine_mode() -> str:
@@ -1338,10 +1616,10 @@ def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
                 **paged_kwargs):
     """Engine factory honoring GROVE_ENGINE: the paged engine by default,
     ``mode="lanes"`` for the lanes ``DecodeEngine``. Paged-only knobs
-    (block_size, num_blocks, prefill_chunk, prefix_cache, ...) pass
-    through ``paged_kwargs`` and are ignored by the lanes engine, as in
-    the JAX package. GROVE_DISAGG=1 raises: disaggregated serving is not
-    ported yet."""
+    (block_size, num_blocks, prefill_chunk, prefix_cache, kv_quant,
+    spec_decode, spec_k, draft_params, ...) pass through ``paged_kwargs``
+    and are ignored by the lanes engine, as in the JAX package.
+    GROVE_DISAGG=1 raises: disaggregated serving is not ported yet."""
     mode = mode or engine_mode()
     common = dict(batch=batch, max_len=max_len,
                   host_sync_interval=host_sync_interval, sampler=sampler,
@@ -1357,6 +1635,6 @@ def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
     if disagg_mode():
         raise NotImplementedError(
             "disaggregated serving (GROVE_DISAGG=1) is not ported yet "
-            "(ROADMAP.md, queue 1, item 4)")
+            "(ROADMAP.md, queue 1)")
     return PagedDecodeEngine(cfg, key_or_params, mesh=mesh, **common,
                              **paged_kwargs)

@@ -3,10 +3,12 @@ path waits for the device.
 
 The analogue of the JAX package's ``HostSyncInStepLoop`` rule, as an AST
 scan that imports nothing of the JAX package. The dispatch path is the
-engine's ``step``, ``run``, ``_decode_tick`` and ``_prefill_tick`` (the
-bodies of these methods: window drains and the prefill-completion fetch
-live in the named helpers ``_drain``, ``_finish_prefill`` and ``sync``,
-once per window or per request, which is where such a fetch belongs), and
+engine's ``step``, ``run``, ``_decode_tick``, ``_spec_tick`` and
+``_prefill_tick`` (the bodies of these methods: window drains and the
+prefill-completion fetch live in the named helpers ``_drain``,
+``_finish_prefill`` and ``sync``, once per window or per request, which is
+where such a fetch belongs), the model functions a captured spec step runs
+(``spec_step_paged``, ``verify_chunk_paged`` and what they call), and
 every kernel wrapper that a captured step or chunk runs, with the helpers
 of its own module that it calls. Banned there: ``.item()``, ``.cpu()``,
 ``.tolist()``, ``int()`` / ``float()`` / ``bool()`` of anything but a
@@ -19,10 +21,19 @@ import textwrap
 
 import pytest
 
-from grove_tpu_torch.ops import kvquant, paged, w8a16
+from grove_tpu_torch.models import llama
+from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
 from grove_tpu_torch.serving import engine
 
-STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick")
+STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick", "_spec_tick",
+              "_decode_or_spec_tick")
+# The model functions a captured spec step runs (the kernel wrappers they
+# call are scanned below).
+SPEC_FUNCS = ("spec_step_paged", "verify_chunk_paged", "decode_step_paged",
+              "prefill_chunk_paged", "greedy_tokens", "_write_and_attend",
+              "head", "_logits", "embed", "_qkv_proj", "_projs", "_proj",
+              "_int8_matmul", "_attn_out", "_mlp_block", "layer_params",
+              "_device_scalar")
 WRAPPERS = {
     "w8a16_matmul": (w8a16, ("w8a16_matmul", "w8a16_matmul_group",
                              "_check", "_launch", "partition", "split_count",
@@ -38,6 +49,7 @@ WRAPPERS = {
                                      "_check_scales", "_check_rope",
                                      "_route", "_launch", "_make_plan",
                                      "_aligned")),
+    "rms_norm": (norms, ("rms_norm", "_check", "_route")),
     "paged_attention": (paged, ("paged_decode_attention",
                                 "paged_chunk_attention",
                                 "paged_decode_attention_q8",
@@ -113,6 +125,11 @@ def test_kernel_wrappers_have_no_host_sync(wrapper):
     module, names = WRAPPERS[wrapper]
     for name in names:
         assert host_syncs(_function(module, name)) == [], name
+
+
+@pytest.mark.parametrize("name", SPEC_FUNCS)
+def test_spec_step_model_functions_have_no_host_sync(name):
+    assert host_syncs(_function(llama, name)) == []
 
 
 def test_every_captured_wrapper_is_scanned():

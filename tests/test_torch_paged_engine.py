@@ -497,8 +497,7 @@ def test_make_engine_defaults_to_paged(params, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec_decode=True), dict(mesh=object()), dict(xprof=object()),
-    dict(reqtrace=object())])
+    dict(mesh=object()), dict(xprof=object()), dict(reqtrace=object())])
 def test_unported_options_raise(params, kw):
     _, tp = params
     with pytest.raises(NotImplementedError):

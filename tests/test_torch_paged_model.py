@@ -103,16 +103,53 @@ def test_only_rerouted_rows_collide_and_only_in_the_null_block():
         pos = torch.from_numpy(np.broadcast_to(
             offset + np.arange(c)[None], (b, c)).astype(np.int64).copy())
         valid = pos < torch.from_numpy(n_backed)[:, None] * BS
-        k = torch.zeros((NB, BS, 1, 1))
-        rows = torch.arange(b * c, dtype=torch.float32).reshape(b, c, 1, 1)
-        kvquant.paged_scatter_ref(k, rows + 1, torch.from_numpy(tables), pos,
-                                  valid=valid)
-        # Each valid row is the only writer of its slot, in a real block.
-        flat = k.reshape(-1)
-        for i, r in enumerate((rows + 1).reshape(-1)):
-            if valid.reshape(-1)[i]:
-                hits = (flat == r).nonzero()
-                assert len(hits) == 1 and hits[0, 0] >= BS
+        _assert_valid_rows_write_alone(tables, pos, valid)
+
+
+def _random_tables(rng):
+    b, w = int(rng.integers(1, 4)), int(rng.integers(1, 4))
+    blocks = rng.permutation(np.arange(1, NB))[:b * w].reshape(b, w)
+    n_backed = rng.integers(0, w + 1, size=b)
+    tables = np.where(np.arange(w)[None] < n_backed[:, None], blocks, 0)
+    return tables, n_backed
+
+
+def _assert_valid_rows_write_alone(tables, pos, valid) -> None:
+    """Each valid row is the only writer of its slot, in a real block."""
+    b, c = pos.shape
+    k = torch.zeros((NB, BS, 1, 1))
+    rows = torch.arange(b * c, dtype=torch.float32).reshape(b, c, 1, 1)
+    kvquant.paged_scatter_ref(k, rows + 1, torch.from_numpy(tables), pos,
+                              valid=valid)
+    flat = k.reshape(-1)
+    for i, r in enumerate((rows + 1).reshape(-1)):
+        if valid.reshape(-1)[i]:
+            hits = (flat == r).nonzero()
+            assert len(hits) == 1 and hits[0, 0] >= BS
+
+
+def test_verify_rows_collide_only_in_the_null_block():
+    """The same invariant for the speculative step's writes: a verify chunk
+    of c = k + 1 rows at each sequence's own length and every draft step's
+    row (lengths + j), each sequence capped by its limit as the engine sets
+    it (what its blocks hold, and max_len; 0 for a padded row, whose length
+    is 0). The rows past the limits all land in the null block."""
+    rng = np.random.default_rng(4)
+    for _ in range(200):
+        tables, n_backed = _random_tables(rng)
+        b, w = tables.shape
+        max_len = int(rng.integers(1, w * BS + 1))
+        limit = np.minimum(n_backed * BS, max_len)
+        live = limit > 0
+        lengths = np.where(live, rng.integers(0, np.maximum(limit, 1)), 0)
+        k = int(rng.integers(1, 8))
+        pos = torch.from_numpy(
+            (lengths[:, None] + np.arange(k + 1)[None]).astype(np.int64))
+        valid = pos < torch.from_numpy(limit)[:, None]
+        _assert_valid_rows_write_alone(tables, pos, valid)
+        for j in range(k):  # the draft steps: one row each
+            _assert_valid_rows_write_alone(tables, pos[:, j:j + 1],
+                                           valid[:, j:j + 1])
 
 
 # ---- the model functions ----
