@@ -30,7 +30,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      launch each; gate/up also at M = 4,096), grouped launches at M = 1,
      8, 64 and 256, ragged and f32 shapes, timed beside its bound, its
      plain version, a bf16-weight matmul and torch._weight_int8pack_mm,
-     and a bitwise check that its rows do not depend on M (1..256);
+     and a bitwise check that its rows do not depend on M (1..256); its
+     bf16-weight build (the engine's default weights) at llama-1b's five
+     launches at M = 32 and 128 (the head with an f32 output), the tiny
+     draft's and ragged shapes, f32 weights, timed per forward beside its
+     byte bound and torch.matmul, its rows bitwise across M = 1..256 and
+     slabbed calls at M = 512 (int8 weights too) bitwise equal to the same
+     rows at M <= 256; rms_norm, and add_rms_norm (the residual add fused
+     into the norm) against its plain version, bitwise against rms_norm
+     of its sum, rows bitwise across row counts, timed at 32, 128 and
+     4,096 rows beside its bound and x + delta then F.rms_norm;
   4. lanes serve: llama-1b at full width and depth (random weights from
      --seed) through make_engine(mode="lanes") with int8 weights: queued
      requests admitted through a PrefillWorker, then the bench posture
@@ -58,7 +67,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      batch decoding
      past that pool's capacity, which must preempt and still finish every
      request; the same traffic and decode window over int8 KV, whose
-     kernels' launch counts are read from its run;
+     kernels' launch counts are read from its run; then the engine's
+     default bf16 weights (quant None): a full batch decoding with a
+     profiled window, every projection through the GEMM's bf16-weight
+     build (65 launches per forward, counted from this run);
   8. paged model: llama-1b bf16 decode_step_paged and prefill_chunk_paged
      logits with int8 weights through the kernels vs their plain versions;
      then 8 sequences' decode logits alone vs inside a batch of 32,
@@ -73,11 +85,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      chunk replay); a full batch of 512-token prompts decoding, spec
      against off tokens/s over each pool with a profiled window; k = 7 at
      batch 32 (the verify's GEMM at M = 256) equal to spec off; bf16
-     weights (cuBLAS projections) spec vs off and the first op whose rows
-     depend on M (reported). Phase 3 also checks and times the chunk
-     kernels at the verify shape (b = 32, c = 4, per-sequence offsets).
+     weights (the dense GEMM build) spec equal to off, and a verify row
+     bitwise the decode row with bf16 and with int8 weights (else the
+     first op whose rows differ is named); k = 7 at batch 64 (the verify's
+     M = 512, slabs of 256 rows) equal to spec off. Phase 3 also checks
+     and times the chunk kernels at the verify shape (b = 32, c = 4,
+     per-sequence offsets).
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
+       python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
+       bf16-weight paged decode of phase 7, importing grove_tpu_torch from
+       CHECKOUT (to time two commits in turn in one call).
 """
 
 from __future__ import annotations
@@ -497,7 +515,7 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
         old = os.environ.pop("GROVE_FLASH_ATTENTION", None)
         if flash_env is not None:
             os.environ["GROVE_FLASH_ATTENTION"] = flash_env
-            llama.w8a16_matmul_group = w8a16.w8a16_matmul_group_ref
+            llama.w8a16_matmul_group = plain_gemm
         try:
             cache = KVCache.create(cfg.n_layers, batch, prompt_len,
                                    cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
@@ -523,6 +541,13 @@ def phase_model(seed: int, card: str, cfg=None, device: str = "cuda",
         f"rows (need >= {batch - 1})")
     if diff > bound or agree < batch - 1:
         raise AssertionError("kernel and plain prefill disagree")
+
+
+def plain_gemm(x, weights, out_dtype=None, slabbed=False):
+    """The W8A16 GEMM's plain version under the wrapper's signature (a
+    slabbed call's rows are the plain product's rows)."""
+    from grove_tpu_torch.ops import w8a16
+    return w8a16.w8a16_matmul_group_ref(x, weights, out_dtype)
 
 
 # ---- the paged path (the default make_engine) ----
@@ -1349,21 +1374,24 @@ def w8a16_host_parts(gen) -> None:
     x = torch.randn((32, 2048), generator=gen, device="cuda").to(
         torch.bfloat16)
     w8a16.w8a16_matmul_group(x, ws)
-    addr, _, _, total, _ = w8a16._plans[w8a16._plan_key(x, ws,
-                                                        torch.bfloat16)]
+
+    def key():
+        return w8a16._plan_key(x, [q for q, _ in ws], [s for _, s in ws],
+                               torch.bfloat16, "int8", False)
+
+    addr, _, _, total, _ = w8a16._plans[key()]
     out = torch.empty((32 * total,), dtype=torch.bfloat16, device="cuda")
     _, run, _, _, _ = w8a16._kernel()
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     parts = {
         "whole call": lambda: w8a16.w8a16_matmul_group(x, ws),
-        "plan key and lookup": lambda: w8a16._plans.get(
-            w8a16._plan_key(x, ws, torch.bfloat16)),
+        "plan key and lookup": lambda: w8a16._plans.get(key()),
         "torch.empty of the outputs": lambda: torch.empty(
             (32 * total,), dtype=torch.bfloat16, device="cuda"),
         "current stream": lambda: torch._C._cuda_getCurrentRawStream(
             x.get_device()),
         "foreign call (x map + launch)": lambda: run(
-            addr, x.data_ptr(), out.data_ptr(), 32, stream),
+            addr, x.data_ptr(), out.data_ptr(), 32, 256, stream),
         "reference: out.zero_()": lambda: out.zero_(),
     }
     log("kernels: w8a16 wrapper host time, us per call over 200 calls: "
@@ -1380,7 +1408,7 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
     sums over one llama-1b forward at M = 32 (65 launches)."""
     import torch
     from grove_tpu_torch.ops.w8a16 import kernel_info
-    for which in ("small", "wide", "fma"):
+    for which in ("small", "small_bf16", "wide", "fma"):
         info = kernel_info(which)
         resident = (f"{info['resident']} clusters of {info['cluster']} "
                     f"resident at once" if info["cluster"] > 1 else
@@ -1445,6 +1473,191 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
             "yardstick_ms": row["yardstick_ms"],
             "per": f"one llama-1b forward at M={W8A16_M}: {launches} "
                    f"launches"}
+
+
+DENSE_M = (32, 128)                       # decode; the k = 3 verify at b = 32
+SLAB_M = 512                              # a verify of batch 64 at k = 7
+
+
+def dense_bound_ms(M: int, K: int, ns, out_elt: int) -> tuple[float, str]:
+    """Least time for one dense launch: the bf16 weights and x read once
+    and the outputs written once at the memory rate, against 2 M K N
+    operations at the bf16 tensor-core peak."""
+    N = sum(ns)
+    nbytes = 2 * K * N + 2 * M * K + out_elt * M * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_weights(gen, K: int, ns):
+    """Random dense bf16 weights [K, n], scaled by K^-1/2."""
+    import torch
+    return [(torch.randn((K, n), generator=gen, device="cuda")
+             * K ** -0.5).to(torch.bfloat16) for n in ns]
+
+
+def check_dense(x, ws, out, label: str) -> float:
+    """One dense call against ``dense_matmul_ref`` of each weight, within
+    W8A16_TOL relative to max |plain|; counts its launches (one per slab
+    of 256 rows)."""
+    import torch
+    from grove_tpu_torch.ops.w8a16 import (dense_matmul, dense_matmul_group,
+                                           dense_matmul_ref, slabs)
+    before = dense_matmul.launches
+    got = dense_matmul_group(x, ws, out)
+    torch.cuda.synchronize()
+    launched = dense_matmul.launches - before
+    dt = str(out)[6:]
+    tol = W8A16_TOL[dt]
+    err, ok = 0.0, launched == len(slabs(x.shape[0]))
+    for g, w in zip(got, ws):
+        want = dense_matmul_ref(x, w, out)
+        err = max(err, (g.float() - want.float()).abs().max().item())
+        bound = tol * want.float().abs().max().item()
+        ok = ok and g.dtype == out and bool(torch.isfinite(g).all()) and \
+            torch.allclose(g.float(), want.float(), rtol=tol, atol=bound)
+    log(f"kernels: dense {label} -> {dt}: max_abs_err={err:.3e} (rtol "
+        f"{tol}, atol {tol} x max |plain|), {launched} launch(es) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dense GEMM kernel disagrees at {label}")
+    return err
+
+
+def time_dense(gen, M: int, K: int, ns, out, label: str) -> dict:
+    """Kernel (one launch for the weights ``ns``), plain and library
+    (``torch.matmul`` of x by each bf16 weight, a bf16 result) device ms,
+    each cycling through enough distinct weights that every call reads its
+    weights from device memory, not from the 50 MB L2."""
+    import itertools
+    import torch
+    from grove_tpu_torch.ops.w8a16 import (dense_matmul_group,
+                                           dense_matmul_ref)
+    copies = max(2, -(-ROTATE_BYTES // (2 * K * sum(ns))))
+    sets = [bf16_weights(gen, K, ns) for _ in range(copies)]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    err = check_dense(x, sets[0], out, f"{label} M={M}")
+    iters = 2 * copies if copies > 10 else 20
+
+    def cycled(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(next(it))
+
+    t = {"ms": time_ms(cycled(lambda ws: dense_matmul_group(x, ws, out)),
+                       iters=iters),
+         "plain_ms": time_ms(cycled(lambda ws: [dense_matmul_ref(x, w, out)
+                                                for w in ws]), iters=iters),
+         "library_ms": time_ms(cycled(lambda ws: [torch.matmul(x, w)
+                                                  for w in ws]),
+                               iters=iters)}
+    t["bound_ms"], t["bound_by"] = dense_bound_ms(
+        M, K, ns, torch.empty((), dtype=out).element_size())
+    t["err"] = err
+    return t
+
+
+def dense_rows_and_slabs(gen, K: int, ns, out, label: str) -> None:
+    """Bitwise: each dense row at M in ROW_CHECK_M equals the same row at
+    M = 256, and each row of a slabbed call at M = SLAB_M equals the same
+    row in a call of at most 256 rows; the same slab check for int8
+    weights (``w8a16_matmul_group(..., slabbed=True)``)."""
+    import torch
+    from grove_tpu_torch.ops.w8a16 import (dense_matmul_group,
+                                           w8a16_matmul_group)
+    ws = bf16_weights(gen, K, ns)
+    qs = int8_weights(gen, K, ns)
+    x = torch.randn((SLAB_M, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    whole = dense_matmul_group(x[:256], ws, out)
+    rows = {M: all(torch.equal(a, w[:M]) for a, w in zip(
+        dense_matmul_group(x[:M], ws, out), whole)) for M in ROW_CHECK_M}
+    slab = {}
+    for kind, call in (
+            ("bf16", lambda xx: dense_matmul_group(xx, ws, out)),
+            ("int8", lambda xx: w8a16_matmul_group(xx, qs, out,
+                                                   slabbed=True))):
+        big = call(x)
+        slab[kind] = all(
+            torch.equal(a, b[r0:r0 + n])
+            for r0, n in ((0, 1), (0, 256), (100, 200), (255, 2),
+                          (256, 256), (300, 37), (511, 1))
+            for a, b in zip(call(x[r0:r0 + n]), big))
+    torch.cuda.synchronize()
+    log(f"kernels: dense row invariance {label} K={K} N={list(ns)}: rows "
+        f"of M in {list(ROW_CHECK_M)} vs the same rows at M=256: "
+        + ", ".join(f"{M} {'equal' if v else 'DIFFER'}"
+                    for M, v in rows.items())
+        + f"; slabs at M={SLAB_M} vs the same rows at M <= 256: bf16 "
+        f"weights {'equal' if slab['bf16'] else 'DIFFER'}, int8 weights "
+        f"{'equal' if slab['int8'] else 'DIFFER'}")
+    if not (all(rows.values()) and all(slab.values())):
+        raise AssertionError(f"dense GEMM or slab rows depend on M ({label})")
+
+
+def phase_dense_kernels(seed: int, card: str) -> dict:
+    """The bf16-weight build of the GEMM (the engine's default weights):
+    its registers, spills and shared memory; against its plain version at
+    llama-1b's five launches at M = 32 and 128 (the head with an f32
+    output) and at ragged and f32 shapes; rows bitwise across M and across
+    slabs (int8 weights too); times per forward beside the byte bound and
+    torch.matmul. Returns its kernel-table row (one forward at M = 32)."""
+    import torch
+    from grove_tpu_torch.ops.w8a16 import kernel_info
+    info = kernel_info("small_bf16")
+    log(f"kernels: build dense (bf16 weights, tile {info['tile'][0]} x "
+        f"{info['tile'][1]}): {info['registers']} registers, "
+        f"{info['local_bytes']} bytes local (spill) per thread, "
+        f"{info['smem_bytes']} bytes dynamic shared memory per CTA, cluster "
+        f"size up to {info['cluster']}, {info['resident']} clusters of "
+        f"{info['cluster']} resident at once")
+    if info["local_bytes"]:
+        raise AssertionError("the dense GEMM build spills")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    err = 0.0
+    # The tiny draft's shapes (K = 32: one partial k-step; N = 8), ragged
+    # columns, a slabbed call, f32 weights (the CUDA-core kernel).
+    for M, K, ns, dt, out in (
+            (7, 32, (16, 8, 8), torch.bfloat16, torch.bfloat16),
+            (5, 512, (40, 1408), torch.bfloat16, torch.float32),
+            (300, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+            (9, 64, (256, 32), torch.float32, torch.float32)):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        ws = [w.to(dt) for w in bf16_weights(gen, K, ns)]
+        err = max(err, check_dense(x, ws, out, f"{str(dt)[6:]} M={M} K={K} "
+                                               f"N={list(ns)}"))
+    per_m = {}
+    for M in DENSE_M:
+        row = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                            0.0)
+        for name, K, ns, calls in W8A16_LAUNCHES:
+            out = torch.float32 if name == "lm_head" else torch.bfloat16
+            t = time_dense(gen, M, K, ns, out, name)
+            err = max(err, t["err"])
+            log(f"kernels: dense {name} M={M} K={K} N={list(ns)}: ms="
+                f"{t['ms']} plain_ms={t['plain_ms']} library_ms="
+                f"{t['library_ms']} bound_ms={t['bound_ms']} "
+                f"({t['bound_by']}) on {card}")
+            for key in row:
+                row[key] += calls * t[key]
+        log(f"kernels: dense one llama-1b forward at M={M} (65 launches): "
+            + ", ".join(f"{k}={v}" for k, v in row.items())
+            + f"; {100 * row['bound_ms'] / row['ms']:.1f}% of its bound, "
+            f"{row['library_ms'] / row['ms']:.3f}x torch.matmul's speed on "
+            f"{card}")
+        per_m[M] = row
+    dense_rows_and_slabs(gen, 2048, (2048, 1024, 1024), torch.bfloat16,
+                         "wq, wk, wv")
+    dense_rows_and_slabs(gen, 2048, (32000,), torch.float32, "lm_head")
+    row = per_m[DENSE_M[0]]
+    return {"name": "dense_matmul", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/w8a16_gemm.cu",
+            "replaces": "grove_tpu/models/llama.py:157",
+            "launches": 0, "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": "bytes", "library_ms": row["library_ms"],
+            "ms_m128": per_m[DENSE_M[1]]["ms"],
+            "per": f"one llama-1b forward at M={DENSE_M[0]}: 65 launches"}
 
 
 def check_scatter(gen, card: str) -> None:
@@ -1804,6 +2017,99 @@ def check_rms_norm(gen, card: str) -> dict:
             "per": f"one call at the decode shape, {rows} rows of {d}"}
 
 
+ADD_NORM_ROWS = (32, 128, 4096)           # decode, the k = 3 verify, lanes prefill
+
+
+def add_norm_bound_ms(rows: int, d: int, elt: int) -> float:
+    """Least time for one add_rms_norm call: x and delta read once, s and
+    out written once, the weight row read once, at the memory rate."""
+    return (4 * rows * d * elt + d * elt) / HBM_BYTES_PER_S * 1e3
+
+
+def check_add_rms_norm(gen, card: str) -> dict:
+    """The residual add fused into rms_norm: its builds' registers and
+    spills; against its plain version (s bitwise; out f32 1e-5, bf16 one
+    output ulp, 2^-7 relative, after another sum order) and bitwise against
+    the kernel's own rms_norm of s; rows bitwise independent of the row
+    count (1..256 and 4,096); timed at 32, 128 and 4,096 rows of 2,048
+    beside its bound, its plain version and ``x + delta`` then
+    ``F.rms_norm`` (a yardstick: no one PyTorch call computes both).
+    Returns its kernel-table row (the decode shape)."""
+    import torch
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops import norms
+    for xt in ("float32", "bfloat16"):
+        info = norms.kernel_info(getattr(torch, xt), getattr(torch, xt),
+                                 add=True)
+        log(f"kernels: build add_rms_norm x {xt} weight {xt}: "
+            f"{info['registers']} registers, {info['local_bytes']} bytes "
+            f"spill, no shared memory")
+    err = 0.0
+    for rows, d, xt, wt in RMS_SHAPES + [(4096, 2048, "bfloat16",
+                                          "bfloat16")]:
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(
+            getattr(torch, xt)) * 3
+        delta = torch.randn((rows, d), generator=gen, device="cuda").to(
+            getattr(torch, xt))
+        w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(
+            getattr(torch, wt))
+        s, out = norms.add_rms_norm(x, delta, w)
+        ref_s, ref = norms.add_rms_norm_ref(x, delta, w)
+        e = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-5 if xt == "float32" else 2 ** -7  # bf16: one ulp
+        ok = (torch.equal(s, ref_s) and torch.equal(out, norms.rms_norm(s, w))
+              and torch.allclose(out.float(), ref.float(), rtol=tol,
+                                 atol=tol))
+        log(f"kernels: add_rms_norm rows={rows} d={d} x {xt} weight {wt} "
+            f"max_abs_err={e:.3e} rtol=atol={tol}, s bitwise, out bitwise "
+            f"rms_norm(s): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("add_rms_norm kernel disagrees with its "
+                                 "plain version")
+        err = max(err, e)
+    d = 2048
+    x = torch.randn((4096, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    delta = torch.randn((4096, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    s_all, whole = norms.add_rms_norm(x, delta, w)
+    same = all(torch.equal(norms.add_rms_norm(x[:m], delta[:m], w)[1],
+                           whole[:m])
+               for m in (1, 2, 3, 4, 8, 12, 16, 31, 32, 64, 128, 255, 256))
+    log(f"kernels: add_rms_norm rows of M = 1..256 against the same rows "
+        f"of one 4,096-row call: {'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("add_rms_norm rows depend on the number of "
+                             "rows")
+    times = {}
+    for rows in ADD_NORM_ROWS:
+        xr, dr = x[:rows].contiguous(), delta[:rows].contiguous()
+        t = {"ms": time_ms(lambda: norms.add_rms_norm(xr, dr, w)),
+             "plain_ms": time_ms(lambda: norms.add_rms_norm_ref(xr, dr, w)),
+             "yardstick_ms": time_ms(
+                 lambda: F.rms_norm(xr + dr, (d,), w, 1e-5)),
+             "bound_ms": add_norm_bound_ms(rows, d, 2)}
+        times[rows] = t
+        log(f"kernels: add_rms_norm rows={rows} d={d} bf16: "
+            + ", ".join(f"{k}={v}" for k, v in t.items())
+            + f" ({100 * t['bound_ms'] / t['ms']:.1f}% of its byte bound, "
+            f"{t['yardstick_ms'] / t['ms']:.2f}x the speed of x + delta "
+            f"then F.rms_norm, {t['plain_ms'] / t['ms']:.2f}x the plain "
+            f"version's) on {card}")
+    t = times[ADD_NORM_ROWS[0]]
+    return {"name": "add_rms_norm", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/rms_norm.cu",
+            "replaces": "grove_tpu/models/llama.py:175",
+            "launches": 0, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "yardstick_ms": t["yardstick_ms"],
+            "per": f"one call at the decode shape, {ADD_NORM_ROWS[0]} rows "
+                   f"of {d}"}
+
+
 def drive_paged(eng, want: int, max_iters: int = 100_000) -> None:
     for _ in range(max_iters):
         eng.admit_from_queue()
@@ -2006,7 +2312,8 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 paged.paged_decode_attention_q8,
                 paged.paged_chunk_attention_q8, kvquant.paged_rope_scatter_q,
                 kvquant.paged_rope_scatter, kvquant.paged_scatter_q,
-                kvquant.paged_scatter, w8a16.w8a16_matmul, norms.rms_norm)
+                kvquant.paged_scatter, w8a16.w8a16_matmul,
+                w8a16.dense_matmul, norms.rms_norm, norms.add_rms_norm)
     kernels = ("paged_partial", "paged_combine", "rope_scatter_kernel",
                "w8a16", "rms_norm_kernel")
     rng = np.random.default_rng(seed + 11)
@@ -2130,13 +2437,14 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 "paged_scatter_q": 0, "paged_scatter": 0,
                 "w8a16_matmul": (GEMMS_PER_LAYER * n + 1) * (steps + chunks)
                 if on_cuda else 0,
-                "rms_norm": (2 * n + 1) * (steps + chunks) if on_cuda
-                else 0}
+                "dense_matmul": 0,
+                "rms_norm": (steps + chunks) if on_cuda else 0,
+                "add_rms_norm": 2 * n * (steps + chunks)}
         log(f"paged: {label}: launches {counts} ({cfg.n_layers} per decode "
             f"step and per chunk for each attention kernel and the fused "
             f"rope + write, none of the write alone, "
-            f"{GEMMS_PER_LAYER * cfg.n_layers + 1} GEMM launches and "
-            f"{2 * cfg.n_layers + 1} of rms_norm: {want}); "
+            f"{GEMMS_PER_LAYER * cfg.n_layers + 1} GEMM launches, one "
+            f"rms_norm and {2 * cfg.n_layers} of add_rms_norm: {want}); "
             f"graphs captured during "
             f"traffic: {eng.graphs_captured - captured0}")
         if counts != want:
@@ -2146,7 +2454,8 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
         return counts, win
 
     def decode_bench(eng, label):
-        """A full batch decoding: tokens/s, then a profiled window."""
+        """A full batch decoding: tokens/s, then a profiled window; returns
+        the window's kernels and device ms (per 8 decode steps)."""
         eng.admit_prompts(bench, max_new_tokens=4 * bench_steps)
         sync()
         t = time.perf_counter()
@@ -2178,12 +2487,15 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 f"{'int8' if eng.kv_quant == 'int8' else 'model-dtype'} KV) "
                 f"{ms['paged_partial']:.3f} ms and its "
                 f"combine {ms['paged_combine']:.3f} ms, the fused rope + "
-                f"write {ms['rope_scatter_kernel']:.3f} ms, rms_norm "
-                f"{ms['rms_norm_kernel']:.3f} ms of device time "
+                f"write {ms['rope_scatter_kernel']:.3f} ms, rms_norm and "
+                f"add_rms_norm {ms['rms_norm_kernel']:.3f} ms, the GEMM "
+                f"{ms['w8a16']:.3f} ms of device time "
                 f"per 8 decode steps; kernels per 8 decode steps "
                 f"{ms['count']} ({ms['count'] / (8 * cfg.n_layers):.1f} per "
                 f"layer and step), device busy {ms['busy_ms']:.3f} ms on "
                 f"{card}")
+            return ms
+        return None
 
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -2260,11 +2572,46 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
         raise AssertionError("int8 KV: the shared prefix did not hit or "
                              "copy on write")
     decode_bench(q8, "int8 KV")
-    del q8
+    del q8, params
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # The engine's default weights (no quantization): every projection
+    # through the GEMM's bf16-weight build. A full batch decoding; its
+    # launches are read from this run alone.
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = make_engine(cfg, init_params(cfg, gen, device=device),
+                        batch=batch, max_len=max_len, device=device)
+    widths = dense.decode_width_buckets(bench_len, bench_len + 5 * bench_steps)
+    chunk_widths = dense.decode_width_buckets(1, bench_len)
+    built = dense.warmup(widths=widths, prefill_widths=chunk_widths)
+    log(f"paged: bf16 weights: default make_engine (quant None), "
+        f"{dense.kv_quant} KV; warmup built {built} graphs in "
+        f"{time.perf_counter() - t0:.2f} s with set-up")
+    for w in wrappers:
+        w.launches = 0
+    steps0, chunks0, cap0 = dense.steps, dense.chunks, dense.graphs_captured
+    decode_bench(dense, "bf16 weights")
+    sync()
+    dense_counts = {w.__name__: w.launches for w in wrappers}
+    forwards = (dense.steps - steps0) + (dense.chunks - chunks0)
+    want_dense = (GEMMS_PER_LAYER * cfg.n_layers + 1) * forwards \
+        if on_cuda else 0
+    log(f"paged: bf16 weights: launches {dense_counts} over {forwards} "
+        f"forwards ({dense.steps - steps0} decode steps, "
+        f"{dense.chunks - chunks0} prefill chunks; dense_matmul expected "
+        f"{want_dense}, w8a16_matmul 0); graphs captured after warmup "
+        f"{dense.graphs_captured - cap0}")
+    if dense_counts["dense_matmul"] != want_dense or \
+            dense_counts["w8a16_matmul"]:
+        raise AssertionError("bf16 weights: projections off the dense GEMM")
+    del dense
     return {**{k: v for k, v in counts.items() if not k.endswith("_q")
                and not k.endswith("_q8")},
             **{k: v for k, v in q8_counts.items() if k.endswith("_q")
-               or k.endswith("_q8")}}  # the GEMM's: the first serve's
+               or k.endswith("_q8")},  # the int8 GEMM's: the first serve's
+            "dense_matmul": dense_counts["dense_matmul"]}
 
 
 def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -2304,8 +2651,9 @@ def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
     plain_fns = {"paged_decode_attention": paged.paged_decode_attention_ref,
                  "paged_chunk_attention": paged.paged_chunk_attention_ref,
                  "paged_rope_scatter": plain_write,
-                 "w8a16_matmul_group": w8a16.w8a16_matmul_group_ref,
-                 "rms_norm": norms.rms_norm_ref}
+                 "w8a16_matmul_group": plain_gemm,
+                 "rms_norm": norms.rms_norm_ref,
+                 "add_rms_norm": norms.add_rms_norm_ref}
 
     def run(plain: bool):
         saved = {name: getattr(llama, name) for name in plain_fns}
@@ -2355,7 +2703,7 @@ def batch_rows(cfg, params, seed: int, batch: int = 32, rows: int = 8,
     import numpy as np
     import torch
     from grove_tpu_torch.models import llama
-    traced = ("embed", "rms_norm", "w8a16_matmul_group",
+    traced = ("embed", "rms_norm", "add_rms_norm", "w8a16_matmul_group",
               "paged_rope_scatter", "paged_decode_attention")
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     rng = np.random.default_rng(seed + 3)
@@ -2377,7 +2725,7 @@ def batch_rows(cfg, params, seed: int, batch: int = 32, rows: int = 8,
         def record(name, fn):
             def call(*args, **kw):
                 out = fn(*args, **kw)
-                for t in out if isinstance(out, list) else [out]:
+                for t in out if isinstance(out, (list, tuple)) else [out]:
                     calls.append((name, t))
                 return out
             return call
@@ -2418,41 +2766,45 @@ SPEC_WRAPPERS = ("paged_decode_attention", "paged_chunk_attention",
                  "paged_decode_attention_q8", "paged_chunk_attention_q8",
                  "paged_rope_scatter", "paged_rope_scatter_q",
                  "paged_scatter", "paged_scatter_q", "w8a16_matmul",
-                 "rms_norm")
+                 "dense_matmul", "rms_norm", "add_rms_norm")
 
 
 def spec_launches(cfg, dcfg, draft, int8_pool: bool, k: int, steps: int,
                   chunks: int) -> dict[str, int]:
     """The hand-written kernels' launches of a serve of ``steps`` decode
-    dispatches and ``chunks`` prefill chunks, int8 weights. Plain
+    dispatches and ``chunks`` prefill chunks, int8 target weights. Every
+    forward runs one rms_norm and 2 n_layers add_rms_norm. Plain
     (``draft`` None): per step and chunk one paged attention and one fused
-    write per layer, 4 GEMM launches per layer plus the head, and 2 rms_norm
-    per layer plus the final one. A self-draft dispatch: k decode steps and
-    one verify chunk over the target's pool, (k + 1) x 65 GEMM launches. A
-    tiny-draft dispatch: k draft steps and the chunk's replay (no head, so
-    no final norm) over the draft's model-dtype pool (its dense weights
-    take no GEMM launch), the target's verify chunk; each prefill chunk
-    replays through the draft too."""
+    write per layer and 4 GEMM launches per layer plus the head. A
+    self-draft dispatch: k decode steps and one verify chunk over the
+    target's pool, (k + 1) x 65 GEMM launches. A tiny-draft dispatch: k
+    draft steps and the chunk's replay (no head) over the draft's
+    model-dtype pool, its dense weights through the dense GEMM build, and
+    the target's verify chunk; each prefill chunk replays through the draft
+    too."""
     L, G = cfg.n_layers, GEMMS_PER_LAYER * cfg.n_layers + 1
-    N = 2 * L + 1
     q8, wq = ("_q8", "_q") if int8_pool else ("", "")
     want = dict.fromkeys(SPEC_WRAPPERS, 0)
 
     def add(name, n):
         want[name] += n
 
+    def forwards(layers, n):
+        add("rms_norm", n)
+        add("add_rms_norm", 2 * layers * n)
+
     if draft is None:
         add("paged_decode_attention" + q8, L * steps)
         add("paged_chunk_attention" + q8, L * chunks)
         add("paged_rope_scatter" + wq, L * (steps + chunks))
         add("w8a16_matmul", G * (steps + chunks))
-        add("rms_norm", N * (steps + chunks))
+        forwards(L, steps + chunks)
     elif draft == "self":
         add("paged_decode_attention" + q8, k * L * steps)
         add("paged_chunk_attention" + q8, L * (steps + chunks))
         add("paged_rope_scatter" + wq, (k + 1) * L * steps + L * chunks)
         add("w8a16_matmul", (k + 1) * G * steps + G * chunks)
-        add("rms_norm", (k + 1) * N * steps + N * chunks)
+        forwards(L, (k + 1) * steps + chunks)
     else:
         D = dcfg.n_layers
         add("paged_chunk_attention" + q8, L * (steps + chunks))
@@ -2461,23 +2813,25 @@ def spec_launches(cfg, dcfg, draft, int8_pool: bool, k: int, steps: int,
         add("paged_chunk_attention", D * (steps + chunks))
         add("paged_rope_scatter", (k + 1) * D * steps + D * chunks)
         add("w8a16_matmul", G * (steps + chunks))
-        add("rms_norm", N * (steps + chunks) + k * (2 * D + 1) * steps
-            + 2 * D * (steps + chunks))
+        add("dense_matmul", (GEMMS_PER_LAYER * D + 1) * k * steps
+            + GEMMS_PER_LAYER * D * (steps + chunks))
+        forwards(L, steps + chunks)
+        forwards(D, k * steps + steps + chunks)
     return want
 
 
 def spec_rows(cfg, params, seed: int, batch: int = 32, c: int = SPEC_K + 1,
-              width: int = 64, device: str = "cuda") -> None:
+              width: int = 64, device: str = "cuda") -> bool:
     """The first verify-chunk row of ``batch`` sequences (M = batch * c
     rows through every projection) against a decode step of the same
     sequences (M = batch), from the same pools: are row 0's logits bitwise
-    the decode's, and if not, which op (in call order) first gives that
-    row other bits. Reported, not asserted (with dense weights the
-    projections are cuBLAS's, whose rows may depend on M)."""
+    the decode's (returned), and if not, which op (in call order) first
+    gives that row other bits."""
     import numpy as np
     import torch
     from grove_tpu_torch.models import llama
     traced = {"embed": "embed", "rms_norm": "rms_norm",
+              "add_rms_norm": "add + rms_norm",
               "_projs": "projection", "_proj": "projection",
               "paged_rope_scatter": "rope + write",
               "paged_decode_attention": "attention",
@@ -2503,7 +2857,7 @@ def spec_rows(cfg, params, seed: int, batch: int = 32, c: int = SPEC_K + 1,
         def record(name, fn):
             def call(*args, **kw):
                 out = fn(*args, **kw)
-                for t in out if isinstance(out, list) else [out]:
+                for t in out if isinstance(out, (list, tuple)) else [out]:
                     # Each sequence's row 0 ([b, ...]); the decode head's
                     # input is that row already.
                     row = verify or name != "_logits"
@@ -2540,8 +2894,9 @@ def spec_rows(cfg, params, seed: int, batch: int = 32, c: int = SPEC_K + 1,
         f"{(dec[-1][1] - ver[-1][1]).abs().max().item():.4e}); "
         + ("every traced op's rows equal" if first is None else
            f"first op whose rows differ: {first[0]}, call {first[1]} of it "
-           f"(traced in call order: embed, rms_norm, projections, rope + "
-           f"write, attention, head)"))
+           f"(traced in call order: embed, rms_norm, add + rms_norm, "
+           f"projections, rope + write, attention, head)"))
+    return same
 
 
 def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -2560,9 +2915,12 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     (the counts are zeroed before each serve). (2) A full batch of
     ``bench_len``-token prompts decoding: tokens/s spec against off over
     each pool, a profiled window of 8 dispatches. (4) k = 7 at B = 32 (the
-    verify's M = 256): spec == off tokens. (5) bf16 weights: spec == off
-    reported, and ``spec_rows``. Returns the kernels' launches summed over
-    the spec serves of (1). With ``device="cpu"`` and a small ``cfg`` the
+    verify's M = 256): spec == off tokens. (5) bf16 weights (the engine's
+    default; the dense GEMM build): spec == off tokens, and ``spec_rows``
+    equal for bf16 and int8 weights. (6) k = 7 at B = 64 (the verify's M =
+    512, in slabs of 256 rows), int8 weights: spec == off tokens. Returns
+    the kernels' launches summed over the spec serves of (1) (and the dense
+    build's of (5)'s spec serve). With ``device="cpu"`` and a small ``cfg`` the
     same steps rehearse on the CPU (plain versions, eager steps, no launch
     counted, no profile)."""
     import numpy as np
@@ -2597,8 +2955,8 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
 
     def build(label, params, lo, hi, **kw):
         t0 = time.perf_counter()
-        eng = make_engine(cfg, params, batch=batch, max_len=max_len,
-                          device=device, **kw)
+        kw = {"batch": batch, "max_len": max_len, **kw}
+        eng = make_engine(cfg, params, device=device, **kw)
         span = eng.spec_k + 1 if eng.spec_decode else 1
         widths = eng.decode_width_buckets(lo, hi + span)
         chunk_widths = eng.decode_width_buckets(1, hi)
@@ -2608,7 +2966,7 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                                             else "tiny draft "
                                             f"({dcfg.n_layers} layers, "
                                             f"d_model {dcfg.d_model})"))
-        log(f"spec: {label}: {kind}, {eng.kv_quant} KV, batch {batch}; "
+        log(f"spec: {label}: {kind}, {eng.kv_quant} KV, batch {eng.batch}; "
             f"warmup built {built} graphs ({'spec' if eng.spec_decode else 'decode'}"
             f": batches {eng._sched.batch_buckets} x widths {widths}; "
             f"chunks: widths {chunk_widths}; plain decode graphs "
@@ -2764,7 +3122,8 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     del eng
     torch.cuda.empty_cache()
 
-    # (5) bf16 weights: the projections through cuBLAS. Reported only.
+    # (5) bf16 weights (the engine's default): every projection through
+    # the GEMM's bf16-weight build.
     outs = []
     for spec in (False, True):
         kw = dict(spec_decode=True, spec_k=k, draft_params="self") \
@@ -2772,21 +3131,108 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
         eng = build(f"bf16 weights, {'self-draft' if spec else 'spec off'}",
                     dense, short_lo, short_hi + short_new, kv_quant="off",
                     **kw)
+        before = w8a16.dense_matmul.launches
         outs.append(short_run(eng))
+        if spec:
+            launches["dense_matmul"] += w8a16.dense_matmul.launches - before
         del eng
         torch.cuda.empty_cache()
     bad = compare("bf16 weights", *outs)
     log(f"spec: bf16 weights (dense projections), self-draft k={k} vs spec "
-        f"off: {bad or 'tokens equal for every request'} (reported, not "
-        f"asserted)")
-    spec_rows(cfg, dense, seed, device=device)
-    spec_rows(cfg, qparams, seed, device=device)
+        f"off: {bad or 'tokens equal for every request'}")
+    if bad:
+        raise AssertionError(bad)
+    for label, p in (("bf16 weights", dense), ("int8 weights", qparams)):
+        if not spec_rows(cfg, p, seed, device=device):
+            raise AssertionError(f"{label}: a verify row differs from the "
+                                 f"decode row")
+
+    # (6) A verify above 256 rows: batch 2 x 32 at k = 7 (M = 512), int8
+    # weights; every projection in slabs of 256 rows.
+    big = 2 * batch
+    wide_short = np.concatenate([short, short[:, ::-1]])
+    wide_lens = np.concatenate([short_lens, short_lens[::-1]])
+    outs = []
+    for spec in (False, True):
+        kw = dict(spec_decode=True, spec_k=7, draft_params="self") \
+            if spec else {}
+        eng = build(f"batch {big}, {'self-draft k=7' if spec else 'spec off'}",
+                    qparams, short_lo, short_hi + short_new, kv_quant="off",
+                    batch=big, max_len=min(512, max_len), **kw)
+        r0, n0 = eng._next_rid, len(eng.completed)
+        eng.admit_prompts(wide_short, max_new_tokens=short_new,
+                          lengths=wide_lens)
+        drive_paged(eng, n0 + big)
+        outs.append([r.generated for r in sorted(
+            eng.completed[n0:], key=lambda r: r.rid - r0)])
+        if spec:
+            buckets = sorted(eng.spec_stats()["per_bucket"])
+        del eng
+        torch.cuda.empty_cache()
+    bad = compare(f"batch {big} k=7", *outs)
+    log(f"spec: off KV, self-draft k=7 at batch {big} (buckets {buckets}; "
+        f"verify M = {big * 8} at b{big}, {-(-big * 8 // 256)} slabs of "
+        f"at most 256 rows per projection): tokens vs spec off: "
+        f"{bad or 'equal for every request'}")
+    if bad:
+        raise AssertionError(bad)
+    if on_cuda and not any(b.startswith(f"b{big},") for b in buckets):
+        raise AssertionError(f"batch {big}: the batch never reached {big}")
     return launches
+
+
+def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
+                steps: int = 64) -> None:
+    """llama-1b with the engine's default weights (bf16, no quantization)
+    through the default ``make_engine``: a full batch of ``bench_len``-token
+    prompts decoding, tokens/s over three windows of ``run(steps)`` after a
+    warm ``run(16)``, and a profiled window of 8 steps (kernels and device
+    ms). Prints one JSON line. Run from two checkouts in turn (``--root``),
+    it compares two commits in one call."""
+    import numpy as np
+    import torch
+    import grove_tpu_torch
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.serving.engine import make_engine
+    cfg = CONFIGS["llama-1b"]
+    log(f"decode-only: grove_tpu_torch from {grove_tpu_torch.__file__}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    eng = make_engine(cfg, init_params(cfg, gen, device="cuda"), batch=batch,
+                      max_len=2048, device="cuda")
+    eng.warmup(widths=eng.decode_width_buckets(bench_len,
+                                               bench_len + 5 * steps),
+               prefill_widths=eng.decode_width_buckets(1, bench_len))
+    bench = np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (batch, bench_len)).astype(np.int32)
+    eng.admit_prompts(bench, max_new_tokens=4 * steps)
+    eng.run(16)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run(steps)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall = float(np.median(walls))
+    ms = profile_window("decode-only (bf16 weights)", lambda: eng.run(8),
+                        wall * 1e3 / steps * 8, card,
+                        ("paged_partial", "w8a16", "rms_norm_kernel",
+                         "nvjet", "direct_copy"))
+    print(json.dumps({"decode_tokens_s": [batch * steps / w for w in walls],
+                      "ms_per_step": wall * 1e3 / steps,
+                      "kernels_per_8_steps": ms["count"],
+                      "device_ms_per_8_steps": ms["busy_ms"],
+                      "card": card}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-only", action="store_true",
+                    help="only the bf16-weight paged decode (decode_only)")
+    ap.add_argument("--root", default=None,
+                    help="with --decode-only: import grove_tpu_torch from "
+                         "this checkout")
     args = ap.parse_args()
 
     import torch
@@ -2794,6 +3240,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.decode_only:
+        if args.root:
+            sys.path.insert(0, os.path.abspath(args.root))
+        decode_only(args.seed, card_line())
+        return 0
     from grove_tpu_torch.ops import _build
 
     # 1. device
@@ -2832,7 +3283,9 @@ def main() -> int:
     check_scatter(write_gen, card)
     paged_rows += check_rope_scatter(write_gen, card)
     paged_rows.append(check_rms_norm(write_gen, card))
+    paged_rows.append(check_add_rms_norm(write_gen, card))
     paged_rows.append(phase_w8a16_kernels(args.seed, card))
+    paged_rows.append(phase_dense_kernels(args.seed, card))
     phase_done("phase 3 (kernels)")
     # 4. the lanes path; 5. the flash and W8A16 kernels through the model
     lanes = phase_serve(args.seed, card)

@@ -65,15 +65,28 @@
 // bf16 tile [64 k][256 n] that wgmma reads as an MN-major B (the transpose
 // bit), while the previous k-step's wgmma runs. No split.
 //
-// f32 activations (an f32 model over int8 weights, off the serving path):
-// w8a16_fma_kernel, CUDA-core FMAs over 32 x 64 tiles, no split.
+// f32 activations (an f32 model over int8 or dense f32 weights, off the
+// serving path): w8a16_fma_kernel, CUDA-core FMAs over 32 x 64 tiles, no
+// split.
+//
+// Dense bf16 weights (a model served without weight quantization, the
+// engine's default): the bf16-weight build of w8a16_small_kernel replaces
+// the einsum on dense weights (_w + einsum, grove_tpu/models/llama.py:157,
+// :166-193) and the LM head's preferred_element_type=f32 product (:227-229)
+// at M <= 256 (above it, in slabs of 256 rows). The same tiles, ring, k
+// order and cluster split as the int8 build; the weight tile arrives by TMA
+// as bf16 (twice the int8 stage, so two CTAs per SM instead of three, and
+// ops/w8a16.py::split_count takes that build's residency) and ldmatrix.trans
+// gives the A fragments directly. Bound by the weight bytes, 2 K N.
 //
 // Row invariance: the split and the k-step order come from K and the
 // launch's weights alone (ops/w8a16.py), each accumulator takes its k-steps
 // and its 16-deep mma steps in increasing order, and the split sum runs in
 // rank order; each mma output element depends only on its own row and
 // column. So for every M <= 256 an output row's bits depend only on its own
-// input row.
+// input row. A call of more rows may run as slabs of 256 rows, one small-
+// kernel launch each over row offsets of x and the outputs
+// (grove_w8a16_run's `slab`), so every row keeps those bits at any M.
 //
 // The C entry points return cudaGetLastError() after a launch (or the
 // error that kept it from launching); they launch on the given stream and
@@ -93,10 +106,11 @@ constexpr int kMaxWeights = 3;
 constexpr int kMaxSplit = 8;   // the portable cluster size
 
 // The weights of one launch, in column-tile order: they share x and K; each
-// has its own int8 codes [K, n], bf16 scales [n], output [M, n] and first
-// column tile (tile0[count] is the total).
+// has its own weight [K, n] (int8 codes with bf16 scales [n], or a dense
+// bf16 or f32 weight, no scales), output [M, n] and first column tile
+// (tile0[count] is the total).
 struct Weights {
-  const int8_t* q[kMaxWeights];
+  const void* w[kMaxWeights];  // int8 codes, or the bf16 / f32 weight
   const __nv_bfloat16* scale[kMaxWeights];
   void* out[kMaxWeights];
   int n[kMaxWeights];
@@ -107,7 +121,7 @@ struct Weights {
 // The weight (index j) that column tile `tile` of a launch falls in, and the
 // tile's first column within it.
 struct Target {
-  const int8_t* q;
+  const void* w;
   const __nv_bfloat16* scale;
   void* out;
   int N, n0, j;
@@ -115,11 +129,11 @@ struct Target {
 
 __device__ __forceinline__ Target target_of(const Weights& w, int tile,
                                             int bn) {
-  Target t{w.q[0], w.scale[0], w.out[0], w.n[0], tile * bn, 0};
+  Target t{w.w[0], w.scale[0], w.out[0], w.n[0], tile * bn, 0};
 #pragma unroll
   for (int j = 1; j < kMaxWeights; ++j)
     if (j < w.count && tile >= w.tile0[j])
-      t = Target{w.q[j], w.scale[j], w.out[j], w.n[j],
+      t = Target{w.w[j], w.scale[j], w.out[j], w.n[j],
                  (tile - w.tile0[j]) * bn, j};
   return t;
 }
@@ -142,6 +156,12 @@ __device__ __forceinline__ void store_pair(float* out, float a, float b) {
 __device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store_one(float* out, float a) { *out = a; }
+
+__device__ __forceinline__ void store_one(__nv_bfloat16* out, float a) {
+  *out = __float2bfloat16_rn(a);
 }
 
 // ---- mbarriers, TMA, cluster ----
@@ -237,6 +257,11 @@ __device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a,
                : "memory");
 }
 
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a)
+               : "memory");
+}
+
 // ---- the exact dequantize ----
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -310,38 +335,57 @@ constexpr int kSmallConsumers = 32 * kSmallWarps;
 constexpr int kSmallThreads = kSmallConsumers + 32;  // + the producer warp
 constexpr int kSmallStages = 4;
 constexpr int kQTileBytes = kBK * kBN;             // int8 [64 k][128 n]
+constexpr int kBoxBytes = kBK * 128;               // a 64 x 128-byte box
 constexpr int kSmallXBytes = kSmallM * kBK * 2;    // bf16 [32 m][64 k]
-constexpr int kSmallStageBytes = kQTileBytes + kSmallXBytes;
 constexpr int kRecvBytes = kBN * kSmallM * 4;      // f32 [rank][m][slice]
-constexpr int kSmallBarOff = kSmallStages * kSmallStageBytes + kRecvBytes;
-constexpr int kSmallSmem = kSmallBarOff + 16 * kSmallStages + 1024;
+
+// The small kernel's shared memory per build: kBf16W, a bf16 weight tile
+// (two boxes of 64 k x 64 columns), else an int8 one (one box).
+template <bool kBf16W>
+struct SmallGeom {
+  static constexpr int kWBytes = kBf16W ? 2 * kBoxBytes : kQTileBytes;
+  static constexpr int kStageBytes = kWBytes + kSmallXBytes;
+  static constexpr int kBarOff = kSmallStages * kStageBytes + kRecvBytes;
+  static constexpr int kSmem = kBarOff + 16 * kSmallStages + 1024;
+};
 
 // Grid: (column tiles of every weight, split, M tiles of 32), clusters of
 // (1, split, 1): rank = blockIdx.y = the part of K. Tiles in shared memory
 // (128-byte swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)): the
-// int8 weight [64 k][128 columns] and x [32 m][64 k] of each stage.
-template <typename OutT>
+// weight [64 k][128 columns] and x [32 m][64 k] of each stage.
+//
+// kBf16W = false: int8 codes, dequantized into the A fragments as above.
+// kBf16W = true (the dense bf16-weight build, the projections of a model
+// served without weight quantization): the weight tile is bf16, two boxes
+// of 64 columns (128 bytes) by 64 k; ldmatrix.trans of 8 k rows by 8
+// columns gives lane (gid, tig) the weight of column gid at k = 2 tig and
+// 2 tig + 1, which is m16n8k16's A register for fragment row gid as it
+// stands: fragment row r holds column r, no permute, no dequantize, no
+// scale. Everything else (tiles, ring, k order, split sum) is the int8
+// build's, so its rows do not depend on M either.
+template <typename OutT, bool kBf16W>
 __global__ void __launch_bounds__(kSmallThreads)
     w8a16_small_kernel(__grid_constant__ const CUtensorMap x_map,
                        __grid_constant__ const CUtensorMap w_map0,
                        __grid_constant__ const CUtensorMap w_map1,
                        __grid_constant__ const CUtensorMap w_map2,
                        const Weights ws, int M, int K, int split) {
+  using G = SmallGeom<kBf16W>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t recv_addr = base + kSmallStages * kSmallStageBytes;
+  const uint32_t recv_addr = base + kSmallStages * G::kStageBytes;
   const float* const recv =
       reinterpret_cast<const float*>(smem_raw + (recv_addr - raw));
-  const uint32_t bar0 = base + kSmallBarOff;
+  const uint32_t bar0 = base + G::kBarOff;
   auto full = [&](int s) { return bar0 + 8 * s; };
   auto empty = [&](int s) { return bar0 + 8 * (kSmallStages + s); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Target tg = target_of(ws, blockIdx.x, kBN);
   const int m0 = blockIdx.z * kSmallM, rank = blockIdx.y;
-  int k0, k1;
-  split_range(K / kBK, split, rank, &k0, &k1);
+  int k0, k1;  // a last k-step past K reads zeros (TMA's fill)
+  split_range((K + kBK - 1) / kBK, split, rank, &k0, &k1);
   const int n_k = k1 - k0;
 
   if (threadIdx.x == 0) {
@@ -364,10 +408,12 @@ __global__ void __launch_bounds__(kSmallThreads)
       for (int i = 0; i < n_k; ++i) {
         const int s = i % kSmallStages, use = i / kSmallStages;
         if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
-        const uint32_t st = base + s * kSmallStageBytes;
-        mbar_expect_tx(full(s), kSmallStageBytes);
+        const uint32_t st = base + s * G::kStageBytes;
+        mbar_expect_tx(full(s), G::kStageBytes);
         tma_load_2d(st, wm, full(s), tg.n0, (k0 + i) * kBK);
-        tma_load_2d(st + kQTileBytes, &x_map, full(s), (k0 + i) * kBK, m0);
+        if constexpr (kBf16W)
+          tma_load_2d(st + kBoxBytes, wm, full(s), tg.n0 + 64, (k0 + i) * kBK);
+        tma_load_2d(st + G::kWBytes, &x_map, full(s), (k0 + i) * kBK, m0);
       }
     }
     __syncwarp();
@@ -380,20 +426,23 @@ __global__ void __launch_bounds__(kSmallThreads)
   }
 
   // Consumer warp `warp`: columns 32 warp + 16 t + 0..15 (t = 0, 1) of the
-  // tile, every token of it. Lane (gid, tig)'s scales: columns 2 gid and
-  // 2 gid + 1 of each 16 (zero past N; N % 16 == 0).
+  // tile, every token of it. int8: lane (gid, tig)'s scales, columns 2 gid
+  // and 2 gid + 1 of each 16 (zero past N; N % 16 == 0).
   const int gid = lane >> 2, tig = lane & 3;
   uint32_t s_lo[2], s_hi[2];
+  if constexpr (!kBf16W) {
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int c = tg.n0 + 32 * warp + 16 * t + 2 * gid;
-    const uint32_t p =
-        c < tg.N ? *reinterpret_cast<const uint32_t*>(tg.scale + c) : 0u;
-    s_lo[t] = __byte_perm(p, 0, 0x1010);
-    s_hi[t] = __byte_perm(p, 0, 0x3232);
+    for (int t = 0; t < 2; ++t) {
+      const int c = tg.n0 + 32 * warp + 16 * t + 2 * gid;
+      const uint32_t p =
+          c < tg.N ? *reinterpret_cast<const uint32_t*>(tg.scale + c) : 0u;
+      s_lo[t] = __byte_perm(p, 0, 0x1010);
+      s_hi[t] = __byte_perm(p, 0, 0x3232);
+    }
   }
-  // acc[t][j]: rows = columns of 16-column tile t (through fragment_column),
-  // columns = tokens 8 j + 0..7; token tiles wholly past M are skipped.
+  // acc[t][j]: rows = columns of 16-column tile t (int8: through
+  // fragment_column; bf16: in order), columns = tokens 8 j + 0..7; token
+  // tiles wholly past M are skipped.
   float acc[2][4][4];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
@@ -409,7 +458,7 @@ __global__ void __launch_bounds__(kSmallThreads)
   for (int i = 0; i < n_k; ++i) {
     const int s = i % kSmallStages;
     mbar_wait(full(s), (i / kSmallStages) & 1);
-    const uint32_t qs = base + s * kSmallStageBytes, xs = qs + kQTileBytes;
+    const uint32_t qs = base + s * G::kStageBytes, xs = qs + G::kWBytes;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // k 32 h .. 32 h + 31 of the step
       // B = x^T: k16 steps 2 h + kk, token tiles 2 jp and 2 jp + 1 per
@@ -430,16 +479,31 @@ __global__ void __launch_bounds__(kSmallThreads)
         }
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
-        // A = w^T: k rows 32 h + lane of column chunk 2 warp + t; r[q] is
-        // k 32 h + 8 q + 0..7.
-        const int row = 32 * h + lane, chunk = 2 * warp + t;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, qs + row * 128 + ((chunk ^ (row & 7)) << 4));
         uint32_t a[2][4];
+        if constexpr (kBf16W) {
+          // A = w^T, one 16 k x 16 column fragment per ldmatrix: matrix q
+          // holds k rows 8 (q >> 1) + 0..7 of the k16 step and columns
+          // 8 (q & 1) + 0..7 of chunk pair 2 warp + t (box (4 warp + 2 t)
+          // / 8), so r[0..3] are a0..a3.
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          dequant_a(r[2 * kk], s_lo[t], s_hi[t], a[kk][0], a[kk][1]);
-          dequant_a(r[2 * kk + 1], s_lo[t], s_hi[t], a[kk][2], a[kk][3]);
+          for (int kk = 0; kk < 2; ++kk) {
+            const int row = 32 * h + 16 * kk + 8 * (mi >> 1) + (lane & 7);
+            const int chunk = 2 * (2 * warp + t) + (mi & 1);
+            ldmatrix_x4_trans(a[kk], qs + (chunk >> 3) * kBoxBytes +
+                                         row * 128 +
+                                         (((chunk & 7) ^ (row & 7)) << 4));
+          }
+        } else {
+          // A = w^T: k rows 32 h + lane of column chunk 2 warp + t; r[q]
+          // is k 32 h + 8 q + 0..7.
+          const int row = 32 * h + lane, chunk = 2 * warp + t;
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, qs + row * 128 + ((chunk ^ (row & 7)) << 4));
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            dequant_a(r[2 * kk], s_lo[t], s_hi[t], a[kk][0], a[kk][1]);
+            dequant_a(r[2 * kk + 1], s_lo[t], s_hi[t], a[kk][2], a[kk][3]);
+          }
         }
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk)
@@ -453,8 +517,10 @@ __global__ void __launch_bounds__(kSmallThreads)
     if (lane == 0) mbar_arrive(empty(s));
   }
 
-  // Element e of acc[t][j]: weight column lc = 32 warp + 16 t + 2 gid
-  // (e < 2) or lc + 1 (e >= 2), token 8 j + 2 tig + (e & 1).
+  // Element e of acc[t][j]: token 8 j + 2 tig + (e & 1) of weight column
+  // (tile-local) 32 warp + 16 t + 2 gid + (e >> 1) for int8, 32 warp +
+  // 16 t + gid + 8 (e >> 1) for bf16. int8 stores adjacent column pairs,
+  // bf16 single columns.
   OutT* const out = static_cast<OutT*>(tg.out);
   const int N = tg.N;
   if (split == 1) {
@@ -465,20 +531,29 @@ __global__ void __launch_bounds__(kSmallThreads)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = m0 + 8 * j + 2 * tig + h;
-          const int n = tg.n0 + 32 * warp + 16 * t + 2 * gid;
-          if (m < M && n < N)
-            store_pair(out + (size_t)m * N + n, acc[t][j][h],
-                       acc[t][j][2 + h]);
+          if constexpr (kBf16W) {
+            const int n = tg.n0 + 32 * warp + 16 * t + gid;
+            if (m < M && n < N)
+              store_one(out + (size_t)m * N + n, acc[t][j][h]);
+            if (m < M && n + 8 < N)
+              store_one(out + (size_t)m * N + n + 8, acc[t][j][2 + h]);
+          } else {
+            const int n = tg.n0 + 32 * warp + 16 * t + 2 * gid;
+            if (m < M && n < N)
+              store_pair(out + (size_t)m * N + n, acc[t][j][h],
+                         acc[t][j][2 + h]);
+          }
         }
     return;
   }
   // Rank r owns columns [r slice, (r + 1) slice) of the tile; its recv
   // buffer holds each rank's partial of them as f32 [rank][token][slice].
+  // A 16-column mma tile lies within one slice (slice >= 16).
   const int slice = kBN / split;
   cluster_wait();  // every rank has started
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    const int lc = 32 * warp + 16 * t + 2 * gid;
+    const int lc = 32 * warp + 16 * t + (kBf16W ? gid : 2 * gid);
     const uint32_t owner = (uint32_t)(lc / slice);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -487,8 +562,14 @@ __global__ void __launch_bounds__(kSmallThreads)
         const int tok = 8 * j + 2 * tig + h;
         const uint32_t off =
             (uint32_t)(((rank * kSmallM + tok) * slice + lc % slice) * 4);
-        st_cluster_f32x2(map_rank(recv_addr + off, owner), acc[t][j][h],
-                         acc[t][j][2 + h]);
+        if constexpr (kBf16W) {
+          const uint32_t dst = map_rank(recv_addr + off, owner);
+          st_cluster_f32(dst, acc[t][j][h]);
+          st_cluster_f32(dst + 8 * 4, acc[t][j][2 + h]);
+        } else {
+          st_cluster_f32x2(map_rank(recv_addr + off, owner), acc[t][j][h],
+                           acc[t][j][2 + h]);
+        }
       }
   }
   cluster_arrive();
@@ -750,25 +831,32 @@ constexpr int kFmaBM = 32, kFmaBN = 64, kFmaRows = kFmaBM * kFmaBN /
                                                    kFmaThreads;
 
 // Grid: (column tiles of 64, 1, M tiles of 32): thread column tid % 64,
-// rows 8 (tid / 64) + 0..7 of the tile, k in increasing order.
+// rows 8 (tid / 64) + 0..7 of the tile, k in increasing order. kF32W: a
+// dense f32 weight (an f32 model served without weight quantization), else
+// int8 codes dequantized as the plain version does.
+template <bool kF32W>
 __global__ void __launch_bounds__(kFmaThreads)
     w8a16_fma_kernel(const float* __restrict__ x, const Weights ws, int M,
                      int K) {
   const Target tg = target_of(ws, blockIdx.x, kFmaBN);
-  const int8_t* const q = tg.q;
   float* const out = static_cast<float*>(tg.out);
   const int N = tg.N;
   const int tid = threadIdx.x, col = tid % kFmaBN,
             row0 = (tid / kFmaBN) * kFmaRows;
   const int n = tg.n0 + col, m0 = blockIdx.z * kFmaBM;
-  const float s = n < N ? __bfloat162float(tg.scale[n]) : 0.f;
+  const float s =
+      !kF32W && n < N ? __bfloat162float(tg.scale[n]) : 0.f;
   float acc[kFmaRows];
 #pragma unroll
   for (int r = 0; r < kFmaRows; ++r) acc[r] = 0.f;
   for (int k = 0; k < K; ++k) {
-    const float w = n < N ? __bfloat162float(__float2bfloat16_rn(
-                                (float)q[(size_t)k * N + n] * s))
-                          : 0.f;
+    float w = 0.f;
+    if (n < N) {
+      const size_t at = (size_t)k * N + n;
+      w = kF32W ? static_cast<const float*>(tg.w)[at]
+                : __bfloat162float(__float2bfloat16_rn(
+                      (float)static_cast<const int8_t*>(tg.w)[at] * s));
+    }
 #pragma unroll
     for (int r = 0; r < kFmaRows; ++r) {
       const int m = m0 + row0 + r;
@@ -841,7 +929,7 @@ struct alignas(64) Plan {
   CUtensorMap w_map[kMaxWeights];    // bf16 activations only
   Weights ws;                        // out[] set at each launch
   long long out_off[kMaxWeights];    // output i at out + M * out_off[i]
-  int K, x_dtype, out_dtype, wide, split;
+  int K, x_dtype, w_dtype, out_dtype, wide, split;
 };
 
 template <class Kernel>
@@ -853,18 +941,19 @@ cudaError_t raise_smem(Kernel kernel, int bytes, bool* ready) {
   return err;
 }
 
-template <typename OutT>
+template <typename OutT, bool kBf16W>
 cudaError_t launch_small(const CUtensorMap& x_map, Plan& p, int M,
                          cudaStream_t st) {
-  auto kernel = w8a16_small_kernel<OutT>;
+  auto kernel = w8a16_small_kernel<OutT, kBf16W>;
+  constexpr int smem = SmallGeom<kBf16W>::kSmem;
   static bool ready = false;  // one attribute call per instantiation
-  cudaError_t err = raise_smem(kernel, kSmallSmem, &ready);
+  cudaError_t err = raise_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.ws.tile0[p.ws.count], p.split,
                      (M + kSmallM - 1) / kSmallM);
   cfg.blockDim = dim3(kSmallThreads);
-  cfg.dynamicSmemBytes = kSmallSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -893,38 +982,79 @@ cudaError_t launch_wide(const CUtensorMap& x_map, const Plan& p, int M,
   return cudaGetLastError();
 }
 
+// One launch over rows [0, M) of x and of the outputs in p.ws.out.
+cudaError_t launch(Plan& p, const void* x, int M, cudaStream_t st) {
+  if (p.x_dtype == 0) {
+    const dim3 grid(p.ws.tile0[p.ws.count], 1, (M + kFmaBM - 1) / kFmaBM);
+    if (p.w_dtype == 2)
+      w8a16_fma_kernel<true><<<grid, kFmaThreads, 0, st>>>(
+          static_cast<const float*>(x), p.ws, M, p.K);
+    else
+      w8a16_fma_kernel<false><<<grid, kFmaThreads, 0, st>>>(
+          static_cast<const float*>(x), p.ws, M, p.K);
+    return cudaGetLastError();
+  }
+  CUtensorMap x_map;
+  const cudaError_t err =
+      make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.K, M, kBK,
+               p.wide ? kWideM : kSmallM);
+  if (err != cudaSuccess) return err;
+  if (p.wide)
+    return p.out_dtype ? launch_wide<__nv_bfloat16>(x_map, p, M, st)
+                       : launch_wide<float>(x_map, p, M, st);
+  if (p.w_dtype == 1)
+    return p.out_dtype ? launch_small<__nv_bfloat16, true>(x_map, p, M, st)
+                       : launch_small<float, true>(x_map, p, M, st);
+  return p.out_dtype ? launch_small<__nv_bfloat16, false>(x_map, p, M, st)
+                     : launch_small<float, false>(x_map, p, M, st);
+}
+
 }  // namespace
 
 extern "C" int grove_w8a16_plan_bytes() { return (int)sizeof(Plan); }
 
 // Plan a launch of x [M, K] (x_dtype 0 = f32, 1 = bf16) times the `count`
-// (1..3) weights q_i [K, n_i] int8 with scales_i [n_i] bf16 (contiguous,
-// 16-byte aligned), outputs of out_dtype (0 = f32, 1 = bf16; f32 x takes an
-// f32 output). wide = 1: the wgmma kernel (bf16 x, split 1); else bf16 x
-// takes the small kernel with `split` in 1, 2, 4, 8 (at most K / 64) and f32
-// x the FMA kernel (split 1). K % 64 == 0, n_i % 16 == 0. Writes
+// (1..3) weights w_i [K, n_i] (contiguous, 16-byte aligned) of w_dtype:
+// 0 = int8 codes with scales_i [n_i] bf16, 1 = a dense bf16 weight (bf16 x,
+// the small kernel), 2 = a dense f32 weight (f32 x); dense weights take no
+// scales (null). Outputs of out_dtype (0 = f32, 1 = bf16; f32 x takes an
+// f32 output). wide = 1: the wgmma kernel (bf16 x, int8 weights, split 1);
+// else bf16 x takes the small kernel with `split` in 1, 2, 4, 8 (at most
+// the k-steps, ceil(K / 64)) and f32 x the FMA kernel (split 1). int8:
+// K % 64 == 0, n_i % 16 == 0; bf16: K % 8 == 0, n_i % 8 == 0. Writes
 // grove_w8a16_plan_bytes() bytes to `plan`.
-extern "C" int grove_w8a16_plan(const void* const* q,
+extern "C" int grove_w8a16_plan(const void* const* w,
                                 const void* const* scale, const int* n,
-                                int count, int K, int x_dtype, int out_dtype,
-                                int wide, int split, void* plan) {
+                                int count, int K, int x_dtype, int w_dtype,
+                                int out_dtype, int wide, int split,
+                                void* plan) {
   const bool pow2 = split == 1 || split == 2 || split == 4 || split == 8;
-  if (K <= 0 || K % kBK != 0 || count < 1 || count > kMaxWeights || !pow2 ||
-      split > K / kBK || (x_dtype != 0 && x_dtype != 1) ||
+  const bool pair_ok = (w_dtype == 0) || (w_dtype == 1 && x_dtype == 1 &&
+                                          !wide) ||
+                       (w_dtype == 2 && x_dtype == 0);
+  // int8: whole k-steps and 16-column scale pairs; bf16: 16-byte rows of x
+  // and of the weight for TMA (a last partial k-step reads zeros past K).
+  const int k_mult = w_dtype == 0 ? kBK : w_dtype == 1 ? 8 : 1;
+  const int n_mult = w_dtype == 0 ? 16 : w_dtype == 1 ? 8 : 1;
+  if (K <= 0 || K % k_mult != 0 || count < 1 || count > kMaxWeights ||
+      !pow2 || split > (K + kBK - 1) / kBK || (x_dtype != 0 && x_dtype != 1) ||
+      (w_dtype < 0 || w_dtype > 2) || !pair_ok ||
       (out_dtype != 0 && out_dtype != 1) ||
       (x_dtype == 0 && (out_dtype != 0 || wide || split != 1)) ||
       (wide && split != 1))
     return (int)cudaErrorInvalidValue;
   Plan p;
   memset(&p, 0, sizeof(p));
-  p.K = K, p.x_dtype = x_dtype, p.out_dtype = out_dtype, p.wide = wide;
-  p.split = split;
+  p.K = K, p.x_dtype = x_dtype, p.w_dtype = w_dtype;
+  p.out_dtype = out_dtype, p.wide = wide, p.split = split;
   p.ws.count = count;
   const int bn = x_dtype == 0 ? kFmaBN : wide ? kWideN : kBN;
   long long off = 0;
   for (int i = 0; i < count; ++i) {
-    if (n[i] <= 0 || n[i] % 16 != 0) return (int)cudaErrorInvalidValue;
-    p.ws.q[i] = static_cast<const int8_t*>(q[i]);
+    if (n[i] <= 0 || n[i] % n_mult != 0 || w[i] == nullptr ||
+        (w_dtype == 0 && scale[i] == nullptr))
+      return (int)cudaErrorInvalidValue;
+    p.ws.w[i] = w[i];
     p.ws.scale[i] = static_cast<const __nv_bfloat16*>(scale[i]);
     p.ws.n[i] = n[i];
     p.ws.tile0[i + 1] = p.ws.tile0[i] + (n[i] + bn - 1) / bn;
@@ -932,8 +1062,11 @@ extern "C" int grove_w8a16_plan(const void* const* q,
     off += n[i];
     if (x_dtype == 1) {
       const cudaError_t err =
-          make_map(&p.w_map[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q[i], n[i],
-                   K, kBN, kBK);
+          w_dtype == 1
+              ? make_map(&p.w_map[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         w[i], n[i], K, 64, kBK)
+              : make_map(&p.w_map[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                         w[i], n[i], K, kBN, kBK);
       if (err != cudaSuccess) return (int)err;
     }
   }
@@ -942,48 +1075,57 @@ extern "C" int grove_w8a16_plan(const void* const* q,
 }
 
 // out: the outputs of a plan, one after another ([M, n_i] each). x and out
-// contiguous and 16-byte aligned.
+// contiguous and 16-byte aligned. slab > 0 (the small kernel only): one
+// launch per `slab` consecutive rows, rows [r0, r0 + slab) of x read and of
+// every output written in place, so each row takes the bits it takes at
+// M <= slab. Else one launch.
 extern "C" int grove_w8a16_run(const void* plan, const void* x, void* out,
-                               int M, void* stream) {
+                               int M, int slab, void* stream) {
   Plan p;
   memcpy(&p, plan, sizeof(p));
-  if (M <= 0) return (int)cudaErrorInvalidValue;
-  const int elt = p.out_dtype == 0 ? 4 : 2;
-  for (int i = 0; i < p.ws.count; ++i)
-    p.ws.out[i] = static_cast<char*>(out) + (size_t)M * p.out_off[i] * elt;
+  if (M <= 0 || slab < 0) return (int)cudaErrorInvalidValue;
+  const int elt = p.out_dtype == 0 ? 4 : 2, x_elt = p.x_dtype == 0 ? 4 : 2;
+  const int rows = slab > 0 && p.x_dtype == 1 && !p.wide ? slab : M;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.x_dtype == 0) {
-    const dim3 grid(p.ws.tile0[p.ws.count], 1, (M + kFmaBM - 1) / kFmaBM);
-    w8a16_fma_kernel<<<grid, kFmaThreads, 0, st>>>(
-        static_cast<const float*>(x), p.ws, M, p.K);
-    return (int)cudaGetLastError();
+  for (int r0 = 0; r0 < M; r0 += rows) {
+    const int m = M - r0 < rows ? M - r0 : rows;
+    for (int i = 0; i < p.ws.count; ++i)
+      p.ws.out[i] = static_cast<char*>(out) +
+                    ((size_t)M * p.out_off[i] + (size_t)r0 * p.ws.n[i]) * elt;
+    const cudaError_t err = launch(
+        p, static_cast<const char*>(x) + (size_t)r0 * p.K * x_elt, m, st);
+    if (err != cudaSuccess) return (int)err;
   }
-  CUtensorMap x_map;
-  const cudaError_t err =
-      make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.K, M, kBK,
-               p.wide ? kWideM : kSmallM);
-  if (err != cudaSuccess) return (int)err;
-  if (p.wide)
-    return p.out_dtype ? (int)launch_wide<__nv_bfloat16>(x_map, p, M, st)
-                       : (int)launch_wide<float>(x_map, p, M, st);
-  return p.out_dtype ? (int)launch_small<__nv_bfloat16>(x_map, p, M, st)
-                     : (int)launch_small<float>(x_map, p, M, st);
+  return 0;
 }
 
 // A build's tile rows and columns, registers, local (spill) bytes, dynamic
 // shared memory, largest cluster and residency, into out[7]: which = 0 the
-// small kernel (residency: clusters of kMaxSplit resident at once, by
-// cudaOccupancyMaxActiveClusters), 1 the wide one, 2 the FMA kernel (both:
-// CTAs per SM). The tensor-core builds are those with bf16 output.
+// small kernel over int8 weights, 3 over bf16 weights (residency: clusters
+// of kMaxSplit resident at once, by cudaOccupancyMaxActiveClusters), 1 the
+// wide one, 2 the FMA kernel (both: CTAs per SM). The tensor-core builds
+// are those with bf16 output.
 extern "C" int grove_w8a16_info(int which, int* out) {
   const void* fn;
   int bm, bn, smem, threads, cluster = 1;
   cudaError_t err = cudaSuccess;
-  if (which == 0) {
-    static bool ready = false;
-    err = raise_smem(w8a16_small_kernel<__nv_bfloat16>, kSmallSmem, &ready);
-    fn = reinterpret_cast<const void*>(w8a16_small_kernel<__nv_bfloat16>);
-    bm = kSmallM, bn = kBN, smem = kSmallSmem, threads = kSmallThreads;
+  if (which == 0 || which == 3) {
+    if (which == 0) {
+      static bool ready = false;
+      smem = SmallGeom<false>::kSmem;
+      err = raise_smem(w8a16_small_kernel<__nv_bfloat16, false>, smem,
+                       &ready);
+      fn = reinterpret_cast<const void*>(
+          w8a16_small_kernel<__nv_bfloat16, false>);
+    } else {
+      static bool ready = false;
+      smem = SmallGeom<true>::kSmem;
+      err = raise_smem(w8a16_small_kernel<__nv_bfloat16, true>, smem,
+                       &ready);
+      fn = reinterpret_cast<const void*>(
+          w8a16_small_kernel<__nv_bfloat16, true>);
+    }
+    bm = kSmallM, bn = kBN, threads = kSmallThreads;
     cluster = kMaxSplit;
   } else if (which == 1) {
     static bool ready = false;
@@ -991,7 +1133,7 @@ extern "C" int grove_w8a16_info(int which, int* out) {
     fn = reinterpret_cast<const void*>(w8a16_wide_kernel<__nv_bfloat16>);
     bm = kWideM, bn = kWideN, smem = kWideSmem, threads = kWideThreads;
   } else if (which == 2) {
-    fn = reinterpret_cast<const void*>(w8a16_fma_kernel);
+    fn = reinterpret_cast<const void*>(w8a16_fma_kernel<false>);
     bm = kFmaBM, bn = kFmaBN, smem = 0, threads = kFmaThreads;
   } else {
     return (int)cudaErrorInvalidValue;

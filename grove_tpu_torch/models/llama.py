@@ -7,9 +7,11 @@ loop over the L axis here, and the KV cache is updated in place.
 
 Products take the working type's inputs: where the JAX code asks for an
 f32 result (``preferred_element_type``), the port multiplies the same
-values upcast to f32. int8 weights (``QTensor`` leaves) go through the
-W8A16 GEMM (ops/w8a16.py: a kernel on CUDA tensors that reads the weight
-as int8, the materialize-then-matmul plain version on CPU tensors).
+values upcast to f32. Every projection goes through the GEMM kernel of
+ops/w8a16.py on CUDA tensors (int8 weights, ``QTensor`` leaves: the W8A16
+build, which reads the weight as int8; dense weights: its bf16-weight
+build) and its plain version on CPU tensors (materialize then matmul; the
+einsum). Each residual add runs inside the next norm (``add_rms_norm``).
 """
 
 from __future__ import annotations
@@ -27,13 +29,14 @@ from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
 from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
                                          paged_rope_scatter_q)
-from grove_tpu_torch.ops.norms import rms_norm
+from grove_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
                                        paged_decode_attention,
                                        paged_decode_attention_q8)
 from grove_tpu_torch.ops.rope import apply_rope, rope_table
-from grove_tpu_torch.ops.w8a16 import w8a16_matmul_group
+from grove_tpu_torch.ops.w8a16 import (ROW_INVARIANT_M, dense_matmul_group,
+                                       dense_matmul_ref, w8a16_matmul_group)
 from grove_tpu_torch.serving.quant import QTensor
 
 Params = dict[str, Any]
@@ -156,83 +159,96 @@ def layer_params(layers: Params, i: int) -> Params:
     return {name: w[i] for name, w in layers.items()}
 
 
-def _int8_matmul(x: torch.Tensor, ws: list[QTensor], n_contract: int,
-                 out_dtype: torch.dtype) -> list[torch.Tensor]:
+def _matmul(x: torch.Tensor, ws, n_contract: int, out_dtype: torch.dtype,
+            wide: bool = False) -> list[torch.Tensor]:
     """``x`` [..., *w.shape[:n_contract]] contracted with the leading
-    ``n_contract`` axes of each int8 weight of ``ws`` (one launch of the
-    W8A16 GEMM for all: x as [M, K], each weight as the [K, N] it is
-    stored as, its scales as [N])."""
-    k = ws[0].q.shape[:n_contract].numel()
-    ys = w8a16_matmul_group(
-        x.reshape(-1, k), [(w.q.reshape(k, -1), w.scale.reshape(-1))
-                           for w in ws], out_dtype)
-    lead = x.shape[:x.dim() - n_contract]
-    return [y.reshape(lead + w.q.shape[n_contract:]) for y, w in zip(ys, ws)]
-
-
-def _projs(eq: str, x: torch.Tensor, ws) -> list[torch.Tensor]:
-    """``einsum(eq, x, w)`` for each weight of ``ws`` (they share x), with
-    JAX's type promotion: mixed inputs (an f32 model over bf16 int8 scales)
-    meet in the wider type. Every equation here contracts x's trailing axes
-    with w's leading ones, so int8 weights go through the W8A16 GEMM, in
-    one launch; dense ones through einsum."""
-    if all(isinstance(w, QTensor) for w in ws):
-        w_axes, out_axes = eq.split(",")[1].split("->")
-        n_contract = sum(a not in out_axes for a in w_axes)
-        return _int8_matmul(x, ws, n_contract,
-                            torch.promote_types(x.dtype, ws[0].scale.dtype))
-    return [_proj(eq, x, w) for w in ws]
-
-
-def _proj(eq: str, x: torch.Tensor, w) -> torch.Tensor:
-    """``_projs`` of one weight."""
-    if isinstance(w, QTensor):
-        return _projs(eq, x, [w])[0]
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.einsum(eq, x.to(dt), w.to(dt))
-
-
-def _qkv_proj(cfg: LlamaConfig, x, lp):
-    """Pre-norm + QKV projections, before rope (the paged path ropes
-    inside its KV write)."""
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    return _projs("bsd,dhk->bshk", h, [lp["wq"], lp["wk"], lp["wv"]])
-
-
-def _qkv(cfg: LlamaConfig, x, lp, cos, sin, positions):
-    """Pre-norm + QKV projections + rope. Shared by the lanes engine's
-    prefill and decode."""
-    q, k, v = _qkv_proj(cfg, x, lp)
-    q = apply_rope(q, cos, sin, positions)
-    k = apply_rope(k, cos, sin, positions)
-    return q, k, v
-
-
-def _attn_out(x, attn, lp):
-    out = _proj("bshk,hkd->bsd", attn, lp["wo"])
-    return x + out.to(x.dtype)
-
-
-def _mlp_block(cfg: LlamaConfig, x, lp):
-    """Pre-norm SwiGLU MLP with residual. Shared by prefill and decode."""
-    hm = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate, up = _projs("bsd,df->bsf", hm, [lp["w_gate"], lp["w_up"]])
-    out = _proj("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"])
-    return x + out.to(x.dtype)
-
-
-def _layer_prefill(cfg: LlamaConfig, x, lp, cos, sin, positions, q_offset,
-                   attn_fn=None):
-    """One decoder layer over a full sequence. x: [b, s, d_model].
-    ``attn_fn(q, k, v)`` overrides the attention (the flash kernel)."""
-    q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
-    if attn_fn is None:
-        attn = causal_attention(q, k, v, q_offset=q_offset)
+    ``n_contract`` axes of each weight of ``ws`` (all int8 or all dense):
+    one grouped launch of the GEMM kernel on CUDA tensors (x as [M, K],
+    each weight as the [K, N] it is stored as, an int8 weight's scales as
+    [N]), its plain version on CPU tensors. Above 256 rows the call runs in
+    slabs of 256 rows, each row with the bits it has at any M <= 256,
+    unless ``wide`` (the lanes prefill): then int8 weights take the wide
+    kernel and dense ones ``torch.matmul``."""
+    k = ws[0].shape[:n_contract].numel()
+    x2 = x.reshape(-1, k)
+    if isinstance(ws[0], QTensor):
+        ys = w8a16_matmul_group(
+            x2, [(w.q.reshape(k, -1), w.scale.reshape(-1)) for w in ws],
+            out_dtype, slabbed=not wide)
+    elif wide and x2.is_cuda and x2.shape[0] > ROW_INVARIANT_M:
+        ys = [dense_matmul_ref(x2, w.reshape(k, -1), out_dtype) for w in ws]
     else:
-        attn = attn_fn(q, k, v)
-    x = _attn_out(x, attn, lp)
-    x = _mlp_block(cfg, x, lp)
-    return x, (k, v)
+        ys = dense_matmul_group(x2, [w.reshape(k, -1) for w in ws],
+                                out_dtype)
+    lead = x.shape[:x.dim() - n_contract]
+    return [y.reshape(lead + w.shape[n_contract:]) for y, w in zip(ys, ws)]
+
+
+def _projs(eq: str, x: torch.Tensor, ws, wide: bool = False
+           ) -> list[torch.Tensor]:
+    """``einsum(eq, x, w)`` for each weight of ``ws`` (they share x; all
+    int8 or all dense), with JAX's type promotion: mixed inputs (an f32
+    model over bf16 int8 scales) meet in the wider type. Every equation here contracts x's trailing axes
+    with w's leading ones, so int8 weights go through the W8A16 GEMM and,
+    on CUDA tensors, dense ones through its dense build, one launch for all
+    (``_matmul``); dense weights on CPU tensors take the einsum itself."""
+    w_axes, out_axes = eq.split(",")[1].split("->")
+    n_contract = sum(a not in out_axes for a in w_axes)
+    if isinstance(ws[0], QTensor):
+        return _matmul(x, ws, n_contract,
+                       torch.promote_types(x.dtype, ws[0].scale.dtype), wide)
+    dt = torch.promote_types(x.dtype, ws[0].dtype)
+    if not x.is_cuda:
+        return [torch.einsum(eq, x.to(dt), w.to(dt)) for w in ws]
+    return _matmul(x.to(dt), [w.to(dt) for w in ws], n_contract, dt, wide)
+
+
+def _proj(eq: str, x: torch.Tensor, w, wide: bool = False) -> torch.Tensor:
+    """``_projs`` of one weight."""
+    return _projs(eq, x, [w], wide)[0]
+
+
+def _qkv_proj(h, lp, wide: bool = False):
+    """The QKV projections of the normed rows ``h``, before rope (the paged
+    path ropes inside its KV write)."""
+    return _projs("bsd,dhk->bshk", h, [lp["wq"], lp["wk"], lp["wv"]], wide)
+
+
+def _attn_out(attn, lp, dtype: torch.dtype, wide: bool = False):
+    """The attention output's projection, as the residual's type."""
+    return _proj("bshk,hkd->bsd", attn, lp["wo"], wide).to(dtype)
+
+
+def _mlp_block(h, lp, dtype: torch.dtype, wide: bool = False):
+    """The SwiGLU MLP of the normed rows ``h``, as the residual's type."""
+    gate, up = _projs("bsd,df->bsf", h, [lp["w_gate"], lp["w_up"]], wide)
+    return _proj("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"],
+                 wide).to(dtype)
+
+
+def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
+             wide: bool = False) -> torch.Tensor:
+    """The decoder layers over the embedded rows ``x`` [b, s, d]:
+    ``attend(i, q, k, v)`` is layer i's attention over the unroped
+    projections (rope, the cache write and attention). Returns the final
+    norm's rows.
+
+    Each residual add is fused with the norm after it (``add_rms_norm``):
+    the attention output's with ``mlp_norm``, the MLP's with the next
+    layer's ``attn_norm`` (the last layer's with ``final_norm``), so a
+    forward runs one plain norm and 2 n_layers fused ones, and no separate
+    add; the bits are those of the add and then the norm."""
+    layers, eps = params["layers"], cfg.norm_eps
+    h = rms_norm(x, layers["attn_norm"][0], eps)
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        attn = attend(i, *_qkv_proj(h, lp, wide))
+        x, h = add_rms_norm(x, _attn_out(attn, lp, x.dtype, wide),
+                            lp["mlp_norm"], eps)
+        nxt = (layers["attn_norm"][i + 1] if i + 1 < cfg.n_layers
+               else params["final_norm"])
+        x, h = add_rms_norm(x, _mlp_block(h, lp, x.dtype, wide), nxt, eps)
+    return h
 
 
 def embed(cfg: LlamaConfig, params: Params,
@@ -247,18 +263,12 @@ def embed(cfg: LlamaConfig, params: Params,
 
 def _logits(x: torch.Tensor, w) -> torch.Tensor:
     """LM-head product with an f32 result: the working-type values upcast
-    to f32, as the JAX ``preferred_element_type=f32`` product (an int8
-    head through the W8A16 GEMM with an f32 output)."""
-    if isinstance(w, QTensor):
-        return _int8_matmul(x, [w], 1, torch.float32)[0]
+    to f32, as the JAX ``preferred_element_type=f32`` product (through the
+    GEMM kernel with an f32 output: an int8 head's W8A16 build, a dense
+    head's bf16-weight build, which reads the head as stored)."""
+    if isinstance(w, QTensor) or x.is_cuda:
+        return _matmul(x, [w], 1, torch.float32)[0]
     return x.to(torch.float32) @ w.to(torch.float32)
-
-
-def head(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head over every row of ``x`` [..., d]: f32
-    logits."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(x, params["lm_head"])
 
 
 def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
@@ -280,16 +290,20 @@ def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     positions = torch.arange(s, device=dev).expand(b, s)
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
-    x = embed(cfg, params, tokens)
     # CUDA tensors and a fitting shape -> the flash kernel; else plain.
     attn_fn = pick_causal_attention(s, cfg.head_dim, device=dev)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        x, (k, v) = _layer_prefill(cfg, x, layer_params(layers, i), cos, sin,
-                                   positions, 0, attn_fn=attn_fn)
+
+    def attend(i, q, k, v):
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
         write_rows(cache.k[i], k, 0)
         write_rows(cache.v[i], v, 0)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if attn_fn is None:
+            return causal_attention(q, k, v, q_offset=0)
+        return attn_fn(q, k, v)
+
+    # b * s rows: the wide int8 kernel or torch.matmul past 256.
+    x = _decoder(cfg, params, embed(cfg, params, tokens), attend, wide=True)
     # Last valid token per lane (ragged batches: pad rows carry garbage).
     last = (lengths.to(torch.long) - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]
@@ -310,18 +324,16 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     positions = cache.lengths[:, None]  # [b, 1]
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
                      tokens.device)
-    x = embed(cfg, params, tokens[:, None])  # [b, 1, d]
     new_lengths = cache.lengths + 1
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
-        q, k, v = _qkv(cfg, x, lp, cos, sin, positions)
+
+    def attend(i, q, k, v):
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
         kc = write_rows(cache.k[i], k, cache.lengths)
         vc = write_rows(cache.v[i], v, cache.lengths)
-        attn = decode_attention(q, kc, vc, new_lengths)
-        x = _attn_out(x, attn, lp)
-        x = _mlp_block(cfg, x, lp)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return decode_attention(q, kc, vc, new_lengths)
+
+    x = _decoder(cfg, params, embed(cfg, params, tokens[:, None]), attend)
     cache.lengths = new_lengths
     return _logits(x[:, 0], params["lm_head"]), cache
 
@@ -418,20 +430,16 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     valid = None if limit is None else positions < limit[:, None]
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
                      tokens.device)
-    x = embed(cfg, params, tokens[:, None])  # [b, 1, d]
     new_lengths = lengths + 1
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
-        q, k, v = _qkv_proj(cfg, x, lp)
-        attn = _write_and_attend(
+
+    def attend(i, q, k, v):
+        return _write_and_attend(
             q, k, v, cos, sin, kv_k[i], kv_v[i],
             None if k_scale is None else k_scale[i],
             None if v_scale is None else v_scale[i], tables, positions,
             new_lengths, valid, decode=True)
-        x = _attn_out(x, attn, lp)
-        x = _mlp_block(cfg, x, lp)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    x = _decoder(cfg, params, embed(cfg, params, tokens[:, None]), attend)
     return _logits(x[:, 0], params["lm_head"])
 
 
@@ -480,21 +488,17 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
     valid = (steps < n_valid)[None, :].expand(b, c)
     offsets = offset.expand(b)
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
-    x = embed(cfg, params, tokens)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
-        q, k, v = _qkv_proj(cfg, x, lp)
-        attn = _write_and_attend(
+
+    def attend(i, q, k, v):
+        return _write_and_attend(
             q, k, v, cos, sin, kv_k[i], kv_v[i],
             None if k_scale is None else k_scale[i],
             None if v_scale is None else v_scale[i], tables, positions,
             offsets, valid, decode=False)
-        x = _attn_out(x, attn, lp)
-        x = _mlp_block(cfg, x, lp)
+
+    x = _decoder(cfg, params, embed(cfg, params, tokens), attend)
     if not logits:
         return None
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     row = x.index_select(1, logit_idx.clamp(0, c - 1))[:, 0]  # [b, d]
     return _logits(row, params["lm_head"])
 
@@ -507,11 +511,11 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
 # so the argmax of each row is the token sequential greedy emits there:
 # acceptance is exact, not approximate. That rests on each row's numbers
 # not depending on the rest of the batch: the projections' rows on M (the
-# W8A16 GEMM's for M <= 256, ops/w8a16.py ``partition``; a dense weight's
-# cuBLAS product gives no such promise), attention's rows on decode vs
-# chunk (csrc/paged_attn.cu's header), rms_norm's on the row count
-# (ops/norms.py) and the KV write's codes and scales on the row alone
-# (ops/kvquant.py).
+# GEMM kernel's, int8 and dense bf16 weights alike, for M <= 256 and in
+# slabs of 256 rows above, ops/w8a16.py ``partition`` and ``slabs``),
+# attention's rows on decode vs chunk (csrc/paged_attn.cu's header),
+# rms_norm's and add_rms_norm's on the row count (ops/norms.py) and the KV
+# write's codes and scales on the row alone (ops/kvquant.py).
 
 
 def verify_chunk_paged(cfg: LlamaConfig, params: Params,
@@ -539,21 +543,18 @@ def verify_chunk_paged(cfg: LlamaConfig, params: Params,
                                                 device=dev)[None, :]
     valid = None if limit is None else positions < limit[:, None]
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
-    x = embed(cfg, params, tokens)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
-        q, k, v = _qkv_proj(cfg, x, lp)
-        attn = _write_and_attend(
+
+    def attend(i, q, k, v):
+        return _write_and_attend(
             q, k, v, cos, sin, kv_k[i], kv_v[i],
             None if k_scale is None else k_scale[i],
             None if v_scale is None else v_scale[i], tables, positions,
             lengths, valid, decode=False)
-        x = _attn_out(x, attn, lp)
-        x = _mlp_block(cfg, x, lp)
+
+    x = _decoder(cfg, params, embed(cfg, params, tokens), attend)
     if not logits:
         return None
-    return head(cfg, params, x)
+    return _logits(x, params["lm_head"])
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The int8-weight projection (W8A16 GEMM): a CUDA kernel for Hopper and its
-plain PyTorch version.
+"""The projections: the int8-weight GEMM (W8A16) and its dense bf16-weight
+build, CUDA kernels for Hopper, and their plain PyTorch versions.
 
 With int8 weights (``quant="int8"``, serving/quant.py) every matmul weight
 is an int8 tensor with one bf16 scale per output column. The JAX package
@@ -19,20 +19,36 @@ never writes it to device memory, and the plain version on CPU tensors.
 
 Shapes: x [M, K], the weight [K, N] as stored (the JAX layout: ``wq`` is
 [d, h * hd], ``wo`` [h * hd, d], ``lm_head`` [d, V]; none is transposed),
-its scales [N]. The kernel takes K % 64 == 0 and N % 16 == 0.
+its scales [N]. The int8 build takes K % 64 == 0 and N % 16 == 0, the
+bf16-weight build K % 8 == 0 and N % 8 == 0.
 ``w8a16_matmul_group`` multiplies one x by up to three such weights in one
 launch (``wq``/``wk``/``wv``; ``w_gate``/``w_up``), each read and written as
 stored, no concatenated copy made.
+
+Dense weights. A model served without weight quantization (the engine's
+default) multiplies by its bf16 weights as stored: ``dense_matmul_group``
+runs the same small kernel's bf16-weight build on CUDA tensors (the weight
+tile arrives as bf16 and feeds the tensor cores as it is; one grouped
+launch for QKV and for gate/up, the LM head with an f32 output) and
+``dense_matmul_ref`` (``x.to(ct) @ w.to(ct)``, bitwise the model's einsum
+on the CPU, which the model keeps there) on CPU tensors. It replaces the
+einsum on dense weights (``_w`` + einsum, ``grove_tpu/models/llama.py:157``)
+and the LM head's ``preferred_element_type=f32`` product. An f32 model's
+dense f32 weights take the CUDA-core kernel. ``dense_matmul.launches``
+counts its launches.
 
 Row invariance. For every M up to ``ROW_INVARIANT_M`` (256: decode, the
 prefill chunk, the lanes decode and the verify chunk of speculative
 decoding) the partition of K (``split_count``: the split count and the
 64-deep k-step), the order of the k-steps and the order of the split sum
-depend on K and the launch's weights only, so an output row's bits depend
-only on its own input row and never on M. Above 256 (the lanes prefill, M
-= 4,096) the kernel takes 128 x 256 ``wgmma`` tiles and no split, and a
-row's bits may differ from the same row's at M <= 256 (by the split sum's
-rounding).
+depend on K, the launch's weights and the build only, so an output row's
+bits depend only on its own input row and never on M. Above 256 a call
+either runs as consecutive slabs of at most 256 rows (``slabs``: one
+small-kernel launch each, over row offsets of x and of the one output
+buffer), which keeps every row's bits, or (the int8 weights of the lanes
+prefill, M = 4,096) takes 128 x 256 ``wgmma`` tiles and no split, whose
+rows may differ from the same rows at M <= 256 (by the split sum's
+rounding). The dense build always slabs.
 
 Host time. A launch's weight-side arguments (pointers, column counts, the
 weights' TMA tensor maps) are a plan, made once and cached by the weights'
@@ -58,12 +74,21 @@ FMA_TILE = (32, 64)     # f32 activations (the CUDA-core kernel)
 ROW_INVARIANT_M = 256
 SMS = 132               # streaming multiprocessors of an H100
 RESIDENT_CTAS = 3 * SMS  # small-kernel CTAs resident at once (3 per SM)
+# ... per build: the bf16-weight build's stage is twice the int8 one's, so
+# two CTAs fit an SM (csrc/w8a16_gemm.cu SmallGeom).
+RESIDENT = {"int8": RESIDENT_CTAS, "bf16": 2 * SMS}
 MAX_SPLIT = 8           # the split's CTAs are one cluster: 8 is portable
 MIN_SPLIT_STEPS = 2     # k-steps per split at least
 MAX_WEIGHTS = 3         # weights sharing x in one launch
 MAX_PLANS = 4096        # cached launch plans
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BUILD_CODES = {"int8": 0, "bf16": 1, "f32": 2}  # the weight's type
+# What each build needs of K and N: int8 whole 64-deep k-steps and 16-column
+# scale pairs; bf16 16-byte rows for TMA (a last partial k-step reads
+# zeros); f32 nothing.
+_MULTIPLES = {"int8": (BK, 16), "bf16": (8, 8), "f32": (1, 1)}
+_INFO = {"small": 0, "wide": 1, "fma": 2, "small_bf16": 3}
 
 
 def w8a16_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -104,45 +129,58 @@ def fragment_column(r: int) -> int:
     return 2 * (r % 8) + r // 8
 
 
-def split_count(K: int, ns) -> int:
-    """How many parts K splits into for M <= ROW_INVARIANT_M: from K and
-    the launch's weights (``ns``, their column counts) alone. The parts of
+def split_count(K: int, ns, build: str = "int8") -> int:
+    """How many parts K splits into for M <= ROW_INVARIANT_M: from K, the
+    launch's weights (``ns``, their column counts) and the build (``int8``
+    or ``bf16`` weights: its residency) alone, never M. The parts of
     one column tile are one thread-block cluster, which sums them in
     distributed shared memory, each rank owning 128 / split columns of the
     tile: so the split is a power of two up to ``MAX_SPLIT`` (whole
     16-column mma tiles per rank, the portable cluster size). It doubles
     while the doubled (column tile, split) CTAs still fit in one wave
-    (``RESIDENT_CTAS``) and each part keeps at least ``MIN_SPLIT_STEPS``
+    (``RESIDENT[build]``) and each part keeps at least ``MIN_SPLIT_STEPS``
     k-steps: more CTAs keep more weight bytes in flight per SM."""
-    tiles, steps = column_tiles(ns), K // BK
+    tiles, steps = column_tiles(ns), -(-K // BK)
     split = 1
-    while (split < MAX_SPLIT and 2 * split * tiles <= RESIDENT_CTAS
+    while (split < MAX_SPLIT and 2 * split * tiles <= RESIDENT[build]
            and 2 * split * MIN_SPLIT_STEPS <= steps):
         split *= 2
     return split
 
 
-def partition(M: int, K: int, ns,
-              x_dtype: torch.dtype) -> tuple[bool, int, tuple[int, int]]:
+def partition(M: int, K: int, ns, x_dtype: torch.dtype,
+              build: str = "int8",
+              slabbed: bool = False) -> tuple[bool, int, tuple[int, int]]:
     """(wide tile, split count, CTA tile) of a launch over weights of
     ``ns`` columns. f32 activations take the CUDA-core kernel, unsplit, at
-    every M."""
+    every M. bf16 activations take the small kernel up to 256 rows, and
+    above it when the call runs in slabs (``slabbed``; the bf16-weight
+    build always does), else the wide tile."""
     if x_dtype != torch.bfloat16:
         return False, 1, FMA_TILE
-    if M <= ROW_INVARIANT_M:
-        return False, split_count(K, ns), SMALL_TILE
+    if M <= ROW_INVARIANT_M or slabbed or build == "bf16":
+        return False, split_count(K, ns, build), SMALL_TILE
     return True, 1, WIDE_TILE
+
+
+def slabs(M: int) -> list[tuple[int, int]]:
+    """The (first row, rows) of each small-kernel launch of an M-row call
+    that runs in slabs: consecutive slabs of ``ROW_INVARIANT_M`` rows, the
+    last one ragged (csrc/w8a16_gemm.cu's ``grove_w8a16_run`` loop)."""
+    return [(r0, min(ROW_INVARIANT_M, M - r0))
+            for r0 in range(0, M, ROW_INVARIANT_M)]
 
 
 @functools.lru_cache(maxsize=1)
 def _kernel():
     lib = _build.load("w8a16_gemm")
     plan = lib.grove_w8a16_plan
-    plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     plan.restype = ctypes.c_int
     run = lib.grove_w8a16_run
-    run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     run.restype = ctypes.c_int
     lib.grove_w8a16_plan_bytes.restype = ctypes.c_int
     err_str = lib.grove_w8a16_error_string
@@ -156,12 +194,13 @@ def _kernel():
 
 def kernel_info(which: str) -> dict:
     """Tile, registers and local (spill) bytes per thread, dynamic shared
-    memory per CTA, the largest cluster and the residency (``small``:
-    clusters of that size resident at once; ``wide`` and ``fma``: CTAs per
-    SM) of the built kernel (needs the card)."""
+    memory per CTA, the largest cluster and the residency (``small`` and
+    ``small_bf16``, the int8- and bf16-weight builds: clusters of that size
+    resident at once; ``wide`` and ``fma``: CTAs per SM) of the built
+    kernel (needs the card)."""
     *_, err_str, info = _kernel()
     out = (ctypes.c_int * 7)()
-    err = info({"small": 0, "wide": 1, "fma": 2}[which], out)
+    err = info(_INFO[which], out)
     if err != 0:
         raise RuntimeError(f"w8a16 kernel info failed: "
                            f"{err_str(err).decode()} ({err})")
@@ -199,35 +238,71 @@ def _check(x: torch.Tensor, weights, out_dtype: torch.dtype) -> None:
         raise ValueError(f"w8a16 inputs span devices {devs}")
 
 
-def _make_plan(x, weights, out_dtype) -> tuple:
-    """The launch plan of x's shape and type over ``weights``: (the C plan's
-    address, the weights' column counts, the first column of each among
-    all outputs, their total, the buffer that holds the plan). Checks
-    everything the kernel needs of the weights."""
-    _check(x, weights, out_dtype)
+def _check_dense(x: torch.Tensor, weights, out_dtype: torch.dtype) -> None:
+    """Shapes, types and devices of a dense call, for both routes."""
+    if not 1 <= len(weights) <= MAX_WEIGHTS:
+        raise ValueError(f"dense_matmul takes 1 to {MAX_WEIGHTS} weights "
+                         f"per call, got {len(weights)}")
+    if x.dim() != 2 or any(w.dim() != 2 for w in weights):
+        raise ValueError("x must be [M, K] and each weight [K, N]")
+    for w in weights:
+        if x.shape[1] != w.shape[0]:
+            raise ValueError(f"shape mismatch: x {tuple(x.shape)}, weight "
+                             f"{tuple(w.shape)}")
+    devs = {w.device for w in weights} | {x.device}
+    if len(devs) != 1:
+        raise ValueError(f"dense_matmul inputs span devices {devs}")
+
+
+def _dense_build(x: torch.Tensor, weights, out_dtype: torch.dtype) -> str:
+    """The kernel build of a dense call on the card: ``bf16`` (bf16 x and
+    weights, a bf16 or f32 output: the tensor-core small kernel) or ``f32``
+    (f32 x, weights and output: the CUDA-core kernel)."""
+    wt = {w.dtype for w in weights}
+    if x.dtype == torch.bfloat16 and wt == {torch.bfloat16} and \
+            out_dtype in _OUT_CODES:
+        return "bf16"
+    if x.dtype == torch.float32 and wt == {torch.float32} and \
+            out_dtype == torch.float32:
+        return "f32"
+    raise ValueError(f"the dense kernel takes bfloat16 x and weights with a "
+                     f"bfloat16 or float32 output, or float32 x, weights "
+                     f"and output; got {x.dtype} x {sorted(map(str, wt))} "
+                     f"-> {out_dtype}")
+
+
+def _make_plan(x, ws, scales, out_dtype, build: str, wide: bool) -> tuple:
+    """The launch plan of x's shape and type over the weights ``ws`` (int8
+    codes with ``scales``, or dense weights with ``scales`` None): (the C
+    plan's address, the weights' column counts, the first column of each
+    among all outputs, their total, the buffer that holds the plan).
+    Checks everything the kernel needs of the weights."""
     M, K = x.shape
-    ns = [q.shape[1] for q, _ in weights]
-    if K % BK or any(n % 16 for n in ns):
-        raise ValueError(f"the w8a16 kernel takes K % {BK} == 0 and N % 16 "
-                         f"== 0, got K={K}, N={ns}")
-    for q, scale in weights:
-        if not (q.is_contiguous() and scale.is_contiguous()):
-            raise ValueError("the w8a16 kernel reads a contiguous weight and "
+    ns = [w.shape[1] for w in ws]
+    k_mult, n_mult = _MULTIPLES[build]
+    if K % k_mult or any(n % n_mult for n in ns):
+        raise ValueError(f"the {build}-weight GEMM kernel takes K % {k_mult}"
+                         f" == 0 and N % {n_mult} == 0, got K={K}, N={ns}")
+    for t in [*ws, *(scales or [])]:
+        if not t.is_contiguous():
+            raise ValueError("the GEMM kernel reads a contiguous weight and "
                              "scales (it never copies them)")
-        if q.data_ptr() % 16 or scale.data_ptr() % 16:
-            raise ValueError("the int8 weight and its scales must start "
-                             "16-byte aligned")
-    wide, split, _ = partition(M, K, ns, x.dtype)
+        if t.data_ptr() % 16:
+            raise ValueError("the weight and its scales must start 16-byte "
+                             "aligned")
+    _, split, _ = partition(M, K, ns, x.dtype, build, slabbed=not wide)
     plan, _, nbytes, err_str, _ = _kernel()
-    count = len(weights)
+    count = len(ws)
     ptrs = ctypes.c_void_p * count
     buf = ctypes.create_string_buffer(nbytes)
-    err = plan(ptrs(*(q.data_ptr() for q, _ in weights)),
-               ptrs(*(s.data_ptr() for _, s in weights)),
+    err = plan(ptrs(*(w.data_ptr() for w in ws)),
+               ptrs(*(s.data_ptr() for s in scales) if scales else
+                    [None] * count),
                (ctypes.c_int * count)(*ns), count, K, _X_CODES[x.dtype],
-               _OUT_CODES[out_dtype], int(wide), split, buf)
+               _BUILD_CODES[build], _OUT_CODES[out_dtype], int(wide), split,
+               buf)
     if err != 0:
-        raise RuntimeError(f"w8a16 launch plan failed: "
+        raise RuntimeError(f"GEMM launch plan failed: "
                            f"{err_str(err).decode()} ({err})")
     offs = [sum(ns[:i]) for i in range(count)]
     return ctypes.addressof(buf), ns, offs, sum(ns), buf
@@ -236,23 +311,30 @@ def _make_plan(x, weights, out_dtype) -> tuple:
 _plans: dict[tuple, tuple] = {}
 
 
-def _plan_key(x, weights, out_dtype) -> tuple:
+def _plan_key(x, ws, scales, out_dtype, build: str, wide: bool) -> tuple:
     """What a launch plan depends on: x's device, type, K and kernel (wide
-    or not), the output type, and each weight's and scale's pointer, shape,
-    strides and type."""
-    M, K = x.shape
-    wide = M > ROW_INVARIANT_M and x.dtype == torch.bfloat16
-    return (x.get_device(), x.dtype, out_dtype, wide, K) + tuple(
-        (q.data_ptr(), q.shape, q.stride(), q.dtype, s.data_ptr(), s.shape,
-         s.stride(), s.dtype) for q, s in weights)
+    or not), the build, the output type, and each weight's (and scale's)
+    pointer, shape, strides and type."""
+    return (x.get_device(), x.dtype, out_dtype, build, wide, x.shape[1]) + \
+        tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+              for t in [*ws, *(scales or [])])
 
 
-def _launch(x, weights, out_dtype) -> list[torch.Tensor]:
+def _launch(x, ws, scales, out_dtype, build: str, slabbed: bool,
+            check=None) -> tuple[list[torch.Tensor], int]:
+    """The outputs of one foreign call and the kernel launches it made:
+    one, or one per slab of ``slabs(M)`` where a bf16-activation call above
+    256 rows runs in slabs. ``check()`` runs before a new plan is made."""
     M = x.shape[0]
-    key = _plan_key(x, weights, out_dtype)
+    wide = (x.dtype == torch.bfloat16 and M > ROW_INVARIANT_M
+            and partition(M, x.shape[1], [w.shape[1] for w in ws], x.dtype,
+                          build, slabbed)[0])
+    key = _plan_key(x, ws, scales, out_dtype, build, wide)
     plan = _plans.get(key)
     if plan is None:
-        plan = _make_plan(x, weights, out_dtype)
+        if check is not None:
+            check()
+        plan = _make_plan(x, ws, scales, out_dtype, build, wide)
         if len(_plans) >= MAX_PLANS:
             _plans.clear()
         _plans[key] = plan
@@ -261,39 +343,46 @@ def _launch(x, weights, out_dtype) -> list[torch.Tensor]:
         x = x.contiguous()
     elif x.data_ptr() % 16:  # a view at an odd offset: TMA reads 16-byte rows
         x = x.clone()
+    slab = ROW_INVARIANT_M if x.dtype == torch.bfloat16 and not wide else 0
     # One allocation for all outputs; each is a contiguous [M, n] view.
     shape = (M, total) if len(ns) == 1 else (M * total,)
     out = torch.empty(shape, dtype=out_dtype, device=x.device)
     _, run, _, err_str, _ = _kernel()
-    err = run(addr, x.data_ptr(), out.data_ptr(), M,
+    err = run(addr, x.data_ptr(), out.data_ptr(), M, slab,
               torch._C._cuda_getCurrentRawStream(key[0]))
     if err != 0:
-        raise RuntimeError(f"w8a16 kernel launch failed: "
+        raise RuntimeError(f"GEMM kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")
+    n_launch = len(slabs(M)) if slab else 1
     if len(ns) == 1:
-        return [out]
-    return [out.as_strided((M, n), (n, 1), M * o) for n, o in zip(ns, offs)]
+        return [out], n_launch
+    return [out.as_strided((M, n), (n, 1), M * o)
+            for n, o in zip(ns, offs)], n_launch
 
 
 def w8a16_matmul_group(x: torch.Tensor, weights,
-                       out_dtype: torch.dtype | None = None
-                       ) -> list[torch.Tensor]:
+                       out_dtype: torch.dtype | None = None,
+                       slabbed: bool = False) -> list[torch.Tensor]:
     """``x`` [M, K] times each int8 weight of ``weights`` (1 to 3 pairs of
     ``q`` [K, N_i] with bf16 ``scale`` [N_i]), as ``out_dtype`` (default:
     x's type promoted with the scales', as JAX's einsum promotes): one
     output [M, N_i] per weight.
 
-    CUDA tensors run the hand-written kernel, one launch for all of them;
-    CPU tensors run ``w8a16_matmul_ref`` on each. Anything else raises, on
-    either route: mixed devices, other types, and on the card a shape the
-    kernel does not take (checked when the launch's plan is made; a plan is
-    reused only for the same pointers, shapes, strides and types)."""
+    CUDA tensors run the hand-written kernel, one launch for all of them
+    (with ``slabbed`` and bf16 x above 256 rows, one per slab of 256 rows,
+    each row with the bits it has at M <= 256); CPU tensors run
+    ``w8a16_matmul_ref`` on each. Anything else raises, on either route:
+    mixed devices, other types, and on the card a shape the kernel does not
+    take (checked when the launch's plan is made; a plan is reused only for
+    the same pointers, shapes, strides and types)."""
     weights = list(weights)
     if out_dtype is None and weights:
         out_dtype = torch.promote_types(x.dtype, weights[0][1].dtype)
     if x.is_cuda and weights and x.dim() == 2 and x.shape[0]:
-        outs = _launch(x, weights, out_dtype)
-        w8a16_matmul.launches += 1
+        outs, n = _launch(x, [q for q, _ in weights],
+                          [s for _, s in weights], out_dtype, "int8",
+                          slabbed, lambda: _check(x, weights, out_dtype))
+        w8a16_matmul.launches += n
         return outs
     _check(x, weights, out_dtype)
     if x.device.type == "cpu":
@@ -314,3 +403,56 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 w8a16_matmul.launches = 0
+
+
+def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version: ``x`` [M, K] times the dense weight ``w`` [K, N] at
+    the promoted type of x, w and ``out_dtype``, returned as
+    ``out_dtype``: the model's einsum on dense weights (and the LM head's
+    f32 product)."""
+    ct = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                             out_dtype)
+    return (x.to(ct) @ w.to(ct)).to(out_dtype)
+
+
+def dense_matmul_group(x: torch.Tensor, weights,
+                       out_dtype: torch.dtype | None = None
+                       ) -> list[torch.Tensor]:
+    """``x`` [M, K] times each dense weight of ``weights`` (1 to 3 of
+    [K, N_i]), as ``out_dtype`` (default: the promoted type of x and the
+    weights): one output [M, N_i] per weight.
+
+    CUDA tensors run the hand-written kernel: bf16 x and weights the small
+    kernel's bf16-weight build (one launch for all weights up to 256 rows,
+    one per slab of 256 rows above, so a row's bits never depend on M),
+    f32 the CUDA-core kernel (one launch). CPU tensors run
+    ``dense_matmul_ref`` on each. Anything else raises: mixed devices,
+    other types and, on the card, bf16 shapes with K % 8 or N % 8."""
+    weights = list(weights)
+    if out_dtype is None and weights:
+        out_dtype = torch.promote_types(x.dtype, weights[0].dtype)
+    _check_dense(x, weights, out_dtype)
+    if x.device.type == "cpu":
+        return [dense_matmul_ref(x, w, out_dtype) for w in weights]
+    if x.device.type != "cuda":
+        raise ValueError(f"dense_matmul runs on cuda or cpu tensors, not "
+                         f"{x.device}")
+    build = _dense_build(x, weights, out_dtype)
+    if not x.shape[0]:
+        return [torch.empty((0, w.shape[1]), dtype=out_dtype,
+                            device=x.device) for w in weights]
+    outs, n = _launch(x, weights, None, out_dtype, build, True)
+    dense_matmul.launches += n
+    return outs
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x`` [M, K] times the dense weight ``w`` [K, N] as ``out_dtype``:
+    ``dense_matmul_group`` of one weight. ``launches`` counts the kernel
+    launches of both."""
+    return dense_matmul_group(x, [w], out_dtype)[0]
+
+
+dense_matmul.launches = 0

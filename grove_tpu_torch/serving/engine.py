@@ -44,12 +44,12 @@ from grove_tpu_torch.models.llama import LlamaConfig
 from grove_tpu_torch.ops.kvcache import KVCache
 from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
                                          paged_rope_scatter_q)
-from grove_tpu_torch.ops.norms import rms_norm
+from grove_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
                                        paged_decode_attention,
                                        paged_decode_attention_q8)
-from grove_tpu_torch.ops.w8a16 import w8a16_matmul
+from grove_tpu_torch.ops.w8a16 import dense_matmul, w8a16_matmul
 from grove_tpu_torch.serving.kvcache import (NULL_BLOCK, BlockAllocator,
                                              PagedKV, PrefixTree, pad_tables)
 from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
@@ -60,7 +60,7 @@ from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
 _KERNEL_WRAPPERS = (paged_decode_attention, paged_chunk_attention,
                     paged_decode_attention_q8, paged_chunk_attention_q8,
                     paged_rope_scatter_q, paged_rope_scatter, w8a16_matmul,
-                    rms_norm)
+                    dense_matmul, rms_norm, add_rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)

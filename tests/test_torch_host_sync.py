@@ -31,14 +31,19 @@ STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick", "_spec_tick",
 # call are scanned below).
 SPEC_FUNCS = ("spec_step_paged", "verify_chunk_paged", "decode_step_paged",
               "prefill_chunk_paged", "greedy_tokens", "_write_and_attend",
-              "head", "_logits", "embed", "_qkv_proj", "_projs", "_proj",
-              "_int8_matmul", "_attn_out", "_mlp_block", "layer_params",
+              "_decoder", "_logits", "embed", "_qkv_proj", "_projs",
+              "_proj", "_matmul", "_attn_out", "_mlp_block", "layer_params",
               "_device_scalar")
 WRAPPERS = {
     "w8a16_matmul": (w8a16, ("w8a16_matmul", "w8a16_matmul_group",
                              "_check", "_launch", "partition", "split_count",
                              "column_tiles", "_make_plan", "_plan_key",
-                             "fragment_column")),
+                             "fragment_column", "slabs")),
+    "dense_matmul": (w8a16, ("dense_matmul", "dense_matmul_group",
+                             "dense_matmul_ref", "_check_dense",
+                             "_dense_build", "_launch", "partition",
+                             "split_count", "column_tiles", "slabs",
+                             "_make_plan", "_plan_key")),
     "paged_scatter": (kvquant, ("paged_scatter", "_check_rows", "_route",
                                 "_launch", "_make_plan", "_aligned")),
     "paged_scatter_q": (kvquant, ("paged_scatter_q", "_check_scales",
@@ -49,7 +54,9 @@ WRAPPERS = {
                                      "_check_scales", "_check_rope",
                                      "_route", "_launch", "_make_plan",
                                      "_aligned")),
-    "rms_norm": (norms, ("rms_norm", "_check", "_route")),
+    "rms_norm": (norms, ("rms_norm", "_check", "_route", "_launch")),
+    "add_rms_norm": (norms, ("add_rms_norm", "add_rms_norm_ref", "_check",
+                             "_route", "_launch")),
     "paged_attention": (paged, ("paged_decode_attention",
                                 "paged_chunk_attention",
                                 "paged_decode_attention_q8",

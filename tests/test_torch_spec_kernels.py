@@ -209,3 +209,43 @@ def test_spec_engine_graphs_equal_plain_on_cuda(kv_quant, draft):
             assert eng.graphs_captured == \
                 len(eng._specs) + len(eng._prefills) > 0
     assert out[True] == out[False]
+
+
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+@pytest.mark.parametrize("draft", ["self", "tiny"])
+def test_spec_equals_plain_with_bf16_weights_on_cuda(kv_quant, draft):
+    """test-tiny bf16 with the engine's default weights (no quantization)
+    on the card: every projection, the target's and the draft's, goes
+    through the dense GEMM build (rows independent of M), and the spec
+    engine gives the plain engine's greedy tokens per request."""
+    _cuda_or_skip()
+    cfg = dataclasses.replace(CFG, dtype=torch.bfloat16)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(5),
+                               device="cpu")
+    params = {k: (v.cuda() if isinstance(v, torch.Tensor) else
+                  {n: w.cuda() for n, w in v.items()})
+              for k, v in params.items()}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32)
+               for n in (6, 21, 2, 13, 9)]
+    out = {}
+    for spec in (False, True):
+        kw = dict(spec_decode=True, spec_k=3,
+                  draft_params="self" if draft == "self" else None) \
+            if spec else {}
+        eng = PagedDecodeEngine(cfg, params, batch=4, max_len=48,
+                                block_size=8, prefill_chunk=8,
+                                host_sync_interval=4, kv_quant=kv_quant,
+                                device="cuda", **kw)
+        before = w8a16.dense_matmul.launches
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=9)
+        for _ in range(500):
+            eng.admit_from_queue()
+            if len(eng.completed) == len(prompts):
+                break
+            eng.step()
+        eng.sync()
+        assert w8a16.dense_matmul.launches > before
+        out[spec] = {r.rid: r.generated for r in eng.completed}
+    assert out[True] == out[False]

@@ -208,6 +208,17 @@ def test_partition_depends_only_on_the_weights_up_to_256_rows(K, ns):
     # Above 256 rows: the wide tile, no split.
     assert w8a16.partition(4096, K, ns, torch.bfloat16) == (
         True, 1, w8a16.WIDE_TILE)
+    # The bf16-weight build: its own split (its residency), from K and the
+    # weights alone at every M, slabs above 256 rows; so is a slabbed int8
+    # call's.
+    for build in ("int8", "bf16"):
+        want = (False, w8a16.split_count(K, ns, build), w8a16.SMALL_TILE)
+        parts = {w8a16.partition(M, K, ns, torch.bfloat16, build,
+                                 slabbed=True) for M in range(1, 1025)}
+        assert parts == {want}, build
+    assert {w8a16.partition(M, K, ns, torch.bfloat16, "bf16")
+            for M in (1, 256, 257, 4096)} == {
+        (False, w8a16.split_count(K, ns, "bf16"), w8a16.SMALL_TILE)}
 
 
 def test_split_fills_the_card_where_columns_are_few():
@@ -351,3 +362,200 @@ def test_mixed_devices_raise_on_cuda():
         w8a16.w8a16_matmul(x.cuda(), q, scale.cuda())
     with pytest.raises(ValueError, match="K %"):
         w8a16.w8a16_matmul(x[:, :48].cuda(), q[:48].cuda(), scale.cuda())
+
+
+def test_bf16_build_split_fills_the_card_at_its_residency():
+    """The bf16-weight build holds twice the int8 stage, two CTAs per SM:
+    the split doubles while the doubled CTAs fit one wave at that
+    residency. llama-1b: QKV and wo/w_down 8, gate/up 2, the head 1."""
+    assert w8a16.RESIDENT["bf16"] == 2 * w8a16.SMS
+    assert w8a16.RESIDENT["int8"] == w8a16.RESIDENT_CTAS
+    for K, ns in LLAMA_1B_LAUNCHES:
+        split = w8a16.split_count(K, ns, "bf16")
+        n_tiles = w8a16.column_tiles(ns)
+        assert split == 1 or n_tiles * split <= w8a16.RESIDENT["bf16"]
+        assert split <= w8a16.split_count(K, ns)
+    assert [w8a16.split_count(K, ns, "bf16")
+            for K, ns in LLAMA_1B_LAUNCHES] == [8, 8, 2, 8, 1, 8]
+    # The tiny draft's K = 32: one partial k-step, no split.
+    assert w8a16.split_count(32, (16, 8, 8), "bf16") == 1
+
+
+def test_slab_boundaries():
+    """Above 256 rows a slabbed call runs consecutive slabs of 256 rows
+    from row 0, the last one ragged: every row once, in order
+    (M = 257..1,024; up to 256 one slab)."""
+    for M in range(1, 1025):
+        parts = w8a16.slabs(M)
+        assert len(parts) == -(-M // w8a16.ROW_INVARIANT_M), M
+        assert parts[0][0] == 0
+        for (r0, n), (r1, _) in zip(parts, parts[1:]):
+            assert n == w8a16.ROW_INVARIANT_M and r1 == r0 + n, M
+        r_last, n_last = parts[-1]
+        assert 1 <= n_last <= w8a16.ROW_INVARIANT_M, M
+        assert r_last + n_last == M, M
+    assert w8a16.slabs(257) == [(0, 256), (256, 1)]
+    assert w8a16.slabs(1024) == [(0, 256), (256, 256), (512, 256),
+                                 (768, 256)]
+
+
+def _dense(name, dtype, seed=0):
+    """A test-tiny weight as stored, and an x, made with numpy."""
+    eq, shape, _, x_shape = WEIGHTS[name]
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal(shape) * shape[0] ** -0.5).astype(np.float32)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    return eq, torch.from_numpy(w).to(dtype), torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(WEIGHTS))
+def test_dense_cpu_route_is_the_einsum(name, dtype):
+    """The dense wrapper on CPU tensors is the model's einsum on dense
+    weights bit for bit (the LM head: the f32 product of the upcast
+    values), with no launch counted; so is the model's projection."""
+    eq, w, x = _dense(name, dtype)
+    w_axes, out_axes = eq.split(",")[1].split("->")
+    n_contract = sum(a not in out_axes for a in w_axes)
+    k = w.shape[:n_contract].numel()
+    before = w8a16.dense_matmul.launches
+    if name == "lm_head":
+        got = w8a16.dense_matmul(x.reshape(-1, k), w, torch.float32)
+        want = x.reshape(-1, k).float() @ w.float()
+        assert torch.equal(tllama._logits(x, w).reshape(-1, w.shape[1]),
+                           want)
+    else:
+        got = w8a16.dense_matmul(x.reshape(-1, k), w.reshape(k, -1))
+        want = torch.einsum(eq, x, w).reshape(got.shape)
+        assert torch.equal(tllama._proj(eq, x, w).reshape(got.shape), want)
+    assert torch.equal(got, want)
+    assert w8a16.dense_matmul.launches == before
+
+
+def test_dense_wrapper_types_and_raises():
+    x = torch.randn(4, 64)
+    w = torch.randn(64, 32)
+    assert w8a16.dense_matmul(x, w).dtype == torch.float32
+    assert torch.equal(w8a16.dense_matmul(x.bfloat16(), w.bfloat16(),
+                                          torch.float32),
+                       x.bfloat16().float() @ w.bfloat16().float())
+    outs = w8a16.dense_matmul_group(x, [w, w[:, :16]])
+    assert [tuple(o.shape) for o in outs] == [(4, 32), (4, 16)]
+    with pytest.raises(ValueError, match="span devices"):
+        w8a16.dense_matmul(x, w.to("meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        w8a16.dense_matmul(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="mismatch"):
+        w8a16.dense_matmul(x[:, :32], w)
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
+        w8a16.dense_matmul(x[None], w)
+    with pytest.raises(ValueError, match="1 to 3 weights"):
+        w8a16.dense_matmul_group(x, [w] * 4)
+
+
+# ---- the dense build and slabs on the card ----
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+@pytest.mark.parametrize("M,K,N,xt,out", [
+    (32, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (32, 2048, (2048,), torch.bfloat16, torch.bfloat16),
+    (32, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
+    (32, 5632, (2048,), torch.bfloat16, torch.bfloat16),
+    (32, 2048, (32000,), torch.bfloat16, torch.float32),
+    (128, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (128, 2048, (32000,), torch.bfloat16, torch.float32),
+    (7, 32, (16, 8, 8), torch.bfloat16, torch.bfloat16),
+    (5, 64, (40,), torch.bfloat16, torch.float32),
+    (300, 512, (1408, 1408), torch.bfloat16, torch.bfloat16),
+    (9, 64, (256, 32), torch.float32, torch.float32),
+    (600, 100, (24,), torch.float32, torch.float32)])
+def test_dense_kernel_matches_plain_on_cuda(M, K, N, xt, out):
+    """The dense build (bf16: the tensor-core small kernel, in slabs above
+    256 rows; f32: the CUDA-core kernel) against ``dense_matmul_ref``."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(M + K + sum(N))
+    x = torch.randn((M, K), generator=gen, device="cuda").to(xt)
+    ws = [(torch.randn((K, n), generator=gen, device="cuda")
+           * K ** -0.5).to(xt) for n in N]
+    before = w8a16.dense_matmul.launches
+    outs = w8a16.dense_matmul_group(x, ws, out)
+    torch.cuda.synchronize()
+    slabs = len(w8a16.slabs(M)) if xt == torch.bfloat16 else 1
+    assert w8a16.dense_matmul.launches == before + slabs
+    for got, w in zip(outs, ws):
+        want = w8a16.dense_matmul_ref(x, w, out)
+        assert got.dtype == out
+        if out == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * want.abs().max().item())
+        else:
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=BF16_RTOL,
+                atol=BF16_RTOL * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("K,ns,out", [
+    (2048, (2048, 1024, 1024), torch.bfloat16), (2048, (2048,), torch.bfloat16),
+    (2048, (32000,), torch.float32), (2048, (5632, 5632), torch.bfloat16),
+    (5632, (2048,), torch.bfloat16), (32, (16, 8, 8), torch.bfloat16)])
+def test_dense_rows_do_not_depend_on_m_on_cuda(K, ns, out):
+    """Each row of a dense launch with M rows equals, bit for bit, the same
+    row inside a launch with 256 rows, and inside a slabbed one of 700."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(K + sum(ns))
+    ws = [torch.randn((K, n), generator=gen, device="cuda").to(
+        torch.bfloat16) for n in ns]
+    x = torch.randn((700, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    whole = w8a16.dense_matmul_group(x[:256], ws, out)
+    for M in (1, 2, 7, 8, 31, 32, 33, 64, 128, 255):
+        for a, w in zip(w8a16.dense_matmul_group(x[:M], ws, out), whole):
+            assert torch.equal(a, w[:M]), M
+    slabbed = w8a16.dense_matmul_group(x, ws, out)
+    for r0, n in w8a16.slabs(700):
+        part = w8a16.dense_matmul_group(x[r0:r0 + n], ws, out)
+        for a, w in zip(part, slabbed):
+            assert torch.equal(a, w[r0:r0 + n]), r0
+
+
+@pytest.mark.parametrize("M", [257, 512, 777])
+def test_int8_slabs_keep_rows_on_cuda(M):
+    """A slabbed int8 call above 256 rows: one launch per slab, each row
+    bitwise the same row at M <= 256; the unslabbed call takes the wide
+    kernel in one launch."""
+    _cuda_or_skip()
+    K, ns = 2048, (2048, 1024, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    weights = [_cuda_args(gen, 1, K, n, torch.bfloat16)[1:] for n in ns]
+    x = _cuda_args(gen, M, K, 16, torch.bfloat16)[0]
+    before = w8a16.w8a16_matmul.launches
+    slabbed = w8a16.w8a16_matmul_group(x, weights, torch.bfloat16,
+                                       slabbed=True)
+    assert w8a16.w8a16_matmul.launches == before + len(w8a16.slabs(M))
+    for r0 in range(0, M, 61):
+        n = min(61, M - r0)
+        part = w8a16.w8a16_matmul_group(x[r0:r0 + n], weights,
+                                        torch.bfloat16)
+        for a, w in zip(part, slabbed):
+            assert torch.equal(a, w[r0:r0 + n]), r0
+    before = w8a16.w8a16_matmul.launches
+    wide = w8a16.w8a16_matmul_group(x, weights, torch.bfloat16)
+    assert w8a16.w8a16_matmul.launches == before + 1
+    for a, w in zip(wide, slabbed):
+        torch.testing.assert_close(a.float(), w.float(), rtol=BF16_RTOL,
+                                   atol=BF16_RTOL * w.float().abs().max()
+                                   .item())
+
+
+def test_dense_shapes_the_kernel_cannot_take_raise_on_cuda():
+    _cuda_or_skip()
+    x = torch.randn((4, 60), device="cuda").to(torch.bfloat16)
+    w = torch.randn((60, 32), device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="K % 8"):
+        w8a16.dense_matmul(x, w)
+    with pytest.raises(ValueError, match="dense kernel takes"):
+        w8a16.dense_matmul(x.float(), w)
