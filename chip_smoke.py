@@ -1228,7 +1228,7 @@ W8A16_LAUNCHES = [                        # name, K, N of each weight, per forwa
 GEMMS_PER_LAYER = 4                       # launches of the GEMM per layer
 W8A16_M = 32                              # the decode batch and the chunk
 W8A16_PREFILL_M = 4096                    # the lanes prefill, 32 x 128
-ROW_CHECK_M = (1, 2, 7, 8, 31, 32, 33, 64, 128, 256)
+ROW_CHECK_M = (1, 2, 7, 8, 31, 32, 33, 64, 65, 128, 129, 192, 193, 256)
 W8A16_TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # relative to max |plain|:
 # bf16 one output rounding (2^-8) after another sum order; f32 the order
 ROTATE_BYTES = 128 << 20                  # weights cycled per timing: > L2
@@ -1408,7 +1408,7 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
     sums over one llama-1b forward at M = 32 (65 launches)."""
     import torch
     from grove_tpu_torch.ops.w8a16 import kernel_info
-    for which in ("small", "small_bf16", "wide", "fma"):
+    for which in ("small", "wide", "fma"):
         info = kernel_info(which)
         resident = (f"{info['resident']} clusters of {info['cluster']} "
                     f"resident at once" if info["cluster"] > 1 else
@@ -1475,7 +1475,8 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
                    f"launches"}
 
 
-DENSE_M = (32, 128)                       # decode; the k = 3 verify at b = 32
+DENSE_M = (8, 32, 128, 256)               # small and full decode; the k = 3
+# and k = 7 verifies at b = 32 (one to four token tiles of the dense kernel)
 SLAB_M = 512                              # a verify of batch 64 at k = 7
 
 
@@ -1525,11 +1526,12 @@ def check_dense(x, ws, out, label: str) -> float:
     return err
 
 
-def time_dense(gen, M: int, K: int, ns, out, label: str) -> dict:
-    """Kernel (one launch for the weights ``ns``), plain and library
-    (``torch.matmul`` of x by each bf16 weight, a bf16 result) device ms,
-    each cycling through enough distinct weights that every call reads its
-    weights from device memory, not from the 50 MB L2."""
+def time_dense(gen, M: int, K: int, ns, out, label: str,
+               plain: bool = True) -> dict:
+    """Kernel (one launch for the weights ``ns``), plain (with ``plain``)
+    and library (``torch.matmul`` of x by each bf16 weight, a bf16 result)
+    device ms, each cycling through enough distinct weights that every call
+    reads its weights from device memory, not from the 50 MB L2."""
     import itertools
     import torch
     from grove_tpu_torch.ops.w8a16 import (dense_matmul_group,
@@ -1547,7 +1549,8 @@ def time_dense(gen, M: int, K: int, ns, out, label: str) -> dict:
     t = {"ms": time_ms(cycled(lambda ws: dense_matmul_group(x, ws, out)),
                        iters=iters),
          "plain_ms": time_ms(cycled(lambda ws: [dense_matmul_ref(x, w, out)
-                                                for w in ws]), iters=iters),
+                                                for w in ws]), iters=iters)
+         if plain else 0.0,
          "library_ms": time_ms(cycled(lambda ws: [torch.matmul(x, w)
                                                   for w in ws]),
                                iters=iters)}
@@ -1595,31 +1598,69 @@ def dense_rows_and_slabs(gen, K: int, ns, out, label: str) -> None:
         raise AssertionError(f"dense GEMM or slab rows depend on M ({label})")
 
 
+def dense_build_info() -> None:
+    """The dense kernel's builds for one to four token tiles (64 to 256
+    rows): registers, spills, shared memory, stages, CTAs per SM and
+    clusters of 8 co-resident, beside the int8 build's (a kernel of its
+    own, whose registers and spills must not move); the CTAs and split of
+    each of llama-1b's five launches (the same at every M <= 256). Fails on
+    any spill, or if a build's geometry is not the one ``dense_geometry``
+    mirrors."""
+    from grove_tpu_torch.ops.w8a16 import dense_geometry, kernel_info
+    q = kernel_info("small")
+    log(f"kernels: build w8a16 int8 (small, tile {q['tile'][0]} x "
+        f"{q['tile'][1]}): {q['registers']} registers, {q['local_bytes']} "
+        f"bytes local (spill), {q['smem_bytes']} bytes shared memory, "
+        f"{q['per_sm']} CTAs per SM, {q['resident']} clusters of "
+        f"{q['cluster']} resident")
+    bad = q["local_bytes"] > 0
+    for tiles in (1, 2, 3, 4):
+        geo = dense_geometry(64 * tiles, 2048, (2048,))
+        info = kernel_info(geo["build"])
+        log(f"kernels: build {geo['build']} (bf16 weights, wgmma m64n"
+            f"{geo['n']}k16, up to {info['tile'][0]} rows x "
+            f"{info['tile'][1]} columns): {info['registers']} registers, "
+            f"{info['local_bytes']} bytes local (spill) per thread, "
+            f"{info['smem_bytes']} bytes dynamic shared memory per CTA, "
+            f"{info['stages']} stages, {info['per_sm']} CTAs per SM, "
+            f"{info['resident']} clusters of {info['cluster']} resident at "
+            f"once")
+        bad = bad or info["local_bytes"] > 0
+        if (info["tile"], info["smem_bytes"], info["stages"],
+                info["per_sm"]) != ((geo["n"], geo["columns"]),
+                                    geo["smem_bytes"], geo["stages"],
+                                    geo["per_sm"]):
+            raise AssertionError(f"{geo['build']}: built geometry {info} is "
+                                 f"not dense_geometry's {geo}")
+    if bad:
+        raise AssertionError("a w8a16 or dense GEMM build spills")
+    log("kernels: dense CTAs per launch at every M <= 256 (column tiles x "
+        "split): " + ", ".join(
+            f"{name} {g['ctas']} (split {g['split']})"
+            for name, K, ns, _ in W8A16_LAUNCHES
+            for g in (dense_geometry(32, K, ns),)))
+
+
 def phase_dense_kernels(seed: int, card: str) -> dict:
-    """The bf16-weight build of the GEMM (the engine's default weights):
-    its registers, spills and shared memory; against its plain version at
-    llama-1b's five launches at M = 32 and 128 (the head with an f32
-    output) and at ragged and f32 shapes; rows bitwise across M and across
-    slabs (int8 weights too); times per forward beside the byte bound and
-    torch.matmul. Returns its kernel-table row (one forward at M = 32)."""
+    """The dense (bf16-weight) GEMM kernel (the engine's default weights):
+    its builds' registers, spills and shared memory; against its plain
+    version at llama-1b's five launches at every M of DENSE_M (the head
+    with an f32 output) and at ragged and f32 shapes; rows bitwise across M
+    and across slabs (int8 weights too); times per forward beside the byte
+    bound and torch.matmul at each M. Returns its kernel-table row (one
+    forward at M = 32; the other M's times beside it)."""
     import torch
-    from grove_tpu_torch.ops.w8a16 import kernel_info
-    info = kernel_info("small_bf16")
-    log(f"kernels: build dense (bf16 weights, tile {info['tile'][0]} x "
-        f"{info['tile'][1]}): {info['registers']} registers, "
-        f"{info['local_bytes']} bytes local (spill) per thread, "
-        f"{info['smem_bytes']} bytes dynamic shared memory per CTA, cluster "
-        f"size up to {info['cluster']}, {info['resident']} clusters of "
-        f"{info['cluster']} resident at once")
-    if info["local_bytes"]:
-        raise AssertionError("the dense GEMM build spills")
+    dense_build_info()
     gen = torch.Generator(device="cuda").manual_seed(seed + 31)
     err = 0.0
-    # The tiny draft's shapes (K = 32: one partial k-step; N = 8), ragged
-    # columns, a slabbed call, f32 weights (the CUDA-core kernel).
+    # The tiny draft's shapes (K = 32: one partial k-step; N = 8) at one and
+    # three token tiles, ragged columns, slabbed calls, f32 weights (the
+    # CUDA-core kernel).
     for M, K, ns, dt, out in (
             (7, 32, (16, 8, 8), torch.bfloat16, torch.bfloat16),
+            (130, 32, (16, 8, 8), torch.bfloat16, torch.float32),
             (5, 512, (40, 1408), torch.bfloat16, torch.float32),
+            (256, 512, (1408, 1408), torch.bfloat16, torch.bfloat16),
             (300, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
             (9, 64, (256, 32), torch.float32, torch.float32)):
         x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
@@ -1632,7 +1673,7 @@ def phase_dense_kernels(seed: int, card: str) -> dict:
                             0.0)
         for name, K, ns, calls in W8A16_LAUNCHES:
             out = torch.float32 if name == "lm_head" else torch.bfloat16
-            t = time_dense(gen, M, K, ns, out, name)
+            t = time_dense(gen, M, K, ns, out, name, plain=M == W8A16_M)
             err = max(err, t["err"])
             log(f"kernels: dense {name} M={M} K={K} N={list(ns)}: ms="
                 f"{t['ms']} plain_ms={t['plain_ms']} library_ms="
@@ -1641,7 +1682,7 @@ def phase_dense_kernels(seed: int, card: str) -> dict:
             for key in row:
                 row[key] += calls * t[key]
         log(f"kernels: dense one llama-1b forward at M={M} (65 launches): "
-            + ", ".join(f"{k}={v}" for k, v in row.items())
+            + ", ".join(f"{k}={v}" for k, v in row.items() if v)
             + f"; {100 * row['bound_ms'] / row['ms']:.1f}% of its bound, "
             f"{row['library_ms'] / row['ms']:.3f}x torch.matmul's speed on "
             f"{card}")
@@ -1649,15 +1690,17 @@ def phase_dense_kernels(seed: int, card: str) -> dict:
     dense_rows_and_slabs(gen, 2048, (2048, 1024, 1024), torch.bfloat16,
                          "wq, wk, wv")
     dense_rows_and_slabs(gen, 2048, (32000,), torch.float32, "lm_head")
-    row = per_m[DENSE_M[0]]
+    row = per_m[W8A16_M]
     return {"name": "dense_matmul", "route": "cuda",
             "source": "grove_tpu_torch/csrc/w8a16_gemm.cu",
             "replaces": "grove_tpu/models/llama.py:157",
             "launches": 0, "max_abs_err": err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
-            "ms_m128": per_m[DENSE_M[1]]["ms"],
-            "per": f"one llama-1b forward at M={DENSE_M[0]}: 65 launches"}
+            **{f"ms_m{M}": per_m[M]["ms"] for M in DENSE_M if M != W8A16_M},
+            **{f"library_ms_m{M}": per_m[M]["library_ms"]
+               for M in DENSE_M if M != W8A16_M},
+            "per": f"one llama-1b forward at M={W8A16_M}: 65 launches"}
 
 
 def check_scatter(gen, card: str) -> None:
@@ -2916,9 +2959,11 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     ``bench_len``-token prompts decoding: tokens/s spec against off over
     each pool, a profiled window of 8 dispatches. (4) k = 7 at B = 32 (the
     verify's M = 256): spec == off tokens. (5) bf16 weights (the engine's
-    default; the dense GEMM build): spec == off tokens, and ``spec_rows``
-    equal for bf16 and int8 weights. (6) k = 7 at B = 64 (the verify's M =
-    512, in slabs of 256 rows), int8 weights: spec == off tokens. Returns
+    default; the dense GEMM kernel): spec == off tokens at k and at k = 7
+    with batch 32, the decode bench of spec off and self-draft at k, and
+    ``spec_rows`` equal for bf16 and int8 weights. (6) k = 7 at B = 64
+    (the verify's M = 512, in slabs of 256 rows), int8 weights: spec ==
+    off tokens. Returns
     the kernels' launches summed over the spec serves of (1) (and the dense
     build's of (5)'s spec serve). With ``device="cpu"`` and a small ``cfg`` the
     same steps rehearse on the CPU (plain versions, eager steps, no launch
@@ -3046,8 +3091,8 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             f"{ms['paged_partial'] / 8:.3f}, combine "
             f"{ms['paged_combine'] / 8:.3f}, fused write "
             f"{ms['rope_scatter_kernel'] / 8:.3f}, GEMM "
-            f"{ms['w8a16'] / 8:.3f}, rms_norm {ms['rms_norm_kernel'] / 8:.3f})"
-            f" on {card}")
+            f"{ms['w8a16'] / 8:.3f} ({100 * ms['w8a16'] / ms['busy_ms']:.1f}"
+            f"%), rms_norm {ms['rms_norm_kernel'] / 8:.3f}) on {card}")
         return tokens / wall
 
     def compare(label, off, on):
@@ -3123,25 +3168,46 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     torch.cuda.empty_cache()
 
     # (5) bf16 weights (the engine's default): every projection through
-    # the GEMM's bf16-weight build.
-    outs = []
-    for spec in (False, True):
-        kw = dict(spec_decode=True, spec_k=k, draft_params="self") \
-            if spec else {}
-        eng = build(f"bf16 weights, {'self-draft' if spec else 'spec off'}",
-                    dense, short_lo, short_hi + short_new, kv_quant="off",
-                    **kw)
+    # the dense GEMM kernel. Spec off, self-draft at k and at k = 7 (the
+    # verify at M = 256: the kernel's four token tiles); the decode bench
+    # of spec off and of self-draft at k.
+    outs, bf16_rates = [], {}
+    for label, kw, bench_it in (
+            ("spec off", {}, True),
+            (f"self-draft k={k}", dict(spec_decode=True, spec_k=k,
+                                       draft_params="self"), True),
+            ("self-draft k=7", dict(spec_decode=True, spec_k=7,
+                                    draft_params="self"), False)):
+        eng = build(f"bf16 weights, {label}", dense, short_lo,
+                    hi if bench_it else short_hi + short_new,
+                    kv_quant="off", **kw)
         before = w8a16.dense_matmul.launches
         outs.append(short_run(eng))
-        if spec:
+        if kw.get("spec_k") == k:
             launches["dense_matmul"] += w8a16.dense_matmul.launches - before
+        if kw.get("spec_k") == 7:
+            buckets = sorted(eng.spec_stats()["per_bucket"])
+            if on_cuda and not any(b.startswith(f"b{batch},")
+                                   for b in buckets):
+                raise AssertionError(f"bf16 weights, k=7: the batch never "
+                                     f"reached {batch}")
+        if bench_it:
+            bf16_rates[label] = decode_bench(eng, f"bf16 weights, {label}")
         del eng
         torch.cuda.empty_cache()
-    bad = compare("bf16 weights", *outs)
-    log(f"spec: bf16 weights (dense projections), self-draft k={k} vs spec "
-        f"off: {bad or 'tokens equal for every request'}")
-    if bad:
-        raise AssertionError(bad)
+    off_rate = bf16_rates["spec off"]
+    log(f"spec: bf16 weights: decode tokens/s self-draft k={k} "
+        f"{bf16_rates[f'self-draft k={k}']:.1f} against spec off "
+        f"{off_rate:.1f}: {bf16_rates[f'self-draft k={k}'] / off_rate:.3f}x "
+        f"on {card}")
+    for label, got in ((f"self-draft k={k}", outs[1]),
+                       (f"self-draft k=7 at batch {batch} (verify M = "
+                        f"{batch * 8})", outs[2])):
+        bad = compare(f"bf16 weights, {label}", outs[0], got)
+        log(f"spec: bf16 weights (dense projections), {label} vs spec "
+            f"off: {bad or 'tokens equal for every request'}")
+        if bad:
+            raise AssertionError(bad)
     for label, p in (("bf16 weights", dense), ("int8 weights", qparams)):
         if not spec_rows(cfg, p, seed, device=device):
             raise AssertionError(f"{label}: a verify row differs from the "
@@ -3182,13 +3248,18 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
 
 
 def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
-                steps: int = 64) -> None:
+                steps: int = 64, spec_k: int = 3,
+                spec_steps: int = 16) -> None:
     """llama-1b with the engine's default weights (bf16, no quantization)
     through the default ``make_engine``: a full batch of ``bench_len``-token
     prompts decoding, tokens/s over three windows of ``run(steps)`` after a
     warm ``run(16)``, and a profiled window of 8 steps (kernels and device
-    ms). Prints one JSON line. Run from two checkouts in turn (``--root``),
-    it compares two commits in one call."""
+    ms); then the same batch through a self-draft spec engine at ``spec_k``
+    (full acceptance): committed tokens/s over three windows of
+    ``run(spec_steps)`` dispatches, its ratio to spec off's, and a profiled
+    window of 8 dispatches (kernels, device ms and the GEMM's). Prints one
+    JSON line. Run from two checkouts in turn (``--root``), it compares two
+    commits in one call."""
     import numpy as np
     import torch
     import grove_tpu_torch
@@ -3197,31 +3268,68 @@ def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
     cfg = CONFIGS["llama-1b"]
     log(f"decode-only: grove_tpu_torch from {grove_tpu_torch.__file__}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    eng = make_engine(cfg, init_params(cfg, gen, device="cuda"), batch=batch,
-                      max_len=2048, device="cuda")
+    params = init_params(cfg, gen, device="cuda")
+    bench = np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (batch, bench_len)).astype(np.int32)
+    kernels = ("paged_partial", "w8a16", "rms_norm_kernel", "nvjet",
+               "direct_copy")
+
+    def windows(eng, n, committed):
+        walls, tokens = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            c0 = committed()
+            t = time.perf_counter()
+            eng.run(n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            tokens.append(committed() - c0)
+        return [tk / w for tk, w in zip(tokens, walls)], float(
+            np.median(walls))
+
+    eng = make_engine(cfg, params, batch=batch, max_len=2048, device="cuda")
     eng.warmup(widths=eng.decode_width_buckets(bench_len,
                                                bench_len + 5 * steps),
                prefill_widths=eng.decode_width_buckets(1, bench_len))
-    bench = np.random.default_rng(seed + 11).integers(
-        0, cfg.vocab_size, (batch, bench_len)).astype(np.int32)
     eng.admit_prompts(bench, max_new_tokens=4 * steps)
     eng.run(16)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.run(steps)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    wall = float(np.median(walls))
+
+    def decoded():
+        return batch * eng.steps
+
+    rates, wall = windows(eng, steps, decoded)
     ms = profile_window("decode-only (bf16 weights)", lambda: eng.run(8),
-                        wall * 1e3 / steps * 8, card,
-                        ("paged_partial", "w8a16", "rms_norm_kernel",
-                         "nvjet", "direct_copy"))
-    print(json.dumps({"decode_tokens_s": [batch * steps / w for w in walls],
+                        wall * 1e3 / steps * 8, card, kernels)
+    del eng
+    torch.cuda.empty_cache()
+    new = (spec_k + 1) * (3 * spec_steps + 16) + 16
+    spec = make_engine(cfg, params, batch=batch, max_len=2048, device="cuda",
+                       spec_decode=True, spec_k=spec_k, draft_params="self")
+    spec.warmup(widths=spec.decode_width_buckets(bench_len,
+                                                 bench_len + new + spec_k + 1),
+                prefill_widths=spec.decode_width_buckets(1, bench_len))
+    spec.admit_prompts(bench, max_new_tokens=new)
+    spec.run(2)
+    spec_rates, spec_wall = windows(
+        spec, spec_steps, lambda: spec.spec_stats()["committed_tokens"])
+    sms = profile_window(f"decode-only (bf16 weights, self-draft "
+                         f"k={spec_k})", lambda: spec.run(8),
+                         spec_wall * 1e3 / spec_steps * 8, card, kernels)
+    ratio = float(np.median(spec_rates) / np.median(rates))
+    log(f"decode-only: self-draft k={spec_k} {np.median(spec_rates):.1f} "
+        f"against spec off {np.median(rates):.1f} tokens/s: {ratio:.3f}x; "
+        f"per dispatch {sms['busy_ms'] / 8:.3f} ms of device time, GEMM "
+        f"{sms['w8a16'] / 8:.3f} ms ({100 * sms['w8a16'] / sms['busy_ms']:.1f}"
+        f"%) on {card}")
+    print(json.dumps({"decode_tokens_s": rates,
                       "ms_per_step": wall * 1e3 / steps,
                       "kernels_per_8_steps": ms["count"],
                       "device_ms_per_8_steps": ms["busy_ms"],
+                      "gemm_ms_per_8_steps": ms["w8a16"],
+                      "spec_tokens_s": spec_rates, "spec_ratio": ratio,
+                      "spec_kernels_per_dispatch": sms["count"] / 8,
+                      "spec_device_ms_per_dispatch": sms["busy_ms"] / 8,
+                      "spec_gemm_ms_per_dispatch": sms["w8a16"] / 8,
                       "card": card}), flush=True)
 
 

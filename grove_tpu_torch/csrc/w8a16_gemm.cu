@@ -70,23 +70,32 @@
 // split.
 //
 // Dense bf16 weights (a model served without weight quantization, the
-// engine's default): the bf16-weight build of w8a16_small_kernel replaces
-// the einsum on dense weights (_w + einsum, grove_tpu/models/llama.py:157,
-// :166-193) and the LM head's preferred_element_type=f32 product (:227-229)
-// at M <= 256 (above it, in slabs of 256 rows). The same tiles, ring, k
-// order and cluster split as the int8 build; the weight tile arrives by TMA
-// as bf16 (twice the int8 stage, so two CTAs per SM instead of three, and
-// ops/w8a16.py::split_count takes that build's residency) and ldmatrix.trans
-// gives the A fragments directly. Bound by the weight bytes, 2 K N.
-//
-// Row invariance: the split and the k-step order come from K and the
-// launch's weights alone (ops/w8a16.py), each accumulator takes its k-steps
-// and its 16-deep mma steps in increasing order, and the split sum runs in
-// rank order; each mma output element depends only on its own row and
-// column. So for every M <= 256 an output row's bits depend only on its own
-// input row. A call of more rows may run as slabs of 256 rows, one small-
-// kernel launch each over row offsets of x and the outputs
-// (grove_w8a16_run's `slab`), so every row keeps those bits at any M.
+// engine's default): w8a16_dense_kernel replaces the einsum on dense weights
+// (_w + einsum, grove_tpu/models/llama.py:157, :166-193) and the LM head's
+// preferred_element_type=f32 product (:227-229) at M <= 256 (above it, in
+// slabs of 256 rows). Bound by the weight bytes, 2 K N, up to M ~ 256, where
+// 2 M K N operations reach the card's ridge. So a CTA reads its weight tile
+// once for every token of the launch: the grid has no M axis.
+//   - Swapped operands on wgmma: A is the weight, 64 columns by 16 k, read
+//     from the TMA'd 128-byte-swizzled bf16 box [64 k][64 columns] as an
+//     MN-major operand (the transpose bit); B is x, K-major by TMA in boxes
+//     of [64 tokens][64 k], rows past M zero-filled. The kernel is built for
+//     kT = ceil(M / 64) token tiles (a template argument), one wgmma of
+//     n = 64 kT per 16-deep step: the n follows M, and each output element's
+//     sum does not (phase 3 of chip_smoke.py holds rows bitwise across M).
+//   - A CTA covers 128 columns: two consumer warpgroups of 64 columns share
+//     each stage's x boxes; one producer warp keeps a ring of stages (both
+//     weight boxes and kT x boxes) in flight behind full/empty mbarriers.
+//     One CTA per SM, with as many stages as ~200 KB holds (8 at kT = 1, 4
+//     at kT = 4): fewer, longer CTAs, since each pays the ring's fill and
+//     the cluster epilogue once (ops/w8a16.py::RESIDENT["bf16"]).
+//   - Split-K in a cluster, each rank owning 128 / split columns; the split
+//     (ops/w8a16.py::split_count with the build's fixed residency) never
+//     follows M. The partial tile grows with M (f32, 135 KB at kT = 4), so
+//     each rank stages it over its drained ring; after a cluster barrier
+//     each owner reads its columns of every rank's tile, 16 bytes at a time
+//     (ld.shared::cluster), sums them in rank order and writes them, four
+//     adjacent columns a store.
 //
 // The C entry points return cudaGetLastError() after a launch (or the
 // error that kept it from launching); they launch on the given stream and
@@ -158,10 +167,16 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
   *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ void store_one(float* out, float a) { *out = a; }
+__device__ __forceinline__ void store_quad(float* out, float4 v) {
+  *reinterpret_cast<float4*>(out) = v;
+}
 
-__device__ __forceinline__ void store_one(__nv_bfloat16* out, float a) {
-  *out = __float2bfloat16_rn(a);
+__device__ __forceinline__ void store_quad(__nv_bfloat16* out, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(out) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // ---- mbarriers, TMA, cluster ----
@@ -257,9 +272,13 @@ __device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a,
                : "memory");
 }
 
-__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float a) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a)
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
                : "memory");
+  return v;
 }
 
 // ---- the exact dequantize ----
@@ -335,50 +354,32 @@ constexpr int kSmallConsumers = 32 * kSmallWarps;
 constexpr int kSmallThreads = kSmallConsumers + 32;  // + the producer warp
 constexpr int kSmallStages = 4;
 constexpr int kQTileBytes = kBK * kBN;             // int8 [64 k][128 n]
-constexpr int kBoxBytes = kBK * 128;               // a 64 x 128-byte box
 constexpr int kSmallXBytes = kSmallM * kBK * 2;    // bf16 [32 m][64 k]
 constexpr int kRecvBytes = kBN * kSmallM * 4;      // f32 [rank][m][slice]
 
-// The small kernel's shared memory per build: kBf16W, a bf16 weight tile
-// (two boxes of 64 k x 64 columns), else an int8 one (one box).
-template <bool kBf16W>
-struct SmallGeom {
-  static constexpr int kWBytes = kBf16W ? 2 * kBoxBytes : kQTileBytes;
-  static constexpr int kStageBytes = kWBytes + kSmallXBytes;
-  static constexpr int kBarOff = kSmallStages * kStageBytes + kRecvBytes;
-  static constexpr int kSmem = kBarOff + 16 * kSmallStages + 1024;
-};
+constexpr int kSmallStageBytes = kQTileBytes + kSmallXBytes;
+constexpr int kSmallBarOff = kSmallStages * kSmallStageBytes + kRecvBytes;
+constexpr int kSmallSmem = kSmallBarOff + 16 * kSmallStages + 1024;
 
 // Grid: (column tiles of every weight, split, M tiles of 32), clusters of
 // (1, split, 1): rank = blockIdx.y = the part of K. Tiles in shared memory
 // (128-byte swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)): the
 // weight [64 k][128 columns] and x [32 m][64 k] of each stage.
-//
-// kBf16W = false: int8 codes, dequantized into the A fragments as above.
-// kBf16W = true (the dense bf16-weight build, the projections of a model
-// served without weight quantization): the weight tile is bf16, two boxes
-// of 64 columns (128 bytes) by 64 k; ldmatrix.trans of 8 k rows by 8
-// columns gives lane (gid, tig) the weight of column gid at k = 2 tig and
-// 2 tig + 1, which is m16n8k16's A register for fragment row gid as it
-// stands: fragment row r holds column r, no permute, no dequantize, no
-// scale. Everything else (tiles, ring, k order, split sum) is the int8
-// build's, so its rows do not depend on M either.
-template <typename OutT, bool kBf16W>
+template <typename OutT>
 __global__ void __launch_bounds__(kSmallThreads)
     w8a16_small_kernel(__grid_constant__ const CUtensorMap x_map,
                        __grid_constant__ const CUtensorMap w_map0,
                        __grid_constant__ const CUtensorMap w_map1,
                        __grid_constant__ const CUtensorMap w_map2,
                        const Weights ws, int M, int K, int split) {
-  using G = SmallGeom<kBf16W>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t recv_addr = base + kSmallStages * G::kStageBytes;
+  const uint32_t recv_addr = base + kSmallStages * kSmallStageBytes;
   const float* const recv =
       reinterpret_cast<const float*>(smem_raw + (recv_addr - raw));
-  const uint32_t bar0 = base + G::kBarOff;
+  const uint32_t bar0 = base + kSmallBarOff;
   auto full = [&](int s) { return bar0 + 8 * s; };
   auto empty = [&](int s) { return bar0 + 8 * (kSmallStages + s); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -408,12 +409,10 @@ __global__ void __launch_bounds__(kSmallThreads)
       for (int i = 0; i < n_k; ++i) {
         const int s = i % kSmallStages, use = i / kSmallStages;
         if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
-        const uint32_t st = base + s * G::kStageBytes;
-        mbar_expect_tx(full(s), G::kStageBytes);
+        const uint32_t st = base + s * kSmallStageBytes;
+        mbar_expect_tx(full(s), kSmallStageBytes);
         tma_load_2d(st, wm, full(s), tg.n0, (k0 + i) * kBK);
-        if constexpr (kBf16W)
-          tma_load_2d(st + kBoxBytes, wm, full(s), tg.n0 + 64, (k0 + i) * kBK);
-        tma_load_2d(st + G::kWBytes, &x_map, full(s), (k0 + i) * kBK, m0);
+        tma_load_2d(st + kQTileBytes, &x_map, full(s), (k0 + i) * kBK, m0);
       }
     }
     __syncwarp();
@@ -426,23 +425,20 @@ __global__ void __launch_bounds__(kSmallThreads)
   }
 
   // Consumer warp `warp`: columns 32 warp + 16 t + 0..15 (t = 0, 1) of the
-  // tile, every token of it. int8: lane (gid, tig)'s scales, columns 2 gid
-  // and 2 gid + 1 of each 16 (zero past N; N % 16 == 0).
+  // tile, every token of it. Lane (gid, tig)'s scales, columns 2 gid and
+  // 2 gid + 1 of each 16 (zero past N; N % 16 == 0).
   const int gid = lane >> 2, tig = lane & 3;
   uint32_t s_lo[2], s_hi[2];
-  if constexpr (!kBf16W) {
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = tg.n0 + 32 * warp + 16 * t + 2 * gid;
-      const uint32_t p =
-          c < tg.N ? *reinterpret_cast<const uint32_t*>(tg.scale + c) : 0u;
-      s_lo[t] = __byte_perm(p, 0, 0x1010);
-      s_hi[t] = __byte_perm(p, 0, 0x3232);
-    }
+  for (int t = 0; t < 2; ++t) {
+    const int c = tg.n0 + 32 * warp + 16 * t + 2 * gid;
+    const uint32_t p =
+        c < tg.N ? *reinterpret_cast<const uint32_t*>(tg.scale + c) : 0u;
+    s_lo[t] = __byte_perm(p, 0, 0x1010);
+    s_hi[t] = __byte_perm(p, 0, 0x3232);
   }
-  // acc[t][j]: rows = columns of 16-column tile t (int8: through
-  // fragment_column; bf16: in order), columns = tokens 8 j + 0..7; token
-  // tiles wholly past M are skipped.
+  // acc[t][j]: rows = columns of 16-column tile t (through fragment_column),
+  // columns = tokens 8 j + 0..7; token tiles wholly past M are skipped.
   float acc[2][4][4];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
@@ -458,7 +454,7 @@ __global__ void __launch_bounds__(kSmallThreads)
   for (int i = 0; i < n_k; ++i) {
     const int s = i % kSmallStages;
     mbar_wait(full(s), (i / kSmallStages) & 1);
-    const uint32_t qs = base + s * G::kStageBytes, xs = qs + G::kWBytes;
+    const uint32_t qs = base + s * kSmallStageBytes, xs = qs + kQTileBytes;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // k 32 h .. 32 h + 31 of the step
       // B = x^T: k16 steps 2 h + kk, token tiles 2 jp and 2 jp + 1 per
@@ -479,31 +475,16 @@ __global__ void __launch_bounds__(kSmallThreads)
         }
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
+        // A = w^T: k rows 32 h + lane of column chunk 2 warp + t; r[q] is
+        // k 32 h + 8 q + 0..7.
         uint32_t a[2][4];
-        if constexpr (kBf16W) {
-          // A = w^T, one 16 k x 16 column fragment per ldmatrix: matrix q
-          // holds k rows 8 (q >> 1) + 0..7 of the k16 step and columns
-          // 8 (q & 1) + 0..7 of chunk pair 2 warp + t (box (4 warp + 2 t)
-          // / 8), so r[0..3] are a0..a3.
+        const int row = 32 * h + lane, chunk = 2 * warp + t;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, qs + row * 128 + ((chunk ^ (row & 7)) << 4));
 #pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            const int row = 32 * h + 16 * kk + 8 * (mi >> 1) + (lane & 7);
-            const int chunk = 2 * (2 * warp + t) + (mi & 1);
-            ldmatrix_x4_trans(a[kk], qs + (chunk >> 3) * kBoxBytes +
-                                         row * 128 +
-                                         (((chunk & 7) ^ (row & 7)) << 4));
-          }
-        } else {
-          // A = w^T: k rows 32 h + lane of column chunk 2 warp + t; r[q]
-          // is k 32 h + 8 q + 0..7.
-          const int row = 32 * h + lane, chunk = 2 * warp + t;
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, qs + row * 128 + ((chunk ^ (row & 7)) << 4));
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            dequant_a(r[2 * kk], s_lo[t], s_hi[t], a[kk][0], a[kk][1]);
-            dequant_a(r[2 * kk + 1], s_lo[t], s_hi[t], a[kk][2], a[kk][3]);
-          }
+        for (int kk = 0; kk < 2; ++kk) {
+          dequant_a(r[2 * kk], s_lo[t], s_hi[t], a[kk][0], a[kk][1]);
+          dequant_a(r[2 * kk + 1], s_lo[t], s_hi[t], a[kk][2], a[kk][3]);
         }
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk)
@@ -518,9 +499,7 @@ __global__ void __launch_bounds__(kSmallThreads)
   }
 
   // Element e of acc[t][j]: token 8 j + 2 tig + (e & 1) of weight column
-  // (tile-local) 32 warp + 16 t + 2 gid + (e >> 1) for int8, 32 warp +
-  // 16 t + gid + 8 (e >> 1) for bf16. int8 stores adjacent column pairs,
-  // bf16 single columns.
+  // (tile-local) 32 warp + 16 t + 2 gid + (e >> 1): adjacent column pairs.
   OutT* const out = static_cast<OutT*>(tg.out);
   const int N = tg.N;
   if (split == 1) {
@@ -531,18 +510,10 @@ __global__ void __launch_bounds__(kSmallThreads)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = m0 + 8 * j + 2 * tig + h;
-          if constexpr (kBf16W) {
-            const int n = tg.n0 + 32 * warp + 16 * t + gid;
-            if (m < M && n < N)
-              store_one(out + (size_t)m * N + n, acc[t][j][h]);
-            if (m < M && n + 8 < N)
-              store_one(out + (size_t)m * N + n + 8, acc[t][j][2 + h]);
-          } else {
-            const int n = tg.n0 + 32 * warp + 16 * t + 2 * gid;
-            if (m < M && n < N)
-              store_pair(out + (size_t)m * N + n, acc[t][j][h],
-                         acc[t][j][2 + h]);
-          }
+          const int n = tg.n0 + 32 * warp + 16 * t + 2 * gid;
+          if (m < M && n < N)
+            store_pair(out + (size_t)m * N + n, acc[t][j][h],
+                       acc[t][j][2 + h]);
         }
     return;
   }
@@ -553,7 +524,7 @@ __global__ void __launch_bounds__(kSmallThreads)
   cluster_wait();  // every rank has started
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    const int lc = 32 * warp + 16 * t + (kBf16W ? gid : 2 * gid);
+    const int lc = 32 * warp + 16 * t + 2 * gid;
     const uint32_t owner = (uint32_t)(lc / slice);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -562,14 +533,8 @@ __global__ void __launch_bounds__(kSmallThreads)
         const int tok = 8 * j + 2 * tig + h;
         const uint32_t off =
             (uint32_t)(((rank * kSmallM + tok) * slice + lc % slice) * 4);
-        if constexpr (kBf16W) {
-          const uint32_t dst = map_rank(recv_addr + off, owner);
-          st_cluster_f32(dst, acc[t][j][h]);
-          st_cluster_f32(dst + 8 * 4, acc[t][j][2 + h]);
-        } else {
-          st_cluster_f32x2(map_rank(recv_addr + off, owner), acc[t][j][h],
-                           acc[t][j][2 + h]);
-        }
+        st_cluster_f32x2(map_rank(recv_addr + off, owner), acc[t][j][h],
+                         acc[t][j][2 + h]);
       }
   }
   cluster_arrive();
@@ -652,6 +617,98 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128],
       : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
         F8(d, 48), F8(d, 56), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88),
         F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N]: A MN-major (transposed) and B K-major
+// in shared memory; N / 2 accumulators a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_ta(float (&d)[N / 2],
+                                            uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<64>(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<128>(float (&d)[64],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32),
+        F8(d, 40), F8(d, 48), F8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<192>(float (&d)[96],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 1, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32),
+        F8(d, 40), F8(d, 48), F8(d, 56), F8(d, 64), F8(d, 72),
+        F8(d, 80), F8(d, 88)
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<256>(float (&d)[128],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32),
+        F8(d, 40), F8(d, 48), F8(d, 56), F8(d, 64), F8(d, 72),
+        F8(d, 80), F8(d, 88), F8(d, 96), F8(d, 104), F8(d, 112),
+        F8(d, 120)
       : "l"(desc_a), "l"(desc_b), "n"(1));
 }
 
@@ -824,6 +881,195 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
+// ---- dense bf16 weights, M <= 256: swapped wgmma, one weight read ----
+
+constexpr int kDenseN = 64;                    // tokens per token tile
+constexpr int kDenseMaxTiles = 4;              // 256 rows
+constexpr int kWBoxBytes = kBK * 128;          // bf16 [64 k][64 n]
+constexpr int kXBoxBytes = kDenseN * kBK * 2;  // bf16 [64 m][64 k]
+
+constexpr int kDenseConsumers = 256;                 // two warpgroups
+constexpr int kDenseThreads = kDenseConsumers + 32;  // + the producer warp
+
+// The dense kernel's geometry for kT token tiles (up to 64 kT rows): one CTA
+// per SM, whose ring takes as many stages as fit ~200 KB (8 at kT = 1, 4 at
+// kT = 4), so each SM keeps 64 to 128 KB of weight in flight. The
+// epilogue's f32 partial tile [64 kT tokens][128 columns] (rows padded by 4
+// floats, so the accumulators' stores meet no bank conflict) lies over the
+// drained ring.
+template <int kT>
+struct DenseGeom {
+  static constexpr int kStageBytes = 2 * kWBoxBytes + kT * kXBoxBytes;
+  static constexpr int kStages = 200 * 1024 / kStageBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kPartRow = kBN + 4;
+  static constexpr int kPartBytes = kT * kDenseN * kPartRow * 4;
+  static_assert(kPartBytes <= kRingBytes, "the partial tile fits the ring");
+  static constexpr int kSmem = kRingBytes + 16 * kStages + 1024;
+};
+
+// Grid: (column tiles of 128 of every weight, split), clusters of
+// (1, split, 1): rank = blockIdx.y = the part of K. No M axis: each CTA
+// reads its weight tile once and serves every row of the launch (M <= 64 kT).
+// Stage s holds weight boxes [64 k][64 columns] for columns n0 + 0..63 and
+// n0 + 64..127, then x boxes [64 tokens][64 k] for tokens 64 j + 0..63
+// (128-byte swizzle; together one K-major [64 kT tokens][64 k] tile).
+// Consumer warpgroup wg takes columns n0 + 64 wg + 0..63: per k-step, one
+// wgmma m64n(64 kT)k16 for each 16-deep kk, in increasing k; one group of
+// products stays in flight while the next stage's are issued, and a stage
+// is released once its group has finished. Element 4 jj + 2 i + c of acc:
+// weight column 64 wg + 16 (warp % 4) + gid + 8 i of the tile, token
+// 8 jj + 2 tig + c. n does not enter an element's sum: the split and the k
+// order come from K and the weights alone.
+template <typename OutT, int kT>
+__global__ void __launch_bounds__(kDenseThreads, 1)
+    w8a16_dense_kernel(__grid_constant__ const CUtensorMap x_map,
+                       __grid_constant__ const CUtensorMap w_map0,
+                       __grid_constant__ const CUtensorMap w_map1,
+                       __grid_constant__ const CUtensorMap w_map2,
+                       const Weights ws, int M, int K, int split) {
+  using G = DenseGeom<kT>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar0 = base + G::kRingBytes;
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (G::kStages + s); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Target tg = target_of(ws, blockIdx.x, kBN);
+  const int rank = blockIdx.y;
+  int k0, k1;  // a last k-step past K reads zeros (TMA's fill)
+  split_range((K + kBK - 1) / kBK, split, rank, &k0, &k1);
+  const int n_k = k1 - k0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kDenseConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kDenseConsumers / 32) {
+    // Producer: lane 0 keeps the ring filled.
+    if (lane == 0) {
+      const CUtensorMap* wm =
+          tg.j == 0 ? &w_map0 : tg.j == 1 ? &w_map1 : &w_map2;
+      prefetch_map(wm);
+      prefetch_map(&x_map);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % G::kStages, use = i / G::kStages;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        const uint32_t st = base + s * G::kStageBytes;
+        const int k = (k0 + i) * kBK;
+        mbar_expect_tx(full(s), G::kStageBytes);
+        tma_load_2d(st, wm, full(s), tg.n0, k);
+        tma_load_2d(st + kWBoxBytes, wm, full(s), tg.n0 + 64, k);
+#pragma unroll
+        for (int j = 0; j < kT; ++j)
+          tma_load_2d(st + 2 * kWBoxBytes + j * kXBoxBytes, &x_map, full(s),
+                      k, kDenseN * j);
+      }
+    }
+    __syncwarp();
+    if (split > 1) {  // the cluster's two barriers, as every thread
+      cluster_arrive();
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  float acc[kT * 32];
+#pragma unroll
+  for (int e = 0; e < kT * 32; ++e) acc[e] = 0.f;
+  fence_regs(acc);
+  for (int i = 0; i < n_k; ++i) {
+    const int s = i % G::kStages;
+    mbar_wait(full(s), (i / G::kStages) & 1);
+    const uint32_t st = base + s * G::kStageBytes;
+    const uint32_t wbox = st + wg * kWBoxBytes, xs = st + 2 * kWBoxBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_ss_ta<kDenseN * kT>(
+          acc, sw128_desc(wbox + kk * 16 * 128, kWBoxBytes, 1024),
+          sw128_desc(xs + 32 * kk, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // step i - 1's products are done: release its stage
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty((i - 1) % G::kStages));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // The epilogue: the partial tile into shared memory (over the ring, once
+  // both warpgroups are done with it); then rank r sums columns
+  // [r slice, (r + 1) slice) of every rank's tile in rank order 0, 1, ...,
+  // reading 16 bytes at a time (ld.shared::cluster), and writes them. The
+  // first cluster barrier orders every rank's tile before any read; the
+  // second keeps each rank's shared memory alive until all have read it.
+  // split = 1: no cluster, the CTA's consumers meet at named barrier 1.
+  auto consumers_sync = [] {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kDenseConsumers) : "memory");
+  };
+  consumers_sync();
+  float* const part = reinterpret_cast<float*>(smem_raw + (base - raw));
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lc0 = 64 * wg + 16 * (warp & 3) + gid;  // + 8 i
+#pragma unroll
+  for (int jj = 0; jj < 8 * kT; ++jj)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        part[(8 * jj + 2 * tig + c) * G::kPartRow + lc0 + 8 * i] =
+            acc[4 * jj + 2 * i + c];
+  if (split > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    consumers_sync();
+  }
+  OutT* const out = static_cast<OutT*>(tg.out);
+  const int N = tg.N, slice = kBN / split, per_row = slice / 4;
+  for (int it = threadIdx.x; it < M * per_row; it += kDenseConsumers) {
+    const int tok = it / per_row, c = rank * slice + (it % per_row) * 4;
+    const int n = tg.n0 + c;
+    if (n >= N) continue;
+    const int at = tok * G::kPartRow + c;
+    float4 sum;
+    if (split == 1) {
+      sum = *reinterpret_cast<const float4*>(part + at);
+    } else {
+      const uint32_t addr = base + (uint32_t)at * 4;
+      float4 v[kMaxSplit];
+#pragma unroll
+      for (int src = 0; src < kMaxSplit; ++src)
+        if (src < split) v[src] = ld_cluster_f32x4(map_rank(addr, src));
+      sum = v[0];
+#pragma unroll
+      for (int src = 1; src < kMaxSplit; ++src)
+        if (src < split) {
+          sum.x += v[src].x;
+          sum.y += v[src].y;
+          sum.z += v[src].z;
+          sum.w += v[src].w;
+        }
+    }
+    store_quad(out + (size_t)tok * N + n, sum);
+  }
+  if (split > 1) {  // no rank exits while another may read its tile
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
 // ---- f32 activations: CUDA cores ----
 
 constexpr int kFmaThreads = 256;
@@ -941,18 +1187,17 @@ cudaError_t raise_smem(Kernel kernel, int bytes, bool* ready) {
   return err;
 }
 
-template <typename OutT, bool kBf16W>
-cudaError_t launch_small(const CUtensorMap& x_map, Plan& p, int M,
+// A launch of a split-K kernel (the small or the dense one): grid (column
+// tiles, split, z), clusters of (1, split, 1) where split > 1.
+template <class Kernel>
+cudaError_t launch_split(Kernel kernel, int smem, bool* ready, int threads,
+                         int z, const CUtensorMap& x_map, Plan& p, int M,
                          cudaStream_t st) {
-  auto kernel = w8a16_small_kernel<OutT, kBf16W>;
-  constexpr int smem = SmallGeom<kBf16W>::kSmem;
-  static bool ready = false;  // one attribute call per instantiation
-  cudaError_t err = raise_smem(kernel, smem, &ready);
+  cudaError_t err = raise_smem(kernel, smem, ready);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.ws.tile0[p.ws.count], p.split,
-                     (M + kSmallM - 1) / kSmallM);
-  cfg.blockDim = dim3(kSmallThreads);
+  cfg.gridDim = dim3(p.ws.tile0[p.ws.count], p.split, z);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -967,6 +1212,41 @@ cudaError_t launch_small(const CUtensorMap& x_map, Plan& p, int M,
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
                             args);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_small(const CUtensorMap& x_map, Plan& p, int M,
+                         cudaStream_t st) {
+  static bool ready = false;  // one attribute call per instantiation
+  return launch_split(w8a16_small_kernel<OutT>, kSmallSmem, &ready,
+                      kSmallThreads, (M + kSmallM - 1) / kSmallM, x_map, p,
+                      M, st);
+}
+
+template <typename OutT, int kT>
+cudaError_t launch_dense(const CUtensorMap& x_map, Plan& p, int M,
+                         cudaStream_t st) {
+  static bool ready = false;
+  return launch_split(w8a16_dense_kernel<OutT, kT>, DenseGeom<kT>::kSmem,
+                      &ready, kDenseThreads, 1, x_map, p, M, st);
+}
+
+// The dense kernel built for ceil(M / 64) token tiles (M <= 256).
+template <typename OutT>
+cudaError_t launch_dense_rows(const CUtensorMap& x_map, Plan& p, int M,
+                              cudaStream_t st) {
+  switch ((M + kDenseN - 1) / kDenseN) {
+    case 1:
+      return launch_dense<OutT, 1>(x_map, p, M, st);
+    case 2:
+      return launch_dense<OutT, 2>(x_map, p, M, st);
+    case 3:
+      return launch_dense<OutT, 3>(x_map, p, M, st);
+    case 4:
+      return launch_dense<OutT, 4>(x_map, p, M, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename OutT>
@@ -997,16 +1277,16 @@ cudaError_t launch(Plan& p, const void* x, int M, cudaStream_t st) {
   CUtensorMap x_map;
   const cudaError_t err =
       make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.K, M, kBK,
-               p.wide ? kWideM : kSmallM);
+               p.wide ? kWideM : p.w_dtype == 1 ? kDenseN : kSmallM);
   if (err != cudaSuccess) return err;
   if (p.wide)
     return p.out_dtype ? launch_wide<__nv_bfloat16>(x_map, p, M, st)
                        : launch_wide<float>(x_map, p, M, st);
   if (p.w_dtype == 1)
-    return p.out_dtype ? launch_small<__nv_bfloat16, true>(x_map, p, M, st)
-                       : launch_small<float, true>(x_map, p, M, st);
-  return p.out_dtype ? launch_small<__nv_bfloat16, false>(x_map, p, M, st)
-                     : launch_small<float, false>(x_map, p, M, st);
+    return p.out_dtype ? launch_dense_rows<__nv_bfloat16>(x_map, p, M, st)
+                       : launch_dense_rows<float>(x_map, p, M, st);
+  return p.out_dtype ? launch_small<__nv_bfloat16>(x_map, p, M, st)
+                     : launch_small<float>(x_map, p, M, st);
 }
 
 }  // namespace
@@ -1016,11 +1296,12 @@ extern "C" int grove_w8a16_plan_bytes() { return (int)sizeof(Plan); }
 // Plan a launch of x [M, K] (x_dtype 0 = f32, 1 = bf16) times the `count`
 // (1..3) weights w_i [K, n_i] (contiguous, 16-byte aligned) of w_dtype:
 // 0 = int8 codes with scales_i [n_i] bf16, 1 = a dense bf16 weight (bf16 x,
-// the small kernel), 2 = a dense f32 weight (f32 x); dense weights take no
+// the dense kernel), 2 = a dense f32 weight (f32 x); dense weights take no
 // scales (null). Outputs of out_dtype (0 = f32, 1 = bf16; f32 x takes an
 // f32 output). wide = 1: the wgmma kernel (bf16 x, int8 weights, split 1);
-// else bf16 x takes the small kernel with `split` in 1, 2, 4, 8 (at most
-// the k-steps, ceil(K / 64)) and f32 x the FMA kernel (split 1). int8:
+// else bf16 x takes the small (int8) or dense (bf16) kernel with `split` in
+// 1, 2, 4, 8 (at most the k-steps, ceil(K / 64)) and f32 x the FMA kernel
+// (split 1). int8:
 // K % 64 == 0, n_i % 16 == 0; bf16: K % 8 == 0, n_i % 8 == 0. Writes
 // grove_w8a16_plan_bytes() bytes to `plan`.
 extern "C" int grove_w8a16_plan(const void* const* w,
@@ -1075,15 +1356,18 @@ extern "C" int grove_w8a16_plan(const void* const* w,
 }
 
 // out: the outputs of a plan, one after another ([M, n_i] each). x and out
-// contiguous and 16-byte aligned. slab > 0 (the small kernel only): one
-// launch per `slab` consecutive rows, rows [r0, r0 + slab) of x read and of
-// every output written in place, so each row takes the bits it takes at
-// M <= slab. Else one launch.
+// contiguous and 16-byte aligned. slab > 0 (the small and dense kernels):
+// one launch per `slab` consecutive rows, rows [r0, r0 + slab) of x read and
+// of every output written in place, so each row takes the bits it takes at
+// M <= slab. Else one launch. The dense kernel takes at most 256 rows a
+// launch, so a dense plan needs 0 < slab <= 256.
 extern "C" int grove_w8a16_run(const void* plan, const void* x, void* out,
                                int M, int slab, void* stream) {
   Plan p;
   memcpy(&p, plan, sizeof(p));
-  if (M <= 0 || slab < 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || slab < 0 ||
+      (p.w_dtype == 1 && (slab == 0 || slab > kDenseN * kDenseMaxTiles)))
+    return (int)cudaErrorInvalidValue;
   const int elt = p.out_dtype == 0 ? 4 : 2, x_elt = p.x_dtype == 0 ? 4 : 2;
   const int rows = slab > 0 && p.x_dtype == 1 && !p.wide ? slab : M;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1100,41 +1384,50 @@ extern "C" int grove_w8a16_run(const void* plan, const void* x, void* out,
 }
 
 // A build's tile rows and columns, registers, local (spill) bytes, dynamic
-// shared memory, largest cluster and residency, into out[7]: which = 0 the
-// small kernel over int8 weights, 3 over bf16 weights (residency: clusters
-// of kMaxSplit resident at once, by cudaOccupancyMaxActiveClusters), 1 the
-// wide one, 2 the FMA kernel (both: CTAs per SM). The tensor-core builds
-// are those with bf16 output.
+// shared memory, largest cluster, residency, CTAs per SM and ring stages,
+// into out[9]: which = 0 the small kernel over int8 weights, 3..6 the dense
+// kernel for 1..4 token tiles (both: residency = clusters of kMaxSplit
+// resident at once, by cudaOccupancyMaxActiveClusters), 1 the wide one, 2
+// the FMA kernel (both: residency = CTAs per SM). The tensor-core builds are
+// those with bf16 output.
+template <class Kernel>
+cudaError_t info_of(Kernel kernel, int smem, bool* ready, const void** fn) {
+  *fn = reinterpret_cast<const void*>(kernel);
+  return raise_smem(kernel, smem, ready);
+}
+
+template <int kT>
+cudaError_t dense_info(const void** fn, int* smem, int* stages) {
+  using G = DenseGeom<kT>;
+  static bool ready = false;
+  *smem = G::kSmem, *stages = G::kStages;
+  return info_of(w8a16_dense_kernel<__nv_bfloat16, kT>, G::kSmem, &ready, fn);
+}
+
 extern "C" int grove_w8a16_info(int which, int* out) {
-  const void* fn;
-  int bm, bn, smem, threads, cluster = 1;
+  const void* fn = nullptr;
+  int bm, bn = kBN, smem = 0, threads, cluster = 1, stages = 0;
   cudaError_t err = cudaSuccess;
-  if (which == 0 || which == 3) {
-    if (which == 0) {
-      static bool ready = false;
-      smem = SmallGeom<false>::kSmem;
-      err = raise_smem(w8a16_small_kernel<__nv_bfloat16, false>, smem,
-                       &ready);
-      fn = reinterpret_cast<const void*>(
-          w8a16_small_kernel<__nv_bfloat16, false>);
-    } else {
-      static bool ready = false;
-      smem = SmallGeom<true>::kSmem;
-      err = raise_smem(w8a16_small_kernel<__nv_bfloat16, true>, smem,
-                       &ready);
-      fn = reinterpret_cast<const void*>(
-          w8a16_small_kernel<__nv_bfloat16, true>);
-    }
-    bm = kSmallM, bn = kBN, threads = kSmallThreads;
-    cluster = kMaxSplit;
+  if (which == 0) {
+    static bool ready = false;
+    err = info_of(w8a16_small_kernel<__nv_bfloat16>, kSmallSmem, &ready, &fn);
+    bm = kSmallM, smem = kSmallSmem, threads = kSmallThreads;
+    cluster = kMaxSplit, stages = kSmallStages;
+  } else if (which >= 3 && which <= 6) {
+    const int t = which - 2;
+    err = t == 1   ? dense_info<1>(&fn, &smem, &stages)
+          : t == 2 ? dense_info<2>(&fn, &smem, &stages)
+          : t == 3 ? dense_info<3>(&fn, &smem, &stages)
+                   : dense_info<4>(&fn, &smem, &stages);
+    bm = kDenseN * t, threads = kDenseThreads, cluster = kMaxSplit;
   } else if (which == 1) {
     static bool ready = false;
-    err = raise_smem(w8a16_wide_kernel<__nv_bfloat16>, kWideSmem, &ready);
-    fn = reinterpret_cast<const void*>(w8a16_wide_kernel<__nv_bfloat16>);
+    err = info_of(w8a16_wide_kernel<__nv_bfloat16>, kWideSmem, &ready, &fn);
     bm = kWideM, bn = kWideN, smem = kWideSmem, threads = kWideThreads;
+    stages = kWideStages;
   } else if (which == 2) {
     fn = reinterpret_cast<const void*>(w8a16_fma_kernel<false>);
-    bm = kFmaBM, bn = kFmaBN, smem = 0, threads = kFmaThreads;
+    bm = kFmaBM, bn = kFmaBN, threads = kFmaThreads;
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -1142,7 +1435,11 @@ extern "C" int grove_w8a16_info(int which, int* out) {
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
-  int resident = 0;
+  int per_sm = 0, resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  resident = per_sm;
   if (cluster > 1) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(1, cluster, 1);
@@ -1156,11 +1453,8 @@ extern "C" int grove_w8a16_info(int which, int* out) {
     cfg.attrs = a;
     cfg.numAttrs = 1;
     err = cudaOccupancyMaxActiveClusters(&resident, fn, &cfg);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn,
-                                                        threads, smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  if (err != cudaSuccess) return (int)err;
   out[0] = bm;
   out[1] = bn;
   out[2] = attr.numRegs;
@@ -1168,6 +1462,8 @@ extern "C" int grove_w8a16_info(int which, int* out) {
   out[4] = smem;
   out[5] = cluster;
   out[6] = resident;
+  out[7] = per_sm;
+  out[8] = stages;
   return 0;
 }
 

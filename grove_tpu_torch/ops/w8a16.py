@@ -27,9 +27,11 @@ stored, no concatenated copy made.
 
 Dense weights. A model served without weight quantization (the engine's
 default) multiplies by its bf16 weights as stored: ``dense_matmul_group``
-runs the same small kernel's bf16-weight build on CUDA tensors (the weight
-tile arrives as bf16 and feeds the tensor cores as it is; one grouped
-launch for QKV and for gate/up, the LM head with an f32 output) and
+runs the dense kernel on CUDA tensors (``wgmma`` with the weight tile as A,
+read as stored, and the tokens as n, 64 per token tile of the launch;
+every CTA reads its weight tile once for all the launch's rows,
+``dense_geometry``; one grouped launch for QKV and for gate/up, the LM head
+with an f32 output) and
 ``dense_matmul_ref`` (``x.to(ct) @ w.to(ct)``, bitwise the model's einsum
 on the CPU, which the model keeps there) on CPU tensors. It replaces the
 einsum on dense weights (``_w`` + einsum, ``grove_tpu/models/llama.py:157``)
@@ -69,14 +71,21 @@ from grove_tpu_torch.ops import _build
 
 BK = 64                 # k-step depth; K must be a multiple
 SMALL_TILE = (32, 128)  # tokens x weight columns per CTA up to 256 rows
+DENSE_N = 64            # tokens per token tile of the dense kernel
+DENSE_TILE = (DENSE_N, 128)  # ... x weight columns per CTA, which loops over
+# every token tile of the launch
 WIDE_TILE = (128, 256)  # above it (bf16 activations)
 FMA_TILE = (32, 64)     # f32 activations (the CUDA-core kernel)
 ROW_INVARIANT_M = 256
 SMS = 132               # streaming multiprocessors of an H100
 RESIDENT_CTAS = 3 * SMS  # small-kernel CTAs resident at once (3 per SM)
-# ... per build: the bf16-weight build's stage is twice the int8 one's, so
-# two CTAs fit an SM (csrc/w8a16_gemm.cu SmallGeom).
-RESIDENT = {"int8": RESIDENT_CTAS, "bf16": 2 * SMS}
+# ... per build, the split's one constant. The dense kernel runs one CTA per
+# SM, and each CTA pays its ring's fill and the cluster epilogue once: on the
+# card, llama-1b's launches ran fastest at every M <= 256 with the splits
+# that a constant in [64, 128) gives (QKV 2, wo and w_down 4, gate/up and
+# the head 1), between 64 and 250 CTAs a launch (PERF.md section 6).
+RESIDENT = {"int8": RESIDENT_CTAS, "bf16": 96}
+DENSE_RING = 200 * 1024  # the dense kernel's ring, at most (one CTA per SM)
 MAX_SPLIT = 8           # the split's CTAs are one cluster: 8 is portable
 MIN_SPLIT_STEPS = 2     # k-steps per split at least
 MAX_WEIGHTS = 3         # weights sharing x in one launch
@@ -88,7 +97,8 @@ _BUILD_CODES = {"int8": 0, "bf16": 1, "f32": 2}  # the weight's type
 # scale pairs; bf16 16-byte rows for TMA (a last partial k-step reads
 # zeros); f32 nothing.
 _MULTIPLES = {"int8": (BK, 16), "bf16": (8, 8), "f32": (1, 1)}
-_INFO = {"small": 0, "wide": 1, "fma": 2, "small_bf16": 3}
+_INFO = {"small": 0, "wide": 1, "fma": 2, "dense1": 3, "dense2": 4,
+         "dense3": 5, "dense4": 6}
 
 
 def w8a16_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -153,14 +163,41 @@ def partition(M: int, K: int, ns, x_dtype: torch.dtype,
               slabbed: bool = False) -> tuple[bool, int, tuple[int, int]]:
     """(wide tile, split count, CTA tile) of a launch over weights of
     ``ns`` columns. f32 activations take the CUDA-core kernel, unsplit, at
-    every M. bf16 activations take the small kernel up to 256 rows, and
-    above it when the call runs in slabs (``slabbed``; the bf16-weight
-    build always does), else the wide tile."""
+    every M. bf16 activations over int8 weights take the small kernel up to
+    256 rows, and above it when the call runs in slabs (``slabbed``), else
+    the wide tile; over bf16 weights the dense kernel (``DENSE_TILE``: its
+    wgmma's tokens by the CTA's columns), always in slabs."""
     if x_dtype != torch.bfloat16:
         return False, 1, FMA_TILE
-    if M <= ROW_INVARIANT_M or slabbed or build == "bf16":
+    if build == "bf16":
+        return False, split_count(K, ns, build), DENSE_TILE
+    if M <= ROW_INVARIANT_M or slabbed:
         return False, split_count(K, ns, build), SMALL_TILE
     return True, 1, WIDE_TILE
+
+
+def dense_geometry(M: int, K: int, ns) -> dict:
+    """The dense kernel's launch of ``M`` <= 256 rows over weights of
+    ``ns`` columns, as ``csrc/w8a16_gemm.cu`` (``DenseGeom``,
+    ``launch_dense_rows``) runs it: the build (``kernel_info``'s name), the
+    token tiles of 64 rows each CTA serves (ceil(M / 64)) and the wgmma's n
+    (64 per tile), the columns per CTA, the split of K and the CTAs (column
+    tiles x split: no M axis, so each weight tile is read once), the ring's
+    stages, the dynamic shared memory and the CTAs per SM (one). Only the
+    split and the k order enter a row's sums, and they never follow M; n
+    and the ring follow the token tiles alone."""
+    if not 1 <= M <= ROW_INVARIANT_M:
+        raise ValueError(f"the dense kernel takes 1 to {ROW_INVARIANT_M} "
+                         f"rows a launch, got {M}")
+    tiles = -(-M // DENSE_N)
+    split = split_count(K, ns, "bf16")
+    stage_bytes = DENSE_TILE[1] * BK * 2 + tiles * DENSE_N * BK * 2
+    stages = DENSE_RING // stage_bytes
+    return {"build": f"dense{tiles}", "token_tiles": tiles,
+            "n": DENSE_N * tiles, "columns": DENSE_TILE[1], "split": split,
+            "ctas": column_tiles(ns, DENSE_TILE[1]) * split,
+            "stages": stages, "smem_bytes": stages * (stage_bytes + 16) + 1024,
+            "per_sm": 1}
 
 
 def slabs(M: int) -> list[tuple[int, int]]:
@@ -194,19 +231,20 @@ def _kernel():
 
 def kernel_info(which: str) -> dict:
     """Tile, registers and local (spill) bytes per thread, dynamic shared
-    memory per CTA, the largest cluster and the residency (``small`` and
-    ``small_bf16``, the int8- and bf16-weight builds: clusters of that size
-    resident at once; ``wide`` and ``fma``: CTAs per SM) of the built
+    memory per CTA, the largest cluster, the residency (``small``, the
+    int8-weight build, and ``dense1`` .. ``dense4``, the dense kernel for
+    1 to 4 token tiles: clusters of that size resident at once; ``wide``
+    and ``fma``: CTAs per SM), CTAs per SM and ring stages of the built
     kernel (needs the card)."""
     *_, err_str, info = _kernel()
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 9)()
     err = info(_INFO[which], out)
     if err != 0:
         raise RuntimeError(f"w8a16 kernel info failed: "
                            f"{err_str(err).decode()} ({err})")
     return {"tile": (out[0], out[1]), "registers": out[2],
             "local_bytes": out[3], "smem_bytes": out[4], "cluster": out[5],
-            "resident": out[6]}
+            "resident": out[6], "per_sm": out[7], "stages": out[8]}
 
 
 def _check(x: torch.Tensor, weights, out_dtype: torch.dtype) -> None:
@@ -423,9 +461,9 @@ def dense_matmul_group(x: torch.Tensor, weights,
     [K, N_i]), as ``out_dtype`` (default: the promoted type of x and the
     weights): one output [M, N_i] per weight.
 
-    CUDA tensors run the hand-written kernel: bf16 x and weights the small
-    kernel's bf16-weight build (one launch for all weights up to 256 rows,
-    one per slab of 256 rows above, so a row's bits never depend on M),
+    CUDA tensors run the hand-written kernel: bf16 x and weights the dense
+    kernel (one launch for all weights up to 256 rows, one per slab of 256
+    rows above, so a row's bits never depend on M),
     f32 the CUDA-core kernel (one launch). CPU tensors run
     ``dense_matmul_ref`` on each. Anything else raises: mixed devices,
     other types and, on the card, bf16 shapes with K % 8 or N % 8."""

@@ -208,17 +208,18 @@ def test_partition_depends_only_on_the_weights_up_to_256_rows(K, ns):
     # Above 256 rows: the wide tile, no split.
     assert w8a16.partition(4096, K, ns, torch.bfloat16) == (
         True, 1, w8a16.WIDE_TILE)
-    # The bf16-weight build: its own split (its residency), from K and the
+    # The dense build: its own split (its residency), from K and the
     # weights alone at every M, slabs above 256 rows; so is a slabbed int8
     # call's.
-    for build in ("int8", "bf16"):
-        want = (False, w8a16.split_count(K, ns, build), w8a16.SMALL_TILE)
+    for build, tile in (("int8", w8a16.SMALL_TILE),
+                        ("bf16", w8a16.DENSE_TILE)):
+        want = (False, w8a16.split_count(K, ns, build), tile)
         parts = {w8a16.partition(M, K, ns, torch.bfloat16, build,
                                  slabbed=True) for M in range(1, 1025)}
         assert parts == {want}, build
     assert {w8a16.partition(M, K, ns, torch.bfloat16, "bf16")
             for M in (1, 256, 257, 4096)} == {
-        (False, w8a16.split_count(K, ns, "bf16"), w8a16.SMALL_TILE)}
+        (False, w8a16.split_count(K, ns, "bf16"), w8a16.DENSE_TILE)}
 
 
 def test_split_fills_the_card_where_columns_are_few():
@@ -365,20 +366,89 @@ def test_mixed_devices_raise_on_cuda():
 
 
 def test_bf16_build_split_fills_the_card_at_its_residency():
-    """The bf16-weight build holds twice the int8 stage, two CTAs per SM:
-    the split doubles while the doubled CTAs fit one wave at that
-    residency. llama-1b: QKV and wo/w_down 8, gate/up 2, the head 1."""
-    assert w8a16.RESIDENT["bf16"] == 2 * w8a16.SMS
+    """The dense kernel's split takes one residency constant for every M
+    (96: the card ran llama-1b's launches fastest with the splits it
+    gives). The split doubles while the doubled CTAs stay within it.
+    llama-1b: QKV 2, wo and w_down 4, gate/up 1, the head 1."""
+    assert w8a16.RESIDENT["bf16"] == 96
     assert w8a16.RESIDENT["int8"] == w8a16.RESIDENT_CTAS
     for K, ns in LLAMA_1B_LAUNCHES:
         split = w8a16.split_count(K, ns, "bf16")
         n_tiles = w8a16.column_tiles(ns)
         assert split == 1 or n_tiles * split <= w8a16.RESIDENT["bf16"]
+        assert (split == w8a16.MAX_SPLIT
+                or 2 * split * n_tiles > w8a16.RESIDENT["bf16"])
         assert split <= w8a16.split_count(K, ns)
     assert [w8a16.split_count(K, ns, "bf16")
-            for K, ns in LLAMA_1B_LAUNCHES] == [8, 8, 2, 8, 1, 8]
+            for K, ns in LLAMA_1B_LAUNCHES] == [2, 4, 1, 4, 1, 8]
     # The tiny draft's K = 32: one partial k-step, no split.
     assert w8a16.split_count(32, (16, 8, 8), "bf16") == 1
+
+
+_DRAFT = tllama.draft_config(tllama.CONFIGS["llama-1b"])
+DRAFT_LAUNCHES = [  # the tiny draft's: QKV, wo, gate/up, w_down, the head
+    (_DRAFT.d_model, (_DRAFT.n_heads * _DRAFT.head_dim,
+                      _DRAFT.n_kv_heads * _DRAFT.head_dim,
+                      _DRAFT.n_kv_heads * _DRAFT.head_dim)),
+    (_DRAFT.n_heads * _DRAFT.head_dim, (_DRAFT.d_model,)),
+    (_DRAFT.d_model, (_DRAFT.d_ff, _DRAFT.d_ff)),
+    (_DRAFT.d_ff, (_DRAFT.d_model,)),
+    (_DRAFT.d_model, (_DRAFT.vocab_size,))]
+
+
+@pytest.mark.parametrize("K,ns", LLAMA_1B_LAUNCHES + DRAFT_LAUNCHES
+                         + [(32, (16, 8, 8))])
+def test_dense_geometry_follows_m_only_in_its_tile_count(K, ns):
+    """The dense kernel's launch at M <= 256: the columns per CTA, the
+    split (with the k order, all that enters a row's sums) and the CTAs
+    are the same at every M; only the token tiles (ceil(M / 64)) follow M,
+    and with them the wgmma's n (64 a tile) and the ring. The epilogue's
+    partial tile fits the ring it reuses."""
+    geos = [w8a16.dense_geometry(M, K, ns)
+            for M in range(1, w8a16.ROW_INVARIANT_M + 1)]
+    fixed = ("columns", "split", "ctas", "per_sm")
+    assert len({tuple(g[k] for k in fixed) for g in geos}) == 1
+    g = geos[0]
+    assert (g["columns"], g["split"], g["per_sm"]) == (
+        128, w8a16.split_count(K, ns, "bf16"), 1)
+    assert g["ctas"] == w8a16.column_tiles(ns) * g["split"]
+    by_tiles = {}
+    for M, g in enumerate(geos, 1):
+        assert g["token_tiles"] == -(-M // 64), M
+        assert g["n"] == 64 * g["token_tiles"], M
+        assert g["build"] == f"dense{g['token_tiles']}", M
+        assert by_tiles.setdefault(g["token_tiles"], g) == g, M
+        stage = 128 * 64 * 2 + g["token_tiles"] * 64 * 64 * 2
+        assert g["stages"] == 200 * 1024 // stage
+        # the epilogue's f32 partial tile, rows of 132 floats
+        assert 64 * g["token_tiles"] * 132 * 4 <= g["stages"] * stage
+    assert sorted(by_tiles) == [1, 2, 3, 4]
+    # One CTA per SM, a ring of ~200 KB: 8 stages at one token tile, 4 at
+    # four.
+    assert [(r["stages"], r["smem_bytes"])
+            for _, r in sorted(by_tiles.items())] == [
+        (8, 197760), (6, 197728), (5, 205904), (4, 197696)]
+    for M in (0, 257):
+        with pytest.raises(ValueError, match="1 to 256 rows"):
+            w8a16.dense_geometry(M, K, ns)
+
+
+def test_dense_launches_fill_the_card_with_few_long_ctas():
+    """No M axis: a dense launch's CTAs are its column tiles of 128 times
+    the split, the same at every M, one CTA per SM. llama-1b's five
+    launches (and wk alone) hold 64 to 250 CTAs: each pays its ring's fill
+    and the cluster epilogue once, which the card showed costs more than
+    the SMs the smaller launches leave idle. Every launch fits one wave
+    but the head (250 CTAs, no cluster); the split-8 clusters would not
+    (15 clusters of 8 co-resident at one CTA per SM)."""
+    ctas = [w8a16.dense_geometry(32, K, ns)["ctas"]
+            for K, ns in LLAMA_1B_LAUNCHES]
+    assert ctas == [64, 64, 88, 64, 250, 64]
+    assert all(c <= w8a16.SMS for c in ctas if c != 250)
+    assert [w8a16.dense_geometry(32, K, ns)["split"]
+            for K, ns in DRAFT_LAUNCHES] == [4, 4, 4, 8, 1]
+    assert [w8a16.dense_geometry(256, K, ns)["ctas"]
+            for K, ns in DRAFT_LAUNCHES] == [32, 16, 88, 32, 250]
 
 
 def test_slab_boundaries():
@@ -466,16 +536,27 @@ def _cuda_or_skip():
     (32, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
     (32, 5632, (2048,), torch.bfloat16, torch.bfloat16),
     (32, 2048, (32000,), torch.bfloat16, torch.float32),
+    (64, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (64, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
     (128, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
     (128, 2048, (32000,), torch.bfloat16, torch.float32),
+    (128, 5632, (2048,), torch.bfloat16, torch.bfloat16),
+    (200, 2048, (5632, 5632), torch.bfloat16, torch.bfloat16),
+    (200, 2048, (2048,), torch.bfloat16, torch.bfloat16),
+    (256, 5632, (2048,), torch.bfloat16, torch.bfloat16),
+    (256, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
+    (256, 2048, (32000,), torch.bfloat16, torch.float32),
+    (256, 512, (1408, 1408), torch.bfloat16, torch.bfloat16),
     (7, 32, (16, 8, 8), torch.bfloat16, torch.bfloat16),
+    (130, 32, (16, 8, 8), torch.bfloat16, torch.float32),
     (5, 64, (40,), torch.bfloat16, torch.float32),
     (300, 512, (1408, 1408), torch.bfloat16, torch.bfloat16),
     (9, 64, (256, 32), torch.float32, torch.float32),
     (600, 100, (24,), torch.float32, torch.float32)])
 def test_dense_kernel_matches_plain_on_cuda(M, K, N, xt, out):
-    """The dense build (bf16: the tensor-core small kernel, in slabs above
-    256 rows; f32: the CUDA-core kernel) against ``dense_matmul_ref``."""
+    """The dense build (bf16: the wgmma dense kernel, one to four token
+    tiles, in slabs above 256 rows; f32: the CUDA-core kernel) against
+    ``dense_matmul_ref``."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(M + K + sum(N))
     x = torch.randn((M, K), generator=gen, device="cuda").to(xt)
@@ -504,7 +585,8 @@ def test_dense_kernel_matches_plain_on_cuda(M, K, N, xt, out):
     (5632, (2048,), torch.bfloat16), (32, (16, 8, 8), torch.bfloat16)])
 def test_dense_rows_do_not_depend_on_m_on_cuda(K, ns, out):
     """Each row of a dense launch with M rows equals, bit for bit, the same
-    row inside a launch with 256 rows, and inside a slabbed one of 700."""
+    row inside a launch with 256 rows (every token-tile count, 1 to 4), and
+    inside a slabbed one of 700."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(K + sum(ns))
     ws = [torch.randn((K, n), generator=gen, device="cuda").to(
@@ -512,7 +594,7 @@ def test_dense_rows_do_not_depend_on_m_on_cuda(K, ns, out):
     x = torch.randn((700, K), generator=gen, device="cuda").to(
         torch.bfloat16)
     whole = w8a16.dense_matmul_group(x[:256], ws, out)
-    for M in (1, 2, 7, 8, 31, 32, 33, 64, 128, 255):
+    for M in (1, 2, 7, 8, 31, 32, 33, 64, 65, 128, 129, 192, 193, 255, 256):
         for a, w in zip(w8a16.dense_matmul_group(x[:M], ws, out), whole):
             assert torch.equal(a, w[:M]), M
     slabbed = w8a16.dense_matmul_group(x, ws, out)
@@ -520,6 +602,21 @@ def test_dense_rows_do_not_depend_on_m_on_cuda(K, ns, out):
         part = w8a16.dense_matmul_group(x[r0:r0 + n], ws, out)
         for a, w in zip(part, slabbed):
             assert torch.equal(a, w[r0:r0 + n]), r0
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4])
+def test_dense_build_info_matches_its_geometry_on_cuda(tiles):
+    """The built dense kernel for 1 to 4 token tiles: no spill, the tile,
+    shared memory, stages and CTAs per SM ``dense_geometry`` mirrors, and
+    its clusters of 8 co-resident."""
+    _cuda_or_skip()
+    geo = w8a16.dense_geometry(64 * tiles, 2048, (2048,))
+    info = w8a16.kernel_info(geo["build"])
+    assert info["local_bytes"] == 0
+    assert info["tile"] == (geo["n"], geo["columns"])
+    assert (info["smem_bytes"], info["stages"], info["per_sm"]) == (
+        geo["smem_bytes"], geo["stages"], geo["per_sm"])
+    assert info["cluster"] == 8 and info["resident"] >= 1
 
 
 @pytest.mark.parametrize("M", [257, 512, 777])
