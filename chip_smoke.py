@@ -91,6 +91,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      M = 512, slabs of 256 rows) equal to spec off. Phase 3 also checks
      and times the chunk kernels at the verify shape (b = 32, c = 4,
      per-sequence offsets).
+ 10. disaggregated serve: phase 7's traffic through make_engine with
+     GROVE_DISAGG=1 (a PrefillEngine handing each finished prompt to a
+     PagedDecodeEngine over the KV block handoff, each tier with its own
+     pool), beside the mono engine on the same traffic, int8 weights over
+     a bf16 pool and bf16 weights over an int8 pool: each tier captures
+     only its own graphs at warmup and none during traffic, tokens equal
+     mono's rid for rid, the handoff's bytes and shared blocks, both
+     allocators clean after the drain, the kernels' launches from the
+     pair's runs; wall, tokens/s, TTFT and per-tick device time beside
+     mono's; the handoff copy timed and profiled against its byte bound;
+     the prefill-replica kill recovers with mono's tokens;
+ 11. chunked lanes prefill: llama-1b, int8 weights, PrefillWorker(batch 8,
+     max_prompt 1024, prefill_chunk 128) against the one-shot worker:
+     logits within phase 5's bound, next tokens' agreement, flash once per
+     layer (window 0), ms per call and the later windows' plain
+     attention, and a lanes DecodeEngine fed by the chunked worker.
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -2153,6 +2169,51 @@ def check_add_rms_norm(gen, card: str) -> dict:
                    f"of {d}"}
 
 
+def mixed_prompts(rng, cfg, n_requests: int, prompt_lo: int, prompt_hi: int,
+                  shared: int) -> list:
+    """The mixed serve's traffic: ``n_requests`` prompts of seeded lengths
+    in [prompt_lo, prompt_hi], every other one opening with one shared
+    ``shared``-token prefix (diverging mid-block)."""
+    import numpy as np
+    lens = rng.integers(prompt_lo, prompt_hi + 1, size=n_requests)
+    prefix = rng.integers(0, cfg.vocab_size, size=shared)
+    prompts = []
+    for i, n in enumerate(lens):
+        if i % 2 == 0:
+            tail = rng.integers(0, cfg.vocab_size, size=max(int(n) - shared,
+                                                             16))
+            prompts.append(np.concatenate([prefix, tail]).astype(np.int32))
+        else:
+            prompts.append(rng.integers(0, cfg.vocab_size,
+                                        size=int(n)).astype(np.int32))
+    return prompts
+
+
+def paged_launches(cfg, q8: bool, weights: str, steps: int, chunks: int,
+                   on_cuda: bool) -> dict[str, int]:
+    """The hand-written kernels' launches over ``steps`` decode steps and
+    ``chunks`` prefill chunks of the paged path: per forward, one attention
+    launch and one fused rope + write per layer (the int8 builds over an
+    int8 pool), none of the write alone, 4 GEMM launches per layer and one
+    for the head (the W8A16 build for ``weights="int8"``, the dense build
+    for ``"bf16"``), one rms_norm and 2 per layer of add_rms_norm. Nothing
+    launches on the CPU."""
+    n = cfg.n_layers if on_cuda else 0
+    fwd = steps + chunks
+    gemm = (GEMMS_PER_LAYER * n + 1) * fwd if on_cuda else 0
+    return {"paged_decode_attention": 0 if q8 else n * steps,
+            "paged_chunk_attention": 0 if q8 else n * chunks,
+            "paged_decode_attention_q8": n * steps if q8 else 0,
+            "paged_chunk_attention_q8": n * chunks if q8 else 0,
+            "paged_rope_scatter_q": n * fwd if q8 else 0,
+            "paged_rope_scatter": 0 if q8 else n * fwd,
+            "paged_scatter_q": 0, "paged_scatter": 0,
+            "w8a16_matmul": gemm if weights == "int8" else 0,
+            "dense_matmul": gemm if weights == "bf16" else 0,
+            "rms_norm": fwd if on_cuda else 0,
+            "add_rms_norm": 2 * n * fwd}
+
+
 def drive_paged(eng, want: int, max_iters: int = 100_000) -> None:
     for _ in range(max_iters):
         eng.admit_from_queue()
@@ -2360,17 +2421,8 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     kernels = ("paged_partial", "paged_combine", "rope_scatter_kernel",
                "w8a16", "rms_norm_kernel")
     rng = np.random.default_rng(seed + 11)
-    lens = rng.integers(prompt_lo, prompt_hi + 1, size=n_requests)
-    prefix = rng.integers(0, cfg.vocab_size, size=shared)
-    prompts = []
-    for i, n in enumerate(lens):
-        if i % 2 == 0:
-            tail = rng.integers(0, cfg.vocab_size, size=max(int(n) - shared,
-                                                             16))
-            prompts.append(np.concatenate([prefix, tail]).astype(np.int32))
-        else:
-            prompts.append(rng.integers(0, cfg.vocab_size,
-                                        size=int(n)).astype(np.int32))
+    prompts = mixed_prompts(rng, cfg, n_requests, prompt_lo, prompt_hi,
+                            shared)
     longest = max(len(p) for p in prompts) + new_tokens
     bench = rng.integers(0, cfg.vocab_size,
                          (batch, bench_len)).astype(np.int32)
@@ -2469,20 +2521,8 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             f"{eng.cow_copies}, preemptions "
             f"{eng._sched.preemptions_total}; allocator high water "
             f"{eng._alloc.high_water} of {eng._alloc.capacity} blocks")
-        q8 = eng.kv.quantized
-        n = cfg.n_layers if on_cuda else 0
-        want = {"paged_decode_attention": 0 if q8 else n * steps,
-                "paged_chunk_attention": 0 if q8 else n * chunks,
-                "paged_decode_attention_q8": n * steps if q8 else 0,
-                "paged_chunk_attention_q8": n * chunks if q8 else 0,
-                "paged_rope_scatter_q": n * (steps + chunks) if q8 else 0,
-                "paged_rope_scatter": 0 if q8 else n * (steps + chunks),
-                "paged_scatter_q": 0, "paged_scatter": 0,
-                "w8a16_matmul": (GEMMS_PER_LAYER * n + 1) * (steps + chunks)
-                if on_cuda else 0,
-                "dense_matmul": 0,
-                "rms_norm": (steps + chunks) if on_cuda else 0,
-                "add_rms_norm": 2 * n * (steps + chunks)}
+        want = paged_launches(cfg, eng.kv.quantized, "int8", steps, chunks,
+                              on_cuda)
         log(f"paged: {label}: launches {counts} ({cfg.n_layers} per decode "
             f"step and per chunk for each attention kernel and the fused "
             f"rope + write, none of the write alone, "
@@ -3247,6 +3287,490 @@ def phase_spec_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     return launches
 
 
+def phase_disagg_serve(seed: int, card: str, cfg=None, device: str = "cuda",
+                       n_requests: int = 64, batch: int = 32,
+                       max_len: int = 2048, new_tokens: int = 64,
+                       prompt_lo: int = 64, prompt_hi: int = 1024,
+                       shared: int = 264, window: tuple[int, int] = (200, 32),
+                       kill_prompts: int = 6,
+                       copy_blocks: int = 64) -> dict[str, int]:
+    """Disaggregated serving: ``make_engine`` with GROVE_DISAGG=1 (a
+    PrefillEngine handing each finished prompt to a PagedDecodeEngine over
+    the KV block handoff), batch 32, each tier with its own pool of the mono
+    engine's geometry, on phase 7's traffic, beside the mono engine on the
+    same traffic: int8 weights over a bf16 pool, then the engine's default
+    bf16 weights over an int8 pool (so every paged-path kernel, both GEMM
+    builds and both pool kinds, launches on this path). Each pair: warmup
+    captures prefill chunks on the prefill tier only, decode steps on the
+    decode tier only, and warms the handoff copy; nothing is captured
+    during traffic; greedy tokens equal the mono engine's rid for rid; the
+    handoff's bytes are its blocks times the block bytes and the shared
+    prefix never moves; both allocators pass ``check()`` and hold no
+    reference after the drain; launches equal ``paged_launches`` of the
+    prefill tier's chunks and the decode tier's steps. Wall, tokens/s, TTFT
+    and a window of ticks (device-timeline ms of the prefill tier, the
+    pump's copies and the decode tier; of the whole tick for mono) are
+    reported beside the mono engine's. On the first pair: the handoff copy
+    of a ``copy_blocks``-block payload timed and profiled against its byte
+    bound, and the prefill-replica kill (chaos twin): the decode tier holds
+    live work, a payload is stranded in the outbox, ``replace_prefill``
+    swaps in a fresh tier; the decode allocator is clean right after and
+    after the drain, every stranded payload is rescued, and the tokens
+    equal the mono engine's. Returns each kernel's launches summed over
+    both pairs' serves (zeroed at each start). With ``device="cpu"`` and a
+    small ``cfg`` the same steps rehearse on the CPU (no launch counted, no
+    timing)."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
+    from grove_tpu_torch.serving.engine import (DisaggServing,
+                                                PagedDecodeEngine,
+                                                PrefillEngine, make_engine)
+    from grove_tpu_torch.serving.quant import quantize_params
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    wrappers = (paged.paged_decode_attention, paged.paged_chunk_attention,
+                paged.paged_decode_attention_q8,
+                paged.paged_chunk_attention_q8, kvquant.paged_rope_scatter_q,
+                kvquant.paged_rope_scatter, kvquant.paged_scatter_q,
+                kvquant.paged_scatter, w8a16.w8a16_matmul,
+                w8a16.dense_matmul, norms.rms_norm, norms.add_rms_norm)
+    prompts = mixed_prompts(np.random.default_rng(seed + 11), cfg,
+                            n_requests, prompt_lo, prompt_hi, shared)
+    longest = max(len(p) for p in prompts) + new_tokens
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = init_params(cfg, gen, device=device)
+    qparams = quantize_params(dense)
+    totals = {w.__name__: 0 for w in wrappers}
+
+    def build(params, quant, kv_quant, disagg: bool):
+        t0 = time.perf_counter()
+        old = os.environ.get("GROVE_DISAGG")
+        os.environ["GROVE_DISAGG"] = "1" if disagg else "0"
+        try:
+            eng = make_engine(cfg, params, batch=batch, max_len=max_len,
+                              quant=quant, kv_quant=kv_quant, device=device)
+        finally:
+            if old is None:
+                os.environ.pop("GROVE_DISAGG")
+            else:
+                os.environ["GROVE_DISAGG"] = old
+        if isinstance(eng, DisaggServing) != disagg:
+            raise AssertionError(f"make_engine built {type(eng).__name__}")
+        tiers = (eng.prefill, eng.decode) if disagg else (eng,)
+        ref = tiers[-1]
+        widths = ref.decode_width_buckets(prompt_lo, longest)
+        chunk_widths = ref.decode_width_buckets(1, longest)
+        built = eng.warmup(widths=widths, prefill_widths=chunk_widths)
+        n_dec = len(ref._sched.batch_buckets) * len(widths)
+        if disagg:
+            pre, dec = tiers
+            if (pre._steps or sorted(pre._prefills) != chunk_widths
+                    or dec._prefills or len(dec._steps) != n_dec
+                    or dec._handoff is None):
+                raise AssertionError("disagg warmup: a tier built the other "
+                                     "tier's steps, or the handoff is cold")
+            if on_cuda and (pre.graphs_captured != len(chunk_widths)
+                            or dec.graphs_captured != n_dec):
+                raise AssertionError(
+                    f"disagg warmup captured {pre.graphs_captured} prefill "
+                    f"and {dec.graphs_captured} decode graphs")
+        log(f"disagg: {'pair' if disagg else 'mono'}: "
+            f"{type(eng).__name__}, {cfg.n_layers} layers, "
+            f"{quant or 'bf16'} weights, {ref.kv_quant} KV, batch {batch}, "
+            f"max_len {max_len}, {ref.kv.num_blocks} blocks per pool "
+            f"({ref.kv.pool_bytes / 2**30:.3f} GiB); warmup built {built} "
+            f"(graphs captured per tier "
+            f"{[t.graphs_captured for t in tiers]}: prefill chunks of widths "
+            f"{chunk_widths} on the prefill tier, decode batches "
+            f"{ref._sched.batch_buckets} x widths {widths} on the decode "
+            f"tier) in {time.perf_counter() - t0:.2f} s with set-up on "
+            f"{card}")
+        return eng, tiers
+
+    def serve(eng, tiers, label):
+        """The traffic; returns (tokens by rid, the report's numbers)."""
+        for w in wrappers:
+            w.launches = 0
+        disagg = len(tiers) == 2
+        pre, dec = tiers[0], tiers[-1]
+        steps0, chunks0 = dec.steps, pre.chunks
+        captured0 = [t.graphs_captured for t in tiers]
+        start, width = window
+        ticks, split = 0, None
+
+        def timed_window():
+            """Device-timeline ms per tick by part, from CUDA events."""
+            parts = np.zeros(3)
+            marks = []
+            for _ in range(width):
+                eng.admit_from_queue()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+                if disagg:
+                    eng.prefill.step()
+                    ev[1].record()
+                    eng._pump()
+                    ev[2].record()
+                    eng.decode.step()
+                    eng.ticks += 1
+                else:
+                    eng.step()
+                    ev[1].record()
+                    ev[2].record()
+                ev[3].record()
+                marks.append(ev)
+            sync()
+            for ev in marks:
+                parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+            return parts / width
+
+        t = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        for _ in range(100_000):
+            eng.admit_from_queue()
+            if len(eng.completed) >= n_requests:
+                break
+            if not eng._active.size:
+                continue
+            if ticks == start and on_cuda:
+                split = timed_window()
+                ticks += width
+                continue
+            eng.step()
+            ticks += 1
+        eng.sync()
+        wall = time.perf_counter() - t
+        counts = {w.__name__: w.launches for w in wrappers}
+        done = {r.rid: r for r in eng.completed}
+        if sorted(done) != rids:
+            raise AssertionError(f"{label}: {len(done)} of {n_requests} "
+                                 f"requests answered")
+        bad = [r.rid for r in done.values()
+               if len(r.generated) != new_tokens
+               or not all(0 <= x < cfg.vocab_size for x in r.generated)]
+        if bad:
+            raise AssertionError(f"{label}: requests {bad} have the wrong "
+                                 f"tokens")
+        steps, chunks = dec.steps - steps0, pre.chunks - chunks0
+        ttft = np.array([r.first_token_ts - r.enqueue_ts
+                         for r in done.values()]) * 1e3
+        n_tok = sum(len(r.generated) for r in done.values())
+        out = {"wall_s": wall, "tokens_s": n_tok / wall,
+               "ttft_p50_ms": float(np.percentile(ttft, 50)),
+               "ttft_p90_ms": float(np.percentile(ttft, 90)),
+               "ticks": ticks, "steps": steps, "chunks": chunks}
+        log(f"disagg: {label}: {len(done)} requests, {n_tok} tokens in "
+            f"{wall:.3f} s ({out['tokens_s']:.1f} tokens/s) over {ticks} "
+            f"ticks, {steps} decode steps, {chunks} prefill chunks; TTFT "
+            f"p50 {out['ttft_p50_ms']:.1f} ms, p90 {out['ttft_p90_ms']:.1f} "
+            f"ms on {card}")
+        if split is not None:
+            out["window_ms"] = split.tolist()
+            what = (f"prefill tier {split[0]:.3f}, handoff pump "
+                    f"{split[1]:.3f}, decode tier {split[2]:.3f} ms"
+                    if disagg else f"the whole tick {split[0]:.3f} ms")
+            log(f"disagg: {label}: ticks {start}..{start + width - 1}, "
+                f"device-timeline ms per tick (CUDA events): {what} on "
+                f"{card}")
+        want = paged_launches(cfg, dec.kv.quantized,
+                              "int8" if dec.quant else "bf16", steps,
+                              chunks, on_cuda)
+        captured = [t.graphs_captured - c for t, c in zip(tiers, captured0)]
+        log(f"disagg: {label}: launches {counts} (expected {want}); graphs "
+            f"captured during traffic per tier {captured}")
+        if counts != want:
+            raise AssertionError(f"{label}: kernel launches off the path")
+        if any(captured):
+            raise AssertionError(f"{label}: graphs captured mid-traffic")
+        return {rid: list(r.generated) for rid, r in done.items()}, counts, \
+            out
+
+    def check_pair(pair, label):
+        hv = pair.handoff_view()
+        log(f"disagg: {label}: handoff {hv}; prefill tier produced "
+            f"{pair.prefill.handoffs_produced}; decode tier adopted_total "
+            f"{pair.decode._alloc.adopted_total}")
+        if hv["bytes"] != hv["blocks"] * hv["block_bytes"]:
+            raise AssertionError(f"{label}: handoff bytes off its blocks")
+        if not hv["shared_blocks"]:
+            raise AssertionError(f"{label}: the shared prefix moved")
+        if hv["requests"] != n_requests:
+            raise AssertionError(f"{label}: {hv['requests']} handoffs")
+        for tier in (pair.prefill, pair.decode):
+            tier._alloc.check()
+            if tier._alloc._refs:
+                raise AssertionError(f"{label}: live block references "
+                                     f"after the drain")
+
+    def handoff_copy(pair):
+        """The padded copy of one payload of ``copy_blocks`` cold blocks:
+        distinct free destination blocks, read-only source blocks."""
+        dec, pre = pair.decode, pair.prefill
+        W, bb = dec.max_blocks_per_seq, dec._block_bytes
+        n = min(copy_blocks, W, len(dec._alloc._free))
+        ids = np.zeros((2, W), np.int64)
+        ids[0, :n] = np.arange(1, n + 1)
+        ids[1, :n] = dec._alloc._free[-n:]
+        dec._upload(dec._handoff_ids, ids)
+        fn = dec._get_handoff()
+
+        def copy():
+            fn(pre.kv)
+
+        ms = time_ms(copy, iters=20, warmup=2)
+        prof = profile_window(f"handoff copy x10 ({n} cold blocks padded to "
+                              f"{W})", lambda: [copy() for _ in range(10)],
+                              10 * ms, card, ("ndex",))
+        dev_ms = prof["busy_ms"] / 10
+        pay = n * bb
+        bound = 2 * pay / HBM_BYTES_PER_S * 1e3
+        padded = 2 * W * bb / HBM_BYTES_PER_S * 1e3
+        log(f"disagg: handoff copy of {n} blocks ({pay} bytes, "
+            f"{bb} per block) padded to the table width {W}: {ms:.4f} ms "
+            f"(CUDA events), {dev_ms:.4f} ms device time under the profiler "
+            f"in {prof['count'] / 10:.0f} kernels per copy; "
+            f"{2 * pay / dev_ms / 1e6:.1f} GB/s of the payload's 2 x bytes "
+            f"against {HBM_BYTES_PER_S / 1e9:.0f}; byte bound of the "
+            f"payload {bound:.4f} ms ({100 * bound / dev_ms:.1f}%), of the "
+            f"padded width {padded:.4f} ms ({100 * padded / dev_ms:.1f}%) "
+            f"on {card}")
+
+    def replica_kill(pair, params, quant, kv_quant, mono_tokens):
+        """The chaos twin: grove_tpu/chaos/scenario.py
+        run_prefill_replica_kill's staging on the card."""
+        order = sorted(range(n_requests), key=lambda i: len(prompts[i]))
+        picks = order[:kill_prompts]         # longest last, as there
+        n0 = len(pair.completed)
+        first_rid = pair.prefill._next_rid
+        for i in picks:
+            pair.submit(prompts[i], max_new_tokens=new_tokens)
+        guard = 2000
+        while not pair.decode._sched.running and guard > 0:
+            pair.admit_from_queue()
+            pair.step()
+            guard -= 1
+        if not pair.decode._sched.running:
+            raise AssertionError("kill: decode tier never went live")
+        guard = 2000
+        while not pair.prefill.outbox and guard > 0:
+            pair.admit_from_queue()
+            pair.prefill.step()
+            guard -= 1
+        if not pair.prefill.outbox:
+            raise AssertionError("kill: never reached a mid-handoff state")
+        stranded = len(pair.prefill.outbox)
+        in_flight = sum(len(p.blocks) for p in pair.prefill.outbox)
+        live = pair.decode._sched.live
+        fresh = PrefillEngine(cfg, params, batch=batch, max_len=max_len,
+                              quant=quant, kv_quant=kv_quant, device=device)
+        fresh.warmup(prefill_widths=sorted(pair.prefill._prefills))
+        rescued = pair.replace_prefill(fresh)
+        pair.decode._alloc.check()
+        if rescued < stranded:
+            raise AssertionError("kill: stranded payloads not rescued")
+        drive_kill = 0
+        while len(pair.completed) < n0 + kill_prompts and drive_kill < 20_000:
+            pair.admit_from_queue()
+            pair.step()
+            drive_kill += 1
+        pair.sync()
+        for tier in (pair.prefill, pair.decode):
+            tier._alloc.check()
+            if tier._alloc._refs:
+                raise AssertionError("kill: live block references after "
+                                     "the drain")
+        got = {r.rid: list(r.generated) for r in pair.completed
+               if r.rid >= first_rid}
+        want = {first_rid + k: mono_tokens[i] for k, i in enumerate(picks)}
+        if got != want:
+            raise AssertionError("kill: tokens differ from the mono "
+                                 "engine's after re-prefill")
+        log(f"disagg: prefill-replica kill: {stranded} payloads "
+            f"({in_flight} blocks) stranded, {live} sequences live on "
+            f"decode; {rescued} requests rescued; decode allocator clean "
+            f"after the kill and after the drain; {kill_prompts} requests' "
+            f"tokens equal the mono engine's")
+
+    for n_pass, (label, params, quant, kv_quant) in enumerate((
+            ("int8 weights, bf16 pool", qparams, "int8", "off"),
+            ("bf16 weights, int8 pool", dense, None, "int8"))):
+        mono, tiers = build(params, quant, kv_quant, disagg=False)
+        if not isinstance(mono, PagedDecodeEngine):
+            raise AssertionError("mono: not a PagedDecodeEngine")
+        mono_tokens, _, mono_out = serve(mono, tiers, f"mono, {label}")
+        del mono, tiers
+        pair, tiers = build(params, quant, kv_quant, disagg=True)
+        pair_tokens, counts, pair_out = serve(pair, tiers, f"pair, {label}")
+        for k, v in counts.items():
+            totals[k] += v
+        diff = [rid for rid in mono_tokens
+                if pair_tokens.get(rid) != mono_tokens[rid]]
+        if diff or set(pair_tokens) != set(mono_tokens):
+            raise AssertionError(f"{label}: disagg tokens differ from mono "
+                                 f"for rids {diff}")
+        check_pair(pair, f"pair, {label}")
+        log(f"disagg: {label}: pair / mono: wall "
+            f"{pair_out['wall_s']:.3f} / {mono_out['wall_s']:.3f} s, "
+            f"tokens/s {pair_out['tokens_s']:.1f} / "
+            f"{mono_out['tokens_s']:.1f}, TTFT p50 "
+            f"{pair_out['ttft_p50_ms']:.1f} / {mono_out['ttft_p50_ms']:.1f} "
+            f"ms, p90 {pair_out['ttft_p90_ms']:.1f} / "
+            f"{mono_out['ttft_p90_ms']:.1f} ms; the {n_requests} requests' "
+            f"tokens equal rid for rid on {card}")
+        if n_pass == 0:
+            if on_cuda:
+                handoff_copy(pair)
+            replica_kill(pair, params, quant, kv_quant, mono_tokens)
+        del pair, tiers
+        if on_cuda:
+            torch.cuda.empty_cache()
+    return totals
+
+
+def phase_chunked_prefill(seed: int, card: str, cfg=None,
+                          device: str = "cuda", batch: int = 8,
+                          max_prompt: int = 1024, chunk: int = 128,
+                          n_requests: int = 16,
+                          new_tokens: int = 16) -> int:
+    """Chunked prefill on the lanes path: llama-1b with int8 weights,
+    ``PrefillWorker(batch, max_prompt, prefill_chunk=chunk)`` against the
+    one-shot worker on the same ragged prompts: logits within phase 5's
+    bf16 bound (max |diff| <= 5e-2 max |logit|), the share of greedy next
+    tokens that agree (reported), the flash kernel launched once per layer
+    per call (window 0 only), ms per call beside the one-shot prefill and
+    the plain attention of the later windows timed alone at their shapes;
+    a profiled call; then a lanes ``DecodeEngine`` fed by the chunked
+    worker answers every request. Returns the flash launches of one
+    chunked call."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.ops.attention import causal_attention
+    from grove_tpu_torch.ops.flash import flash_causal_attention
+    from grove_tpu_torch.serving.engine import PrefillWorker, make_engine
+    from grove_tpu_torch.serving.quant import quantize_params
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(seed + 31)
+    params = quantize_params(init_params(cfg, gen, device=device))
+    rng = np.random.default_rng(seed + 31)
+    lens = rng.integers(chunk // 2, max_prompt + 1, size=batch)
+    lens[0] = max_prompt                  # one lane through every window
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    one = PrefillWorker(cfg, params, batch=batch, max_prompt=max_prompt,
+                        device=device)
+    chunked = PrefillWorker(cfg, params, batch=batch, max_prompt=max_prompt,
+                            prefill_chunk=chunk, device=device)
+    toks = np.zeros((batch, max_prompt), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks = torch.from_numpy(toks).to(device)
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(device)
+
+    def run_one():
+        return llama.prefill(cfg, params, toks, one._cache, lengths)[0]
+
+    def run_chunked():
+        return llama.prefill_chunked(cfg, params, toks, chunked._cache,
+                                     chunk=chunk, lengths=lengths)[0]
+
+    ref = run_one().float()
+    f0 = flash_causal_attention.launches
+    got = run_chunked().float()
+    sync()
+    launches = flash_causal_attention.launches - f0
+    want = cfg.n_layers if on_cuda else 0
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError("chunked prefill: non-finite logits")
+    diff = (got - ref).abs().max().item()
+    bound = 5e-2 * ref.abs().max().item()
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum().item())
+    log(f"chunked: {cfg.n_layers}-layer prefill of {batch} prompts "
+        f"({sorted(lens.tolist())} tokens, padded to {max_prompt}) in "
+        f"windows of {chunk}, int8 weights: logits vs one-shot max abs diff "
+        f"{diff:.4e} (bound {bound:.4e}); greedy next tokens agree on "
+        f"{agree}/{batch} ({100 * agree / batch:.1f}%); flash launches "
+        f"{launches} (expected {want}: window 0 only)")
+    if diff > bound:
+        raise AssertionError("chunked and one-shot prefill disagree")
+    if launches != want:
+        raise AssertionError(f"flash launched {launches} times on the "
+                             f"chunked path, expected {want}")
+    r_one, r_chunked = one.prefill(prompts), chunked.prefill(prompts)
+    same = sum(a.next_token == b.next_token
+               for a, b in zip(r_one, r_chunked))
+    log(f"chunked: through PrefillWorker.prefill: next tokens agree on "
+        f"{same}/{batch}; lengths {[r.length for r in r_chunked]}")
+    if [r.length for r in r_chunked] != lens.tolist():
+        raise AssertionError("chunked worker: wrong lengths")
+    if on_cuda:
+        ms_one = time_ms(run_one, iters=5, warmup=1)
+        ms_chunked = time_ms(run_chunked, iters=5, warmup=1)
+        # The later windows' plain attention, alone at their shapes, once
+        # per layer (the cache holds real rows after the calls above).
+        q = torch.randn((batch, chunk, cfg.n_heads, cfg.head_dim),
+                        generator=gen, device=device).to(cfg.dtype)
+        kc, vc = chunked._cache.k[0], chunked._cache.v[0]
+        attn_ms = 0.0
+        for off in range(chunk, max_prompt, chunk):
+            end = off + chunk
+            attn_ms += time_ms(
+                lambda: causal_attention(q, kc[:, :end], vc[:, :end],
+                                         q_offset=off),
+                iters=5, warmup=1) * cfg.n_layers
+        # Each call dispatches thousands of small kernels: where the spin
+        # does not cover that, the times above hold host time, and the
+        # profiles below give each call's device busy time.
+        busy = {}
+        for name, fn, ms in (("one-shot", run_one, ms_one),
+                             ("chunked", run_chunked, ms_chunked)):
+            busy[name] = profile_window(
+                f"{name} prefill ({batch} x {max_prompt}"
+                + (f", windows of {chunk})" if name == "chunked" else ")"),
+                fn, ms, card, ("flash_fwd", "w8a16"), top=12)["busy_ms"]
+        log(f"chunked: ms per call (CUDA events, host included where the "
+            f"spin did not cover the dispatch): chunked {ms_chunked:.3f}, "
+            f"one-shot {ms_one:.3f} ({ms_chunked / ms_one:.3f}x); device "
+            f"busy per call: chunked {busy['chunked']:.3f}, one-shot "
+            f"{busy['one-shot']:.3f} ({busy['chunked'] / busy['one-shot']:.3f}"
+            f"x); the later windows' plain attention alone {attn_ms:.3f} ms "
+            f"of device time per call ({100 * attn_ms / busy['chunked']:.1f}"
+            f"% of the chunked call's device busy) on {card}")
+    eng = make_engine(cfg, params, mode="lanes", batch=batch,
+                      max_len=max_prompt + new_tokens + 8, quant="int8",
+                      host_sync_interval=8, device=device)
+    more = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+            for n in rng.integers(1, max_prompt + 1, size=n_requests)]
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in more]
+    t = time.perf_counter()
+    for _ in range(20 * n_requests):
+        eng.admit_from_queue(chunked)
+        if len(eng.completed) == n_requests:
+            break
+        eng.run(8)
+    sync()
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    if [r.rid for r in done] != rids or any(
+            len(r.generated) != new_tokens
+            or not all(0 <= x < cfg.vocab_size for x in r.generated)
+            for r in done):
+        raise AssertionError("lanes engine fed by the chunked worker: "
+                             "requests not all answered")
+    log(f"chunked: lanes DecodeEngine fed by the chunked worker answered "
+        f"{n_requests} requests of 1..{max_prompt} prompt tokens, "
+        f"{new_tokens} new tokens each, in {time.perf_counter() - t:.3f} s "
+        f"on {card}")
+    return launches
+
+
 def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
                 steps: int = 64, spec_k: int = 3,
                 spec_steps: int = 16) -> None:
@@ -3424,6 +3948,16 @@ def main() -> int:
             raise AssertionError(f"{row['name']} never launched on the "
                                  f"spec path")
     phase_done("phase 9 (speculative serve)")
+    # 10. disaggregated serving; 11. chunked prefill on the lanes worker
+    disagg = phase_disagg_serve(args.seed, card)
+    for row in paged_rows:
+        row["disagg_launches"] = disagg[row["name"]]
+        if not row["disagg_launches"]:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 f"disaggregated path")
+    phase_done("phase 10 (disaggregated serve)")
+    flash_row["chunked_launches"] = phase_chunked_prefill(args.seed, card)
+    phase_done("phase 11 (chunked lanes prefill)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

@@ -311,6 +311,83 @@ def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     return _logits(x_last, params["lm_head"]), cache
 
 
+def prefill_chunk(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                  cache: KVCache, offset: int
+                  ) -> tuple[torch.Tensor, KVCache]:
+    """One chunked-prefill window: tokens [b, c] at absolute positions
+    [offset, offset + c) against a cache whose first ``offset`` rows are
+    filled. Rows [offset, offset + c) of the cache are written in place
+    (clamped like ``write_rows`` past max_len), and attention reads only
+    cache[:offset + c], so the scores are [b, h, c, offset + c] instead of
+    the whole prompt's square.
+
+    The offset-0 window is square and causal: ``pick_causal_attention``
+    gives it the flash kernel on CUDA tensors when ``c % 128 == 0``. Later
+    windows are rectangular (q against a longer prefix), which the kernel
+    does not tile: they take the plain ``causal_attention`` over the cache.
+
+    Returns (rows [b, c, d_model] after the final norm, ``cache`` with its
+    lengths set to offset + c): the caller gathers each lane's last valid
+    row and applies the LM head once."""
+    b, c = tokens.shape
+    end = offset + c
+    dev = tokens.device
+    positions = (offset + torch.arange(c, device=dev)).expand(b, c)
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    flash = pick_causal_attention(c, cfg.head_dim, q_offset=offset,
+                                  device=dev)
+
+    def attend(i, q, k, v):
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        kc = write_rows(cache.k[i], k, offset)
+        vc = write_rows(cache.v[i], v, offset)
+        if flash is not None:  # offset 0: the window is the whole prefix
+            return flash(q, k, v)
+        return causal_attention(q, kc[:, :end], vc[:, :end], q_offset=offset)
+
+    # b * c rows: the wide int8 kernel or torch.matmul past 256.
+    x = _decoder(cfg, params, embed(cfg, params, tokens), attend, wide=True)
+    cache.lengths = torch.full((b,), end, dtype=torch.int32, device=dev)
+    return x, cache
+
+
+def prefill_chunked(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                    cache: KVCache, chunk: int,
+                    lengths: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, KVCache]:
+    """Bounded-memory prefill: the prompt runs in windows of ``chunk``
+    positions (``prefill_chunk``), each attending over the cache filled so
+    far; the cache is written in place. Matches ``prefill`` up to float
+    accumulation order. Ragged batches: each lane's logits come from its
+    last VALID position (``lengths``), gathered from whichever window holds
+    it; the LM head runs once.
+
+    Returns (logits [b, vocab] f32, ``cache`` with lengths set per lane)."""
+    b, s = tokens.shape
+    if s % chunk and s >= chunk:
+        raise ValueError(f"prompt length {s} must divide into chunks of "
+                         f"{chunk}")
+    dev = tokens.device
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.as_tensor(lengths).to(dev, torch.int32)
+    last = lengths.to(torch.long) - 1
+    lanes = torch.arange(b, device=dev)
+    x_last = torch.zeros((b, cfg.d_model), dtype=cfg.dtype, device=dev)
+    for off in range(0, s, chunk):
+        x, cache = prefill_chunk(cfg, params, tokens[:, off:off + chunk],
+                                 cache, off)
+        c = x.shape[1]
+        # Lanes whose last valid token lands in this window keep its row.
+        rows = x[lanes, (last - off).clamp(0, c - 1)]
+        in_window = (last >= off) & (last < off + c)
+        x_last = torch.where(in_window[:, None], rows, x_last)
+    cache.lengths = lengths
+    return _logits(x_last, params["lm_head"]), cache
+
+
 def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                 cache: KVCache) -> tuple[torch.Tensor, KVCache]:
     """One decode step. tokens: [b] (last sampled token per lane).

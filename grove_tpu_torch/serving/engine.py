@@ -14,8 +14,13 @@ worker.
 - ``DecodeEngine`` (``GROVE_ENGINE=lanes``): fixed decode batch lanes;
   inactive lanes compute too, so every step has the same shapes; prefill
   and decode are separate calls so that they can run in separate pods:
-  ``PrefillWorker`` returns the per-sequence KV slab and
-  ``DecodeEngine.insert`` splices it into a free lane;
+  ``PrefillWorker`` returns the per-sequence KV slab (one-shot or chunked
+  prefill) and ``DecodeEngine.insert`` splices it into a free lane;
+- ``DisaggServing`` (``GROVE_DISAGG=1``): a ``PrefillEngine`` (chunked
+  prefill over its own block pool) hands each finished prompt to a
+  ``PagedDecodeEngine`` through the block handoff (serving/handoff.py):
+  the decode tier adopts fresh blocks and copies the prompt's K/V across
+  pools in one device copy per request;
 - KV caches are updated in place (the JAX package donates them);
 - sampled tokens accumulate on the device and reach the host once per
   window of ``host_sync_interval`` steps; ``step`` itself never waits for
@@ -23,8 +28,7 @@ worker.
 - a queue-depth metric hook feeds the control plane's autoscaler.
 
 Not ported yet, and raising when asked for (ROADMAP.md, queue 1): tensor
-parallelism and disaggregated serving; the request and device
-observatories; the lanes worker's chunked prefill.
+parallelism; the request and device observatories.
 """
 
 from __future__ import annotations
@@ -50,9 +54,12 @@ from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_decode_attention,
                                        paged_decode_attention_q8)
 from grove_tpu_torch.ops.w8a16 import dense_matmul, w8a16_matmul
+from grove_tpu_torch.serving.handoff import HandoffPayload
 from grove_tpu_torch.serving.kvcache import (NULL_BLOCK, BlockAllocator,
-                                             PagedKV, PrefixTree, pad_tables)
-from grove_tpu_torch.serving.schedule import PagedScheduler, pick_bucket
+                                             PagedKV, PrefixTree, SeqBlocks,
+                                             pad_tables)
+from grove_tpu_torch.serving.schedule import (PagedScheduler, PagedSeq,
+                                              pick_bucket)
 
 
 # The hand-written kernels a captured decode step or prefill chunk
@@ -176,7 +183,10 @@ def _quantized(params, quant: str | None):
 
 
 class PrefillWorker:
-    """The prefill side of disaggregated serving (one-shot prefill)."""
+    """The prefill side of the lanes engine's disaggregated serving: one-shot
+    prefill by default, or chunked (``prefill_chunk``: windows of that many
+    positions, ``llama.prefill_chunked``), which bounds the attention working
+    set of long prompts."""
 
     def __init__(self, cfg: LlamaConfig, params, batch: int = 1,
                  max_prompt: int | None = None,
@@ -184,14 +194,15 @@ class PrefillWorker:
                  quant: str | None = None,
                  prefill_chunk: int | None = None,
                  device: str | torch.device | None = None):
-        if prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill is not ported yet (ROADMAP.md, queue 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _quantized(params, quant)
         self.batch = batch
         self.max_prompt = max_prompt or cfg.max_seq_len
+        if prefill_chunk and self.max_prompt % prefill_chunk:
+            raise ValueError(f"max_prompt {self.max_prompt} does not divide "
+                             f"into chunks of {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
         self.sampler = sampler or SamplerConfig()
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.sampler.seed)
@@ -212,9 +223,15 @@ class PrefillWorker:
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p
             lengths[i] = len(p)
-        logits, cache = llama.prefill(
-            self.cfg, self.params, torch.from_numpy(toks).to(self.device),
-            self._cache, torch.from_numpy(lengths).to(self.device))
+        toks_dev = torch.from_numpy(toks).to(self.device)
+        lengths_dev = torch.from_numpy(lengths).to(self.device)
+        if self.prefill_chunk:
+            logits, cache = llama.prefill_chunked(
+                self.cfg, self.params, toks_dev, self._cache,
+                chunk=self.prefill_chunk, lengths=lengths_dev)
+        else:
+            logits, cache = llama.prefill(self.cfg, self.params, toks_dev,
+                                          self._cache, lengths_dev)
         self._cache = cache
         if self.sampler.temperature > 0.0:
             next_dev = sample_tokens(logits, self._gen, self.sampler)
@@ -603,6 +620,13 @@ class PagedDecodeEngine:
       write cap, uploaded with the tables) and writes a static
       [batch, spec_k + 1] out-token buffer; the committed counts stay on
       the device until the window drains (``spec_stats``).
+    - **Handoff consumer** (``GROVE_DISAGG=1``, the decode tier of
+      ``DisaggServing``): ``adopt`` takes a ``HandoffPayload`` from a
+      ``PrefillEngine``, grants fresh blocks for its cold suffix and copies
+      them from the producer's pool into this one in place
+      (``llama.paged_block_copy``/``_q`` over two id vectors of the fixed
+      width ``max_blocks_per_seq``, one upload and one copy per request);
+      the sequence joins the decode batch directly.
 
     Host discipline: the per-step dispatch path performs no device sync.
     Sampled tokens stay on the device; bookkeeping drains once per
@@ -726,6 +750,15 @@ class PagedDecodeEngine:
         from grove_tpu_torch.serving.quant import kv_block_bytes
         self._block_bytes = kv_block_bytes(cfg, block_size, kv_quant)
         self.cow_copies = 0
+        # The handoff copy (the decode tier of disaggregated serving) is
+        # built on the first adoption or by ``warmup_handoff``; the stats
+        # accumulate on this, the consuming side. ``seconds`` is host wall
+        # time of the dispatch, without a sync.
+        self._handoff: Callable[[PagedKV], None] | None = None
+        self._handoff_ids: torch.Tensor | None = None
+        self.handoff_stats = {"requests": 0, "blocks": 0,
+                              "shared_blocks": 0, "bytes": 0,
+                              "seconds": 0.0, "deferred": 0}
         self._sched = PagedScheduler(self._alloc, batch,
                                      self.max_blocks_per_seq,
                                      self.prefill_chunk,
@@ -992,21 +1025,29 @@ class PagedDecodeEngine:
                 if (B, W) not in steps:
                     built += 1
                 get(B, W)()
-        if prefill_widths is None:
-            prefill_widths = widths or self._sched.width_buckets
-        for W in prefill_widths:
-            self._pf_buf.zero_()
-            if W not in self._prefills:
-                built += 1
-            self._get_prefill(W)()
         for t, keep in zip(state, saved[0]):
             t.copy_(keep)
         for W, t in saved[1].items():
             self._table_bufs[W].copy_(t)
         for W in set(self._table_bufs) - set(saved[1]):
             self._table_bufs[W].zero_()
+        if prefill_widths is None:
+            prefill_widths = widths or self._sched.width_buckets
+        built += self._warmup_prefill(prefill_widths)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return built
+
+    def _warmup_prefill(self, widths: list[int]) -> int:
+        """Build and run the prefill chunk of every width in ``widths``
+        over the null block (no valid row: every write lands in block 0).
+        Returns the number of chunks built."""
+        built = 0
+        for W in widths:
+            self._pf_buf.zero_()
+            if W not in self._prefills:
+                built += 1
+            self._get_prefill(W)()
         return built
 
     def decode_width_buckets(self, start_tokens: int,
@@ -1063,6 +1104,41 @@ class PagedDecodeEngine:
         if self.metric_hook is not None:
             self.metric_hook(self.queue_depth)
 
+    def handoff_view(self) -> dict:
+        """Block-handoff accounting of the consuming side.
+        ``ms_per_request`` is the mean host wall one adoption's copy
+        dispatch cost (no sync: it times the enqueue, not the copy);
+        ``bytes_per_request`` the mean bytes a request's cold suffix moved
+        (shared prefix blocks never move: they are ``shared_blocks``)."""
+        st = self.handoff_stats
+        n = st["requests"]
+        return {"requests": n,
+                "blocks": st["blocks"],
+                "shared_blocks": st["shared_blocks"],
+                "bytes": st["bytes"],
+                "deferred": st["deferred"],
+                "seconds": st["seconds"],
+                "ms_per_request": st["seconds"] * 1e3 / n if n else 0.0,
+                "bytes_per_request": st["bytes"] / n if n else 0.0,
+                "block_bytes": self._block_bytes}
+
+    def payload(self) -> dict:
+        """Debug view: scheduler and allocator state."""
+        return {"engine": "paged", "slots": self.batch,
+                "max_len": self.max_len,
+                "block_size": self.block_size,
+                "prefill_chunk": self.prefill_chunk,
+                "queue_depth": self.queue_depth,
+                "steps": self.steps, "ticks": self.ticks,
+                "completed": len(self.completed),
+                "prefix_cache": self._prefix is not None,
+                "cow_copies": self.cow_copies,
+                "kv_quant": self.kv_quant,
+                "spec_decode": self.spec_decode,
+                "spec": self.spec_stats(),
+                "handoff": self.handoff_view(),
+                "schedule": self._sched.payload()}
+
     def prefix_stats(self) -> dict:
         """Prefix-cache gauges (empty with the cache off)."""
         if self._prefix is None:
@@ -1082,6 +1158,116 @@ class PagedDecodeEngine:
 
     def _complete(self, req: Request) -> None:
         _complete_impl(req, self.completed, self.telemetry)
+
+    # ---- disaggregated handoff (the consuming side) ----
+
+    def _get_handoff(self) -> Callable[[PagedKV], None]:
+        """The cross-pool block copy (serving/handoff.py): reads a static
+        [2, max_blocks_per_seq] int64 buffer of source and destination ids
+        (null-padded) and copies those blocks of the source pools into this
+        engine's pools in place: the decode graphs hold the pools'
+        addresses, so they are never rebound. One copy moves a whole
+        payload. Pad pairs are all null -> null: on the card
+        ``index_copy_`` with duplicate indices may land any of those rows,
+        which is harmless only because the null block holds garbage by
+        design and every masked read ignores it. The copy runs on the
+        current stream, the one both tiers' graphs replay on, so it reads
+        the producer's pool after the chunk that wrote it. Built on the
+        first adoption or by ``warmup_handoff``."""
+        if self._handoff is None:
+            ids = torch.full((2, self.max_blocks_per_seq), NULL_BLOCK,
+                             dtype=torch.int64, device=self.device)
+            kv, src, dst = self.kv, ids[0], ids[1]
+
+            def copy(source: PagedKV) -> None:
+                if kv.quantized:  # the scale rows move with the int8 rows
+                    llama.paged_block_copy_q(
+                        kv.k, kv.v, kv.k_scale, kv.v_scale, source.k,
+                        source.v, source.k_scale, source.v_scale, src, dst)
+                else:
+                    llama.paged_block_copy(kv.k, kv.v, source.k, source.v,
+                                           src, dst)
+
+            self._handoff_ids, self._handoff = ids, copy
+        return self._handoff
+
+    def warmup_handoff(self, source: "PrefillEngine") -> int:
+        """Build the handoff copy and run it once with every pair null ->
+        null, so that traffic never pays for it. Returns the number of
+        copies built (0 or 1)."""
+        built = int(self._handoff is None)
+        fn = self._get_handoff()
+        self._upload(self._handoff_ids,
+                     np.full((2, self.max_blocks_per_seq), NULL_BLOCK,
+                             np.int64))
+        fn(source.kv)
+        return built
+
+    def adopt(self, payload: HandoffPayload) -> bool:
+        """Adopt one finished prefill from another engine's pool. Gate on a
+        free decode slot, match the tokens against the LOCAL prefix tree
+        (full-block hits join shared: those blocks never transfer), adopt
+        fresh blocks for the cold suffix, copy them pool to pool, and join
+        the sequence straight into the decode batch. False is
+        backpressure: nothing changed hands, and the producer retries on
+        its next pump.
+
+        Source block references stay with the payload until ``release()``
+        at the END, so a refusal leaves both allocators as they were. The
+        last handed-off block is never prefix-shared (a match stops at
+        len(tokens) - 1), so decode's first write lands in a refcount-1
+        adopted block and ``_cow_guard`` holds with no copy-on-write here.
+        No device sync: one pinned upload of the ids, then the copy."""
+        sched = self._sched
+        if sched.slots_free <= 0:
+            self.handoff_stats["deferred"] += 1
+            return False
+        tokens = np.asarray(payload.tokens, np.int32)
+        shared: list[int] = []
+        matched = 0
+        if self._prefix is not None:
+            shared, matched, partial = self._prefix.match(tokens)
+            if partial is not None:
+                # A mid-block hit would need a copy-on-write and a partial
+                # copy on top: the handoff reuses FULL blocks only. Drop
+                # the caller's reference; the block falls back to cached.
+                src_b, k = partial
+                self._alloc.free([src_b])
+                matched -= k
+        n_shared = len(shared)
+        cold = len(payload.blocks) - n_shared
+        got = self._alloc.adopt(cold)
+        if got is None:
+            if shared:
+                self._alloc.free(shared)
+            self.handoff_stats["deferred"] += 1
+            return False
+        t0 = time.perf_counter()
+        fn = self._get_handoff()
+        ids = np.full((2, self.max_blocks_per_seq), NULL_BLOCK, np.int64)
+        ids[0, :cold] = payload.blocks[n_shared:]
+        ids[1, :cold] = got
+        self._upload(self._handoff_ids, ids)
+        fn(payload.source.kv)
+        dt = time.perf_counter() - t0
+        seq = PagedSeq(req=payload.req, tokens=tokens,
+                       blocks=SeqBlocks(self._alloc, shared + got),
+                       order=0, pos=payload.pos,
+                       n_generated=payload.n_generated,
+                       recompute=payload.recompute,
+                       last_token=payload.first_token,
+                       prefix_matched=matched)
+        sched.adopt_running(seq)
+        self._composition_dirty = True
+        st = self.handoff_stats
+        st["requests"] += 1
+        st["blocks"] += cold
+        st["shared_blocks"] += n_shared
+        st["bytes"] += cold * self._block_bytes
+        st["seconds"] += dt
+        payload.release()
+        self._report_metric()
+        return True
 
     # ---- admission ----
 
@@ -1592,6 +1778,289 @@ class PagedDecodeEngine:
                     for (B, W), v in st["per_bucket"].items()}}
 
 
+class PrefillEngine(PagedDecodeEngine):
+    """The prefill tier of disaggregated serving (GROVE_DISAGG=1): chunked
+    prefill over its OWN block pool and bucket ladder, no decode leg at all.
+    A finished prefill detaches from the scheduler with its blocks still
+    live and lands in ``outbox`` as a ``HandoffPayload``; the facade pumps
+    the outbox into the decode engine's ``adopt``. TTFT is stamped HERE, at
+    the prefill completion that produces the handoff (the same
+    token-emission moment the mono engine stamps).
+
+    Requests whose ``max_new_tokens`` is 1 complete on this tier: the
+    prefill-sampled token is their whole output, exactly where the mono
+    engine completes them, so the facade merges both engines'
+    ``completed`` lists."""
+
+    def __init__(self, *args, **kwargs):
+        # Speculation is a decode-tier concern: prefill drafts nothing.
+        kwargs["spec_decode"] = False
+        super().__init__(*args, **kwargs)
+        self.outbox: deque[HandoffPayload] = deque()
+        self.handoffs_produced = 0
+
+    def step(self) -> None:
+        """One prefill tick. No decode leg: this engine's running set is
+        empty by construction (sequences detach at promotion time), so the
+        decode tier's steps never wait on a prompt chunk."""
+        if self._sched.has_prefill_work():
+            self._prefill_tick()
+        self.ticks += 1
+
+    def warmup(self, batches: list[int] | None = None,
+               widths: list[int] | None = None,
+               prefill_widths: list[int] | None = None) -> int:
+        """Capture ONLY prefill chunks (``prefill_widths``, default
+        ``widths``, else the width ladder): the base warmup reads a missing
+        or empty ``batches`` as the whole decode ladder, whose graphs this
+        tier never runs. ``batches`` is ignored."""
+        self._cow_guard(())
+        if prefill_widths is None:
+            prefill_widths = widths or self._sched.width_buckets
+        built = self._warmup_prefill(prefill_widths)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return built
+
+    def _finish_prefill(self, seq, logits) -> None:
+        """Prefill completion on the disaggregated tier: sample the first
+        token and stamp exactly as the mono engine does, then detach the
+        sequence WITHOUT freeing its blocks: ownership moves to the
+        HandoffPayload until the decode side adopts (or this engine dies
+        and the payload dies with its pool)."""
+        tok = self._sample_first(logits)
+        req = seq.req
+        if not seq.recompute:
+            # A recompute replay's token is the next DECODE token: the
+            # stamps stay.
+            self._stamp_admit(req, time.time(), admit=req.admit_ts or None)
+        req.generated.append(tok)
+        seq.n_generated = len(req.generated)
+        seq.last_token = tok
+        self._sched.detach_prefill_head(seq)
+        if seq.finished():
+            # One-token requests never reach the decode tier: the mono
+            # engine completes them at _finish_prefill, and so does this.
+            self._sched._release_seq(seq)
+            self._complete(req)
+            self._report_metric()
+            return
+        self.outbox.append(HandoffPayload(
+            rid=req.rid, req=req, tokens=seq.tokens, first_token=tok,
+            blocks=list(seq.blocks.blocks), pos=seq.pos,
+            n_generated=seq.n_generated, recompute=seq.recompute,
+            source=self, block_bytes=self._block_bytes))
+        self.handoffs_produced += 1
+        self._report_metric()
+
+    def _release_handoff(self, payload: HandoffPayload) -> None:
+        """Drop a payload's block references (``HandoffPayload.release``).
+        The prompt's full blocks were registered into this tier's prefix
+        tree at detach time, so the unref parks them cached: the producer
+        keeps its warm prefix across handoffs."""
+        self._alloc.free(payload.blocks)
+
+    def accept_recompute(self, seq: PagedSeq) -> None:
+        """Take a decode-tier preemption victim for re-prefill: in
+        disaggregated mode ALL prefill, recompute included, runs on this
+        tier, so the decode tick stays pure decode. The victim arrives
+        without blocks (the decode scheduler released its table); a carrier
+        sequence re-enters through the preempted queue, whose readmit path
+        restores n_generated and preemptions from it."""
+        assert not seq.blocks.blocks, "recompute victim still holds blocks"
+        carrier = PagedSeq(req=seq.req, tokens=seq.tokens,
+                           blocks=SeqBlocks(self._alloc), order=-1,
+                           n_generated=seq.n_generated, recompute=True,
+                           preemptions=seq.preemptions)
+        self._sched.preempted.append(carrier)
+
+    @property
+    def queue_depth(self) -> int:
+        """Queued + preempted + produced but not adopted: an outbox payload
+        is this tier's until the decode side takes it."""
+        return super().queue_depth + len(self.outbox)
+
+
+class DisaggServing:
+    """The GROVE_DISAGG=1 serving pair behind one engine interface: a
+    ``PrefillEngine`` front door handing finished KV blocks to a
+    ``PagedDecodeEngine`` through the serving/handoff.py protocol. Callers
+    built for one engine work unchanged: ``submit`` routes to prefill,
+    ``step`` runs a prefill tick, the outbox pump and a decode tick, and
+    the liveness, queue and completion surfaces merge both tiers. On one
+    card both tiers launch on the current stream, so each handoff copy
+    reads the producer's pool after the chunk that wrote it."""
+
+    def __init__(self, prefill: PrefillEngine,
+                 decode: PagedDecodeEngine) -> None:
+        assert prefill.kv_quant == decode.kv_quant, \
+            "handoff cannot cross quant modes (no requantize by design)"
+        assert prefill.block_size == decode.block_size, \
+            "handoff is a block-id remap; block geometry must match"
+        assert not decode.spec_decode, \
+            "disagg + speculative decoding is not wired yet"
+        self.prefill = prefill
+        self.decode = decode
+        self.ticks = 0
+
+    # ---- engine interface ----
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        return self.prefill.submit(prompt, max_new_tokens=max_new_tokens)
+
+    def admit_from_queue(self, prefiller=None) -> int:
+        """Decode-tier preemption victims re-prefill on the prefill tier
+        (recompute is prefill work); then fresh admissions."""
+        moved = 0
+        victims = self.decode._sched.preempted
+        while victims:
+            self.prefill.accept_recompute(victims.popleft())
+            moved += 1
+        return self.prefill.admit_from_queue() + moved
+
+    def step(self) -> None:
+        self.prefill.step()
+        self._pump()
+        self.decode.step()
+        self.ticks += 1
+
+    def _pump(self) -> None:
+        """Move finished prefills into the decode tier, in order. A refused
+        adoption (no slot, or allocator backpressure) leaves the payload at
+        the outbox head for the next tick: its blocks stay owned by the
+        payload, and nothing leaks on either side."""
+        out = self.prefill.outbox
+        while out:
+            if not self.decode.adopt(out[0]):
+                break
+            out.popleft()
+
+    def run(self, steps: int) -> None:
+        for _ in range(steps):
+            self.step()
+        self.sync()
+
+    def sync(self) -> None:
+        self.prefill.sync()
+        self.decode.sync()
+
+    def warmup(self, batches: list[int] | None = None,
+               widths: list[int] | None = None,
+               prefill_widths: list[int] | None = None) -> int:
+        """Build both tiers' ladders and the handoff copy: the prefill tier
+        captures prefill chunks only, the decode tier decode steps only."""
+        built = self.prefill.warmup(
+            prefill_widths=(prefill_widths if prefill_widths is not None
+                            else widths))
+        built += self.decode.warmup(batches=batches, widths=widths,
+                                    prefill_widths=[])
+        built += self.decode.warmup_handoff(self.prefill)
+        return built
+
+    # ---- merged surfaces ----
+
+    @property
+    def completed(self) -> list:
+        """Both tiers' completions (max_new_tokens == 1 requests finish on
+        the prefill tier, everything else on decode)."""
+        return self.prefill.completed + self.decode.completed
+
+    @property
+    def queue_depth(self) -> int:
+        return self.prefill.queue_depth + self.decode.queue_depth
+
+    @property
+    def kv_lane_utilization(self) -> float:
+        """The tighter pool is the backpressure signal."""
+        return max(self.prefill.kv_lane_utilization,
+                   self.decode.kv_lane_utilization)
+
+    @property
+    def _active(self) -> np.ndarray:
+        n = (self.prefill._sched.live + len(self.prefill.outbox)
+             + self.decode._sched.live)
+        if n == 0 and (self.decode._pending or self.decode._finishing
+                       or self.prefill._queue
+                       or self.prefill._sched.preempted
+                       or self.decode._sched.preempted):
+            n = 1
+        return np.ones((n,), bool)
+
+    @property
+    def cache(self) -> PagedKV:
+        return self.decode.kv
+
+    @property
+    def params(self):
+        return self.decode.params
+
+    def handoff_view(self) -> dict:
+        return self.decode.handoff_view()
+
+    def replace_prefill(self, prefill: PrefillEngine) -> int:
+        """Disaster recovery (chaos: prefill-replica-kill): swap in a fresh
+        prefill engine after the old tier died. Work not yet adopted
+        (queued requests, sequences mid-prefill, outbox payloads whose
+        blocks died with the old pool) re-enters the new tier's queue with
+        rids intact; produced but unshipped first tokens are discarded so
+        the replay regenerates them (greedy re-prefill is deterministic:
+        the same tokens). Recompute work keeps its generated history and
+        re-enters through the recompute path. Returns the requests rescued.
+        The old engine's allocator is NOT consulted: a killed replica's
+        cannot be."""
+        old = self.prefill
+        fresh: list[Request] = []
+        carriers: list[PagedSeq] = []
+
+        def carrier(req, tokens, n_generated, preemptions=0):
+            carriers.append(PagedSeq(
+                req=req, tokens=np.asarray(tokens, np.int32),
+                blocks=SeqBlocks(prefill._alloc), order=-1,
+                n_generated=n_generated, recompute=True,
+                preemptions=preemptions))
+
+        for p in old.outbox:
+            if p.recompute:
+                # The replay's decode history is REAL output (including the
+                # unshipped token _finish_prefill appended): rebuild the
+                # replay input from it.
+                carrier(p.req, np.concatenate([
+                    p.req.prompt[:p.req.prompt_len],
+                    np.asarray(p.req.generated, np.int32)]),
+                    len(p.req.generated))
+            else:
+                fresh.append(p.req)
+        for s in old._sched.prefilling:
+            if s.recompute:
+                carrier(s.req, s.tokens, s.n_generated, s.preemptions)
+            else:
+                fresh.append(s.req)
+        fresh.extend(old._queue)
+        for req in fresh:
+            # Replay from scratch: the stamps and first tokens belonged to
+            # work the dead tier never shipped.
+            req.generated = []
+            req.done = False
+            req.admit_ts = req.first_token_ts = req.done_ts = 0.0
+            req.cached_tokens = 0
+            prefill._queue.append(req)
+        carriers.extend(old._sched.preempted)
+        prefill._sched.preempted.extend(carriers)
+        # Completions already made are history, not state: carry them.
+        prefill.completed.extend(old.completed)
+        prefill._next_rid = max(prefill._next_rid, old._next_rid)
+        self.prefill = prefill
+        self.decode.warmup_handoff(prefill)
+        return len(fresh) + len(carriers)
+
+    def payload(self) -> dict:
+        return {"engine": "disagg", "ticks": self.ticks,
+                "handoff": self.decode.handoff_view(),
+                "outbox": len(self.prefill.outbox),
+                "prefill": self.prefill.payload(),
+                "decode": self.decode.payload()}
+
+
 def engine_mode() -> str:
     """GROVE_ENGINE=paged|lanes (default paged)."""
     mode = os.environ.get("GROVE_ENGINE", "paged")
@@ -1601,8 +2070,47 @@ def engine_mode() -> str:
 
 
 def disagg_mode() -> bool:
-    """GROVE_DISAGG=1 asks for disaggregated paged serving (default 0)."""
+    """GROVE_DISAGG=1 splits paged serving into a PrefillEngine ->
+    PagedDecodeEngine pair over the block handoff (default 0: the mono
+    PagedDecodeEngine). Only the paged engine disaggregates:
+    GROVE_ENGINE=lanes ignores this."""
     return os.environ.get("GROVE_DISAGG", "0") == "1"
+
+
+def make_disagg(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
+                mesh=None, prefill_slots: int | None = None,
+                prefill_num_blocks: int | None = None,
+                telemetry=None, xprof=None, reqtrace=None,
+                quant: str | None = None,
+                device: str | torch.device | None = None,
+                **common) -> DisaggServing:
+    """Build the disaggregated pair: the params are resolved (and, with
+    ``quant="int8"``, quantized) ONCE and shared by both tiers, and each
+    tier gets its OWN block pool. ``prefill_slots``/``prefill_num_blocks``
+    size the prefill tier on its own (prompt-heavy tiers want deeper pools
+    and fewer concurrent slots); both default to the decode tier's
+    geometry. The speculative-decoding knobs are dropped: disaggregation
+    with speculation is not wired (as in the JAX package)."""
+    dev = resolve_device(device)
+    if isinstance(key_or_params, torch.Generator):
+        key_or_params = llama.init_params(cfg, key_or_params, dev)
+    # quantize_params passes int8 leaves through, so each tier's own
+    # _quantized keeps these tensors.
+    params = _quantized(key_or_params, quant)
+    for knob in ("spec_decode", "spec_k", "draft_params"):
+        common.pop(knob, None)
+    pre_kwargs = dict(common)
+    if prefill_num_blocks is not None:
+        pre_kwargs["num_blocks"] = prefill_num_blocks
+    pre = PrefillEngine(cfg, params, batch=prefill_slots or batch,
+                        mesh=mesh, telemetry=telemetry, xprof=xprof,
+                        reqtrace=reqtrace, quant=quant, device=dev,
+                        **pre_kwargs)
+    dec = PagedDecodeEngine(cfg, params, batch=batch, mesh=mesh,
+                            telemetry=telemetry, xprof=xprof,
+                            reqtrace=reqtrace, quant=quant, device=dev,
+                            **common)
+    return DisaggServing(pre, dec)
 
 
 def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
@@ -1619,7 +2127,8 @@ def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
     (block_size, num_blocks, prefill_chunk, prefix_cache, kv_quant,
     spec_decode, spec_k, draft_params, ...) pass through ``paged_kwargs``
     and are ignored by the lanes engine, as in the JAX package.
-    GROVE_DISAGG=1 raises: disaggregated serving is not ported yet."""
+    GROVE_DISAGG=1 builds the disaggregated pair (``make_disagg``;
+    ``prefill_slots`` and ``prefill_num_blocks`` size its prefill tier)."""
     mode = mode or engine_mode()
     common = dict(batch=batch, max_len=max_len,
                   host_sync_interval=host_sync_interval, sampler=sampler,
@@ -1633,8 +2142,7 @@ def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
     if mode != "paged":
         raise ValueError(f"unknown engine mode {mode!r}")
     if disagg_mode():
-        raise NotImplementedError(
-            "disaggregated serving (GROVE_DISAGG=1) is not ported yet "
-            "(ROADMAP.md, queue 1)")
+        return make_disagg(cfg, key_or_params, mesh=mesh, **common,
+                           **paged_kwargs)
     return PagedDecodeEngine(cfg, key_or_params, mesh=mesh, **common,
                              **paged_kwargs)

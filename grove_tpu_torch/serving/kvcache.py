@@ -161,6 +161,7 @@ class BlockAllocator:
         self.high_water = 0
         self.reclaimed_total = 0
         self.cached_high_water = 0
+        self.adopted_total = 0
 
     @property
     def free_blocks(self) -> int:
@@ -215,6 +216,20 @@ class BlockAllocator:
             self._refs[b] = 1
         self.allocs_total += n
         self.high_water = max(self.high_water, len(self._refs))
+        return got
+
+    def adopt(self, n: int) -> list[int] | None:
+        """Grant ``n`` blocks whose contents another engine's pool fills
+        (the disaggregated handoff: serving/handoff.py). The semantics are
+        exactly ``alloc``'s: all-or-nothing, cached-LRU reclaim before
+        backpressure, refcount 1 to the caller; the separate entry point
+        counts handoff-adopted blocks apart from locally written ones. The
+        ids are LOCAL: the handoff remaps the source table onto them and
+        never imports a foreign id (freeing one raises like any other
+        unallocated free)."""
+        got = self.alloc(n)
+        if got is not None:
+            self.adopted_total += n
         return got
 
     def _reclaim_one(self) -> None:
@@ -301,7 +316,8 @@ class BlockAllocator:
                 "oom_events": self.oom_events,
                 "high_water": self.high_water,
                 "reclaimed_total": self.reclaimed_total,
-                "cached_high_water": self.cached_high_water}
+                "cached_high_water": self.cached_high_water,
+                "adopted_total": self.adopted_total}
 
 
 @dataclasses.dataclass

@@ -280,6 +280,31 @@ class PagedScheduler:
         self._register_prefix(seq)
         self.running.append(seq)
 
+    def detach_prefill_head(self, seq: PagedSeq) -> None:
+        """Prefill finished in disaggregated mode: drop the sequence from
+        the prefill queue WITHOUT releasing its blocks. Ownership moves to
+        the HandoffPayload (serving/handoff.py), whose ``release()`` unrefs
+        them once the decode side has adopted. The prefix registration
+        mirrors ``promote``: the prompt's full blocks are immutable from
+        here, so a concurrent identical prompt on this prefill tier shares
+        them while the payload is still in flight."""
+        assert self.prefilling and self.prefilling[0] is seq
+        self.prefilling.popleft()
+        self._register_prefix(seq)
+
+    def adopt_running(self, seq: PagedSeq) -> None:
+        """Join a handoff-adopted sequence straight into the decode batch:
+        its KV already exists locally (adopted blocks and decode-side
+        prefix hits), so it skips the prefilling state, the disaggregated
+        analog of admit-then-promote. The caller has already gated on
+        ``slots_free``."""
+        assert self.slots_free > 0, "adopt_running past the slot gate"
+        seq.order = self._order
+        self._order += 1
+        self.admitted_total += 1
+        self.prefix_tokens_skipped_total += seq.prefix_matched
+        self.running.append(seq)
+
     # ---- release / registration (every block-freeing path) ----
 
     def _release_seq(self, seq: PagedSeq) -> None:

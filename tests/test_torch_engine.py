@@ -240,8 +240,10 @@ def test_make_engine_modes(params, monkeypatch):
     with pytest.raises(NotImplementedError):
         tengine.make_engine(T_CFG, tp, mode="lanes", device="cpu",
                             telemetry=object())
-    with pytest.raises(NotImplementedError):
-        tengine.PrefillWorker(T_CFG, tp, prefill_chunk=4, device="cpu")
+    worker = tengine.PrefillWorker(T_CFG, tp, max_prompt=8, prefill_chunk=4,
+                                   device="cpu")
+    res = worker.prefill([np.arange(1, 7, dtype=np.int32)])
+    assert res[0].length == 6 and res[0].k.shape[1] == 8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tengine.make_engine(T_CFG, tp, mode="lanes")  # device=None
@@ -266,8 +268,9 @@ def _port_modules():
 
 def test_port_sources_import_no_jax():
     """AST scan: no file of the port (nor chip_smoke.py) imports jax or the
-    JAX package."""
+    JAX package; the scan covers the handoff module."""
     bad = []
+    assert PKG / "serving" / "handoff.py" in _port_modules()
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -287,6 +290,7 @@ def test_importing_every_port_module_loads_no_jax():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m.removesuffix(".__init__") for m in mods]
+    assert "grove_tpu_torch.serving.handoff" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

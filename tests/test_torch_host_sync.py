@@ -10,7 +10,10 @@ prefill-completion fetch live in the named helpers ``_drain``,
 where such a fetch belongs), the model functions a captured spec step runs
 (``spec_step_paged``, ``verify_chunk_paged`` and what they call), and
 every kernel wrapper that a captured step or chunk runs, with the helpers
-of its own module that it calls. Banned there: ``.item()``, ``.cpu()``,
+of its own module that it calls; and the disaggregated path: the decode
+tier's ``adopt`` and its handoff copy (``_get_handoff``,
+``llama.paged_block_copy``/``_q``), the pair's ``step`` and ``_pump``, and
+the prefill tier's ``step``. Banned there: ``.item()``, ``.cpu()``,
 ``.tolist()``, ``int()`` / ``float()`` / ``bool()`` of anything but a
 constant, a name or shape arithmetic, and ``torch.cuda.synchronize``.
 """
@@ -34,6 +37,12 @@ SPEC_FUNCS = ("spec_step_paged", "verify_chunk_paged", "decode_step_paged",
               "_decoder", "_logits", "embed", "_qkv_proj", "_projs",
               "_proj", "_matmul", "_attn_out", "_mlp_block", "layer_params",
               "_device_scalar")
+# The disaggregated path: method names by class, and the copy's model
+# functions.
+DISAGG_METHODS = {"PagedDecodeEngine": ("adopt", "_get_handoff"),
+                  "DisaggServing": ("step", "_pump"),
+                  "PrefillEngine": ("step",)}
+HANDOFF_FUNCS = ("paged_block_copy", "paged_block_copy_q")
 WRAPPERS = {
     "w8a16_matmul": (w8a16, ("w8a16_matmul", "w8a16_matmul_group",
                              "_check", "_launch", "partition", "split_count",
@@ -125,6 +134,18 @@ def _method(cls, name: str) -> ast.FunctionDef:
 @pytest.mark.parametrize("name", STEP_FUNCS)
 def test_paged_engine_dispatch_path_has_no_host_sync(name):
     assert host_syncs(_method(engine.PagedDecodeEngine, name)) == []
+
+
+@pytest.mark.parametrize("cls,name", [
+    (cls, name) for cls, names in sorted(DISAGG_METHODS.items())
+    for name in names])
+def test_disagg_dispatch_path_has_no_host_sync(cls, name):
+    assert host_syncs(_method(getattr(engine, cls), name)) == []
+
+
+@pytest.mark.parametrize("name", HANDOFF_FUNCS)
+def test_handoff_copy_has_no_host_sync(name):
+    assert host_syncs(_function(llama, name)) == []
 
 
 @pytest.mark.parametrize("wrapper", sorted(WRAPPERS))

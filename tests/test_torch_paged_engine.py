@@ -492,8 +492,10 @@ def test_make_engine_defaults_to_paged(params, monkeypatch):
     eng = tengine.make_engine(T_CFG, tp, batch=2, device="cpu")
     assert isinstance(eng, tengine.PagedDecodeEngine) and eng._prefix is None
     monkeypatch.setenv("GROVE_DISAGG", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.make_engine(T_CFG, tp, device="cpu")
+    eng = tengine.make_engine(T_CFG, tp, device="cpu")
+    assert isinstance(eng, tengine.DisaggServing)
+    assert isinstance(eng.prefill, tengine.PrefillEngine)
+    assert eng.decode._prefix is None and eng.prefill._prefix is None
 
 
 @pytest.mark.parametrize("kw", [

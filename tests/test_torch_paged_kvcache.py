@@ -12,12 +12,12 @@ from grove_tpu.serving import schedule as jsched
 from grove_tpu_torch.serving import kvcache as tkv
 from grove_tpu_torch.serving import schedule as tsched
 
-# Fields of the allocator payload the port keeps (the JAX package's
-# ``adopted_total`` belongs to the disaggregated handoff, not ported).
+# Fields of the allocator payload (``adopted_total`` counts the blocks the
+# disaggregated handoff adopts).
 _PAYLOAD_KEYS = ("capacity", "used", "free", "block_size", "cached",
                  "utilization", "allocs_total", "frees_total", "refs_total",
                  "oom_events", "high_water", "reclaimed_total",
-                 "cached_high_water")
+                 "cached_high_water", "adopted_total")
 
 
 def _side(mod, num_blocks, block_size):
@@ -208,3 +208,175 @@ def test_scheduler_decisions_match_jax(prefix):
                        p["deferred_total"], p["prefix_tokens_skipped_total"])
     assert trace["port"] == trace["jax"]
     assert trace["port"][1] > 0  # the pool was tight enough to preempt
+
+
+# ---- the disaggregated handoff: adopt across two allocators ----
+# Twins of tests/test_paged_kvcache.py's adopt tests, on the port's classes.
+
+def test_adopt_is_alloc_with_attribution():
+    """``adopt`` is exactly ``alloc`` (all-or-nothing, refcount 1,
+    check-clean) plus the ``adopted_total`` attribution."""
+    a = tkv.BlockAllocator(num_blocks=9, block_size=4)
+    got = a.adopt(3)
+    assert got is not None and len(got) == 3
+    assert a.adopted_total == 3 and a.allocs_total == 3
+    assert a.payload()["adopted_total"] == 3
+    a.check()
+    # Backpressure is all-or-nothing and does NOT count as adopted.
+    assert a.adopt(6) is None
+    assert a.adopted_total == 3 and a.oom_events == 1
+    assert a.free_blocks == 5
+    a.free(got)
+    a.check()
+    assert a.used_blocks == 0
+
+
+def test_foreign_free_across_two_allocators_raises():
+    """Block ids are allocator-LOCAL: a payload's source ids freed into the
+    adopting allocator raise even where the ids are numerically valid
+    there, and the rejected free mutates nothing."""
+    src = tkv.BlockAllocator(num_blocks=17, block_size=4)
+    dst = tkv.BlockAllocator(num_blocks=9, block_size=4)
+    theirs = src.alloc(4)
+    mine = dst.adopt(2)
+    foreign = [b for b in theirs if b not in set(mine)]
+    assert foreign
+    with pytest.raises(ValueError):
+        dst.free([foreign[0]])
+    dst.check()
+    src.check()
+    assert dst.used_blocks == 2 and src.used_blocks == 4
+    src.free(theirs)
+    dst.free(mine)
+    src.check()
+    dst.check()
+
+
+def test_adopt_then_prefix_insert_parks_cached():
+    """Adopted blocks register into the adopter's prefix tree like locally
+    written ones: release parks them cached, a match resurrects them, and
+    pressure evicts them before OOM."""
+    a = tkv.BlockAllocator(num_blocks=6, block_size=4)
+    tree = tkv.PrefixTree(a)
+    tokens = tuple(range(8))
+    got = a.adopt(2)
+    tree.insert(tokens, got)
+    a.free(got)
+    assert a.used_blocks == 0 and a.cached_blocks == 2
+    a.check()
+    full, matched, partial = tree.match(tokens + (9, 9))
+    assert matched == 8 and full == got and partial is None
+    assert a.cached_blocks == 0
+    a.free(full)
+    a.check()
+    grant = a.adopt(a.capacity)
+    assert grant is not None and a.cached_blocks == 0
+    a.free(grant)
+    a.check()
+
+
+def _handoff_soak(mod) -> tuple[dict, dict]:
+    """Randomized mini-handoffs between a producer and an adopter pool of
+    ``mod``'s allocator, with ``check()`` on both sides after every op and
+    shadow live counts; returns the final payloads (adopter, producer)."""
+    rng = np.random.default_rng(18)
+    src = mod.BlockAllocator(num_blocks=17, block_size=8)
+    dst = mod.BlockAllocator(num_blocks=33, block_size=8)
+    in_flight: list[list[int]] = []
+    adopted: list[list[int]] = []
+    for _ in range(2000):
+        op = int(rng.integers(0, 3))
+        if op == 0:
+            got = src.alloc(int(rng.integers(1, 5)))
+            if got is not None:
+                in_flight.append(got)
+        elif op == 1 and in_flight:
+            payload = in_flight.pop(int(rng.integers(0, len(in_flight))))
+            got = dst.adopt(len(payload))
+            if got is None:
+                in_flight.append(payload)
+            else:
+                assert len(got) == len(payload)
+                adopted.append(got)
+                src.free(payload)
+        elif adopted:
+            dst.free(adopted.pop(int(rng.integers(0, len(adopted)))))
+        src.check()
+        dst.check()
+        assert src.used_blocks == sum(len(p) for p in in_flight)
+        assert dst.used_blocks == sum(len(t) for t in adopted)
+    for p in in_flight:
+        src.free(p)
+    for t in adopted:
+        dst.free(t)
+    src.check()
+    dst.check()
+    assert src.used_blocks == 0 and dst.used_blocks == 0
+    assert dst.adopted_total > 0
+    return dst.payload(), src.payload()
+
+
+def test_two_allocator_handoff_refcount_soak():
+    """The pools never exchange ids, and the port's allocators make the JAX
+    package's decisions over the whole soak (equal final counters)."""
+    assert _handoff_soak(tkv) == _handoff_soak(jkv)
+
+
+@pytest.mark.parametrize("prefix", [True, False])
+def test_detach_and_adopt_running_match_jax(prefix):
+    """A producer scheduler prefills and detaches each finished head without
+    freeing its blocks (registering its full blocks in the prefix tree); a
+    consumer scheduler adopts fresh blocks and joins each sequence straight
+    into its running set; then the producer releases the payload's blocks.
+    The port makes the JAX package's decisions step for step, and both
+    pools end clean."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 50, size=9)
+    prompts = [np.concatenate([base, rng.integers(0, 50, size=int(n))])
+               for n in rng.integers(1, 12, size=5)]
+    trace = {}
+    for name, kv_mod, sched_mod in (("jax", jkv, jsched),
+                                    ("port", tkv, tsched)):
+        pa = kv_mod.BlockAllocator(24, 4)
+        ptree = kv_mod.PrefixTree(pa) if prefix else None
+        prod = sched_mod.PagedScheduler(pa, max_slots=2,
+                                        max_blocks_per_seq=8, chunk=4,
+                                        prefix_tree=ptree)
+        ca = kv_mod.BlockAllocator(24, 4)
+        cons = sched_mod.PagedScheduler(ca, max_slots=3,
+                                        max_blocks_per_seq=8, chunk=4)
+        queue = [_Req(i, p, 3) for i, p in enumerate(prompts)]
+        log = []
+        for _ in range(100):
+            while queue and prod.admit(queue[0], queue[0].prompt):
+                queue.pop(0)
+            head = prod.next_prefill()
+            if head is not None:
+                if head.cow_src >= 0:        # the engine's copy-on-write
+                    pa.free([head.cow_src])
+                    head.cow_src = head.cow_dst = -1
+                head.pos = min(head.pos + 4, head.prompt_len)
+                if head.prefill_done:
+                    prod.detach_prefill_head(head)
+                    blocks = list(head.blocks.blocks)
+                    assert all(pa.refcount(b) >= 1 for b in blocks)
+                    got = ca.adopt(len(blocks))
+                    seq = sched_mod.PagedSeq(
+                        req=head.req, tokens=head.tokens,
+                        blocks=kv_mod.SeqBlocks(ca, got), order=0,
+                        pos=head.pos)
+                    cons.adopt_running(seq)
+                    pa.free(blocks)          # the payload's release
+                    log.append((head.req.rid, blocks, got, seq.order,
+                                head.prefix_matched, pa.cached_blocks))
+            for seq in list(cons.running):
+                cons.retire(seq)
+            if not (queue or prod.live):
+                break
+        for a in (pa, ca):
+            a.check()
+            assert a.used_blocks == 0
+        trace[name] = (log, prod.payload(), cons.payload())
+    assert trace["port"] == trace["jax"]
+    assert len(trace["port"][0]) == len(prompts)
+    assert trace["port"][2]["admitted_total"] == len(prompts)
