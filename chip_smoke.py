@@ -107,6 +107,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      logits within phase 5's bound, next tokens' agreement, flash once per
      layer (window 0), ms per call and the later windows' plain
      attention, and a lanes DecodeEngine fed by the chunked worker.
+ 12. observatories (on by default in every phase, as in the JAX package):
+     phase 7's serve and a full-batch decode on an engine with
+     GROVE_XPROF/GROVE_REQTRACE on and one with them off, in turns, twice
+     each: tokens equal rid for rid, no graph captured during traffic, the
+     compile table equal to the warmup's captures, memory read from the
+     device with the pool's bytes, every finished rid traced, both
+     renderers run; tokens/s on / off (the serve by turn, the decode
+     windows best, median and paired) and the flight recorder's
+     event-timed step p50 beside phase 7's profiler; the
+     disaggregated pair once (one trace per rid across the seam, handoff
+     series equal to handoff_view()) and the lanes engine once (an
+     event-timed prefill of the flash path).
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -2402,7 +2414,9 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     decoding past that pool's capacity, which must preempt. Then the same
     traffic and full-batch decode over int8 KV. Returns the hand-written
     kernels' launch counts: the model-dtype kernels' from the first traffic
-    run, the int8 kernels' from the int8 one (zeroed at each start)."""
+    run, the int8 kernels' from the int8 one (zeroed at each start), and
+    ``step_device_ms``, the default pool's profiled device ms per decode
+    step (None off the card)."""
     import numpy as np
     import torch
     from grove_tpu_torch.models.llama import CONFIGS, init_params
@@ -2595,7 +2609,7 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     if not (eng._prefix and eng._prefix.hits and eng.cow_copies):
         raise AssertionError("the shared prefix did not hit or copy on "
                              "write")
-    decode_bench(eng, "default pool")
+    profiled = decode_bench(eng, "default pool")
     peak = torch.cuda.max_memory_allocated() if on_cuda else 0
     log(f"paged: peak torch.cuda.max_memory_allocated "
         f"{peak / 2**30:.3f} GiB on {card}")
@@ -2694,7 +2708,9 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                and not k.endswith("_q8")},
             **{k: v for k, v in q8_counts.items() if k.endswith("_q")
                or k.endswith("_q8")},  # the int8 GEMM's: the first serve's
-            "dense_matmul": dense_counts["dense_matmul"]}
+            "dense_matmul": dense_counts["dense_matmul"],
+            # the default pool's profiled decode, per step (phase 12)
+            "step_device_ms": profiled["busy_ms"] / 8 if profiled else None}
 
 
 def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",
@@ -3771,6 +3787,330 @@ def phase_chunked_prefill(seed: int, card: str, cfg=None,
     return launches
 
 
+def _observatories_env(on: bool):
+    """GROVE_XPROF and GROVE_REQTRACE set for an engine's construction (it
+    reads them there), restored afterwards."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def env():
+        keys = ("GROVE_XPROF", "GROVE_REQTRACE")
+        old = {k: os.environ.get(k) for k in keys}
+        os.environ.update({k: "1" if on else "0" for k in keys})
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return env()
+
+
+def drive_active(eng, want: int, max_iters: int = 100_000) -> None:
+    """Admit and tick while the engine (mono or pair) holds live work or
+    undrained tokens, until ``want`` requests are complete."""
+    for _ in range(max_iters):
+        eng.admit_from_queue()
+        if len(eng.completed) >= want:
+            break
+        if eng._active.size:
+            eng.step()
+    eng.sync()
+    if len(eng.completed) < want:
+        raise AssertionError(f"{len(eng.completed)} of {want} requests "
+                             f"answered")
+
+
+def bucket_builds(eng) -> int:
+    """The bucket executables an engine holds: captured graphs on the card,
+    eager steps and chunks on the CPU."""
+    return len(eng._steps) + len(eng._specs) + len(eng._prefills)
+
+
+def phase_observatories(seed: int, card: str, cfg=None, device: str = "cuda",
+                        n_requests: int = 64, batch: int = 32,
+                        max_len: int = 2048, new_tokens: int = 64,
+                        prompt_lo: int = 64, prompt_hi: int = 1024,
+                        shared: int = 264, bench_len: int = 512,
+                        bench_steps: int = 64, windows: int = 4,
+                        turns: int = 2, lanes_prompt: int = 128,
+                        lanes_max_len: int = 512,
+                        step_device_ms: float | None = None) -> dict:
+    """The serving observatories on the main path. Phase 7's serve (the
+    default ``make_engine``, int8 weights, bf16 pool; the same 64 requests)
+    on two engines, one with GROVE_XPROF/GROVE_REQTRACE on and one with them
+    off, in turns (on, off, off, on, ...), each turn the mixed serve and
+    ``windows`` timed ``run(bench_steps)`` windows of a full batch of
+    ``bench_len``-token prompts: tokens equal rid for rid on and off, no
+    graph captured during traffic, the compile table equal to the warmup's
+    captures (plus the CoW copy), the kernels' launches of the first serve
+    equal to ``paged_launches``, the memory source "device" with
+    ``kv_cache_bytes`` the pool's bytes (model-estimate on the CPU), every
+    finished rid traced, the device timer's queue never overflowed, and both
+    renderers run on the payloads. Reports tokens/s on / off: the serve's
+    by turn, the decode windows' best, median and paired, and the flight
+    recorder's
+    event-timed decode step p50 at the full batch beside
+    ``step_device_ms`` (phase 7's profiler device ms per step). Then the
+    disaggregated pair once (one trace per rid across the seam, handoff
+    series equal to ``handoff_view()``, tokens equal the mono engine's) and
+    the lanes engine once (an event-timed "prefill" sample of the flash
+    path). With ``device="cpu"`` and a small ``cfg`` it rehearses on the
+    CPU."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
+    from grove_tpu_torch.ops.flash import flash_causal_attention
+    from grove_tpu_torch.serving import reqtrace, xprof
+    from grove_tpu_torch.serving.engine import make_disagg, make_engine
+    from grove_tpu_torch.serving.metrics import GLOBAL_METRICS
+    from grove_tpu_torch.serving.quant import quantize_params
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    wrappers = (paged.paged_decode_attention, paged.paged_chunk_attention,
+                paged.paged_decode_attention_q8,
+                paged.paged_chunk_attention_q8, kvquant.paged_rope_scatter_q,
+                kvquant.paged_rope_scatter, kvquant.paged_scatter_q,
+                kvquant.paged_scatter, w8a16.w8a16_matmul,
+                w8a16.dense_matmul, norms.rms_norm, norms.add_rms_norm)
+    rng = np.random.default_rng(seed + 11)   # phase 7's traffic
+    prompts = mixed_prompts(rng, cfg, n_requests, prompt_lo, prompt_hi,
+                            shared)
+    longest = max(len(p) for p in prompts) + new_tokens
+    bench = rng.integers(0, cfg.vocab_size,
+                         (batch, bench_len)).astype(np.int32)
+    bench_new = windows * bench_steps + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = quantize_params(init_params(cfg, gen, device=device))
+
+    def build(on: bool):
+        t0 = time.perf_counter()
+        with _observatories_env(on):
+            eng = make_engine(cfg, params, batch=batch, max_len=max_len,
+                              quant="int8", device=device)
+        if (eng.xprof is not None, eng.reqtrace is not None) != (on, on):
+            raise AssertionError(f"observatories on={on} not honoured")
+        widths = eng.decode_width_buckets(prompt_lo,
+                                          max(longest, bench_len + bench_new))
+        built = eng.warmup(widths=widths, prefill_widths=eng.
+                           decode_width_buckets(1, longest))
+        log(f"observatories: {'on' if on else 'off'}: warmup built {built} "
+            f"graphs in {time.perf_counter() - t0:.2f} s with set-up")
+        return eng
+
+    def serve(eng, label):
+        """Phase 7's traffic; returns (tokens by rid, generated tokens,
+        wall s, launches)."""
+        for w in wrappers:
+            w.launches = 0
+        steps0, chunks0 = eng.steps, eng.chunks
+        captured0, builds0 = eng.graphs_captured, bucket_builds(eng)
+        sync()
+        t = time.perf_counter()
+        want = len(eng.completed) + n_requests
+        rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        drive_active(eng, want)
+        wall = time.perf_counter() - t
+        mine = set(rids)
+        done = {r.rid: list(r.generated) for r in eng.completed
+                if r.rid in mine}
+        if sorted(done) != rids or any(len(g) != new_tokens
+                                       for g in done.values()):
+            raise AssertionError(f"observatories: {label}: requests lost")
+        if eng.graphs_captured != captured0 or \
+                bucket_builds(eng) != builds0:
+            raise AssertionError(f"observatories: {label}: a graph was "
+                                 f"built during traffic")
+        counts = {w.__name__: w.launches for w in wrappers}
+        want = paged_launches(cfg, False, "int8", eng.steps - steps0,
+                              eng.chunks - chunks0, on_cuda)
+        n_tok = sum(len(g) for g in done.values())
+        return [done[r] for r in rids], n_tok, wall, counts == want
+
+    def decode_windows(order):
+        """A full batch decoding on both engines: ``windows`` timed
+        run(bench_steps) each, the engines alternating window by window (so
+        each pair of windows decodes at the same context length)."""
+        for on in order:
+            engines[on].admit_prompts(bench, max_new_tokens=bench_new)
+        tps = {True: [], False: []}
+        for w in range(windows):
+            for on in (order if w % 2 == 0 else order[::-1]):
+                sync()
+                t = time.perf_counter()
+                engines[on].run(bench_steps)
+                tps[on].append(batch * bench_steps / (time.perf_counter() - t))
+        for on in order:
+            done = engines[on].completed[-batch:]
+            if any(len(r.generated) != bench_new for r in done):
+                raise AssertionError("observatories: decode windows lost "
+                                     "tokens")
+        return tps
+
+    engines = {True: build(True), False: build(False)}
+    on_eng = engines[True]
+    table0 = on_eng.xprof.compile.counts()
+    tokens = {True: [], False: []}
+    serve_tps = {True: [], False: []}
+    decode_tps = {True: [], False: []}
+    launches_ok = None
+    for turn in range(turns):   # on, off, then off, on, ...
+        order = (True, False) if turn % 2 == 0 else (False, True)
+        for on in order:
+            toks, n_tok, wall, ok = serve(engines[on], "on" if on else "off")
+            if on and launches_ok is None:
+                launches_ok = ok
+            tokens[on].append(toks)
+            serve_tps[on].append(n_tok / wall)
+            log(f"observatories: turn {turn}: {'on ' if on else 'off'} serve "
+                f"{n_tok / wall:.1f} tokens/s ({wall:.3f} s) on {card}")
+        tps = decode_windows(order)
+        for on in order:
+            decode_tps[on] += tps[on]
+            log(f"observatories: turn {turn}: {'on ' if on else 'off'} "
+                f"decode windows {', '.join(f'{x:.1f}' for x in tps[on])} "
+                f"tokens/s on {card}")
+    if tokens[True] != tokens[False]:
+        raise AssertionError("observatories: tokens differ on vs off")
+    if not launches_ok:
+        raise AssertionError("observatories: kernel launches off the path")
+
+    def ratios(tps):
+        return (max(tps[True]) / max(tps[False]),
+                float(np.median(tps[True]) / np.median(tps[False])))
+
+    # Serve k of one engine is serve k of the other: the first finds a cold
+    # prefix cache, a later one every prompt cached (host-bound).
+    serve_r = [a / b for a, b in zip(serve_tps[True], serve_tps[False])]
+    d_best, d_med = ratios(decode_tps)
+    paired = np.array(decode_tps[True]) / np.array(decode_tps[False])
+    log(f"observatories: tokens/s on / off: mixed serve by turn "
+        f"{', '.join(f'{r:.4f}' for r in serve_r)} (turn 0: cold prefix "
+        f"cache); decode best {d_best:.4f}, median {d_med:.4f}, window "
+        f"pairs min {paired.min():.4f} median {float(np.median(paired)):.4f} "
+        f"({turns * windows} windows of run({bench_steps}) at batch {batch} "
+        f"each) on {card}")
+
+    # What the "on" engine saw.
+    x, rt = on_eng.xprof, on_eng.reqtrace
+    table = x.compile.counts()
+    if table != table0:
+        raise AssertionError(f"observatories: builds during traffic "
+                             f"{table} vs warmup {table0}")
+    graphs = sum(n for f, n in table.items() if not f.endswith("_copy"))
+    want = on_eng.graphs_captured if on_cuda else bucket_builds(on_eng)
+    if graphs != want or table.get("paged_cow_copy") != 1:
+        raise AssertionError(f"observatories: compile table {table} vs "
+                             f"{want} captures")
+    x._last_memory_ts = 0.0
+    x.observe_memory(on_eng)
+    mem = x._last_memory
+    if mem["source"] != ("device" if on_cuda else "model-estimate") or \
+            mem["kv_cache_bytes"] != on_eng.kv.pool_bytes:
+        raise AssertionError(f"observatories: memory {mem}")
+    finished = [r.rid for r in on_eng.completed]
+    missing = [r for r in finished if rt.find(r) is None]
+    if missing or on_eng._timer.dropped or len(on_eng._timer):
+        raise AssertionError(f"observatories: rids without a trace "
+                             f"{missing[:8]}, timer dropped "
+                             f"{on_eng._timer.dropped}, pending "
+                             f"{len(on_eng._timer)}")
+    payload = x.payload()
+    for line in xprof.render_engine_profile(payload):
+        log(f"observatories: profile: {line}")
+    rpay = rt.payload()
+    worst = rpay["slowest"][0]["rid"]
+    for line in reqtrace.render_request_trace(rpay, worst):
+        log(f"observatories: trace: {line}")
+    steps = sorted(s.seconds for s in x.recorder.snapshot()
+                   if s.phase == "step" and s.tokens == batch)
+    p50 = steps[len(steps) // 2] * 1e3 if steps else float("nan")
+    log(f"observatories: memory {mem}; compile table {len(table)} fns, "
+        f"{graphs} graphs = {want} captures; {len(finished)} finished, "
+        f"{rpay['ring']['len']} traces; timer resolved "
+        f"{on_eng._timer.resolved} pairs, dropped 0")
+    profiled = ("not measured" if step_device_ms is None
+                else f"{step_device_ms:.4f} device ms per step")
+    log(f"observatories: flight recorder decode step at batch {batch}: "
+        f"p50 {p50:.4f} ms over {len(steps)} event-timed samples; phase 7's "
+        f"profiler (the same batch and prompts): {profiled} on {card}")
+    mono_tokens = tokens[True][0]
+    del engines, on_eng
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # The disaggregated pair, once, observatories on.
+    with _observatories_env(True):
+        pair = make_disagg(cfg, params, batch=batch, max_len=max_len,
+                           quant="int8", device=device)
+    pair.warmup(widths=pair.decode.decode_width_buckets(prompt_lo, longest),
+                prefill_widths=pair.prefill.decode_width_buckets(1, longest))
+    before = {k: GLOBAL_METRICS.counter_total(f"grove_handoff_{k}_total")
+              for k in ("blocks", "bytes")}
+    secs0 = GLOBAL_METRICS.hist_totals("grove_handoff_seconds")
+    rids = [pair.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    drive_active(pair, n_requests)
+    done = {r.rid: list(r.generated) for r in pair.completed}
+    if [done[r] for r in rids] != mono_tokens:
+        raise AssertionError("observatories: the pair's tokens differ")
+    hv = pair.handoff_view()
+    moved = {k: GLOBAL_METRICS.counter_total(f"grove_handoff_{k}_total")
+             - before[k] for k in before}
+    secs = GLOBAL_METRICS.hist_totals("grove_handoff_seconds")
+    n_timed = secs[1] - secs0[1]
+    if moved != {"blocks": hv["blocks"], "bytes": hv["bytes"]} or \
+            not n_timed:
+        raise AssertionError(f"observatories: handoff series {moved} vs "
+                             f"{hv}, {n_timed} timed copies")
+    prec = pair.reqtrace.payload()
+    traced = {t["rid"]: [s["phase"] for s in t["spans"]]
+              for t in prec["traces"]}
+    bad = [r for r in rids if r not in traced or not (
+        traced[r].index("prefill") < traced[r].index("handoff")
+        < traced[r].index("decode"))]
+    if bad or pair.prefill.reqtrace is not pair.reqtrace:
+        raise AssertionError(f"observatories: traces across the seam: "
+                             f"{bad[:8]}")
+    log(f"observatories: pair: {len(traced)} traces across the seam, "
+        f"handoff {moved['blocks']} blocks / {moved['bytes']} bytes = "
+        f"handoff_view; {n_timed:.0f} event-timed copies, mean "
+        f"{(secs[0] - secs0[0]) / n_timed * 1e3:.4f} ms (host wall of the "
+        f"dispatch {hv['ms_per_request']:.4f} ms per request) on {card}")
+    del pair
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # The lanes engine, once: an event-timed prefill of the flash path.
+    with _observatories_env(True):
+        lanes = make_engine(cfg, params, mode="lanes", batch=batch,
+                            max_len=lanes_max_len, quant="int8",
+                            device=device)
+    lp = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, lanes_prompt)).astype(np.int32)).to(device)
+    lanes.admit_prompts(lp)                    # the build: not sampled
+    flash_causal_attention.launches = 0
+    lanes.admit_prompts(lp, max_new_tokens=17)
+    flash = flash_causal_attention.launches
+    lanes.run(16)
+    stats = lanes.xprof.recorder.phase_stats()
+    if stats.get("prefill", {}).get("count") != 1 or \
+            flash != (cfg.n_layers if on_cuda else 0):
+        raise AssertionError(f"observatories: lanes prefill samples "
+                             f"{stats.get('prefill')}, flash {flash}")
+    log(f"observatories: lanes: prefill {batch} x {lanes_prompt} "
+        f"{stats['prefill']['p50_ms']:.4f} ms (CUDA events; flash launched "
+        f"{flash} times); compile table {lanes.xprof.compile.counts()} on "
+        f"{card}")
+    return {"serve_ratio": serve_r, "decode_ratio": (d_best, d_med),
+            "step_p50_ms": p50}
+
+
 def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
                 steps: int = 64, spec_k: int = 3,
                 spec_steps: int = 16) -> None:
@@ -3958,6 +4298,10 @@ def main() -> int:
     phase_done("phase 10 (disaggregated serve)")
     flash_row["chunked_launches"] = phase_chunked_prefill(args.seed, card)
     phase_done("phase 11 (chunked lanes prefill)")
+    # 12. the observatories on the main path
+    phase_observatories(args.seed, card,
+                        step_device_ms=launches["step_device_ms"])
+    phase_done("phase 12 (observatories)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

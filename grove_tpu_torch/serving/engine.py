@@ -25,15 +25,25 @@ worker.
 - sampled tokens accumulate on the device and reach the host once per
   window of ``host_sync_interval`` steps; ``step`` itself never waits for
   the device;
-- a queue-depth metric hook feeds the control plane's autoscaler.
+- a queue-depth metric hook feeds the control plane's autoscaler;
+- the observatories, on by default as in the JAX package: ``telemetry``
+  (serving/slo.py ``EngineTelemetry``: TTFT/TPOT/queue-wait histograms),
+  ``xprof`` (serving/xprof.py ``Observatory``: builds, sampled device
+  time, memory; ``GROVE_XPROF=0`` or ``False`` switches it off) and
+  ``reqtrace`` (serving/reqtrace.py ``RequestObservatory``: per-request
+  spans; ``GROVE_REQTRACE=0`` or ``False``). Sampled dispatches are timed
+  by CUDA events around the replay, read only after a fetch the engine
+  makes anyway (``_drain``, ``_finish_prefill``, ``sync``), so timing
+  adds no device sync.
 
 Not ported yet, and raising when asked for (ROADMAP.md, queue 1): tensor
-parallelism; the request and device observatories.
+parallelism (``mesh=``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from collections import deque
@@ -54,10 +64,13 @@ from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_decode_attention,
                                        paged_decode_attention_q8)
 from grove_tpu_torch.ops.w8a16 import dense_matmul, w8a16_matmul
+from grove_tpu_torch.serving import reqtrace as reqtrace_mod
+from grove_tpu_torch.serving import xprof as xprof_mod
 from grove_tpu_torch.serving.handoff import HandoffPayload
 from grove_tpu_torch.serving.kvcache import (NULL_BLOCK, BlockAllocator,
                                              PagedKV, PrefixTree, SeqBlocks,
                                              pad_tables)
+from grove_tpu_torch.serving.metrics import GLOBAL_METRICS
 from grove_tpu_torch.serving.schedule import (PagedScheduler, PagedSeq,
                                               pick_bucket)
 
@@ -164,13 +177,100 @@ def _complete_impl(req: Request, completed: list, telemetry) -> None:
         telemetry.observe_request(req)
 
 
-def _reject_unported(**observatories) -> None:
-    """The JAX package's request/device observatories are not ported:
-    each may be None or False only."""
-    for name, val in observatories.items():
-        if val is not None and val is not False:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md, queue 1); pass None")
+class _Observed:
+    """The observatories' engine-side half, shared by both engines.
+
+    ``xprof`` and ``reqtrace`` follow the JAX package's contract: an
+    instance (the caller names the scope), None (one is made unless
+    GROVE_XPROF=0 / GROVE_REQTRACE=0), or False (off); off means the
+    attribute is None and every hook site skips. ``telemetry`` is an
+    ``EngineTelemetry`` or None. Sampled dispatches go through ``_tic`` /
+    ``_toc``: the engine's ``DeviceTimer`` brackets the dispatch (CUDA
+    events around the replay on the card, host wall around the eager call
+    on the CPU) and its callbacks run in ``_resolve_timings``, which only
+    the fetches call."""
+
+    xprof = None
+    reqtrace = None
+
+    def _init_observatories(self, telemetry, xprof, reqtrace) -> None:
+        self.telemetry = telemetry
+        if xprof is not False:
+            if xprof is not None:
+                xprof.cfg, xprof.batch = self.cfg, self.batch
+                xprof.max_len = self.max_len
+            elif xprof_mod.enabled():
+                xprof = xprof_mod.Observatory(cfg=self.cfg, batch=self.batch,
+                                              max_len=self.max_len)
+            else:
+                xprof = None
+        self.xprof = xprof or None
+        if reqtrace is not False and reqtrace is None \
+                and reqtrace_mod.enabled():
+            reqtrace = reqtrace_mod.RequestObservatory()
+        self.reqtrace = reqtrace or None
+        # Pending timings are bounded by the sampling cadence times the
+        # drain window: past that (no fetch for that long) the oldest drop.
+        every = self.xprof.recorder.sample_every if self.xprof else 16
+        self._timer = xprof_mod.DeviceTimer(
+            self.device, capacity=max(64, every * self.host_sync_interval))
+        if self.xprof is not None:
+            self.xprof.device = self.device
+            self.xprof.timer = self._timer
+
+    def _note_build(self, name: str, seconds: float,
+                    sig: tuple = ("build",), also: tuple = ()) -> None:
+        """An executable was built: a graph captured, an eager step or copy
+        called for the first time. ``also`` names builds that happened
+        inside the same one (the tiny draft's chunk inside the target's)."""
+        if self.xprof is not None:
+            self.xprof.compile.note_build(name, seconds, sig)
+            for other in also:
+                self.xprof.compile.note_build(other, 0.0)
+
+    def _tracked(self, name: str, fn: Callable, install: Callable,
+                 also: tuple = ()) -> Callable:
+        """``fn`` whose first call is a build of ``name``: the wrapper
+        times that call, notes it and installs ``fn`` itself (through
+        ``install``) for every later call."""
+        if self.xprof is None:
+            return fn
+
+        def first(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            install(fn)
+            self._note_build(name, time.perf_counter() - t0, also=also)
+            return out
+
+        return first
+
+    def _tic(self):
+        """Open the timing bracket of a sampled dispatch."""
+        if self.xprof is not None:
+            self.xprof.compile.last_call_compiled = False
+        return self._timer.start()
+
+    def _toc(self, mark, phase: str | None, steps: int = 1, tokens: int = 0,
+             then: Callable[[float], None] | None = None) -> None:
+        """Close the bracket: when its time is known, ``phase`` (if any)
+        goes into the flight recorder, unless the dispatch built an
+        executable (its time is the build's), and ``then(seconds)`` runs."""
+        x = self.xprof
+        built = x is not None and x.compile.last_call_compiled
+
+        def done(seconds: float) -> None:
+            if phase is not None and not built:
+                x.record(phase, seconds, steps=steps, tokens=tokens)
+            if then is not None:
+                then(seconds)
+
+        self._timer.stop(mark, done)
+
+    def _resolve_timings(self) -> None:
+        """Read the queued device timings. Called only right after a fetch
+        that waited for the stream."""
+        self._timer.resolve()
 
 
 def _quantized(params, quant: str | None):
@@ -209,6 +309,12 @@ class PrefillWorker:
         self._cache = KVCache.create(cfg.n_layers, batch, self.max_prompt,
                                      cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
                                      self.device)
+        # One-shot prefill's executables, by shape (the JAX worker's jit
+        # cache): a call of a new shape is a build, which an engine's
+        # observatory notes as ``worker_prefill``. The chunked path calls
+        # the model functions directly, as the JAX worker does.
+        self._shapes: set[tuple[int, int]] = set()
+        self.builds = 0
 
     def prefill(self, prompts: list[np.ndarray]) -> list[PrefillResult]:
         """Prefill up to ``batch`` prompts (right-padded to one length).
@@ -230,6 +336,9 @@ class PrefillWorker:
                 self.cfg, self.params, toks_dev, self._cache,
                 chunk=self.prefill_chunk, lengths=lengths_dev)
         else:
+            if toks.shape not in self._shapes:
+                self._shapes.add(toks.shape)
+                self.builds += 1
             logits, cache = llama.prefill(self.cfg, self.params, toks_dev,
                                           self._cache, lengths_dev)
         self._cache = cache
@@ -244,7 +353,7 @@ class PrefillWorker:
                 for i in range(len(prompts))]
 
 
-class DecodeEngine:
+class DecodeEngine(_Observed):
     """Continuous-batching decode over fixed lanes.
 
     Two operating modes:
@@ -252,8 +361,10 @@ class DecodeEngine:
       also the bench path);
     - disaggregated: ``insert`` splices a PrefillResult produced elsewhere.
 
-    ``telemetry``, ``xprof`` and ``reqtrace`` (the JAX package's
-    observatories) are not ported: pass None or False.
+    The lanes engine runs eagerly: the first dispatch of each shape is its
+    build (``prefill`` per prompt shape, ``step``/``step_sampled``,
+    ``step_block``/``step_block_sampled`` for ``run``'s windows, and a
+    worker's one-shot ``worker_prefill``), the JAX package's executables.
     """
 
     def __init__(self, cfg: LlamaConfig, key_or_params, batch: int = 8,
@@ -266,7 +377,6 @@ class DecodeEngine:
                  xprof=None,
                  reqtrace=None,
                  device: str | torch.device | None = None):
-        _reject_unported(telemetry=telemetry, xprof=xprof, reqtrace=reqtrace)
         self.cfg = cfg
         self.device = resolve_device(device)
         self._sampler = sampler or SamplerConfig()
@@ -280,7 +390,6 @@ class DecodeEngine:
         self.batch = batch
         self.max_len = max_len or cfg.max_seq_len
         self.metric_hook = metric_hook
-        self.telemetry = None
         # Completion bookkeeping needs sampled tokens on the host; fetching
         # every step would serialise the launch queue behind a device->host
         # sync. Tokens accumulate on the device and drain every
@@ -308,6 +417,12 @@ class DecodeEngine:
         # GROVE_TTFT_COMPAT=1 fuses admit_ts with first_token_ts (the
         # historical single stamp); by default admit is queue exit.
         self._ttft_compat = os.environ.get("GROVE_TTFT_COMPAT", "0") == "1"
+        self._init_observatories(telemetry, xprof, reqtrace)
+        suffix = "_sampled" if self._sampling else ""
+        self._step_name = "step" + suffix
+        self._block_name = "step_block" + suffix
+        self._phase = "sample" if self._sampling else "step"
+        self._lanes_sig = (batch, self.max_len)
 
     @property
     def sampler(self) -> SamplerConfig:
@@ -326,6 +441,23 @@ class DecodeEngine:
         else:
             self._tokens = torch.argmax(logits, dim=-1).to(torch.int32)
 
+    def _observed(self, name: str, sig: tuple, sampled: bool, fn: Callable,
+                  phase: str, steps: int = 1, tokens: int = 0):
+        """Dispatch ``fn()`` under the observatory: its first call under
+        ``sig`` is the build of ``name`` (noted, and its time kept out of
+        the ring); a ``sampled`` call is timed into ``phase``."""
+        build = not self.xprof.compile.seen(name, sig)
+        if build:
+            t0 = time.perf_counter()
+        if sampled:
+            mark = self._tic()
+        out = fn()
+        if build:
+            self._note_build(name, time.perf_counter() - t0, sig)
+        if sampled:
+            self._toc(mark, phase, steps=steps, tokens=tokens)
+        return out
+
     # ---- request intake ----
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
@@ -333,6 +465,11 @@ class DecodeEngine:
                       max_new_tokens=max_new_tokens, enqueue_ts=time.time())
         self._next_rid += 1
         self._queue.append(req)
+        rt = self.reqtrace
+        if rt is not None:
+            rt.note_enqueue(req.rid, ts=req.enqueue_ts,
+                            prompt_len=len(req.prompt),
+                            max_new_tokens=max_new_tokens)
         self._report_metric()
         return req.rid
 
@@ -348,15 +485,26 @@ class DecodeEngine:
     def _report_metric(self) -> None:
         if self.metric_hook is not None:
             self.metric_hook(len(self._queue))
+        if self.telemetry is not None:
+            self.telemetry.sample_gauges(len(self._queue),
+                                         self.kv_lane_utilization)
+            if self.reqtrace is not None and self.reqtrace.finished_total:
+                self.telemetry.sample_phases(self.reqtrace.phase_stats())
+        if self.xprof is not None:
+            self.xprof.observe_memory(self, self.telemetry)
 
     def _stamp_admit(self, req: Request, now: float,
                      admit: float | None = None) -> None:
         """``now``: the first token exists (post-prefill); ``admit``: the
         request left the queue (pre-prefill)."""
         _stamp_admit_impl(req, now, admit, self._ttft_compat, self.telemetry)
+        if self.reqtrace is not None:
+            self.reqtrace.note_admit(req.rid, ts=req.admit_ts)
 
     def _complete(self, req: Request) -> None:
         _complete_impl(req, self.completed, self.telemetry)
+        if self.reqtrace is not None:
+            self.reqtrace.note_done(req.rid, ts=req.done_ts)
 
     # ---- standalone mode (bench path) ----
 
@@ -380,17 +528,29 @@ class DecodeEngine:
         else:
             lengths = torch.as_tensor(lengths).to(self.device, torch.int32)
         admit_wall = time.time()  # queue exit: prefill not yet started
-        logits, self.cache = llama.prefill(self.cfg, self.params, prompts,
-                                           self.cache, lengths)
-        if self._sampling:
-            self._tokens = sample_tokens(logits, self._gen, self._sampler)
+
+        def prefill() -> None:
+            logits, self.cache = llama.prefill(self.cfg, self.params,
+                                               prompts, self.cache, lengths)
+            if self._sampling:
+                self._tokens = sample_tokens(logits, self._gen,
+                                             self._sampler)
+            else:
+                self._tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        if self.xprof is None:
+            prefill()
         else:
-            self._tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            # Every in-engine prefill is timed (the flash path's device
+            # time); the first of a prompt shape is its build.
+            self._observed("prefill", (b, s), True, prefill, "prefill",
+                           tokens=b)
         self._active[:] = True
         if max_new_tokens is not None:
             prompts_np = prompts.cpu().numpy()
             lengths_np = lengths.cpu().numpy()
             first = self._tokens.cpu().numpy()
+            self._resolve_timings()
             self._lane_window_start[:] = len(self._pending_tokens)
             now = time.time()
             for i in range(b):
@@ -453,6 +613,12 @@ class DecodeEngine:
             self._stamp_admit(request, time.time(),
                               admit=request.admit_ts or None)
             request.generated.append(result.next_token)
+            rt = self.reqtrace
+            if rt is not None:
+                # The lane insert is the prefill -> decode splice: the
+                # worker's prefill ran between queue exit and here.
+                rt.note_prefill_done(request.rid)
+                rt.note_decode_start(request.rid)
 
     def admit_from_queue(self, prefiller: PrefillWorker) -> int:
         """Move queued requests through the prefiller into free lanes."""
@@ -464,7 +630,24 @@ class DecodeEngine:
             reqs = [self._queue.popleft() for _ in range(take)]
             for r in reqs:
                 r.admit_ts = popped
+            x = self.xprof
+            if x is not None:
+                # The worker's builds are not this engine's: a call that
+                # built one is noted as an external build and kept out of
+                # the device-time ring. The bracket is read at the next
+                # drain (the worker copies its slabs after its fetch).
+                builds = getattr(prefiller, "builds", None)
+                t0 = time.perf_counter()
+                mark = self._timer.start()
             results = prefiller.prefill([r.prompt for r in reqs])
+            if x is not None:
+                if builds is not None and prefiller.builds != builds:
+                    x.compile.note_external_compile(
+                        "worker_prefill", time.perf_counter() - t0)
+                    self._timer.stop(mark, lambda seconds: None)
+                else:
+                    self._timer.stop(mark, functools.partial(
+                        x.recorder.record, "prefill", tokens=take))
             for req, res in zip(reqs, results):
                 self.insert(lanes.pop(0), res, req)
                 admitted += 1
@@ -477,7 +660,13 @@ class DecodeEngine:
         """One decode step across all lanes (inactive lanes compute too).
         Launches device work only: no host fetch unless a window of
         tracked tokens is full."""
-        self._decode()
+        x = self.xprof
+        if x is None:
+            self._decode()
+        else:
+            self._observed(self._step_name, self._lanes_sig,
+                           x.should_sample(), self._decode, self._phase,
+                           tokens=self.batch)
         self.steps += 1
         if any(r is not None for r in self._requests):
             self._pending_tokens.append(self._tokens)
@@ -495,7 +684,13 @@ class DecodeEngine:
         window."""
         if not self._pending_tokens:
             return
+        x = self.xprof
+        if x is not None:
+            t0 = time.perf_counter()
         toks = torch.stack(self._pending_tokens).cpu().numpy()  # [w, batch]
+        if x is not None:
+            x.record("host_transfer", time.perf_counter() - t0)
+        self._resolve_timings()
         self._pending_tokens.clear()
         self._process_window(toks, offsets=self._lane_window_start)
         self._lane_window_start[:] = 0
@@ -506,12 +701,14 @@ class DecodeEngine:
         ``offsets[i]`` = rows belonging to lane i's previous occupant
         (single-step path; block windows never contain them)."""
         freed = False
+        appended = 0
         for i, req in enumerate(self._requests):
             if req is None or not self._active[i]:
                 continue
             start = int(offsets[i]) if offsets is not None else 0
             for t in toks[start:, i]:
                 req.generated.append(int(t))
+                appended += 1
                 if len(req.generated) >= req.max_new_tokens:
                     break
             if len(req.generated) >= req.max_new_tokens or \
@@ -521,6 +718,8 @@ class DecodeEngine:
                 self._active[i] = False
                 freed = True
                 self.cache.lengths[i] = 0
+        if self.telemetry is not None:
+            self.telemetry.add_tokens(appended)
         if freed:
             self._report_metric()
 
@@ -528,6 +727,7 @@ class DecodeEngine:
         """Drain outstanding bookkeeping and wait for the device."""
         self._drain()
         self._tokens.cpu()
+        self._resolve_timings()
 
     def run(self, steps: int) -> None:
         """Decode ``steps`` steps in throughput mode: full windows of
@@ -551,11 +751,19 @@ class DecodeEngine:
             block_steps = steps
         steps -= (block_steps // K) * K
         windows: list[torch.Tensor] = []
-        for _ in range(block_steps // K):
+        x = self.xprof
+
+        def block() -> list[torch.Tensor]:
             window = []
             for _ in range(K):
                 self._decode()
                 window.append(self._tokens)
+            return window
+
+        for _ in range(block_steps // K):
+            window = block() if x is None else self._observed(
+                self._block_name, self._lanes_sig, x.should_sample(), block,
+                self._phase, steps=K, tokens=K * self.batch)
             self.steps += K
             if tracked:
                 windows.append(torch.stack(window))
@@ -563,7 +771,13 @@ class DecodeEngine:
         if windows:
             # One fetch of every window ([w, batch] rows); it is also the
             # sync for the block phase.
-            self._process_window(torch.cat(windows).cpu().numpy())
+            if x is not None:
+                t0 = time.perf_counter()
+            toks = torch.cat(windows).cpu().numpy()
+            if x is not None:
+                x.record("host_transfer", time.perf_counter() - t0)
+            self._resolve_timings()
+            self._process_window(toks)
             fetched = True
         for _ in range(steps):
             self.step()
@@ -571,7 +785,7 @@ class DecodeEngine:
             self.sync()
 
 
-class PagedDecodeEngine:
+class PagedDecodeEngine(_Observed):
     """Continuous-batching decode over a paged KV cache.
 
     The port of the JAX package's default engine (``GROVE_ENGINE=paged``):
@@ -627,6 +841,13 @@ class PagedDecodeEngine:
       (``llama.paged_block_copy``/``_q`` over two id vectors of the fixed
       width ``max_blocks_per_seq``, one upload and one copy per request);
       the sequence joins the decode batch directly.
+    - **Observatories** (``_Observed``): every graph capture (or, on the
+      CPU, an eager step's first call) is a build under the JAX package's
+      executable name: ``paged_step{_sampled}{_q8}[b{B},w{W}]``,
+      ``paged_prefill{_q8}[c{C},w{W}]``, ``paged_spec{_q8}[b{B},w{W},k{K}]``,
+      ``draft_prefill[c{C},w{W}]`` (inside the chunk's graph),
+      ``paged_handoff_copy`` and ``paged_cow_copy`` (run once over the null
+      block at construction with the prefix cache on, as JAX prebuilds it).
 
     Host discipline: the per-step dispatch path performs no device sync.
     Sampled tokens stay on the device; bookkeeping drains once per
@@ -653,7 +874,6 @@ class PagedDecodeEngine:
                  draft_params=None,
                  kv_quant: str | None = None,
                  device: str | torch.device | None = None):
-        _reject_unported(telemetry=telemetry, xprof=xprof, reqtrace=reqtrace)
         if mesh is not None:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP.md, queue 1)")
@@ -703,7 +923,6 @@ class PagedDecodeEngine:
         self.batch = batch          # max decode slots
         self.max_len = max_len or cfg.max_seq_len
         self.metric_hook = metric_hook
-        self.telemetry = None
         self.host_sync_interval = max(1, host_sync_interval)
         self._ttft_compat = os.environ.get("GROVE_TTFT_COMPAT", "0") == "1"
 
@@ -813,9 +1032,35 @@ class PagedDecodeEngine:
         self._pending: list[tuple[torch.Tensor, tuple]] = []
         self._finishing: list = []
 
+        self._init_observatories(telemetry, xprof, reqtrace)
+        if self.xprof is not None:
+            # The roofline's KV byte basis: what this engine moves.
+            self.xprof.kv_quant = self.kv_quant
+        # The scheduler stamps preemption and prefix boundaries itself.
+        self._sched.reqtrace = self.reqtrace
+        q8 = "_q8" if self.kv.quantized else ""
+        self._names = {"step": f"paged_step{'_sampled' if self._sampling else ''}"
+                               f"{q8}[b{{B}},w{{W}}]",
+                       "prefill": f"paged_prefill{q8}[c{self.prefill_chunk},"
+                                  "w{W}]",
+                       "spec": f"paged_spec{q8}[b{{B}},w{{W}},k{self.spec_k}]",
+                       "draft": f"draft_prefill[c{self.prefill_chunk},w{{W}}]"}
+        # The one copy-on-write copy, run once over the null block at
+        # construction (JAX builds its executable here, never mid-traffic).
+        if self._prefix is not None:
+            t0 = time.perf_counter()
+            self._cow_copy(NULL_BLOCK, NULL_BLOCK)
+            self._note_build("paged_cow_copy", time.perf_counter() - t0)
+
     @property
     def sampler(self) -> SamplerConfig:
         return self._sampler
+
+    @property
+    def cache(self) -> PagedKV:
+        """The KV pool (``xprof.memory_snapshot`` reads it, as the lanes
+        engine's contiguous cache)."""
+        return self.kv
 
     # ---- decode steps (one per shape bucket) ----
 
@@ -844,9 +1089,8 @@ class PagedDecodeEngine:
             tokens.copy_(sample_tokens(logits, gen, sampler))
             lengths.add_(1)
 
-        fn = self._capture(step) if self.device.type == "cuda" else step
-        self._steps[key] = fn
-        return fn
+        return self._install(self._steps, key, step,
+                             self._names["step"].format(B=B, W=W))
 
     def _get_spec(self, B: int, W: int) -> Callable[[], None]:
         """The speculative step of one (batch, width) bucket
@@ -878,9 +1122,8 @@ class PagedDecodeEngine:
             tokens.copy_(nxt)
             lengths.copy_(new_lengths)
 
-        fn = self._capture(spec) if self.device.type == "cuda" else spec
-        self._specs[key] = fn
-        return fn
+        return self._install(self._specs, key, spec,
+                             self._names["spec"].format(B=B, W=W))
 
     def _get_prefill(self, W: int) -> Callable[[], torch.Tensor]:
         """The prefill chunk of table width ``W``: reads the static prefill
@@ -912,8 +1155,25 @@ class PagedDecodeEngine:
                                           logits=False)
             return logits
 
-        fn = self._capture(chunk) if self.device.type == "cuda" else chunk
-        self._prefills[W] = fn
+        also = () if draft is None else (self._names["draft"].format(W=W),)
+        return self._install(self._prefills, W, chunk,
+                             self._names["prefill"].format(W=W), also)
+
+    def _install(self, table: dict, key, fn: Callable, name: str,
+                 also: tuple = ()) -> Callable:
+        """Install the executable of one bucket under ``key``: on the card
+        ``fn`` captured into a CUDA graph now (the capture's host wall is the
+        build's time), on the CPU the eager ``fn``, whose first call is the
+        build. Either way the build is noted as ``name`` (and ``also``)."""
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            fn = self._capture(fn)
+            self._note_build(name, time.perf_counter() - t0, also=also)
+        else:
+            fn = self._tracked(name, fn,
+                               functools.partial(table.__setitem__, key),
+                               also)
+        table[key] = fn
         return fn
 
     def _capture(self, step: Callable[[], torch.Tensor | None]
@@ -1074,6 +1334,11 @@ class PagedDecodeEngine:
                       enqueue_ts=time.time())
         self._next_rid += 1
         self._queue.append(req)
+        rt = self.reqtrace
+        if rt is not None:
+            rt.note_enqueue(req.rid, ts=req.enqueue_ts,
+                            prompt_len=len(prompt),
+                            max_new_tokens=max_new_tokens)
         self._report_metric()
         return req.rid
 
@@ -1103,6 +1368,23 @@ class PagedDecodeEngine:
     def _report_metric(self) -> None:
         if self.metric_hook is not None:
             self.metric_hook(self.queue_depth)
+        tel = self.telemetry
+        if tel is not None:
+            tel.sample_gauges(self.queue_depth, self.kv_lane_utilization)
+            if self._prefix is not None:
+                tel.sample_prefix(self.prefix_stats())
+            if self.spec_decode:
+                tel.sample_spec(self.spec_stats())
+            if self.handoff_stats["requests"]:
+                tel.sample_handoff(self.handoff_view())
+            if self.reqtrace is not None and self.reqtrace.finished_total:
+                tel.sample_phases(self.reqtrace.phase_stats())
+        if self.xprof is not None:
+            self.xprof.observe_memory(self, tel)
+            if self.spec_decode:
+                self.xprof.spec = self.spec_stats()
+            if self.handoff_stats["requests"]:
+                self.xprof.handoff = self.handoff_view()
 
     def handoff_view(self) -> dict:
         """Block-handoff accounting of the consuming side.
@@ -1155,9 +1437,13 @@ class PagedDecodeEngine:
     def _stamp_admit(self, req: Request, now: float,
                      admit: float | None = None) -> None:
         _stamp_admit_impl(req, now, admit, self._ttft_compat, self.telemetry)
+        if self.reqtrace is not None:
+            self.reqtrace.note_admit(req.rid, ts=req.admit_ts)
 
     def _complete(self, req: Request) -> None:
         _complete_impl(req, self.completed, self.telemetry)
+        if self.reqtrace is not None:
+            self.reqtrace.note_done(req.rid, ts=req.done_ts)
 
     # ---- disaggregated handoff (the consuming side) ----
 
@@ -1173,7 +1459,8 @@ class PagedDecodeEngine:
         design and every masked read ignores it. The copy runs on the
         current stream, the one both tiers' graphs replay on, so it reads
         the producer's pool after the chunk that wrote it. Built on the
-        first adoption or by ``warmup_handoff``."""
+        first adoption or by ``warmup_handoff``; its first call is the
+        build of ``paged_handoff_copy``."""
         if self._handoff is None:
             ids = torch.full((2, self.max_blocks_per_seq), NULL_BLOCK,
                              dtype=torch.int64, device=self.device)
@@ -1188,7 +1475,10 @@ class PagedDecodeEngine:
                     llama.paged_block_copy(kv.k, kv.v, source.k, source.v,
                                            src, dst)
 
-            self._handoff_ids, self._handoff = ids, copy
+            self._handoff_ids = ids
+            self._handoff = self._tracked(
+                "paged_handoff_copy", copy,
+                functools.partial(setattr, self, "_handoff"))
         return self._handoff
 
     def warmup_handoff(self, source: "PrefillEngine") -> int:
@@ -1242,13 +1532,22 @@ class PagedDecodeEngine:
                 self._alloc.free(shared)
             self.handoff_stats["deferred"] += 1
             return False
+        x = self.xprof
+        sampled = x is not None and x.should_sample()
         t0 = time.perf_counter()
         fn = self._get_handoff()
         ids = np.full((2, self.max_blocks_per_seq), NULL_BLOCK, np.int64)
         ids[0, :cold] = payload.blocks[n_shared:]
         ids[1, :cold] = got
+        if sampled:
+            mark = self._tic()
         self._upload(self._handoff_ids, ids)
         fn(payload.source.kv)
+        if sampled:
+            # Only timed copies enter the histogram: the host wall below
+            # times the enqueue, not the transfer.
+            self._toc(mark, "handoff", then=functools.partial(
+                GLOBAL_METRICS.observe, "grove_handoff_seconds"))
         dt = time.perf_counter() - t0
         seq = PagedSeq(req=payload.req, tokens=tokens,
                        blocks=SeqBlocks(self._alloc, shared + got),
@@ -1259,12 +1558,32 @@ class PagedDecodeEngine:
                        prefix_matched=matched)
         sched.adopt_running(seq)
         self._composition_dirty = True
+        moved_bytes = cold * self._block_bytes
+        rt = self.reqtrace
+        if rt is not None:
+            # The trace rode the payload across the seam (a no-op under the
+            # shared recorder, a splice with per-tier ones). Adoption closes
+            # the handoff span and opens this tier's decode segment; a
+            # recompute replay closes its preempt window instead.
+            rt.adopt_trace(payload.trace)
+            if matched:
+                rt.note_prefix(payload.req.rid, n_shared,
+                               len(payload.blocks), matched)
+            if payload.recompute:
+                rt.note_resume(payload.req.rid)
+            else:
+                rt.note_handoff(payload.req.rid, payload.created_ts,
+                                blocks=cold, nbytes=moved_bytes,
+                                shared=n_shared)
+                rt.note_decode_start(payload.req.rid)
         st = self.handoff_stats
         st["requests"] += 1
         st["blocks"] += cold
         st["shared_blocks"] += n_shared
-        st["bytes"] += cold * self._block_bytes
+        st["bytes"] += moved_bytes
         st["seconds"] += dt
+        GLOBAL_METRICS.inc("grove_handoff_blocks_total", float(cold))
+        GLOBAL_METRICS.inc("grove_handoff_bytes_total", float(moved_bytes))
         payload.release()
         self._report_metric()
         return True
@@ -1293,6 +1612,10 @@ class PagedDecodeEngine:
             self._queue.popleft()
             if not req.admit_ts:
                 req.admit_ts = popped
+            if self.reqtrace is not None:
+                # Queue exit stamps here, so queue_wait never absorbs the
+                # chunked prefill's wall.
+                self.reqtrace.note_admit(req.rid, ts=req.admit_ts)
             admitted += 1
         if admitted:
             self._report_metric()
@@ -1368,6 +1691,7 @@ class PagedDecodeEngine:
         self._drain()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._resolve_timings()
 
     # ---- copy-on-write ----
 
@@ -1382,6 +1706,13 @@ class PagedDecodeEngine:
             return
         src, dst = seq.cow_src, seq.cow_dst
         seq.cow_src = seq.cow_dst = -1
+        self._cow_copy(src, dst)
+        self._alloc.free([src])
+        self.cow_copies += 1
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy block ``src`` of the pool onto block ``dst`` (K, V and, for
+        int8 pools, the scale rows), on the current stream."""
         ids = self._to_device(np.array([src, dst], np.int64))
         kv = self.kv
         if kv.quantized:  # the scale rows move with the int8 rows
@@ -1390,8 +1721,6 @@ class PagedDecodeEngine:
                                      ids[:1], ids[1:])
         else:
             llama.paged_block_copy(kv.k, kv.v, kv.k, kv.v, ids[:1], ids[1:])
-        self._alloc.free([src])
-        self.cow_copies += 1
 
     def _cow_guard(self, seqs, span: int = 1) -> None:
         """Exclusive-write tripwire ahead of the decode scatter: every
@@ -1441,8 +1770,25 @@ class PagedDecodeEngine:
         host[:valid] = seq.tokens[pos:pos + valid]
         host[c:c + 3] = (pos, max(0, valid - 1), valid)
         host[c + 3:] = pad_tables([seq.blocks.blocks], W)[0]
+        # Upload before the chunk is built: a capture's eager warm-up run
+        # reads the static buffer and writes this chunk's K/V.
         self._upload(self._pf_buf[:c + 3 + W], host)
-        logits = self._get_prefill(W)()
+        fn = self._get_prefill(W)
+        x = self.xprof
+        sampled = x is not None and x.should_sample()
+        rt = self.reqtrace
+        traced = rt is not None and rt.should_sample()
+        if sampled or traced:
+            wall = time.time()
+            mark = self._tic()
+        logits = fn()
+        if sampled or traced:
+            # The chunk span is decoration only (not accumulated): phase
+            # seconds come from the admit -> prefill-done boundaries.
+            self._toc(mark, "prefill" if sampled else None, tokens=valid,
+                      then=functools.partial(
+                          self._note_chunk, seq.req.rid, W, valid, wall)
+                      if traced else None)
         self.chunks += 1
         seq.pos += valid
         if seq.prefill_done:
@@ -1462,18 +1808,43 @@ class PagedDecodeEngine:
         """The prefill-produced token, by the sampler (one host fetch)."""
         return int(sample_tokens(logits, self._gen, self._sampler)[0])
 
+    def _note_chunk(self, rid: int, W: int, valid: int, wall: float,
+                    seconds: float) -> None:
+        self.reqtrace.note_chunk(rid, W, seconds, valid, t0=wall)
+
+    def _take_first(self, seq, logits) -> int:
+        """Sample the prefill-produced token (one host fetch, after which
+        the queued timings are read, before the prefill-done stamp) and fold
+        it into the request: a first token is stamped (TTFT), a recompute
+        replay's is the next decode token and the stamps stay."""
+        tok = self._sample_first(logits)
+        self._resolve_timings()
+        req = seq.req
+        if seq.recompute:
+            req.generated.append(tok)
+            if self.telemetry is not None:
+                self.telemetry.add_tokens(1)
+        else:
+            self._stamp_admit(req, time.time(), admit=req.admit_ts or None)
+            req.generated.append(tok)
+        seq.n_generated = len(req.generated)
+        seq.last_token = tok
+        return tok
+
     def _finish_prefill(self, seq, logits) -> None:
         """The chunk that produces the first token just ran: take it and
         stamp TTFT here, at token emission."""
-        tok = self._sample_first(logits)
+        self._take_first(seq, logits)
         req = seq.req
-        if not seq.recompute:
-            # A recompute replays history: its token is the next decode
-            # token, and the stamps stay.
-            self._stamp_admit(req, time.time(), admit=req.admit_ts or None)
-        req.generated.append(tok)
-        seq.n_generated = len(req.generated)
-        seq.last_token = tok
+        rt = self.reqtrace
+        if rt is not None:
+            if seq.recompute:
+                # The recompute replay finished: the preempt_recompute
+                # window closes and decode resumes.
+                rt.note_resume(req.rid)
+            else:
+                rt.note_prefill_done(req.rid)
+                rt.note_decode_start(req.rid)
         self._sched.promote(seq)
         self._composition_dirty = True
         if seq.finished():
@@ -1515,7 +1886,15 @@ class PagedDecodeEngine:
             return
         B, W = self._cur_shape
         self._cow_guard(self._run_order)
-        self._get_step(B, W)()
+        fn = self._get_step(B, W)
+        x = self.xprof
+        sampled = x is not None and x.should_sample()
+        if sampled:
+            mark = self._tic()
+        fn()
+        if sampled:
+            self._toc(mark, "sample" if self._sampling else "step",
+                      tokens=len(self._run_order))
         # Each pending window keeps its own token copy (the next step
         # overwrites the static buffer) and its composition, so joins and
         # leaves between windows need no drain.
@@ -1582,7 +1961,14 @@ class PagedDecodeEngine:
             return
         B, W = self._cur_shape
         self._cow_guard(self._run_order, span=span)
-        self._get_spec(B, W)()
+        fn = self._get_spec(B, W)
+        x = self.xprof
+        sampled = x is not None and x.should_sample()
+        if sampled:
+            mark = self._tic()
+        fn()
+        if sampled:
+            self._toc(mark, "step", tokens=len(self._run_order))
         # Each pending window keeps its own copy of the committed tokens
         # (the next dispatch overwrites the static buffer).
         self._pending.append((self._out_buf[:B].clone(), self._run_order,
@@ -1681,10 +2067,21 @@ class PagedDecodeEngine:
         steps)."""
         if not self._pending:
             return
+        x = self.xprof
+        if x is not None:
+            t0 = time.perf_counter()
         toks = torch.stack([e[0] for e in self._pending]).cpu().numpy()
+        if x is not None:
+            x.record("host_transfer", time.perf_counter() - t0)
+        self._resolve_timings()
         entries = [e[1:] for e in self._pending]
         self._pending.clear()
+        rt = self.reqtrace
+        # Per-window acceptance decoration, thinned by the sampling gate
+        # (aggregated per sequence over this drain's windows).
+        spec_note = {} if rt is not None and rt.should_sample() else None
         spec_seqs: dict = {}   # insertion-ordered dedupe
+        appended = accepted = drafted = 0
         for arr, entry in zip(toks, entries):
             if len(entry) == 1:
                 for i, seq in enumerate(entry[0]):
@@ -1694,9 +2091,17 @@ class PagedDecodeEngine:
                     tok = int(arr[i])
                     req.generated.append(tok)
                     seq.last_token = tok
+                    appended += 1
                 continue
-            self._fold_spec(arr, *entry, spec_seqs)
+            counts = self._fold_spec(arr, *entry, spec_seqs, spec_note)
+            appended += counts[0]
+            accepted += counts[1]
+            drafted += counts[2]
         if spec_seqs:
+            if drafted:
+                GLOBAL_METRICS.inc("grove_spec_accepted_tokens",
+                                   float(accepted))
+                GLOBAL_METRICS.inc("grove_spec_draft_tokens", float(drafted))
             retired = False
             for seq in spec_seqs.values():
                 # A drain folds every pending window: pos is exact again.
@@ -1709,21 +2114,28 @@ class PagedDecodeEngine:
                     retired = True
             if retired:
                 self._report_metric()
+        if spec_note:
+            for seq, acc, n_draft in spec_note.values():
+                rt.note_spec_window(seq.req.rid, self.steps, acc, n_draft)
+        if self.telemetry is not None:
+            self.telemetry.add_tokens(appended)
         if self._finishing:
             for seq in self._finishing:
                 self._complete(seq.req)
             self._finishing = []
             self._report_metric()
 
-
     def _fold_spec(self, arr: np.ndarray, order: tuple, bucket: tuple,
-                   spec_seqs: dict) -> None:
+                   spec_seqs: dict, spec_note: dict | None
+                   ) -> tuple[int, int, int]:
         """Fold one spec window ([B, spec_k + 1]: each row's committed
         tokens, then -1) into its sequences: the count advances ``pos``
         (the device's length), the tokens join ``generated`` up to
         max_new_tokens (an overshoot's rows are real K/V, but the request
         is done and its extra tokens drop), and the acceptance counters
-        move."""
+        move (per sequence into ``spec_note`` too, when given). Returns
+        the tokens appended, accepted and drafted."""
+        appended = accepted = drafted = 0
         st = self._spec_stats
         pb = st["per_bucket"].setdefault(
             bucket, {"accepted_tokens": 0, "draft_tokens": 0,
@@ -1744,13 +2156,21 @@ class PagedDecodeEngine:
                 d["draft_tokens"] += self.spec_k
                 d["committed_tokens"] += n
                 d["rows"] += 1
+            accepted += max(0, n - 1)
+            drafted += self.spec_k
+            if spec_note is not None:
+                agg = spec_note.setdefault(id(seq), [seq, 0, 0])
+                agg[1] += max(0, n - 1)
+                agg[2] += self.spec_k
             for t in toks:
                 if len(req.generated) >= req.max_new_tokens:
                     break
                 req.generated.append(int(t))
+                appended += 1
             seq.n_generated = len(req.generated)
             if n:
                 seq.last_token = int(toks[-1])
+        return appended, accepted, drafted
 
     def spec_stats(self) -> dict:
         """Speculative acceptance gauges; an empty dict with spec off. The
@@ -1828,15 +2248,8 @@ class PrefillEngine(PagedDecodeEngine):
         sequence WITHOUT freeing its blocks: ownership moves to the
         HandoffPayload until the decode side adopts (or this engine dies
         and the payload dies with its pool)."""
-        tok = self._sample_first(logits)
+        tok = self._take_first(seq, logits)
         req = seq.req
-        if not seq.recompute:
-            # A recompute replay's token is the next DECODE token: the
-            # stamps stay.
-            self._stamp_admit(req, time.time(), admit=req.admit_ts or None)
-        req.generated.append(tok)
-        seq.n_generated = len(req.generated)
-        seq.last_token = tok
         self._sched.detach_prefill_head(seq)
         if seq.finished():
             # One-token requests never reach the decode tier: the mono
@@ -1845,11 +2258,18 @@ class PrefillEngine(PagedDecodeEngine):
             self._complete(req)
             self._report_metric()
             return
+        rt = self.reqtrace
+        if rt is not None and not seq.recompute:
+            # The prefill phase closes at detach; the handoff span runs from
+            # the payload's created_ts to adoption on the decode tier (a
+            # recompute replay closes its preempt window at adoption).
+            rt.note_prefill_done(req.rid)
         self.outbox.append(HandoffPayload(
             rid=req.rid, req=req, tokens=seq.tokens, first_token=tok,
             blocks=list(seq.blocks.blocks), pos=seq.pos,
             n_generated=seq.n_generated, recompute=seq.recompute,
-            source=self, block_bytes=self._block_bytes))
+            source=self, block_bytes=self._block_bytes,
+            trace=rt.live_trace(req.rid) if rt is not None else None))
         self.handoffs_produced += 1
         self._report_metric()
 
@@ -1901,6 +2321,10 @@ class DisaggServing:
             "disagg + speculative decoding is not wired yet"
         self.prefill = prefill
         self.decode = decode
+        self.telemetry = decode.telemetry
+        # One recorder spans the seam (make_disagg hands both tiers the
+        # same one); the decode tier's is the facade's.
+        self.reqtrace = decode.reqtrace
         self.ticks = 0
 
     # ---- engine interface ----
@@ -1923,6 +2347,11 @@ class DisaggServing:
         self._pump()
         self.decode.step()
         self.ticks += 1
+        if self.telemetry is not None:
+            # Each tier's gauges see only its half: the combined load
+            # signal exists only here.
+            self.telemetry.sample_gauges(self.queue_depth,
+                                         self.kv_lane_utilization)
 
     def _pump(self) -> None:
         """Move finished prefills into the decode tier, in order. A refused
@@ -1987,6 +2416,12 @@ class DisaggServing:
         return np.ones((n,), bool)
 
     @property
+    def xprof(self):
+        """The decode tier's observatory (each tier keeps its own; the
+        prefill tier's is ``self.prefill.xprof``)."""
+        return self.decode.xprof
+
+    @property
     def cache(self) -> PagedKV:
         return self.decode.kv
 
@@ -2049,6 +2484,12 @@ class DisaggServing:
         # Completions already made are history, not state: carry them.
         prefill.completed.extend(old.completed)
         prefill._next_rid = max(prefill._next_rid, old._next_rid)
+        # Trace continuity across the swap: the replacement tier joins the
+        # pair's recorder (rids persist, so rescued requests append to the
+        # same traces). Off stays off on both tiers.
+        if prefill.reqtrace is not self.reqtrace:
+            prefill.reqtrace = self.reqtrace
+            prefill._sched.reqtrace = self.reqtrace
         self.prefill = prefill
         self.decode.warmup_handoff(prefill)
         return len(fresh) + len(carriers)
@@ -2090,7 +2531,10 @@ def make_disagg(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
     size the prefill tier on its own (prompt-heavy tiers want deeper pools
     and fewer concurrent slots); both default to the decode tier's
     geometry. The speculative-decoding knobs are dropped: disaggregation
-    with speculation is not wired (as in the JAX package)."""
+    with speculation is not wired (as in the JAX package). The telemetry
+    and ONE request recorder are shared by both tiers, so SLO stamps and a
+    request's trace span the seam; ``xprof`` goes to the decode tier, and
+    the prefill tier makes its own observatory (unless GROVE_XPROF=0)."""
     dev = resolve_device(device)
     if isinstance(key_or_params, torch.Generator):
         key_or_params = llama.init_params(cfg, key_or_params, dev)
@@ -2099,11 +2543,14 @@ def make_disagg(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
     params = _quantized(key_or_params, quant)
     for knob in ("spec_decode", "spec_k", "draft_params"):
         common.pop(knob, None)
+    if reqtrace is None:
+        reqtrace = (reqtrace_mod.RequestObservatory()
+                    if reqtrace_mod.enabled() else False)
     pre_kwargs = dict(common)
     if prefill_num_blocks is not None:
         pre_kwargs["num_blocks"] = prefill_num_blocks
     pre = PrefillEngine(cfg, params, batch=prefill_slots or batch,
-                        mesh=mesh, telemetry=telemetry, xprof=xprof,
+                        mesh=mesh, telemetry=telemetry,
                         reqtrace=reqtrace, quant=quant, device=dev,
                         **pre_kwargs)
     dec = PagedDecodeEngine(cfg, params, batch=batch, mesh=mesh,

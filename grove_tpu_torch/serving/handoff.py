@@ -67,8 +67,11 @@ class HandoffPayload:
     recompute: bool
     source: object                  # producing PrefillEngine
     block_bytes: int                # bytes one block moves (quant-aware)
-    # The request's live trace in the JAX package; the port has no request
-    # observatory, so it stays None.
+    # The request's live trace (serving/reqtrace.RequestTrace | None),
+    # carried across the seam so ONE trace spans both tiers: the adopting
+    # engine splices it through ``RequestObservatory.adopt_trace`` (a
+    # no-op under the shared disaggregated recorder). None when tracing
+    # is off.
     trace: object = None
     created_ts: float = dataclasses.field(default_factory=time.time)
     _released: bool = dataclasses.field(default=False, repr=False)

@@ -147,6 +147,11 @@ class PagedScheduler:
         self.deferred_total = 0
         self.preemptions_total = 0
         self.prefix_tokens_skipped_total = 0
+        # serving/reqtrace.RequestObservatory | None: the owning engine
+        # shares its recorder, so preemption and prefix boundaries stamp
+        # from the transition itself (host bookkeeping, unconditional: a
+        # preemption-storm request's attribution is never sampled away).
+        self.reqtrace = None
 
     # ---- occupancy ----
 
@@ -236,6 +241,12 @@ class PagedScheduler:
             self.deferred_total += 1
             return None
         self.prefix_tokens_skipped_total += seq.prefix_matched
+        if self.reqtrace is not None and self.prefix_tree is not None \
+                and not recompute:
+            bs = self.allocator.block_size
+            self.reqtrace.note_prefix(
+                req.rid, seq.prefix_matched // bs,
+                -(-len(tokens) // bs), seq.prefix_matched)
         if not recompute:
             # TTFT segmentation for the bench surfaces (warm vs cold):
             # first admission only — a later recompute hit is recovery,
@@ -406,6 +417,8 @@ class PagedScheduler:
         victim.preemptions += 1
         self.preemptions_total += 1
         self.preempted.appendleft(victim)
+        if self.reqtrace is not None:
+            self.reqtrace.note_preempt(victim.req.rid, reason="capacity")
         return victim
 
     def ensure_decode_capacity(self, tokens_per_tick: int = 1

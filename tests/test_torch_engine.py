@@ -19,6 +19,7 @@ from grove_tpu.serving import engine as jengine
 from grove_tpu_torch.convert import params_from_numpy
 from grove_tpu_torch.models import llama as tllama
 from grove_tpu_torch.serving import engine as tengine
+from grove_tpu_torch.serving.slo import EngineTelemetry
 
 # Small shapes: one intra-op thread keeps these tests from crowding the
 # timing-sensitive control-plane tests that run beside them in parallel.
@@ -237,9 +238,10 @@ def test_make_engine_modes(params, monkeypatch):
     monkeypatch.setenv("GROVE_ENGINE", "bogus")
     with pytest.raises(ValueError):
         tengine.make_engine(T_CFG, tp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tengine.make_engine(T_CFG, tp, mode="lanes", device="cpu",
-                            telemetry=object())
+    tel = EngineTelemetry()
+    eng = tengine.make_engine(T_CFG, tp, mode="lanes", device="cpu",
+                              telemetry=tel)
+    assert eng.telemetry is tel  # the observatories are ported
     worker = tengine.PrefillWorker(T_CFG, tp, max_prompt=8, prefill_chunk=4,
                                    device="cpu")
     res = worker.prefill([np.arange(1, 7, dtype=np.int32)])
@@ -262,15 +264,22 @@ def test_engine_quant_int8_runs(params):
 
 # ---- import guard ----
 
+# The port's serving modules the import rule must be seen to cover.
+OBSERVED_MODULES = ("handoff", "metrics", "slo", "metrics_push", "reqtrace",
+                    "xprof")
+
+
 def _port_modules():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_port_sources_import_no_jax():
     """AST scan: no file of the port (nor chip_smoke.py) imports jax or the
-    JAX package; the scan covers the handoff module."""
+    JAX package; the scan covers the handoff module and the observatories
+    (the metrics sink, slo, metrics_push, reqtrace, xprof)."""
     bad = []
-    assert PKG / "serving" / "handoff.py" in _port_modules()
+    for name in OBSERVED_MODULES:
+        assert PKG / "serving" / f"{name}.py" in _port_modules(), name
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -290,7 +299,8 @@ def test_importing_every_port_module_loads_no_jax():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m.removesuffix(".__init__") for m in mods]
-    assert "grove_tpu_torch.serving.handoff" in mods
+    for name in OBSERVED_MODULES:
+        assert f"grove_tpu_torch.serving.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

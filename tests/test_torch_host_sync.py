@@ -13,20 +13,28 @@ every kernel wrapper that a captured step or chunk runs, with the helpers
 of its own module that it calls; and the disaggregated path: the decode
 tier's ``adopt`` and its handoff copy (``_get_handoff``,
 ``llama.paged_block_copy``/``_q``), the pair's ``step`` and ``_pump``, and
-the prefill tier's ``step``. Banned there: ``.item()``, ``.cpu()``,
-``.tolist()``, ``int()`` / ``float()`` / ``bool()`` of anything but a
-constant, a name or shape arithmetic, and ``torch.cuda.synchronize``.
+the prefill tier's ``step``; and the observatories' methods that the
+dispatch path calls (the sampling gates, the timing bracket ``_tic`` /
+``_toc`` and ``DeviceTimer.start`` / ``stop``, the build notes, the
+``note_*`` seam calls, the flight recorder's ``record``, and the
+telemetry's ``add_tokens`` / ``sample_*``). Banned there: ``.item()``,
+``.cpu()``, ``.tolist()``, ``int()`` / ``float()`` / ``bool()`` of anything
+but a constant, a name or shape arithmetic, ``torch.cuda.synchronize`` /
+``Event.synchronize``, ``Event.elapsed_time`` and ``Event.query``.
+``elapsed_time`` appears in the port only in ``DeviceTimer.resolve``, which
+the engines reach through ``_resolve_timings`` only after a fetch.
 """
 
 import ast
 import inspect
+import pathlib
 import textwrap
 
 import pytest
 
 from grove_tpu_torch.models import llama
 from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
-from grove_tpu_torch.serving import engine
+from grove_tpu_torch.serving import engine, reqtrace, schedule, slo, xprof
 
 STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick", "_spec_tick",
               "_decode_or_spec_tick")
@@ -74,7 +82,32 @@ WRAPPERS = {
                                 "_one_query", "_scratch", "scratch_elems",
                                 "n_spans")),
 }
-SYNC_METHODS = {"item", "cpu", "tolist", "synchronize"}
+# The observatories' methods the dispatch path calls, by class.
+OBSERVATORY_METHODS = [
+    (engine._Observed, ("_tic", "_toc", "_tracked", "_note_build")),
+    (engine.PagedDecodeEngine, ("_install", "_note_chunk")),
+    (engine.DecodeEngine, ("_observed",)),
+    (xprof.DeviceTimer, ("start", "stop")),
+    (xprof.FlightRecorder, ("should_sample", "record")),
+    (xprof.Observatory, ("should_sample", "record")),
+    (xprof.CompileTracker, ("seen", "note_build", "_on_compile")),
+    (reqtrace.RequestObservatory, (
+        "should_sample", "note_enqueue", "note_admit", "note_prefix",
+        "note_chunk", "note_prefill_done", "note_handoff",
+        "note_decode_start", "note_preempt", "note_resume",
+        "note_spec_window", "note_done", "adopt_trace", "live_trace",
+        "_drop", "_retain_slowest")),
+    (reqtrace.RequestTrace, ("add_span",)),
+    (slo.EngineTelemetry, ("add_tokens", "sample_gauges", "sample_memory",
+                           "sample_prefix", "sample_spec", "sample_handoff",
+                           "sample_phases", "observe_request", "_observe")),
+]
+# Where the engines read the device timings: each of these fetches first.
+RESOLVERS = {"DecodeEngine": ("admit_prompts", "_drain", "sync", "run"),
+             "PagedDecodeEngine": ("_drain", "_take_first", "sync")}
+FETCHES = {"cpu", "synchronize", "_sample_first", "prefill"}
+SYNC_METHODS = {"item", "cpu", "tolist", "synchronize", "elapsed_time",
+                "query"}
 CASTS = {"int", "float", "bool"}
 
 
@@ -160,6 +193,60 @@ def test_spec_step_model_functions_have_no_host_sync(name):
     assert host_syncs(_function(llama, name)) == []
 
 
+@pytest.mark.parametrize("cls,name", [
+    (cls, name) for cls, names in OBSERVATORY_METHODS for name in names],
+    ids=lambda v: getattr(v, "__name__", v))
+def test_observatory_hooks_have_no_host_sync(cls, name):
+    assert host_syncs(_method(cls, name)) == []
+
+
+def _calls(fn_node: ast.AST, attr: str) -> list[int]:
+    return [n.lineno for n in ast.walk(fn_node)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr == attr]
+
+
+def test_device_timings_are_read_only_after_a_fetch():
+    """``elapsed_time`` is in ``DeviceTimer.resolve`` alone; the engines
+    call the resolver in the named methods only, each after a fetch that
+    waited for the stream; and neither the dispatch path nor the
+    scheduler reaches it."""
+    pkg = pathlib.Path(engine.__file__).resolve().parents[1]
+    found = []
+    for path in sorted(pkg.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and \
+                    _calls(node, "elapsed_time"):
+                found.append((path.name, node.name))
+    assert found == [("xprof.py", "resolve")]
+    assert _calls(_method(engine._Observed, "_resolve_timings"),
+                  "resolve")
+    tree = ast.parse(inspect.getsource(engine))
+    callers = {}
+    for cls in tree.body:
+        if not isinstance(cls, ast.ClassDef):
+            continue
+        for fn in cls.body:
+            if isinstance(fn, ast.FunctionDef) and \
+                    fn.name != "_resolve_timings":
+                lines = _calls(fn, "_resolve_timings") + _calls(fn, "resolve")
+                if lines:
+                    callers[(cls.name, fn.name)] = (fn, min(lines))
+    assert set(callers) == {(c, n) for c, names in RESOLVERS.items()
+                            for n in names}
+    for (cls, name), (fn, line) in callers.items():
+        fetched = [ln for f in FETCHES for ln in _calls(fn, f)]
+        assert fetched and min(fetched) < line, (cls, name)
+    for name in STEP_FUNCS:
+        fn = _method(engine.PagedDecodeEngine, name)
+        assert not _calls(fn, "_resolve_timings") and \
+            not _calls(fn, "resolve"), name
+    sched = ast.parse(inspect.getsource(schedule))
+    assert not _calls(sched, "resolve") and \
+        not _calls(sched, "_resolve_timings")
+
+
 def test_every_captured_wrapper_is_scanned():
     scanned = {n for module, names in WRAPPERS.values() for n in names}
     assert {w.__name__ for w in engine._KERNEL_WRAPPERS} <= scanned
@@ -171,6 +258,9 @@ def test_every_captured_wrapper_is_scanned():
     ("def f(x):\n    return int(x[0])", ["2: int(<tensor?>)"]),
     ("def f(x):\n    torch.cuda.synchronize()", ["2: .synchronize()"]),
     ("def f(x):\n    return x.tolist()", ["2: .tolist()"]),
+    ("def f(a, b):\n    return a.elapsed_time(b)", ["2: .elapsed_time()"]),
+    ("def f(e):\n    return e.query()", ["2: .query()"]),
+    ("def f(e):\n    e.synchronize()", ["2: .synchronize()"]),
     ("def f(x, n):\n    return int(n) + int(x.shape[0] * 2) + int(len(x))",
      []),
     ("def f(x):\n    return float(x.float().mean())",

@@ -498,8 +498,7 @@ def test_make_engine_defaults_to_paged(params, monkeypatch):
     assert eng.decode._prefix is None and eng.prefill._prefix is None
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(xprof=object()), dict(reqtrace=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_options_raise(params, kw):
     _, tp = params
     with pytest.raises(NotImplementedError):
