@@ -119,6 +119,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      disaggregated pair once (one trace per rid across the seam, handoff
      series equal to handoff_view()) and the lanes engine once (an
      event-timed prefill of the flash path).
+ 13. training and checkpoints, one JSON line per check: test-tiny and
+     moe-test-tiny training in f32 on the card against the CPU (loss,
+     every gradient, three AdamW steps); llama-1b at full width and depth
+     in bf16, three train steps on 2 x 2,048 tokens (a falling loss, step
+     time, tokens/s, peak memory, model-FLOP share, a profiled step's
+     device time by kernel family); one MoE train step at
+     Mixtral-8x7B's widths with 2 of its 32 layers; no kernel launched by
+     training; the trained params through save_params / load_params
+     bitwise; A -> B -> A warm restarts into live llama-1b engines (paged
+     with bf16 and int8 weights and self-draft spec, and the lanes engine
+     with 128-token prompts through the flash kernel): tokens equal fresh
+     engines' tokens, no new build, the barrier responder's new step.
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -487,7 +499,10 @@ def profile_window(name: str, fn, wall_ms: float, card: str,
         torch.cuda.synchronize()
     rows = []  # kernel-level rows only (operator rows repeat them)
     for e in prof.key_averages():
-        if str(e.device_type) != "DeviceType.CUDA":
+        # A user annotation's device row (the optimizer's step) spans the
+        # kernels inside it, which have rows of their own.
+        if str(e.device_type) != "DeviceType.CUDA" or \
+                getattr(e, "is_user_annotation", False):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -4111,6 +4126,502 @@ def phase_observatories(seed: int, card: str, cfg=None, device: str = "cuda",
             "step_p50_ms": p50}
 
 
+# ---- training and checkpoints ----
+
+# The hand-written kernels, by wrapper module, whose counts phase 13 reads:
+# the training path must launch none, the warm-restart serves each of
+# RESTART_KERNELS.
+KERNEL_WRAPPERS = SPEC_WRAPPERS + ("flash_causal_attention",)
+RESTART_KERNELS = ("flash_causal_attention", "paged_decode_attention",
+                   "paged_chunk_attention", "paged_rope_scatter",
+                   "w8a16_matmul", "dense_matmul", "rms_norm",
+                   "add_rms_norm")
+
+
+def kernel_wrappers() -> dict:
+    from grove_tpu_torch.ops import flash, kvquant, norms, paged, w8a16
+    return {n: getattr(m, n) for n in KERNEL_WRAPPERS
+            for m in (paged, kvquant, w8a16, norms, flash) if hasattr(m, n)}
+
+
+def emit(check: str, **fields) -> None:
+    """One phase-13 result as a JSON line."""
+    print(json.dumps({"phase": 13, "check": check, **fields}), flush=True)
+
+
+def _leaves(tree):
+    """(path, tensor) of every leaf of a params dict, int8 leaves as their
+    q and scale (``quant.flatten_params``)."""
+    from grove_tpu_torch.serving.quant import flatten_params
+    return flatten_params(tree)[0].items()
+
+
+def train_parity(family: str, mod, cfg, seed: int, device: str,
+                 steps: int = 3) -> dict:
+    """The port's training step at ``cfg`` (f32) on ``device`` against the
+    CPU: the same params (one numpy tree through ``params_from_numpy``) and
+    tokens. The loss to 1e-5 relative, every gradient leaf to 1e-4 of its
+    max norm, every param after ``steps`` AdamW steps to 1e-4, but for
+    elements whose first gradient is rounding noise around zero on both
+    sides (at most 1e-7 of the leaf's max norm, not exactly zero): Adam's
+    first update there is g / (|g| + 1e-8), so they are held to 2 lr,
+    counted, and capped at max(1, size // 1000) per leaf, as the CPU
+    test caps them."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch import train
+    from grove_tpu_torch.convert import params_from_numpy
+
+    gen = torch.Generator().manual_seed(seed)
+    host = mod.init_params(cfg, gen, device="cpu")
+    tree = {k: ({n: w.numpy() for n, w in v.items()}
+                if isinstance(v, dict) else v.numpy())
+            for k, v in host.items()}
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    out = {}
+    for dev in (device, "cpu"):
+        params = params_from_numpy(tree, device=dev)
+        opt = train.make_optimizer(params)
+        tokens = torch.from_numpy(toks).to(dev)
+        losses, first = [], None
+        for i in range(steps):
+            losses.append(train.train_step(cfg, params, opt, tokens,
+                                           loss=mod.loss_fn))
+            if i == 0:
+                first = {k: t.grad.detach().cpu().clone()
+                         for k, t in _leaves(params)}
+        out[dev] = (float(losses[0]), first,
+                    {k: t.detach().cpu() for k, t in _leaves(params)})
+    (l_dev, g_dev, p_dev), (l_cpu, g_cpu, p_cpu) = out[device], out["cpu"]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_rel = max(((g_dev[k] - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30)).item()
+                   for k, g in g_cpu.items())
+    param_err, noise_err, noise, over_cap = 0.0, 0.0, 0, []
+    for k, p in p_cpu.items():
+        ga, gb = g_cpu[k].abs(), g_dev[k].abs()
+        thr = 1e-7 * ga.max()
+        mask = (ga <= thr) & (gb <= thr) & ((ga > 0) | (gb > 0))
+        err = (p_dev[k] - p).abs()
+        if (~mask).any():
+            param_err = max(param_err, err[~mask].max().item())
+        if mask.any():
+            n = int(mask.sum())
+            noise += n
+            noise_err = max(noise_err, err[mask].max().item())
+            if n > max(1, p.numel() // 1000):
+                over_cap.append(k)
+    fields = {"family": family, "device": device, "dtype": "float32",
+              "loss_device": l_dev, "loss_cpu": l_cpu,
+              "loss_rel_diff": loss_rel, "loss_tol": 1e-5,
+              "grad_max_rel_diff": grad_rel, "grad_tol": 1e-4,
+              "adamw_steps": steps, "param_max_abs_diff": param_err,
+              "param_tol": 1e-4, "noise_elements": noise,
+              "noise_cap": "max(1, leaf size // 1000) per leaf",
+              "noise_over_cap": over_cap,
+              "noise_max_abs_diff": noise_err, "noise_tol": 2e-3}
+    emit("train_parity", **fields)
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_err <= 1e-4
+            and noise_err <= 2e-3 and not over_cap):
+        raise AssertionError(f"training parity {family}: {fields}")
+    return fields
+
+
+def train_full(cfg, seed: int, device: str, batch: int, seq: int,
+               card: str, steps: int = 3):
+    """``steps`` train steps of ``cfg`` (bf16) on one fixed batch of
+    ``batch`` x ``seq`` tokens: the loss finite and falling from the first
+    step to the last, every gradient leaf finite and one non-zero; the step
+    time from CUDA events over the steps after the first, tokens/s, the
+    peak device memory and 6 N tokens / step time / 989e12; on the card
+    one more step under the profiler, its device time by kernel family.
+    Returns the trained params. The batch falls back to 1 (said so) if
+    ``batch`` does not fit; the sequence is never shortened."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch import train
+    from grove_tpu_torch.models import llama
+
+    on_cuda = device == "cuda"
+    note = None
+    while True:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = llama.init_params(cfg, gen, device=device)
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(device)
+        opt = train.make_optimizer(params)
+        if on_cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            losses = [train.train_step(cfg, params, opt, toks)]
+            first_s = None
+            if on_cuda:
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            for _ in range(steps - 1):
+                losses.append(train.train_step(cfg, params, opt, toks))
+            if on_cuda:
+                ev[1].record()
+                torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            note = (f"batch {batch} x {seq} did not fit in device memory; "
+                    f"batch 1 x {seq} instead")
+            log(f"train: {note}")
+            del params, opt
+            torch.cuda.empty_cache()
+            batch = 1
+    vals = [float(v) for v in losses]
+    grads = [p.grad for p in train.param_leaves(params)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = any(bool((g != 0).any()) for g in grads)
+    n_params = sum(p.numel() for p in train.param_leaves(params))
+    tokens = batch * seq
+    fields = {"model": "llama-1b", "dtype": str(cfg.dtype),
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "batch": batch, "seq": seq, "tokens_per_step": tokens,
+              "losses": vals, "grads_finite": finite,
+              "grads_nonzero": nonzero, "params": n_params, "card": card}
+    if note:
+        fields["note"] = note
+    if on_cuda:
+        step_ms = ev[0].elapsed_time(ev[1]) / (steps - 1)
+        fields.update(
+            first_step_s=first_s, step_ms=step_ms,
+            tokens_per_s=tokens / (step_ms / 1e3),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            model_flop_share=6 * n_params * tokens / (step_ms / 1e3)
+            / PEAK_OPS_PER_S["torch.bfloat16"])
+        # Where a step's device time goes, by kernel family (one more
+        # step, under the profiler): kernels named "gemm" (the f32
+        # products: the scores and the LM head), cuBLAS's "nvjet" kernels
+        # (the bf16 projections), elementwise and reductions, softmax, the
+        # optimizer's foreach kernels, gathers.
+        families = ("gemm", "nvjet", "elementwise", "reduce", "SoftMax",
+                    "multi_tensor_apply", "index")
+        prof = profile_window(
+            f"llama-1b train step ({batch} x {seq})",
+            lambda: train.train_step(cfg, params, opt, toks), step_ms,
+            card, families, top=15)
+        fields["profile"] = {"busy_ms": prof["busy_ms"],
+                             "kernels": prof["count"],
+                             **{f"{f}_ms": prof[f] for f in families}}
+    emit("train_llama", **fields)
+    if not (all(np.isfinite(vals)) and vals[-1] < vals[0] and finite
+            and nonzero):
+        raise AssertionError(f"llama training: {fields}")
+    return params
+
+
+def train_moe(cfg, seed: int, device: str, seq: int, card: str,
+              reduced: dict) -> None:
+    """One train step of the dense MoE path at ``cfg`` (bf16), batch 1 x
+    ``seq``: the loss and every gradient finite, every expert picked by a
+    token in layer 0; the step's time and the peak device memory."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch import train
+    from grove_tpu_torch.models import llama, moe
+    from grove_tpu_torch.ops.attention import causal_attention
+    from grove_tpu_torch.ops.norms import rms_norm_ref
+
+    on_cuda = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = moe.init_params(cfg, gen, device=device)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, seq)).astype(np.int32)).to(device)
+    with torch.no_grad():                 # layer 0's routing
+        x = llama.embed(cfg, params, toks)
+        cos, sin = llama._rope(cfg.max_seq_len, cfg.head_dim,
+                               cfg.rope_theta, toks.device)
+        pos = torch.arange(seq, device=device).expand(1, seq)
+        lp = llama.layer_params(params["layers"], 0)
+        q, k, v = llama.qkv(cfg, x, lp, cos, sin, pos)
+        x = llama.attn_out(x, causal_attention(q, k, v), lp)
+        hm = rms_norm_ref(x, lp["mlp_norm"], cfg.norm_eps)
+        logits = hm.float() @ lp["router"].float()
+        picks = torch.topk(logits, cfg.experts_per_token, dim=-1)[1]
+        per_expert = torch.bincount(picks.reshape(-1),
+                                    minlength=cfg.n_experts).tolist()
+    opt = train.make_optimizer(params)
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(train.train_step(cfg, params, opt, toks, loss=moe.loss_fn))
+    step_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in train.param_leaves(params))
+    fields = {"model": "mixtral-8x7b", "dtype": str(cfg.dtype),
+              "reduced": reduced, "batch": 1, "seq": seq, "loss": loss,
+              "grads_finite": finite, "layer0_tokens_per_expert": per_expert,
+              "params": sum(p.numel() for p in train.param_leaves(params)),
+              "step_s": step_s, "card": card}
+    if on_cuda:
+        fields["peak_bytes"] = torch.cuda.max_memory_allocated()
+    emit("train_moe", **fields)
+    if not (np.isfinite(loss) and finite and min(per_expert) > 0):
+        raise AssertionError(f"MoE training: {fields}")
+
+
+def checkpoint_roundtrip(params, device: str, card: str) -> None:
+    """``save_params`` then ``load_params(like=)`` of ``params`` in a fresh
+    temporary directory: every leaf back bitwise on ``device``; the bytes,
+    both seconds and GB/s."""
+    import shutil
+    import tempfile
+    import torch
+    from grove_tpu_torch.serving import checkpoint as ckpt
+    from grove_tpu_torch.serving.quant import params_bytes
+
+    d = tempfile.mkdtemp(prefix="grove-ckpt-")
+    try:
+        nbytes = params_bytes(params)
+        t0 = time.perf_counter()
+        ckpt.save_params(d, params, step=0)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.load_params(d, 0, like=params)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs = list(zip(_leaves(params), _leaves(back)))
+        same = all(ka == kb and b.device == a.device and b.dtype == a.dtype
+                   and torch.equal(a.detach(), b)
+                   for (ka, a), (kb, b) in pairs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    fields = {"leaves": len(pairs), "bytes": nbytes, "bitwise": same,
+              "save_s": save_s, "load_s": load_s,
+              "save_gb_per_s": nbytes / save_s / 1e9,
+              "load_gb_per_s": nbytes / load_s / 1e9,
+              "device": str(back["lm_head"].device), "card": card}
+    emit("checkpoint_roundtrip", **fields)
+    if not same:
+        raise AssertionError(f"checkpoint round trip not bitwise: {fields}")
+
+
+def restart_case(label: str, cfg, a, b, device: str, card: str, rng,
+                 kw: dict, root: str, n_requests: int, prompt_lo: int,
+                 prompt_hi: int, new_tokens: int, lanes_prompt: int = 128,
+                 barrier: bool = False) -> None:
+    """A -> B -> A into one live engine: an engine on params ``a`` serves
+    the traffic (tokens T_A); B's checkpoint is copied in place by
+    ``warm_restart`` and the engine serves the tokens of a fresh engine on
+    ``b`` (T_B); A's step 0 restored, T_A again, bitwise. No build after
+    the first warmup: the graph count and the observatory's compile table
+    stay put. The checkpoints live under ``root``, one pair per kind of
+    weights (dense or int8), each written by ``save_engine`` (step 0) from
+    the first engine of its kind and restored into the later ones. With
+    ``barrier``, the responder's duck-typed call moves ``latest_step`` of
+    A's directory from 0 to 1."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.serving import checkpoint as ckpt
+    from grove_tpu_torch.serving.engine import DecodeEngine, make_engine
+
+    lanes = kw.get("mode") == "lanes"
+    if lanes:
+        batch = kw["batch"]
+        traffic = rng.integers(0, cfg.vocab_size,
+                               (batch, lanes_prompt)).astype(np.int32)
+    else:
+        traffic = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(
+            np.int32) for n in rng.integers(prompt_lo, prompt_hi + 1,
+                                            size=n_requests)]
+
+    def build(params):
+        eng = make_engine(cfg, params, device=device, **kw)
+        if not lanes:
+            span = eng.spec_k + 1 if eng.spec_decode else 1
+            longest = prompt_hi + new_tokens
+            eng.warmup(widths=eng.decode_width_buckets(prompt_lo,
+                                                       longest + span),
+                       prefill_widths=eng.decode_width_buckets(1, longest))
+        return eng
+
+    def serve(eng) -> list[list[int]]:
+        n0 = len(eng.completed)
+        if isinstance(eng, DecodeEngine):
+            eng.admit_prompts(torch.from_numpy(traffic).to(device),
+                              max_new_tokens=new_tokens)
+            for _ in range(new_tokens):
+                if len(eng.completed) >= n0 + len(traffic):
+                    break
+                eng.run(eng.host_sync_interval)
+            eng.sync()
+            if len(eng.completed) < n0 + len(traffic):
+                raise AssertionError(f"{label}: lanes not all answered")
+        else:
+            for p in traffic:
+                eng.submit(p, max_new_tokens=new_tokens)
+            drive_paged(eng, n0 + len(traffic))
+        return [list(r.generated)
+                for r in sorted(eng.completed[n0:], key=lambda r: r.rid)]
+
+    def builds(eng) -> dict:
+        return {"graphs": getattr(eng, "graphs_captured", 0),
+                "compile_table": sum(eng.xprof.compile.counts().values())
+                if eng.xprof is not None else None}
+
+    kind = "int8" if kw.get("quant") == "int8" else "dense"
+    path_a, path_b = (os.path.join(root, kind, x) for x in ("a", "b"))
+    fresh = build(b)
+    tok_b = serve(fresh)
+    if ckpt.latest_step(path_b) is None:
+        ckpt.save_engine(path_b, fresh)
+    del fresh
+    live = build(a)
+    warm = builds(live)
+    held = [t for _, t in _leaves(live.params)]
+    tree = live.params
+    t0 = time.perf_counter()
+    tok_a = serve(live)
+    serve_s = time.perf_counter() - t0
+    # The lanes engine runs eagerly: its builds are the first serve's.
+    built = builds(live)
+    if ckpt.latest_step(path_a) is None:
+        ckpt.save_engine(path_a, live)                     # step 0
+    t0 = time.perf_counter()
+    ckpt.warm_restart(path_b, live)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    restart_s = time.perf_counter() - t0
+    got_b = serve(live)
+    ckpt.warm_restart(path_a, live, step=0)
+    got_a = serve(live)
+    kept = live.params is tree and all(
+        t is u for t, (_, u) in zip(held, _leaves(live.params)))
+    after = builds(live)
+    steps = None
+    if barrier:
+        respond = ckpt.engine_responder(live, path_a)
+        before_step = ckpt.latest_step(path_a)
+        respond(None)                 # what a registered barrier calls
+        steps = [before_step, ckpt.latest_step(path_a)]
+    fields = {"engine": label, "requests": len(traffic),
+              "new_tokens": new_tokens,
+              "b_differs_from_a": tok_b != tok_a,
+              "restored_b_equals_fresh_b": got_b == tok_b,
+              "restored_a_equals_a": got_a == tok_a,
+              "params_kept_in_place": kept,
+              "builds_after_warmup": warm,
+              "builds_after_first_serve": built, "builds_after": after,
+              "warm_restart_s": restart_s, "serve_s": serve_s,
+              "card": card}
+    if steps is not None:
+        fields["barrier_latest_step"] = steps
+    emit("warm_restart", **fields)
+    if not (tok_b != tok_a and got_b == tok_b and got_a == tok_a
+            and kept and after == built and (lanes or warm == built)
+            and (steps is None or steps == [0, 1])):
+        raise AssertionError(f"warm restart ({label}): {fields}")
+
+
+def phase_train_checkpoint(seed: int, card: str, cfg=None, moe_cfg=None,
+                           tiny=None, moe_tiny=None, device: str = "cuda",
+                           batch: int = 2, seq: int = 2048,
+                           moe_layers: int = 2, moe_seq: int = 1024,
+                           n_requests: int = 8, prompt_lo: int = 64,
+                           prompt_hi: int = 256, new_tokens: int = 16,
+                           restart_max_len: int = 512,
+                           lanes_prompt: int = 128) -> dict[str, int]:
+    """Training and checkpoints. (1) test-tiny and moe-test-tiny in f32:
+    the card against the CPU (``train_parity``). (2) llama-1b at full width
+    and depth, bf16, ``batch`` x ``seq`` tokens, three train steps on one
+    batch (``train_full``). (3) Mixtral-8x7B's widths at ``moe_layers``
+    layers (32 layers of bf16 weights, about 94 GB, do not fit one 80 GB
+    card), batch 1 x ``moe_seq``, one train step (``train_moe``). The
+    training steps launch no hand-written kernel (counts read around them).
+    (4) the trained llama-1b params through ``save_params`` /
+    ``load_params(like=)`` bitwise (``checkpoint_roundtrip``). (5) A -> B
+    -> A warm restarts into live llama-1b engines (``restart_case``): the
+    paged engine with bf16 weights, with int8 weights, with self-draft
+    speculation, and the lanes engine with ``lanes_prompt``-token prompts
+    (its prefill through the flash kernel; then the barrier's responder).
+    Returns the kernels' launches over (5), the counts zeroed before it.
+    With ``device="cpu"`` and small configs the same steps rehearse on the
+    CPU (plain versions, no launch, no timing)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama, moe
+
+    on_cuda = device == "cuda"
+    cfg = cfg or llama.CONFIGS["llama-1b"]
+    moe_cfg = moe_cfg or moe.MOE_CONFIGS["mixtral-8x7b"]
+    tiny = tiny or llama.CONFIGS["test-tiny"]
+    moe_tiny = moe_tiny or moe.MOE_CONFIGS["moe-test-tiny"]
+    wrappers = kernel_wrappers()
+    emit("numerics", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         float32_matmul_precision=torch.get_float32_matmul_precision())
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 products must not take TF32")
+
+    # (1)-(3): training; no kernel may launch.
+    for w in wrappers.values():
+        w.launches = 0
+    for family, mod, c in (("llama", llama, tiny), ("moe", moe, moe_tiny)):
+        train_parity(family, mod, dataclasses.replace(c, dtype=torch.float32),
+                     seed + 41, device)
+    trained = train_full(cfg, seed + 42, device, batch, seq, card)
+    reduced = {"n_layers": f"{moe_cfg.n_layers} -> {moe_layers}"}
+    train_moe(dataclasses.replace(moe_cfg, n_layers=moe_layers), seed + 43,
+              device, moe_seq, card, reduced)
+    launched = {n: w.launches for n, w in wrappers.items() if w.launches}
+    emit("train_kernel_launches", launches=launched)
+    if launched:
+        raise AssertionError(f"the training path launched kernels: "
+                             f"{launched}")
+    # (4) the checkpoint round trip of the trained params.
+    checkpoint_roundtrip(trained, device, card)
+    del trained
+    if on_cuda:
+        torch.cuda.empty_cache()
+    # (5) warm restarts into live engines.
+    root = tempfile.mkdtemp(prefix="grove-restart-")
+    gen = torch.Generator(device=device).manual_seed(seed + 44)
+    a = llama.init_params(cfg, gen, device=device)
+    b = llama.init_params(cfg, gen, device=device)
+    rng = np.random.default_rng(seed + 44)
+    paged = dict(mode="paged", batch=8, max_len=restart_max_len)
+    traffic = dict(n_requests=n_requests, prompt_lo=prompt_lo,
+                   prompt_hi=prompt_hi, new_tokens=new_tokens)
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        restart_case("paged, bf16 weights", cfg, a, b, device, card, rng,
+                     paged, root, **traffic)
+        restart_case("paged, int8 weights", cfg, a, b, device, card, rng,
+                     dict(paged, quant="int8"), root, **traffic)
+        restart_case("paged, self-draft spec", cfg, a, b, device, card, rng,
+                     dict(paged, spec_decode=True, spec_k=3,
+                          draft_params="self"), root, **traffic)
+        restart_case("lanes, flash prefill", cfg, a, b, device, card, rng,
+                     dict(mode="lanes", batch=8,
+                          max_len=lanes_prompt + new_tokens + 8), root,
+                     lanes_prompt=lanes_prompt, barrier=True, **traffic)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    emit("restart_kernel_launches", launches=launches)
+    missing = [n for n in RESTART_KERNELS if on_cuda and not launches[n]]
+    if missing:
+        raise AssertionError(f"the warm-restart serves never launched "
+                             f"{missing}")
+    return launches
+
+
 def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
                 steps: int = 64, spec_k: int = 3,
                 spec_steps: int = 16) -> None:
@@ -4302,6 +4813,11 @@ def main() -> int:
     phase_observatories(args.seed, card,
                         step_device_ms=launches["step_device_ms"])
     phase_done("phase 12 (observatories)")
+    # 13. training and checkpoints (warm restarts into live engines)
+    restart = phase_train_checkpoint(args.seed, card)
+    for row in [flash_row, *paged_rows]:
+        row["restart_launches"] = restart[row["name"]]
+    phase_done("phase 13 (training and checkpoints)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

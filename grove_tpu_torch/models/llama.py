@@ -12,6 +12,10 @@ ops/w8a16.py on CUDA tensors (int8 weights, ``QTensor`` leaves: the W8A16
 build, which reads the weight as int8; dense weights: its bf16-weight
 build) and its plain version on CPU tensors (materialize then matmul; the
 einsum). Each residual add runs inside the next norm (``add_rms_norm``).
+
+Training (``forward``, ``loss_fn``) takes none of that: the kernels have no
+backward (each wrapper raises on an input that requires grad), so its
+layers are the JAX package's in plain ops, as XLA runs them there.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
 from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
                                          paged_rope_scatter_q)
-from grove_tpu_torch.ops.norms import add_rms_norm, rms_norm
+from grove_tpu_torch.ops.norms import add_rms_norm, rms_norm, rms_norm_ref
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
                                        paged_decode_attention,
@@ -109,20 +113,31 @@ def draft_config(cfg: LlamaConfig) -> LlamaConfig:
     )
 
 
+def dense_init(cfg: LlamaConfig, shape, fan_in: int,
+               generator: torch.Generator | None,
+               device: torch.device) -> torch.Tensor:
+    """normal(0, 1) * fan_in**-0.5 drawn in f32 from ``generator``, cast to
+    ``cfg.dtype``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * (fan_in ** -0.5)).to(cfg.dtype)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
-                device: str | torch.device | None = None) -> Params:
-    """Random params (layers stacked on axis 0): normal(0, 1) * fan_in**-0.5
-    in f32, cast to ``cfg.dtype``; norms are ones. The numbers come from
-    ``generator`` (torch's RNG, so not the JAX package's numbers); it must
-    live on ``device``. ``device=None`` means the card."""
+                device: str | torch.device | None = None,
+                include_mlp: bool = True) -> Params:
+    """Random params (layers stacked on axis 0): ``dense_init`` weights;
+    norms are ones. The numbers come from ``generator`` (torch's RNG, so
+    not the JAX package's numbers); it must live on ``device``.
+    ``device=None`` means the card. ``include_mlp=False`` leaves out the
+    dense MLP (the MoE family replaces it, and at real widths it would be
+    gigabytes thrown away)."""
     dev = resolve_device(device)
     d, h, kv, hd, ff, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, cfg.d_ff, cfg.n_layers)
 
     def dense(shape, fan_in):
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return (w * (fan_in ** -0.5)).to(cfg.dtype)
+        return dense_init(cfg, shape, fan_in, generator, dev)
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
@@ -134,10 +149,13 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
         "wk": dense((L, d, kv, hd), d),
         "wv": dense((L, d, kv, hd), d),
         "wo": dense((L, h, hd, d), h * hd),
-        "w_gate": dense((L, d, ff), d),
-        "w_up": dense((L, d, ff), d),
-        "w_down": dense((L, ff, d), ff),
     }
+    if include_mlp:
+        layers.update({
+            "w_gate": dense((L, d, ff), d),
+            "w_up": dense((L, d, ff), d),
+            "w_down": dense((L, ff, d), ff),
+        })
     return {
         "tok_embed": dense((cfg.vocab_size, d), d),
         "lm_head": dense((d, cfg.vocab_size), d),
@@ -708,3 +726,102 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
     new_lengths = torch.minimum(lengths + m + 1,
                                 torch.maximum(limit, lengths))
     return out, bonus[:, 0], new_lengths
+
+
+# ---- training --------------------------------------------------------
+# The JAX package's ``forward`` / ``loss_fn`` (grove_tpu/models/llama.py:
+# 216-279, :951-964): its prefill layer with the XLA attention, which runs
+# no Pallas kernel and which autodiff differentiates. The port's hand-written
+# kernels have no backward, so nothing here reaches one: the projections
+# are ``torch.einsum``, the norms ``rms_norm_ref`` (JAX's ``rms_norm`` is an
+# XLA composition) and attention the plain ``causal_attention``. The layers
+# are a Python loop over ``layer_params``, so each layer's gradient lands in
+# the stacked [L, ...] leaf, as ``lax.scan``'s does.
+
+PARALLEL_NOT_PORTED = ("tensor, pipeline, sequence and expert parallelism "
+                       "are not ported yet (ROADMAP.md, queue 1 item 6)")
+
+
+def _w(w) -> torch.Tensor:
+    """A weight for a plain product (an int8 leaf materialized)."""
+    return w.materialize() if isinstance(w, QTensor) else w
+
+
+def _einsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum(eq, x, w)`` at JAX's promoted type of x and w."""
+    w = _w(w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum(eq, x.to(dt), w.to(dt))
+
+
+def qkv(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cos: torch.Tensor,
+        sin: torch.Tensor, positions: torch.Tensor):
+    """Pre-norm, the QKV projections and rope (JAX's ``_qkv``)."""
+    h = rms_norm_ref(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = (_einsum("bsd,dhk->bshk", h, lp[n]) for n in ("wq", "wk", "wv"))
+    return (apply_rope(q, cos, sin, positions),
+            apply_rope(k, cos, sin, positions), v)
+
+
+def attn_out(x: torch.Tensor, attn: torch.Tensor, lp: Params) -> torch.Tensor:
+    """The attention output's projection, added to the residual."""
+    return x + _einsum("bshk,hkd->bsd", attn, lp["wo"]).to(x.dtype)
+
+
+def mlp_block(cfg: LlamaConfig, x: torch.Tensor,
+              lp: Params) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP, added to the residual."""
+    hm = rms_norm_ref(x, lp["mlp_norm"], cfg.norm_eps)
+    gate = _einsum("bsd,df->bsf", hm, lp["w_gate"])
+    up = _einsum("bsd,df->bsf", hm, lp["w_up"])
+    return x + _einsum("bsf,fd->bsd", F.silu(gate) * up,
+                       lp["w_down"]).to(x.dtype)
+
+
+def head(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the LM head, an f32 result from the working-type
+    values upcast (JAX's ``preferred_element_type=f32``)."""
+    x = rms_norm_ref(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x.to(torch.float32),
+                        _w(params["lm_head"]).to(torch.float32))
+
+
+def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            positions: torch.Tensor | None = None, mesh=None,
+            ring: bool = False, sp: str | None = None) -> torch.Tensor:
+    """Full forward: logits [b, s, vocab] f32, differentiable (the training
+    path). ``positions`` [b, s] defaults to 0..s-1 in every row. ``mesh``,
+    ``ring`` and ``sp`` (sequence parallelism) raise: not ported yet."""
+    if mesh is not None or ring or sp is not None:
+        raise NotImplementedError(PARALLEL_NOT_PORTED)
+    b, s = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(s, device=dev).expand(b, s)
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    x = embed(cfg, params, tokens)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        q, k, v = qkv(cfg, x, lp, cos, sin, positions)
+        x = attn_out(x, causal_attention(q, k, v), lp)
+        x = mlp_block(cfg, x, lp)
+    return head(cfg, params, x)
+
+
+def next_token_loss(logits: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32 (every model family's): the
+    log-softmax of each position's logits, gathered at the next token."""
+    targets = tokens[:, 1:].to(torch.long)
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    nll = -torch.take_along_dim(logp, targets[..., None], dim=-1)[..., 0]
+    return nll.mean()
+
+
+def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            mesh=None, ring: bool = False,
+            sp: str | None = None) -> torch.Tensor:
+    """Next-token cross-entropy of ``forward`` (the training loss)."""
+    return next_token_loss(forward(cfg, params, tokens, mesh=mesh, ring=ring,
+                                   sp=sp), tokens)

@@ -70,7 +70,11 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position of q[0]: an int shared by the whole batch or a per-sequence
     [b] tensor. Scores are taken in f32 from the working-type scaled q
     (the JAX ``preferred_element_type=f32`` product); the probabilities are
-    cast to v's type for the second product.
+    cast to v's type for the second product. The softmax's max is detached,
+    as JAX's ``stop_gradient`` takes it: the forward's bits are the same,
+    and the gradient takes no path through the max (a path whose sum is
+    zero in exact arithmetic, not in floats, and which a tie at the max
+    splits between the tied keys).
     """
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
@@ -90,7 +94,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
         mask = q_pos >= kv_pos[None, :]                # [sq, skv]
         logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     probs = probs / probs.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(b, sq, h, d)

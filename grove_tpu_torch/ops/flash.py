@@ -38,6 +38,7 @@ import functools
 import torch
 
 from grove_tpu_torch.ops import _build
+from grove_tpu_torch.ops._grad import refuse_grad
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -181,7 +182,9 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal GQA flash attention. q: [b, s, h, d]; k/v: [b, s, n_kv, d].
 
     CUDA tensors run the hand-written kernel; CPU tensors run
-    ``flash_causal_attention_ref``. Anything else raises."""
+    ``flash_causal_attention_ref``. Anything else raises, and so does an
+    input that requires grad (the kernel has no backward)."""
+    refuse_grad("flash_causal_attention", q, k, v)
     _check(q, k, v)
     dev = q.device.type
     if dev == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":

@@ -30,7 +30,8 @@ on that row.
 A model-dtype pool takes the rows as they are: the JAX package's
 ``_paged_scatter`` (``grove_tpu/models/llama.py:482``), whose plain version
 here is ``paged_scatter_ref`` (an index computation and one ``index_copy_``
-per pool). ``launches`` on each wrapper counts its launches.
+per pool). ``launches`` on each wrapper counts its launches. Each wrapper
+raises on rows that require grad (``ops/_grad.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import functools
 import torch
 
 from grove_tpu_torch.ops import _build
+from grove_tpu_torch.ops._grad import refuse_grad
 from grove_tpu_torch.ops.rope import apply_rope
 
 KV_SCALE_EPS = 1e-8
@@ -334,7 +336,9 @@ def paged_rope_scatter(k_pool: torch.Tensor, v_pool: torch.Tensor,
     null block; see ``scatter_slots``), and return the roped q.
 
     CUDA tensors run the hand-written kernel (one launch); CPU tensors run
-    ``paged_rope_scatter_ref``. Anything else raises."""
+    ``paged_rope_scatter_ref``. Anything else raises, and so does an input
+    that requires grad (the kernel has no backward)."""
+    refuse_grad("paged_rope_scatter", q, k, v)
     _check_rows(k_pool, v_pool, k, v, tables, positions, valid)
     _check_rope(q, k, v, cos, sin)
     if k_pool.dtype != k.dtype or v_pool.dtype != k.dtype:
@@ -360,6 +364,7 @@ def paged_rope_scatter_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
     f32 scales [nb, bs, n_kv]: the roped k (rounded to the rows' type
     first) and v are quantized as ``quantize_rows`` does it. Returns the
     roped q."""
+    refuse_grad("paged_rope_scatter_q", q, k, v)
     _check_rows(k_pool, v_pool, k, v, tables, positions, valid)
     _check_scales(k_pool, v_pool, k_scale, v_scale)
     _check_rope(q, k, v, cos, sin)
@@ -387,6 +392,7 @@ def paged_scatter_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
     CUDA tensors run the write kernel with rope off (one launch for K and
     V); CPU tensors run ``paged_scatter_q_ref`` on each pool. Anything else
     raises."""
+    refuse_grad("paged_scatter_q", k, v)
     _check_rows(k_pool, v_pool, k, v, tables, positions, valid)
     _check_scales(k_pool, v_pool, k_scale, v_scale)
     if not _route((k_pool, v_pool, k_scale, v_scale, k, v, tables,
@@ -413,6 +419,7 @@ def paged_scatter(k_pool: torch.Tensor, v_pool: torch.Tensor,
     CUDA tensors run the write kernel with rope off (one launch for K and
     V); CPU tensors run ``paged_scatter_ref`` on each pool. Anything else
     raises."""
+    refuse_grad("paged_scatter", k, v)
     _check_rows(k_pool, v_pool, k, v, tables, positions, valid)
     if k_pool.dtype not in _DTYPE_CODES or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"the scatter writes float32 or bfloat16 pools of "

@@ -25,6 +25,7 @@ import functools
 import torch
 
 from grove_tpu_torch.ops import _build
+from grove_tpu_torch.ops._grad import refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -133,7 +134,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
     CUDA tensors run the hand-written kernel (one launch, each row's result
     a function of that row alone); CPU tensors run ``rms_norm_ref``.
-    Anything else raises."""
+    Anything else raises, and so does an input that requires grad (the
+    kernel has no backward)."""
+    refuse_grad("rms_norm", x, weight)
     _check(x, weight)
     if not _route(x, weight):
         return rms_norm_ref(x, weight, eps)
@@ -154,7 +157,9 @@ def add_rms_norm(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
 
     CUDA tensors run the hand-written kernel (one launch that writes both;
     its normed rows are ``rms_norm``'s of s bit for bit); CPU tensors run
-    ``add_rms_norm_ref``. Anything else raises."""
+    ``add_rms_norm_ref``. Anything else raises, and so does an input that
+    requires grad."""
+    refuse_grad("add_rms_norm", x, delta, weight)
     _check(x, weight)
     if delta.shape != x.shape or delta.dtype != x.dtype:
         raise ValueError(f"add_rms_norm takes delta of x's shape and type, "

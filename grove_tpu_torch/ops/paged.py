@@ -43,8 +43,10 @@ column maps (``q8_column``, ``q8_output_column``; ``q8_geometry`` mirrors
 the ring); f32 dequantizes in its tile loads.
 
 Each wrapper takes its kernel for CUDA tensors and the plain version for
-CPU tensors; anything else raises. ``launches`` on each wrapper counts its
-launches (one per call: the split-K pass and its combine).
+CPU tensors; anything else raises, and so does an input that requires grad
+(``ops/_grad.py``: the kernels have no backward). ``launches`` on each
+wrapper counts its launches (one per call: the split-K pass and its
+combine).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import math
 import torch
 
 from grove_tpu_torch.ops import _build
+from grove_tpu_torch.ops._grad import refuse_grad
 from grove_tpu_torch.ops.attention import causal_attention, decode_attention
 
 MAX_HEAD_DIM = 128
@@ -372,6 +375,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     CUDA tensors run the hand-written kernel; CPU tensors run
     ``paged_decode_attention_ref``. Anything else raises."""
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     _check(q, k_pool, v_pool, tables, lengths, "lengths")
     _one_query(q)
     if _route(q, (k_pool, v_pool, tables, lengths)) == "cpu":
@@ -391,6 +395,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     CUDA tensors run the hand-written kernel; CPU tensors run
     ``paged_chunk_attention_ref``. Anything else raises."""
+    refuse_grad("paged_chunk_attention", q, k_pool, v_pool)
     _check(q, k_pool, v_pool, tables, offsets, "offsets")
     if _route(q, (k_pool, v_pool, tables, offsets)) == "cpu":
         return paged_chunk_attention_ref(q, k_pool, v_pool, tables, offsets)
@@ -409,6 +414,7 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
 
     CUDA tensors run the hand-written kernel; CPU tensors run
     ``paged_decode_attention_ref`` with the scales. Anything else raises."""
+    refuse_grad("paged_decode_attention_q8", q, k_scale, v_scale)
     _check(q, k_pool, v_pool, tables, lengths, "lengths", k_scale, v_scale)
     _one_query(q)
     if _route(q, (k_pool, v_pool, k_scale, v_scale, tables,
@@ -429,6 +435,7 @@ def paged_chunk_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
 
     CUDA tensors run the hand-written kernel; CPU tensors run
     ``paged_chunk_attention_ref`` with the scales. Anything else raises."""
+    refuse_grad("paged_chunk_attention_q8", q, k_scale, v_scale)
     _check(q, k_pool, v_pool, tables, offsets, "offsets", k_scale, v_scale)
     if _route(q, (k_pool, v_pool, k_scale, v_scale, tables,
                   offsets)) == "cpu":

@@ -68,6 +68,7 @@ import functools
 import torch
 
 from grove_tpu_torch.ops import _build
+from grove_tpu_torch.ops._grad import refuse_grad
 
 BK = 64                 # k-step depth; K must be a multiple
 SMALL_TILE = (32, 128)  # tokens x weight columns per CTA up to 256 rows
@@ -412,8 +413,10 @@ def w8a16_matmul_group(x: torch.Tensor, weights,
     ``w8a16_matmul_ref`` on each. Anything else raises, on either route:
     mixed devices, other types, and on the card a shape the kernel does not
     take (checked when the launch's plan is made; a plan is reused only for
-    the same pointers, shapes, strides and types)."""
+    the same pointers, shapes, strides and types), and an input that
+    requires grad (the kernel has no backward)."""
     weights = list(weights)
+    refuse_grad("w8a16_matmul", x, *(s for _, s in weights))
     if out_dtype is None and weights:
         out_dtype = torch.promote_types(x.dtype, weights[0][1].dtype)
     if x.is_cuda and weights and x.dim() == 2 and x.shape[0]:
@@ -466,8 +469,10 @@ def dense_matmul_group(x: torch.Tensor, weights,
     rows above, so a row's bits never depend on M),
     f32 the CUDA-core kernel (one launch). CPU tensors run
     ``dense_matmul_ref`` on each. Anything else raises: mixed devices,
-    other types and, on the card, bf16 shapes with K % 8 or N % 8."""
+    other types, an input that requires grad and, on the card, bf16 shapes
+    with K % 8 or N % 8."""
     weights = list(weights)
+    refuse_grad("dense_matmul", x, *weights)
     if out_dtype is None and weights:
         out_dtype = torch.promote_types(x.dtype, weights[0].dtype)
     _check_dense(x, weights, out_dtype)

@@ -22,6 +22,10 @@ worker.
   the decode tier adopts fresh blocks and copies the prompt's K/V across
   pools in one device copy per request;
 - KV caches are updated in place (the JAX package donates them);
+- every dispatch, warmup and capture runs under ``torch.no_grad()``: the
+  hand-written kernels have no backward and refuse inputs that require
+  grad, and params straight from a train step do (serving/checkpoint.py
+  says how weights reach a live engine);
 - sampled tokens accumulate on the device and reach the host once per
   window of ``host_sync_interval`` steps; ``step`` itself never waits for
   the device;
@@ -274,11 +278,14 @@ class _Observed:
 
 
 def _quantized(params, quant: str | None):
+    """The engine's params: ``params`` itself (the caller's tensors), or
+    their int8 quantization (new tensors, made with no autograd graph)."""
     if quant not in (None, "int8"):
         raise ValueError(f"unknown quant mode {quant!r}")
     if quant == "int8":
         from grove_tpu_torch.serving.quant import quantize_params
-        return quantize_params(params)
+        with torch.no_grad():
+            return quantize_params(params)
     return params
 
 
@@ -316,6 +323,15 @@ class PrefillWorker:
         self._shapes: set[tuple[int, int]] = set()
         self.builds = 0
 
+    def idle(self) -> bool:
+        """Always: each ``prefill`` hands its sequences' KV to its results."""
+        return True
+
+    def reset_prefix_cache(self) -> int:
+        """No prefix cache here: nothing to drop."""
+        return 0
+
+    @torch.no_grad()
     def prefill(self, prompts: list[np.ndarray]) -> list[PrefillResult]:
         """Prefill up to ``batch`` prompts (right-padded to one length).
         Each result owns its KV slab (a copy), so the worker's cache can
@@ -428,6 +444,14 @@ class DecodeEngine(_Observed):
     def sampler(self) -> SamplerConfig:
         return self._sampler
 
+    def idle(self) -> bool:
+        """No lane holds a sequence (whose KV the current weights wrote)."""
+        return not self._active.any()
+
+    def reset_prefix_cache(self) -> int:
+        """No prefix cache here: nothing to drop."""
+        return 0
+
     # ---- the model calls ----
 
     def _decode(self) -> None:
@@ -508,6 +532,7 @@ class DecodeEngine(_Observed):
 
     # ---- standalone mode (bench path) ----
 
+    @torch.no_grad()
     def admit_prompts(self, prompts: torch.Tensor,
                       max_new_tokens: int | None = None,
                       lengths: torch.Tensor | None = None) -> None:
@@ -591,6 +616,7 @@ class DecodeEngine(_Observed):
             self._report_metric()
         return occupant
 
+    @torch.no_grad()
     def insert(self, lane: int, result: PrefillResult,
                request: Request | None = None) -> None:
         """Splice a prefilled sequence into a free lane (KV handoff)."""
@@ -620,6 +646,7 @@ class DecodeEngine(_Observed):
                 rt.note_prefill_done(request.rid)
                 rt.note_decode_start(request.rid)
 
+    @torch.no_grad()
     def admit_from_queue(self, prefiller: PrefillWorker) -> int:
         """Move queued requests through the prefiller into free lanes."""
         admitted = 0
@@ -656,6 +683,7 @@ class DecodeEngine(_Observed):
 
     # ---- decode ----
 
+    @torch.no_grad()
     def step(self) -> None:
         """One decode step across all lanes (inactive lanes compute too).
         Launches device work only: no host fetch unless a window of
@@ -729,6 +757,7 @@ class DecodeEngine(_Observed):
         self._tokens.cpu()
         self._resolve_timings()
 
+    @torch.no_grad()
     def run(self, steps: int) -> None:
         """Decode ``steps`` steps in throughput mode: full windows of
         ``host_sync_interval`` steps accumulate their tokens on the device
@@ -1176,6 +1205,7 @@ class PagedDecodeEngine(_Observed):
         table[key] = fn
         return fn
 
+    @torch.no_grad()
     def _capture(self, step: Callable[[], torch.Tensor | None]
                  ) -> Callable[[], torch.Tensor | None]:
         """Capture ``step`` into a CUDA graph; returns its replay, which
@@ -1254,6 +1284,7 @@ class PagedDecodeEngine(_Observed):
         self._upload(out, src)
         return out
 
+    @torch.no_grad()
     def warmup(self, batches: list[int] | None = None,
                widths: list[int] | None = None,
                prefill_widths: list[int] | None = None) -> int:
@@ -1421,6 +1452,16 @@ class PagedDecodeEngine(_Observed):
                 "handoff": self.handoff_view(),
                 "schedule": self._sched.payload()}
 
+    def idle(self) -> bool:
+        """No sequence live or preempted (whose KV the current weights
+        wrote)."""
+        return not (self._sched.live or self._sched.preempted)
+
+    def reset_prefix_cache(self) -> int:
+        """Forget every cached prefix, whose KV the current weights wrote.
+        Returns the cached blocks freed."""
+        return self._prefix.clear() if self._prefix is not None else 0
+
     def prefix_stats(self) -> dict:
         """Prefix-cache gauges (empty with the cache off)."""
         if self._prefix is None:
@@ -1481,6 +1522,7 @@ class PagedDecodeEngine(_Observed):
                 functools.partial(setattr, self, "_handoff"))
         return self._handoff
 
+    @torch.no_grad()
     def warmup_handoff(self, source: "PrefillEngine") -> int:
         """Build the handoff copy and run it once with every pair null ->
         null, so that traffic never pays for it. Returns the number of
@@ -1493,6 +1535,7 @@ class PagedDecodeEngine(_Observed):
         fn(source.kv)
         return built
 
+    @torch.no_grad()
     def adopt(self, payload: HandoffPayload) -> bool:
         """Adopt one finished prefill from another engine's pool. Gate on a
         free decode slot, match the tokens against the LOCAL prefix tree
@@ -1590,6 +1633,7 @@ class PagedDecodeEngine(_Observed):
 
     # ---- admission ----
 
+    @torch.no_grad()
     def admit_from_queue(self, prefiller=None) -> int:
         """Admit queued work into the scheduler: preempted sequences
         re-enter first (recompute), then fresh requests FIFO, each gated on
@@ -1621,6 +1665,7 @@ class PagedDecodeEngine(_Observed):
             self._report_metric()
         return admitted
 
+    @torch.no_grad()
     def admit_prompts(self, prompts, max_new_tokens: int | None = None,
                       lengths=None) -> None:
         """Bulk admission: submit a [b, s] batch and drive chunked prefill
@@ -1661,6 +1706,7 @@ class PagedDecodeEngine(_Observed):
 
     # ---- the tick loop ----
 
+    @torch.no_grad()
     def step(self) -> None:
         """One engine tick: at most one prefill chunk, then one decode
         step over the compacted batch. No device sync on this path:
@@ -2219,6 +2265,11 @@ class PrefillEngine(PagedDecodeEngine):
         self.outbox: deque[HandoffPayload] = deque()
         self.handoffs_produced = 0
 
+    def idle(self) -> bool:
+        """Idle, and no finished prefill waits in the outbox."""
+        return super().idle() and not self.outbox
+
+    @torch.no_grad()
     def step(self) -> None:
         """One prefill tick. No decode leg: this engine's running set is
         empty by construction (sequences detach at promotion time), so the
@@ -2227,6 +2278,7 @@ class PrefillEngine(PagedDecodeEngine):
             self._prefill_tick()
         self.ticks += 1
 
+    @torch.no_grad()
     def warmup(self, batches: list[int] | None = None,
                widths: list[int] | None = None,
                prefill_widths: list[int] | None = None) -> int:

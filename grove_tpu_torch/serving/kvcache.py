@@ -243,7 +243,11 @@ class BlockAllocator:
         freed = self.reclaim_hook()
         if not freed:
             raise RuntimeError("cached-pool reclaim made no progress")
-        for b in freed:
+        self.reclaim(freed)
+
+    def reclaim(self, blocks: list[int]) -> None:
+        """Move cached blocks that the tree dropped into the free list."""
+        for b in blocks:
             del self._cached[b]
             self._free.append(b)
             self.reclaimed_total += 1
@@ -493,6 +497,17 @@ class PrefixTree:
             self.nodes_high_water = max(self.nodes_high_water,
                                         len(self._nodes))
         return added
+
+    def clear(self) -> int:
+        """Forget every registered prefix (after a warm restart replaced
+        the weights that computed their KV): cached blocks go back to the
+        free list, live ones free normally at their last unref. Returns
+        the blocks freed."""
+        freed = []
+        for child in list(self.root.children.values()):
+            freed += self._drop_subtree(child)
+        self.allocator.reclaim(freed)
+        return len(freed)
 
     # ---- eviction (allocator reclaim hook) ----
 

@@ -94,17 +94,34 @@ def kv_block_bytes(cfg: Any, block_size: int, kv_quant: str = "off") -> int:
         cfg, kv_quant)
 
 
-def _leaves(tree: Any):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, QTensor):
-        yield tree.q
-        yield tree.scale
-    else:
-        yield tree
+def flatten_params(tree: Any, prefix: str = ""
+                   ) -> tuple[dict[str, torch.Tensor], list[str]]:
+    """A params dict's tensors by path in key order (``layers/wq``; a
+    ``QTensor`` as ``path/q`` and ``path/scale``) and the paths of its
+    ``QTensor`` leaves."""
+    flat: dict[str, torch.Tensor] = {}
+    qtensors: list[str] = []
+    for name, leaf in tree.items():
+        if not isinstance(name, str) or "/" in name:
+            raise ValueError(f"param key {name!r} is not a plain string")
+        key = prefix + name
+        if isinstance(leaf, dict):
+            sub, subq = flatten_params(leaf, key + "/")
+            flat.update(sub)
+            qtensors += subq
+        elif isinstance(leaf, QTensor):
+            flat[key + "/q"] = leaf.q
+            flat[key + "/scale"] = leaf.scale
+            qtensors.append(key)
+        elif isinstance(leaf, torch.Tensor):
+            flat[key] = leaf
+        else:
+            raise TypeError(f"param {key!r} is a {type(leaf).__name__}, "
+                            f"not a tensor")
+    return flat, qtensors
 
 
 def params_bytes(params: Any) -> int:
     """Actual bytes of a (possibly quantized) params dict."""
-    return sum(t.numel() * t.element_size() for t in _leaves(params))
+    return sum(t.numel() * t.element_size()
+               for t in flatten_params(params)[0].values())

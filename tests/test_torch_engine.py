@@ -266,7 +266,11 @@ def test_engine_quant_int8_runs(params):
 
 # The port's serving modules the import rule must be seen to cover.
 OBSERVED_MODULES = ("handoff", "metrics", "slo", "metrics_push", "reqtrace",
-                    "xprof")
+                    "xprof", "checkpoint")
+# ... and its training modules.
+TRAINING_MODULES = ("train.py", "models/moe.py", "models/llama.py")
+# What no file of the port imports: JAX, its libraries, the JAX package.
+BANNED_IMPORTS = ("jax", "jaxlib", "optax", "orbax", "grove_tpu")
 
 
 def _port_modules():
@@ -274,12 +278,15 @@ def _port_modules():
 
 
 def test_port_sources_import_no_jax():
-    """AST scan: no file of the port (nor chip_smoke.py) imports jax or the
-    JAX package; the scan covers the handoff module and the observatories
-    (the metrics sink, slo, metrics_push, reqtrace, xprof)."""
+    """AST scan: no file of the port (nor chip_smoke.py) imports jax,
+    optax, orbax or the JAX package; the scan covers the handoff module,
+    the observatories (the metrics sink, slo, metrics_push, reqtrace,
+    xprof), the checkpoints and the training modules."""
     bad = []
     for name in OBSERVED_MODULES:
         assert PKG / "serving" / f"{name}.py" in _port_modules(), name
+    for name in TRAINING_MODULES:
+        assert PKG / name in _port_modules(), name
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -290,7 +297,7 @@ def test_port_sources_import_no_jax():
                 names = [node.module]
             for n in names:
                 top = n.split(".")[0]
-                if top in ("jax", "jaxlib", "grove_tpu"):
+                if top in BANNED_IMPORTS:
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert not bad, bad
 
@@ -306,7 +313,7 @@ def test_importing_every_port_module_loads_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib') or m == 'grove_tpu' or m.startswith('grove_tpu.')]\n"
+        f"{BANNED_IMPORTS!r}]\n"
         "print(len(sys.modules))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
