@@ -131,6 +131,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      with bf16 and int8 weights and self-draft spec, and the lanes engine
      with 128-token prompts through the flash kernel): tokens equal fresh
      engines' tokens, no new build, the barrier responder's new step.
+ 14. tensor-parallel serving: a one-rank NCCL group and build_mesh(
+     MeshPlan()); llama-1b through make_engine(mesh=) with int8 weights
+     over a bf16 pool and with bf16 weights over an int8 pool, 16 requests
+     of 64-512 prompt tokens, 32 new each, tokens equal to mesh=None's
+     rid for rid, bitwise; spec self-draft under the mesh equal to greedy
+     under it; the disaggregated pair under the mesh equal to mono under
+     it; every graph captured at warmup with the group's collectives
+     inside, 2 n_layers + 2 = 34 per forward by the group's host count;
+     a full batch decoding with and without the mesh (tokens/s, device ms
+     per 8 steps, the copies and NCCL kernels in the replayed graphs);
+     each kernel of the paged path at one rank's widths of llama-1b at
+     tp = 2, 4, 8 and llama-70b at tp = 8 against its plain version,
+     timed beside its bound, the GEMMs' rows bitwise across M; and
+     samples/workloads/allreduce_worker_torch.py as a world of one over
+     NCCL (result 1.0).
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -4622,6 +4637,569 @@ def phase_train_checkpoint(seed: int, card: str, cfg=None, moe_cfg=None,
     return launches
 
 
+# ---- tensor-parallel serving (phase 14) ----
+
+# The per-rank widths phase 14 runs the paged path's kernels at: llama-1b
+# at tp = 2, 4 and 8 and llama-70b at tp = 8 (one layer's weights).
+TP_SHARDS = (("llama-1b", 2), ("llama-1b", 4), ("llama-1b", 8),
+             ("llama-70b", 8))
+
+
+def emit14(check: str, **fields) -> None:
+    """One phase-14 result as a JSON line."""
+    print(json.dumps({"phase": 14, "check": check, **fields}), flush=True)
+
+
+def one_rank_group(device: str):
+    """A process group of this process alone (``file://`` rendezvous in a
+    fresh temporary directory): NCCL on the card, gloo for the CPU
+    rehearsal. Returns its directory, which the caller removes after
+    ``destroy_process_group``."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("a process group is already initialised")
+    path = tempfile.mkdtemp(prefix="grove-tp-")
+    kw = {}
+    if device == "cuda":
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{os.path.join(path, 'pg')}",
+                            world_size=1, rank=0, **kw)
+    return path
+
+
+def phase_tp_serve(seed: int, card: str, cfg=None, device: str = "cuda",
+                   n_requests: int = 16, batch: int = 16,
+                   max_len: int = 1024, new_tokens: int = 32,
+                   prompt_lo: int = 64, prompt_hi: int = 512,
+                   shared: int = 96, bench_len: int = 256,
+                   bench_steps: int = 32) -> dict[str, int]:
+    """Tensor-parallel serving over a one-rank group: ``build_mesh(
+    MeshPlan())`` over NCCL (gloo on the CPU), the paged engine with
+    ``mesh=`` at llama-1b's full width and depth (int8 weights, bf16 pool)
+    on ``n_requests`` requests of [prompt_lo, prompt_hi] prompt tokens
+    (every other one opening with one shared prefix), ``new_tokens`` each,
+    against the same engine and traffic with ``mesh=None``: tokens equal
+    rid for rid, bitwise; then the same for bf16 weights over an int8 pool;
+    spec self-draft under the mesh equal to greedy under the mesh; the
+    disaggregated pair under the mesh equal to the mono engine under it.
+    Every mesh run's graphs are captured at warmup, none during traffic,
+    with the group's collectives inside them: 2 n_layers + 2 per forward,
+    from the group's own host count. A full batch decoding with and
+    without the mesh: tokens/s and device ms per 8 decode steps, and the
+    communication kernels the profiler sees in the replayed graphs.
+    Returns the kernels' launches summed over the mesh runs (each run's
+    counts zeroed just before it and read just after)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from grove_tpu_torch.serving.engine import (DisaggServing,
+                                                PagedDecodeEngine,
+                                                make_disagg, make_engine)
+
+    cfg = cfg or CONFIGS["llama-1b"]
+    on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    wrappers = kernel_wrappers()
+    per_forward = 2 * cfg.n_layers + 2
+    rng = np.random.default_rng(seed + 23)
+    prompts = mixed_prompts(rng, cfg, n_requests, prompt_lo, prompt_hi,
+                            shared)
+    longest = max(len(p) for p in prompts) + new_tokens
+    bench = rng.integers(0, cfg.vocab_size,
+                         (batch, bench_len)).astype(np.int32)
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    params = init_params(cfg, gen, device=device)
+    path = one_rank_group(device)
+    try:
+        mesh = build_mesh(MeshPlan())
+        comm = mesh.comm("tp")
+        log(f"tp: a one-rank {dist.get_backend()} group, mesh "
+            f"{mesh.shape}; the tp axis's group has {comm.size} rank(s)")
+        total = dict.fromkeys(SPEC_WRAPPERS, 0)
+
+        def build(label, mesh_, **kw):
+            t0 = time.perf_counter()
+            maker = make_disagg if kw.pop("pair", False) else make_engine
+            eng = maker(cfg, params, batch=batch, max_len=max_len,
+                        mesh=mesh_, device=device, **kw)
+            tiers = ([eng.prefill, eng.decode]
+                     if isinstance(eng, DisaggServing) else [eng])
+            if not all(isinstance(t, PagedDecodeEngine) for t in tiers):
+                raise AssertionError(f"{label}: built {type(eng).__name__}")
+            widths = tiers[-1].decode_width_buckets(prompt_lo, longest)
+            built = eng.warmup(widths=widths, prefill_widths=tiers[
+                0].decode_width_buckets(1, longest))
+            captured = sum(t.graphs_captured for t in tiers)
+            log(f"tp: {label}: {type(eng).__name__}, "
+                f"{'mesh ' + str(mesh_.shape) if mesh_ else 'no mesh'}, "
+                f"{tiers[-1].kv_quant} KV ({tuple(tiers[-1].kv.k.shape)} "
+                f"per pool), warmup built {built} graphs in "
+                f"{time.perf_counter() - t0:.2f} s with set-up ({captured} "
+                f"captured) on {card}")
+            return eng, tiers
+
+        def serve(label, eng, tiers, want=None):
+            """The traffic; checks the launches against ``want(steps,
+            chunks)`` and, under the mesh, the collectives per forward."""
+            for w in wrappers.values():
+                w.launches = 0
+            comm.launches = 0
+            steps0 = tiers[-1].steps
+            chunks0 = tiers[0].chunks
+            cap0 = sum(t.graphs_captured for t in tiers)
+            t = time.perf_counter()
+            rids = [eng.submit(p, max_new_tokens=new_tokens)
+                    for p in prompts]
+            drive_active(eng, n_requests)
+            wall = time.perf_counter() - t
+            counts = {n: wrappers[n].launches for n in SPEC_WRAPPERS}
+            calls = comm.launches
+            steps = tiers[-1].steps - steps0
+            chunks = tiers[0].chunks - chunks0
+            done = {r.rid: list(r.generated) for r in eng.completed}
+            if sorted(done) != rids or any(len(g) != new_tokens
+                                           for g in done.values()):
+                raise AssertionError(f"{label}: requests lost or short")
+            n_tok = sum(len(g) for g in done.values())
+            log(f"tp: {label}: {n_requests} requests, {n_tok} tokens in "
+                f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s overall), "
+                f"{steps} decode dispatches, {chunks} prefill chunks; "
+                f"launches {counts} on {card}")
+            if sum(t.graphs_captured for t in tiers) != cap0:
+                raise AssertionError(f"{label}: graphs captured mid-traffic")
+            if want is not None:
+                expect = want(steps, chunks)
+                if counts != expect:
+                    raise AssertionError(f"{label}: launches {counts}, "
+                                         f"expected {expect}")
+            return done, counts, calls, steps, chunks
+
+        def mesh_serve(label, eng, tiers, forwards, want=None):
+            done, counts, calls, steps, chunks = serve(label, eng, tiers,
+                                                       want)
+            fwd = forwards(steps, chunks)
+            log(f"tp: {label}: the tp group ran {calls} collectives over "
+                f"{fwd} forwards: {calls / fwd:.2f} per forward (2 n_layers "
+                f"+ 2 = {per_forward}: the embedding's sum, the attention "
+                f"output's and the MLP's sums per layer, the logits' "
+                f"gather)")
+            if calls != per_forward * fwd:
+                raise AssertionError(f"{label}: {calls} collectives for "
+                                     f"{fwd} forwards")
+            for n, v in counts.items():
+                total[n] += v
+            return done
+
+        def decode_bench(label, eng):
+            """A full batch decoding: tokens/s, then device ms per 8 decode
+            steps under the profiler, and its communication kernels."""
+            eng.admit_prompts(bench, max_new_tokens=4 * bench_steps)
+            sync()
+            t = time.perf_counter()
+            eng.run(bench_steps)
+            sync()
+            s = time.perf_counter() - t
+            tps = batch * bench_steps / s
+            log(f"tp: {label}: decode {tps:.1f} tokens/s (batch {batch}, "
+                f"prompts of {bench_len}, run({bench_steps}) in "
+                f"{s * 1e3:.1f} ms) on {card}")
+            out = {"tokens_per_s": tps, "ms_per_step": s * 1e3 / bench_steps}
+            if on_cuda:
+                ms = profile_window(f"tp decode ({label})", lambda: eng.run(8),
+                                    s * 1e3 / bench_steps * 8, card,
+                                    ("paged_partial", "w8a16", "nccl",
+                                     "Memcpy", "memcpy"))
+                out.update(device_ms_per_8=ms["busy_ms"],
+                           kernels_per_8=ms["count"],
+                           nccl=ms["launches"]["nccl"],
+                           memcpy=ms["launches"]["Memcpy"]
+                           + ms["launches"]["memcpy"])
+                log(f"tp: {label}: device {ms['busy_ms']:.3f} ms per 8 "
+                    f"decode steps in {ms['count']} kernels; kernels named "
+                    f"nccl: {out['nccl']}, memory copies: {out['memcpy']} "
+                    f"on {card}")
+            return out
+
+        # int8 weights over a bf16 pool (phase 7's defaults), with and
+        # without the mesh; the decode windows of both.
+        eng, tiers = build("int8 weights, mesh", mesh, quant="int8")
+        greedy = mesh_serve(
+            "int8 weights, mesh", eng, tiers, lambda s, c: s + c,
+            lambda s, c: paged_launches(cfg, False, "int8", s, c, on_cuda))
+        with_mesh = decode_bench("int8 weights, mesh", eng)
+        del eng, tiers
+        eng, tiers = build("int8 weights, no mesh", None, quant="int8")
+        plain, *_ = serve("int8 weights, no mesh", eng, tiers)
+        without = decode_bench("int8 weights, no mesh", eng)
+        del eng, tiers
+        if greedy != plain:
+            bad = [r for r in greedy if greedy[r] != plain[r]]
+            raise AssertionError(f"mesh and no mesh differ at rids {bad}")
+        log(f"tp: int8 weights: the mesh engine's tokens equal mesh=None's "
+            f"rid for rid, bitwise ({n_requests} requests)")
+        log(f"tp: decode with the mesh / without: "
+            f"{with_mesh['tokens_per_s']:.1f} / "
+            f"{without['tokens_per_s']:.1f} tokens/s"
+            + (f", device {with_mesh['device_ms_per_8']:.3f} / "
+               f"{without['device_ms_per_8']:.3f} ms per 8 steps, memory "
+               f"copies per 8 steps {with_mesh['memcpy']} / "
+               f"{without['memcpy']}" if on_cuda else "") + f" on {card}")
+        emit14("decode", with_mesh=with_mesh, without_mesh=without,
+               card=card)
+
+        # The engine's default bf16 weights over an int8 pool.
+        eng, tiers = build("bf16 weights, int8 KV, mesh", mesh,
+                           kv_quant="int8")
+        q8 = mesh_serve(
+            "bf16 weights, int8 KV, mesh", eng, tiers, lambda s, c: s + c,
+            lambda s, c: paged_launches(cfg, True, "bf16", s, c, on_cuda))
+        del eng, tiers
+        eng, tiers = build("bf16 weights, int8 KV, no mesh", None,
+                           kv_quant="int8")
+        q8_plain, *_ = serve("bf16 weights, int8 KV, no mesh", eng, tiers)
+        del eng, tiers
+        if q8 != q8_plain:
+            raise AssertionError("int8 KV: mesh and no mesh differ")
+        log("tp: bf16 weights, int8 KV: the mesh engine's tokens equal "
+            "mesh=None's rid for rid, bitwise")
+
+        # Spec self-draft and the disaggregated pair under the mesh.
+        k = SPEC_K
+        eng, tiers = build("spec self-draft, mesh", mesh, quant="int8",
+                           spec_decode=True, spec_k=k, draft_params="self")
+        spec = mesh_serve(
+            "spec self-draft, mesh", eng, tiers,
+            lambda s, c: (k + 1) * s + c,
+            lambda s, c: spec_launches(cfg, None, "self", False, k, s, c)
+            if on_cuda else dict.fromkeys(SPEC_WRAPPERS, 0))
+        stats = eng.spec_stats()
+        del eng, tiers
+        if spec != greedy:
+            raise AssertionError("spec self-draft under the mesh differs "
+                                 "from greedy under it")
+        log(f"tp: spec self-draft (k = {k}) under the mesh equals greedy "
+            f"under the mesh rid for rid; {stats['accepted_per_dispatch']:.2f}"
+            f" tokens per row and dispatch")
+        eng, tiers = build("disaggregated pair, mesh", mesh, quant="int8",
+                           pair=True)
+        pair = mesh_serve(
+            "disaggregated pair, mesh", eng, tiers, lambda s, c: s + c,
+            lambda s, c: paged_launches(cfg, False, "int8", s, c, on_cuda))
+        pre_w, dec_w = (t.params["layers"]["wq"] for t in tiers)
+        if pre_w.q.data_ptr() != dec_w.q.data_ptr():
+            raise AssertionError("the pair's tiers hold two weight copies")
+        del eng, tiers
+        if pair != greedy:
+            raise AssertionError("the pair under the mesh differs from mono "
+                                 "under it")
+        log("tp: the disaggregated pair under the mesh equals the mono "
+            "engine under it rid for rid")
+        emit14("mesh_serve", requests=n_requests, tokens_equal=True,
+               collectives_per_forward=per_forward, launches=total,
+               card=card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(path, ignore_errors=True)
+    return total
+
+
+def shard_widths(model: str, tp: int) -> dict:
+    """One rank's widths of ``model`` under ``tp``: heads, kv heads, d_ff
+    and vocab divided, d_model and head_dim whole."""
+    from grove_tpu_torch.models.llama import CONFIGS
+    cfg = CONFIGS[model]
+    for n in (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size):
+        if n % tp:
+            raise AssertionError(f"{model}: {n} does not divide over {tp}")
+    return {"h": cfg.n_heads // tp, "n_kv": cfg.n_kv_heads // tp,
+            "ff": cfg.d_ff // tp, "vocab": cfg.vocab_size // tp,
+            "d": cfg.d_model, "hd": cfg.head_dim,
+            "max_seq_len": cfg.max_seq_len, "rope_theta": cfg.rope_theta}
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| over the values, in units of one bf16 ulp
+    of ``want``'s value: 2^(e - 7) for |want| in [2^e, 2^(e + 1)), the
+    ulp of the smallest normal below that."""
+    import torch
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want)            # want = m * 2^e, |m| in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(want), e.clamp(min=-125) - 8)
+    return ((got - want).abs() / ulp).max().item()
+
+
+# Draws of the inputs of each norm check at shard widths: the bound of one
+# output ulp per value has to hold on every one.
+TP_NORM_DRAWS = 4
+
+
+def phase_tp_kernels(seed: int, card: str) -> list[dict]:
+    """Each kernel of the paged path at one rank's widths of TP_SHARDS,
+    against its plain version at phase 3's tolerances, timed beside its
+    bound: paged decode and chunk attention over bf16 and int8 pools at
+    phase 3's serving shapes, the fused rope + KV write into both pools
+    (bitwise), the GEMM's int8 and bf16-weight builds at the five
+    launches of a forward at M = 32 with their rows bitwise across M (and
+    slabs), and rms_norm / add_rms_norm where d differs from phase 3's
+    (llama-70b's 8,192), within one bf16 ulp of each value over
+    TP_NORM_DRAWS draws. Returns the JSON records."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models.llama import CONFIGS, _rope
+    from grove_tpu_torch.ops import kvquant, norms
+    from grove_tpu_torch.ops.paged import (paged_chunk_attention,
+                                           paged_chunk_attention_q8,
+                                           paged_chunk_attention_ref,
+                                           paged_decode_attention,
+                                           paged_decode_attention_q8,
+                                           paged_decode_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    rng = np.random.default_rng(seed + 29)
+    records = []
+
+    def record(model, tp, kernel, shape, err, t):
+        rec = {"model": model, "tp": tp, "kernel": kernel, "shape": shape,
+               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "card": card}
+        records.append(rec)
+        emit14("shard_kernel", **rec)
+
+    for model, tp in TP_SHARDS:
+        w = shard_widths(model, tp)
+        h, n_kv, hd, d = w["h"], w["n_kv"], w["hd"], w["d"]
+        tag = (f"{model} tp={tp} (h {h}, n_kv {n_kv}, d_ff {w['ff']}, "
+               f"vocab {w['vocab']}, group {h // n_kv})")
+        dtype = torch.bfloat16
+        # Attention, decode and chunk, bf16 and int8 pools.
+        B, W, lo, hi = SERVE_DECODE
+        lengths = rng.integers(lo, hi + 1, size=B).astype(np.int32)
+        lens = torch.from_numpy(lengths).cuda()
+        total = int(lengths.sum())
+        q = torch.randn((B, 1, h, hd), generator=gen, device="cuda").to(dtype)
+        off, c = SERVE_CHUNK_OFFSET, PAGED_CHUNK
+        qc = torch.randn((1, c, h, hd), generator=gen, device="cuda").to(dtype)
+        offs = torch.full((1,), off, dtype=torch.int32, device="cuda")
+        pairs = h * sum(off + i + 1 for i in range(c))
+        for int8 in (False, True):
+            kind = "int8" if int8 else "bf16"
+            if int8:
+                kq, vq, ks, vs, tables = int8_pools(gen, lengths, W, n_kv, hd)
+                dec = (lambda: paged_decode_attention_q8(
+                    q, kq, vq, ks, vs, tables, lens))
+                dec_ref = (lambda: paged_decode_attention_ref(
+                    q, kq, vq, tables, lens, ks, vs))
+            else:
+                k, v, tables = paged_pools(gen, lengths, W, n_kv, hd, dtype)
+                dec = lambda: paged_decode_attention(q, k, v, tables, lens)
+                dec_ref = (lambda: paged_decode_attention_ref(
+                    q, k, v, tables, lens))
+            label = (f"tp shard {tag}: paged decode B={B} W={W} {kind} pool")
+            err = check_paged(dec(), dec_ref(), label, "bfloat16")
+            t = time_paged(label, dec, dec_ref, None, paged_bound_ms(
+                total, B, h * total, n_kv, h, hd, dtype, int8), card)
+            record(model, tp, "paged_decode_attention" + ("_q8" if int8
+                                                           else ""),
+                   f"B={B} W={W} lengths {lo}..{hi} h={h} n_kv={n_kv}",
+                   err, t)
+            if int8:
+                kq, vq, ks, vs, ctab = int8_pools(gen, [off + c], W, n_kv, hd)
+                ch = (lambda: paged_chunk_attention_q8(
+                    qc, kq, vq, ks, vs, ctab, offs))
+                ch_ref = (lambda: paged_chunk_attention_ref(
+                    qc, kq, vq, ctab, offs, ks, vs))
+            else:
+                k, v, ctab = paged_pools(gen, [off + c], W, n_kv, hd, dtype)
+                ch = lambda: paged_chunk_attention(qc, k, v, ctab, offs)
+                ch_ref = (lambda: paged_chunk_attention_ref(
+                    qc, k, v, ctab, offs))
+            label = (f"tp shard {tag}: paged chunk b=1 c={c} offset={off} "
+                     f"W={W} {kind} pool")
+            err = check_paged(ch(), ch_ref(), label, "bfloat16")
+            t = time_paged(label, ch, ch_ref, None, paged_bound_ms(
+                off + c, c, pairs, n_kv, h, hd, dtype, int8), card)
+            record(model, tp, "paged_chunk_attention" + ("_q8" if int8
+                                                          else ""),
+                   f"b=1 c={c} offset={off} h={h} n_kv={n_kv}", err, t)
+        # The fused rope + KV write, decode and chunk shapes, both pools:
+        # bitwise against its plain version.
+        cos, sin = _rope(w["max_seq_len"], hd, w["rope_theta"],
+                         torch.device("cuda"))
+        _, _, dtab = paged_pools(gen, lengths + 1, W, 1, 8, torch.float32)
+        pos = lens[:, None]
+        _, _, ctab = paged_pools(gen, [off + c], W, 1, 8, torch.float32)
+        steps = torch.arange(c, dtype=torch.int32, device="cuda")
+        for shape, b, s, tab, p, ok in (
+                ("decode", B, 1, dtab, pos, None),
+                ("chunk", 1, c, ctab, (off + steps)[None],
+                 (steps < c)[None])):
+            nb = int(tab.max().item()) + 1
+            qr = torch.randn((b, s, h, hd), generator=gen,
+                             device="cuda").to(dtype)
+            kr, vr = (torch.randn((b, s, n_kv, hd), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            for int8 in (False, True):
+                if int8:
+                    ps = [torch.randint(-127, 128, (nb, PAGED_BS, n_kv, hd),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int8) for _ in range(2)]
+                    ps += [torch.rand((nb, PAGED_BS, n_kv), generator=gen,
+                                      device="cuda") for _ in range(2)]
+                    call = kvquant.paged_rope_scatter_q
+                    scales = ps[2:]
+                else:
+                    ps = [torch.randn((nb, PAGED_BS, n_kv, hd), generator=gen,
+                                      device="cuda").to(dtype)
+                          for _ in range(2)]
+                    call = kvquant.paged_rope_scatter
+                    scales = [None, None]
+                ref = [x.clone() for x in ps]
+                got = call(*ps, qr, kr, vr, cos, sin, tab, p, ok)
+                want = kvquant.paged_rope_scatter_ref(
+                    ref[0], ref[1], *(ref[2:] if int8 else scales), qr, kr,
+                    vr, cos, sin, tab, p, ok)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want) and all(
+                    torch.equal(a, b_) for a, b_ in zip(ps, ref))
+                label = (f"tp shard {tag}: {call.__name__} {shape} b={b} "
+                         f"s={s}")
+                log(f"kernels: {label}: q, pools"
+                    f"{' and scales' if int8 else ''} "
+                    f"{'bitwise equal' if same else 'DIFFER'} to the plain "
+                    f"version")
+                if not same:
+                    raise AssertionError(f"{label} disagrees")
+                t = time_paged(
+                    label, lambda: call(*ps, qr, kr, vr, cos, sin, tab, p,
+                                        ok),
+                    lambda: kvquant.paged_rope_scatter_ref(
+                        ps[0], ps[1], *(ps[2:] if int8 else scales), qr, kr,
+                        vr, cos, sin, tab, p, ok), None,
+                    rope_scatter_bound_ms(b * s, h, n_kv, hd, 2, int8,
+                                          ok is not None), card)
+                record(model, tp, call.__name__,
+                       f"{shape} b={b} s={s} h={h} n_kv={n_kv}", 0.0, t)
+        # The GEMMs: the five launches of a forward at one rank's widths.
+        launches = (("wq, wk, wv", d, (h * hd, n_kv * hd, n_kv * hd),
+                     torch.bfloat16),
+                    ("wo", h * hd, (d,), torch.bfloat16),
+                    ("w_gate, w_up", d, (w["ff"], w["ff"]), torch.bfloat16),
+                    ("w_down", w["ff"], (d,), torch.bfloat16),
+                    ("lm_head", d, (w["vocab"],), torch.float32))
+        forward = {"w8a16_matmul": 0.0, "dense_matmul": 0.0}
+        for name, K, ns, out in launches:
+            label = f"tp shard {tag}: {name}"
+            per = 1 if name == "lm_head" else CONFIGS[model].n_layers
+            t = time_w8a16(gen, W8A16_M, K, ns, out, label, card)
+            record(model, tp, "w8a16_matmul", f"{name} M={W8A16_M} K={K} "
+                   f"N={list(ns)}", t["err"], t)
+            forward["w8a16_matmul"] += per * t["ms"]
+            check_w8a16_rows(gen, K, ns, out, label)
+            t = time_dense(gen, W8A16_M, K, ns, out, label)
+            forward["dense_matmul"] += per * t["ms"]
+            log(f"kernels: dense {label} M={W8A16_M} K={K} N={list(ns)}: "
+                f"ms={t['ms']} plain_ms={t['plain_ms']} library_ms="
+                f"{t['library_ms']} bound_ms={t['bound_ms']} "
+                f"({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.1f}% "
+                f"of it) on {card}")
+            record(model, tp, "dense_matmul", f"{name} M={W8A16_M} K={K} "
+                   f"N={list(ns)}", t["err"], t)
+            dense_rows_and_slabs(gen, K, ns, out, label)
+        log(f"kernels: tp shard {tag}: the GEMM's launches of one forward "
+            f"({CONFIGS[model].n_layers} layers' four and the head) at "
+            f"M={W8A16_M}: int8 weights {forward['w8a16_matmul']:.4f} ms, "
+            f"bf16 weights {forward['dense_matmul']:.4f} ms on {card}")
+        emit14("shard_forward", model=model, tp=tp, m=W8A16_M,
+               layers=CONFIGS[model].n_layers, **forward, card=card)
+        if d != 2048:  # llama-1b's d: phase 3 holds the norms there
+            # bf16 out: the kernel and its plain version both round an f32
+            # result summed in another order, so each value may be one
+            # output ulp apart and no more.
+            def draw():
+                return ((torch.randn((W8A16_M, d), generator=gen,
+                                     device="cuda") * 3).to(dtype),
+                        torch.randn((W8A16_M, d), generator=gen,
+                                    device="cuda").to(dtype),
+                        (1 + 0.1 * torch.randn((d,), generator=gen,
+                                               device="cuda")).to(dtype))
+
+            draws = [draw() for _ in range(TP_NORM_DRAWS)]
+            for kernel, fn, ref, bound in (
+                    ("rms_norm", lambda x, dl, wt: norms.rms_norm(x, wt),
+                     lambda x, dl, wt: norms.rms_norm_ref(x, wt),
+                     (2 * W8A16_M * d * 2 + d * 2) / HBM_BYTES_PER_S * 1e3),
+                    ("add_rms_norm",
+                     lambda x, dl, wt: norms.add_rms_norm(x, dl, wt)[1],
+                     lambda x, dl, wt: norms.add_rms_norm_ref(x, dl, wt)[1],
+                     add_norm_bound_ms(W8A16_M, d, 2))):
+                err = ulps = 0.0
+                for args in draws:
+                    got, want = fn(*args), ref(*args)
+                    err = max(err, (got.float() - want.float()).abs()
+                              .max().item())
+                    ulps = max(ulps, bf16_ulps(got, want))
+                ok = ulps <= 1.0
+                log(f"kernels: tp shard {tag}: {kernel} rows={W8A16_M} d={d} "
+                    f"over {TP_NORM_DRAWS} draws: max_abs_err={err:.3e}, "
+                    f"at most {ulps:.3f} bf16 ulp of a value (bound 1) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{kernel} disagrees at d={d}")
+                t = {"ms": time_ms(lambda: fn(*draws[0])),
+                     "plain_ms": time_ms(lambda: ref(*draws[0])),
+                     "bound_ms": bound, "bound_by": "bytes"}
+                record(model, tp, kernel, f"rows={W8A16_M} d={d}", err, t)
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_worker_twin(card: str) -> None:
+    """samples/workloads/allreduce_worker_torch.py as a world of one on the
+    card: NCCL, result 1.0, published atomically."""
+    import shutil
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tempfile.mkdtemp(prefix="grove-worker-")
+    try:
+        env = dict(os.environ, TPU_WORKER_ID="0",
+                   TPU_WORKER_HOSTNAMES="localhost",
+                   GROVE_COORD_HOST="127.0.0.1", GROVE_COORD_PORT=str(port),
+                   GROVE_OUT_DIR=out, GROVE_HOLD_SECONDS="0")
+        worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "samples", "workloads",
+                              "allreduce_worker_torch.py")
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, worker], env=env,
+                              capture_output=True, text=True, timeout=180)
+        wall = time.perf_counter() - t
+        result = None
+        path = os.path.join(out, "result-0.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                result = f.read().strip()
+        log(f"tp: worker twin: rc {proc.returncode}, result {result}, "
+            f"{wall:.1f} s; stdout: {proc.stdout.strip()[-200:]}")
+        if proc.returncode != 0 or result != "1.0" or \
+                "(nccl): all_reduce = 1.0" not in proc.stdout:
+            raise AssertionError(f"the worker twin failed: "
+                                 f"{proc.stderr.strip()[-2000:]}")
+        emit14("worker_twin", backend="nccl", result=float(result),
+               seconds=wall, card=card)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
                 steps: int = 64, spec_k: int = 3,
                 spec_steps: int = 16) -> None:
@@ -4818,6 +5396,17 @@ def main() -> int:
     for row in [flash_row, *paged_rows]:
         row["restart_launches"] = restart[row["name"]]
     phase_done("phase 13 (training and checkpoints)")
+    # 14. tensor-parallel serving: the mesh path over a one-rank NCCL group,
+    # the paged path's kernels at shard widths, the worker twin
+    tp = phase_tp_serve(args.seed, card)
+    for row in paged_rows:
+        row["tp_launches"] = tp[row["name"]]
+        if not row["tp_launches"]:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 f"tensor-parallel path")
+    phase_tp_kernels(args.seed, card)
+    check_worker_twin(card)
+    phase_done("phase 14 (tensor-parallel serving)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

@@ -232,20 +232,27 @@ def _qkv_proj(h, lp, wide: bool = False):
     return _projs("bsd,dhk->bshk", h, [lp["wq"], lp["wk"], lp["wv"]], wide)
 
 
-def _attn_out(attn, lp, dtype: torch.dtype, wide: bool = False):
+def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
+    """A head- or mlp-sharded projection's partial sum, summed over the tp
+    group (``y`` itself without one)."""
+    return y if tp is None else tp.all_reduce(y)
+
+
+def _attn_out(attn, lp, dtype: torch.dtype, wide: bool = False, tp=None):
     """The attention output's projection, as the residual's type."""
-    return _proj("bshk,hkd->bsd", attn, lp["wo"], wide).to(dtype)
+    return _reduce(_proj("bshk,hkd->bsd", attn, lp["wo"], wide),
+                   tp).to(dtype)
 
 
-def _mlp_block(h, lp, dtype: torch.dtype, wide: bool = False):
+def _mlp_block(h, lp, dtype: torch.dtype, wide: bool = False, tp=None):
     """The SwiGLU MLP of the normed rows ``h``, as the residual's type."""
     gate, up = _projs("bsd,df->bsf", h, [lp["w_gate"], lp["w_up"]], wide)
-    return _proj("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"],
-                 wide).to(dtype)
+    return _reduce(_proj("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"],
+                         wide), tp).to(dtype)
 
 
 def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
-             wide: bool = False) -> torch.Tensor:
+             wide: bool = False, tp=None) -> torch.Tensor:
     """The decoder layers over the embedded rows ``x`` [b, s, d]:
     ``attend(i, q, k, v)`` is layer i's attention over the unroped
     projections (rope, the cache write and attention). Returns the final
@@ -255,38 +262,60 @@ def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
     the attention output's with ``mlp_norm``, the MLP's with the next
     layer's ``attn_norm`` (the last layer's with ``final_norm``), so a
     forward runs one plain norm and 2 n_layers fused ones, and no separate
-    add; the bits are those of the add and then the norm."""
+    add; the bits are those of the add and then the norm.
+
+    Under a tp group (``tp``, parallel/mesh.py's ``AxisComm``; the params
+    are its rank's slices) the attention output's and the MLP's partial
+    projections are summed over the group before the fused add: the JAX
+    package's psum sites in ``_attn_out`` and ``_mlp_block``, and where
+    GSPMD reduces the head- and mlp-sharded products."""
     layers, eps = params["layers"], cfg.norm_eps
     h = rms_norm(x, layers["attn_norm"][0], eps)
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
         attn = attend(i, *_qkv_proj(h, lp, wide))
-        x, h = add_rms_norm(x, _attn_out(attn, lp, x.dtype, wide),
+        x, h = add_rms_norm(x, _attn_out(attn, lp, x.dtype, wide, tp),
                             lp["mlp_norm"], eps)
         nxt = (layers["attn_norm"][i + 1] if i + 1 < cfg.n_layers
                else params["final_norm"])
-        x, h = add_rms_norm(x, _mlp_block(h, lp, x.dtype, wide), nxt, eps)
+        x, h = add_rms_norm(x, _mlp_block(h, lp, x.dtype, wide, tp), nxt,
+                            eps)
     return h
 
 
-def embed(cfg: LlamaConfig, params: Params,
-          tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding."""
+def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+          tp=None) -> torch.Tensor:
+    """Token embedding. Under a tp group the table is this rank's slice of
+    the vocab: an id outside it reads a zero row, and the sum over the group
+    is exact, since each row has one non-zero term."""
     te = params["tok_embed"]
+    if tp is not None:
+        rows = te.shape[0]
+        local = tokens - tp.rank * rows
+        hit = (local >= 0) & (local < rows)
+        tokens = torch.where(hit, local, torch.zeros_like(local))
     if isinstance(te, QTensor):  # int8: gather rows, then scale them
-        return (te.q[tokens].to(te.scale.dtype)
-                * te.scale[tokens]).to(cfg.dtype)
-    return te[tokens].to(cfg.dtype)
+        x = (te.q[tokens].to(te.scale.dtype)
+             * te.scale[tokens]).to(cfg.dtype)
+    else:
+        x = te[tokens].to(cfg.dtype)
+    if tp is None:
+        return x
+    return tp.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
 
 
-def _logits(x: torch.Tensor, w) -> torch.Tensor:
+def _logits(x: torch.Tensor, w, tp=None) -> torch.Tensor:
     """LM-head product with an f32 result: the working-type values upcast
     to f32, as the JAX ``preferred_element_type=f32`` product (through the
     GEMM kernel with an f32 output: an int8 head's W8A16 build, a dense
-    head's bf16-weight build, which reads the head as stored)."""
+    head's bf16-weight build, which reads the head as stored). Under a tp
+    group each rank computes its vocab slice and the slices are gathered
+    into the full logits, so that every rank chooses the same tokens."""
     if isinstance(w, QTensor) or x.is_cuda:
-        return _matmul(x, [w], 1, torch.float32)[0]
-    return x.to(torch.float32) @ w.to(torch.float32)
+        y = _matmul(x, [w], 1, torch.float32)[0]
+    else:
+        y = x.to(torch.float32) @ w.to(torch.float32)
+    return y if tp is None else tp.all_gather(y)
 
 
 def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
@@ -504,7 +533,8 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                       tables: torch.Tensor, lengths: torch.Tensor,
                       k_scale: torch.Tensor | None = None,
                       v_scale: torch.Tensor | None = None,
-                      limit: torch.Tensor | None = None) -> torch.Tensor:
+                      limit: torch.Tensor | None = None,
+                      tp=None) -> torch.Tensor:
     """One decode step over block tables. tokens: [b]; pools:
     [layers, num_blocks, bs, n_kv, d]; tables: [b, w] int32; lengths: [b]
     int32 = tokens already in cache (the new token writes at that
@@ -520,7 +550,14 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     Everything stays on the device and nothing is read back to the host,
     so the engine can capture the step in a CUDA graph: ``tables`` and
     ``lengths`` are read by the kernels from device memory. Attention reads
-    only the w * bs window of the bucketed table width."""
+    only the w * bs window of the bucketed table width.
+
+    ``tp`` (parallel/mesh.py's ``AxisComm``) runs the step as one rank of a
+    tensor-parallel group: ``params`` are the rank's slices
+    (parallel/sharding.py ``shard_params``), the pools hold its n_kv / tp
+    heads, and each forward runs 2 n_layers + 2 collectives (the
+    embedding's sum, two sums per layer, the logits' gather), the same on
+    every rank. The prefill, verify and spec functions take it too."""
     positions = lengths[:, None]  # [b, 1]
     valid = None if limit is None else positions < limit[:, None]
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
@@ -534,8 +571,9 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             None if v_scale is None else v_scale[i], tables, positions,
             new_lengths, valid, decode=True)
 
-    x = _decoder(cfg, params, embed(cfg, params, tokens[:, None]), attend)
-    return _logits(x[:, 0], params["lm_head"])
+    x = _decoder(cfg, params, embed(cfg, params, tokens[:, None], tp),
+                 attend, tp=tp)
+    return _logits(x[:, 0], params["lm_head"], tp)
 
 
 def _device_scalar(v, device: torch.device) -> torch.Tensor:
@@ -552,7 +590,8 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
                         offset, logit_idx, n_valid=None,
                         k_scale: torch.Tensor | None = None,
                         v_scale: torch.Tensor | None = None,
-                        logits: bool = True) -> torch.Tensor | None:
+                        logits: bool = True,
+                        tp=None) -> torch.Tensor | None:
     """One chunked-prefill window over block tables, the pools written in
     place (int8 pools with ``k_scale``/``v_scale``, as in
     ``decode_step_paged``).
@@ -591,11 +630,11 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
             None if v_scale is None else v_scale[i], tables, positions,
             offsets, valid, decode=False)
 
-    x = _decoder(cfg, params, embed(cfg, params, tokens), attend)
+    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend, tp=tp)
     if not logits:
         return None
     row = x.index_select(1, logit_idx.clamp(0, c - 1))[:, 0]  # [b, d]
-    return _logits(row, params["lm_head"])
+    return _logits(row, params["lm_head"], tp)
 
 
 # ---- speculative decoding --------------------------------------------
@@ -620,7 +659,8 @@ def verify_chunk_paged(cfg: LlamaConfig, params: Params,
                        limit: torch.Tensor | None = None,
                        k_scale: torch.Tensor | None = None,
                        v_scale: torch.Tensor | None = None,
-                       logits: bool = True) -> torch.Tensor | None:
+                       logits: bool = True,
+                       tp=None) -> torch.Tensor | None:
     """The target's verification chunk. tokens: [b, c] int32, row 0 the
     last committed token and rows 1..c-1 the draft; row i writes its K/V at
     position lengths[b] + i (into the pools, in place; int8 pools with
@@ -646,10 +686,10 @@ def verify_chunk_paged(cfg: LlamaConfig, params: Params,
             None if v_scale is None else v_scale[i], tables, positions,
             lengths, valid, decode=False)
 
-    x = _decoder(cfg, params, embed(cfg, params, tokens), attend)
+    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend, tp=tp)
     if not logits:
         return None
-    return _logits(x, params["lm_head"])
+    return _logits(x, params["lm_head"], tp)
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
@@ -666,7 +706,7 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
                     lengths: torch.Tensor, limit: torch.Tensor, spec_k: int,
                     k_scale: torch.Tensor | None = None,
                     v_scale: torch.Tensor | None = None,
-                    self_draft: bool = False
+                    self_draft: bool = False, tp=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One speculative decode step: draft ``spec_k`` tokens greedily with
     the draft model (its own pool ``draft_k``/``draft_v``, addressed by the
@@ -692,7 +732,9 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
 
     Writes the pools in place and returns (out_tokens [b, spec_k + 1]
     int32: the committed tokens, then -1; next_tokens [b]; new_lengths
-    [b]). Nothing is read back to the host."""
+    [b]). Nothing is read back to the host. Under a tp group (``tp``) the
+    draft runs sharded like the target: its params are the rank's slices
+    and its pool holds the rank's heads."""
     scales = dict(k_scale=k_scale, v_scale=v_scale) if self_draft else {}
     pool_k, pool_v = (kv_k, kv_v) if self_draft else (draft_k, draft_v)
     tokens = tokens.to(torch.int32)
@@ -700,17 +742,17 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
     for _ in range(spec_k):
         tok = greedy_tokens(decode_step_paged(
             dcfg, dparams, tok, pool_k, pool_v, tables, ln, limit=limit,
-            **scales))
+            tp=tp, **scales))
         drafts.append(tok)
         ln = ln + 1
     drafts = torch.stack(drafts, dim=1)                      # [b, k]
     chunk = torch.cat([tokens[:, None], drafts], dim=1)      # [b, k + 1]
     if not self_draft:
         verify_chunk_paged(dcfg, dparams, chunk, draft_k, draft_v, tables,
-                           lengths, limit=limit, logits=False)
+                           lengths, limit=limit, logits=False, tp=tp)
     tgt = greedy_tokens(verify_chunk_paged(
         cfg, params, chunk, kv_k, kv_v, tables, lengths, limit=limit,
-        k_scale=k_scale, v_scale=v_scale))                   # [b, k + 1]
+        k_scale=k_scale, v_scale=v_scale, tp=tp))            # [b, k + 1]
     agree = (drafts == tgt[:, :-1]).to(torch.int32)
     m = torch.cumprod(agree, dim=1).sum(dim=1, dtype=torch.int32)
     # Committed token i's K/V lives at lengths + i, which must be < limit;
@@ -738,8 +780,9 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
 # are a Python loop over ``layer_params``, so each layer's gradient lands in
 # the stacked [L, ...] leaf, as ``lax.scan``'s does.
 
-PARALLEL_NOT_PORTED = ("tensor, pipeline, sequence and expert parallelism "
-                       "are not ported yet (ROADMAP.md, queue 1 item 6)")
+PARALLEL_NOT_PORTED = ("the training path's tensor, pipeline, sequence and "
+                       "expert parallelism are not ported yet (ROADMAP.md, "
+                       "queue 1 item 6)")
 
 
 def _w(w) -> torch.Tensor:

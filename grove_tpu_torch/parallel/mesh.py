@@ -1,0 +1,253 @@
+"""Device meshes over torch.distributed process groups.
+
+The plan arithmetic is the JAX package's, number for number (its
+``parallel/mesh.py``): Grove's orchestration layer places a
+PodCliqueScalingGroup replica onto one tightly connected group of
+accelerators and spreads PodCliqueSet replicas over the slower network
+between them, and the in-pod side of that contract is a mesh whose axes
+mirror the fabric:
+
+- ``dp`` — data parallelism, across hosts or groups of hosts;
+- ``pp`` — pipeline stages (point-to-point activations);
+- ``ep`` — expert parallelism (all-to-all dispatch);
+- ``sp`` — sequence/context parallelism;
+- ``tp`` — tensor parallelism over the fastest links.
+
+Axis order is outermost-to-innermost = slowest-to-fastest interconnect,
+so the ranks of one ``tp`` group are adjacent (NVLink peers of one host,
+under ``torchrun``'s rank order).
+
+A ``Mesh`` is one process's view of it: the plan, the process's rank in
+the default process group, its coordinate on each axis, and one
+``AxisComm`` per axis of size > 1 over the process group of the ranks
+that share every other coordinate, through which the model's collectives
+go. ``build_mesh`` makes one over the default process group (NCCL on the
+card, gloo on the CPU). In a world of one process every axis runs its
+collectives over the default group, so that a one-card run issues them;
+in a larger world an axis of size 1 has no group and runs none.
+``single_device_mesh`` has no group and runs none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+import torch.distributed as dist
+
+AXIS_DP = "dp"
+AXIS_PP = "pp"
+AXIS_EP = "ep"
+AXIS_SP = "sp"
+AXIS_TP = "tp"
+
+# Canonical axis order: outermost (slowest fabric) ... innermost (fastest).
+# pp sits between dp and sp: stage hops are point-to-point activations —
+# cheaper than sp/tp collectives, tolerant of slower links than either.
+# ep (expert parallelism) sits between pp and sp: its all_to_all dispatch
+# tolerates slower links than sp/tp collectives (and may cross slices for
+# very large expert counts), but is chattier than pp's stage hops.
+MESH_AXES = (AXIS_DP, AXIS_PP, AXIS_EP, AXIS_SP, AXIS_TP)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A concrete (dp, pp, ep, sp, tp) factorisation of a device count."""
+
+    dp: int = 1
+    pp: int = 1
+    ep: int = 1
+    sp: int = 1
+    tp: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.pp * self.ep * self.sp * self.tp
+
+    def axis_sizes(self) -> dict[str, int]:
+        return {AXIS_DP: self.dp, AXIS_PP: self.pp, AXIS_EP: self.ep,
+                AXIS_SP: self.sp, AXIS_TP: self.tp}
+
+
+def _largest_pow2_divisor(n: int, cap: int) -> int:
+    d = 1
+    while d * 2 <= cap and n % (d * 2) == 0:
+        d *= 2
+    return d
+
+
+def mesh_axes_for(n_devices: int, *, want_sp: bool = True,
+                  max_tp: int = 8) -> MeshPlan:
+    """Pick a sensible (dp, sp, tp) factorisation for ``n_devices``.
+
+    Heuristic: give ``tp`` the largest power-of-two divisor up to ``max_tp``
+    (tensor parallelism wants the fastest links and benefits most from being
+    wide), then one factor of 2 to ``sp`` when available (ring attention needs
+    ≥2 to exercise the ring), and the remainder to ``dp`` — then rebalance
+    one factor of 2 from ``tp`` back to ``dp`` when that is the only way to
+    get dp ≥ 2: a flagship plan whose every axis is > 1 exercises dp grad
+    sync, ring-SP, and tp reductions in ONE train step (at 8 devices this
+    yields (dp=2, sp=2, tp=2), not (1, 2, 4)), and dp is the axis that
+    scales across hosts, so a plan without it under-represents the
+    deployment shape.
+    """
+    if n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    tp = _largest_pow2_divisor(n_devices, min(max_tp, n_devices))
+    rest = n_devices // tp
+    sp = 1
+    if want_sp and rest % 2 == 0 and rest >= 2:
+        sp = 2
+    dp = rest // sp
+    while dp == 1 and tp > 2:
+        tp //= 2
+        dp *= 2
+    while sp == 1 and want_sp and tp > 2:
+        tp //= 2
+        sp *= 2
+    plan = MeshPlan(dp=dp, sp=sp, tp=tp)
+    assert plan.size == n_devices, (plan, n_devices)
+    return plan
+
+
+def validate_plan_fits_slice(plan: MeshPlan, slice_chips: int) -> None:
+    """Gang contract: tp*sp must fit inside one tightly connected slice.
+
+    dp may cross slices; tp and sp traffic must stay on the fast links; pp
+    stage hops are point-to-point activation transfers and may cross
+    slices (each stage's tp*sp group must still be slice-resident). The
+    orchestrator enforces the pod-placement half of this (slice-atomic
+    PodGangs); this checks the in-pod mesh half.
+    """
+    ici = plan.tp * plan.sp
+    if ici > slice_chips:
+        raise ValueError(
+            f"tp*sp={ici} exceeds slice size {slice_chips}; "
+            "sequence/tensor parallel groups must be ICI-resident")
+    if slice_chips % ici != 0:
+        raise ValueError(
+            f"slice size {slice_chips} not divisible by tp*sp={ici}")
+
+
+class AxisComm:
+    """The collectives of one mesh axis over its process group.
+    ``launches`` counts the collectives launched, on the host, as each kernel
+    wrapper counts its launches: a captured CUDA graph launches its
+    collectives at each replay, and the engine moves the count taken while
+    capturing onto the replay."""
+
+    def __init__(self, group, size: int, rank: int) -> None:
+        self.group = group
+        self.size = size     # ranks on the axis
+        self.rank = rank     # this process's coordinate on it
+        self.launches = 0
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the axis (in place where ``x`` is
+        contiguous; the result is returned either way)."""
+        x = x.contiguous()
+        self.launches += 1
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` joined on its last axis, in rank order."""
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        self.launches += 1
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """One process's view of a mesh: the plan, the process's rank (tp
+    fastest, as ``MESH_AXES`` orders the axes) and, for a mesh over a
+    process group, each axis's ``AxisComm``. Without ``comms`` (the
+    single-device mesh, or a layout made to slice weights for a given rank)
+    no collective runs."""
+
+    plan: MeshPlan
+    rank: int = 0
+    comms: Mapping[str, AxisComm] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if not 0 <= self.rank < self.plan.size:
+            raise ValueError(f"rank {self.rank} is outside {self.plan}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis sizes by name, every axis included (JAX's ``mesh.shape``)."""
+        return self.plan.axis_sizes()
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return MESH_AXES
+
+    def coord(self, axis: str) -> int:
+        """This process's coordinate on ``axis``."""
+        inner = 1
+        for name in reversed(MESH_AXES):
+            if name == axis:
+                return self.rank // inner % self.shape[name]
+            inner *= self.shape[name]
+        raise KeyError(axis)
+
+    def comm(self, axis: str) -> AxisComm | None:
+        """The axis's collectives, or None where the axis has no group (a
+        mesh without a group, or an axis of size 1 in a larger world)."""
+        return self.comms.get(axis)
+
+
+def _axis_groups(plan: MeshPlan, axis: str) -> list[list[int]]:
+    """The ranks of each group along ``axis``: those that share every
+    other coordinate, in order of their coordinate on ``axis``."""
+    sizes = plan.axis_sizes()
+    stride = 1
+    for name in reversed(MESH_AXES):
+        if name == axis:
+            break
+        stride *= sizes[name]
+    n = sizes[axis]
+    starts = [r for r in range(plan.size) if r // stride % n == 0]
+    return [[s + i * stride for i in range(n)] for s in starts]
+
+
+def build_mesh(plan: MeshPlan | None = None) -> Mesh:
+    """A ``Mesh`` over torch.distributed's default process group, which must
+    be initialised already (``torch.distributed.init_process_group``: NCCL
+    for CUDA tensors, gloo for CPU ones). When ``plan`` is None, a plan is
+    derived from the world size. Every process of the group calls this
+    with the same plan: each axis of size > 1 gets a process group per set
+    of ranks along it (the default group where the axis spans it), made by
+    all processes in one order. In a world of one, every axis runs over
+    the default group."""
+    if not dist.is_initialized():
+        raise RuntimeError("build_mesh needs torch.distributed's default "
+                           "process group: call init_process_group first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if plan is None:
+        plan = mesh_axes_for(world)
+    if plan.size != world:
+        raise ValueError(
+            f"mesh plan {plan} needs {plan.size} processes, have {world}")
+    comms = {}
+    for axis, n in plan.axis_sizes().items():
+        if n == 1 and world > 1:
+            continue
+        for ranks in _axis_groups(plan, axis):
+            group = (dist.group.WORLD if len(ranks) == world
+                     else dist.new_group(ranks))
+            if rank in ranks:
+                comms[axis] = AxisComm(group, len(ranks), ranks.index(rank))
+    return Mesh(plan, rank, comms)
+
+
+def single_device_mesh() -> Mesh:
+    """A trivial 1x1x1 mesh (single-device serving): no process group, no
+    collective."""
+    return Mesh(MeshPlan())

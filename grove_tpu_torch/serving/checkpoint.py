@@ -33,6 +33,11 @@ arguments and step rules, on ``torch.save`` in place of orbax:
   (its ``idle()``: no sequence in flight, whose KV the old weights
   wrote), and its prefix cache is dropped (``reset_prefix_cache()``) for
   the same reason.
+- **One whole model.** A checkpoint holds the whole params tree. A
+  tensor-parallel engine's params are its rank's slices (``mesh=`` with
+  tp > 1), which every rank would write under the same step, so
+  ``save_engine``, ``warm_restart`` and ``engine_responder`` refuse such an
+  engine with ``NotImplementedError`` before they read or write anything.
 - **Aliasing.** An engine keeps the tensors it was built on (quantization
   aside, which makes its own). An engine built on a trainer's params
   shares their storage: a later ``warm_restart`` overwrites the trainer's
@@ -55,6 +60,7 @@ from typing import Any
 import torch
 
 from grove_tpu_torch.device import resolve_device
+from grove_tpu_torch.parallel.sharding import ShardedParams
 from grove_tpu_torch.serving.quant import QTensor, flatten_params
 
 _PARAMS = "params.pt"
@@ -195,8 +201,18 @@ def _tiers(engine: Any) -> list[Any]:
     from grove_tpu_torch.serving.engine import DisaggServing
 
     if isinstance(engine, DisaggServing):
-        return [engine.prefill, engine.decode]
-    return [engine]
+        tiers = [engine.prefill, engine.decode]
+    else:
+        tiers = [engine]
+    for tier in tiers:
+        mesh = getattr(tier, "mesh", None)
+        if (isinstance(tier.params, ShardedParams)
+                or (mesh is not None and mesh.shape["tp"] > 1)):
+            raise NotImplementedError(
+                "a tensor-parallel engine holds its rank's slices of the "
+                "params, and a checkpoint holds the whole model: per-rank "
+                "checkpoints are not supported yet")
+    return tiers
 
 
 def save_engine(path: str, engine: Any, step: int | None = None) -> str:
@@ -204,6 +220,7 @@ def save_engine(path: str, engine: Any, step: int | None = None) -> str:
     directory. ``step`` defaults to one past the latest existing step, so
     repeated barriers (a roll's per-victim checkpoints, storm coalescing)
     never clobber the previous durable state."""
+    _tiers(engine)
     if step is None:
         prev = latest_step(path)
         step = 0 if prev is None else prev + 1
@@ -216,12 +233,12 @@ def warm_restart(path: str, engine: Any, step: int | None = None) -> int:
     already holds (on its device, in its dtype), so its closures and
     captured graphs serve the restored weights with no new capture. A
     disaggregated pair is restored tier by tier. Returns the step."""
+    tiers = _tiers(engine)
     if step is None:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(
                 f"no checkpoint steps under {path!r} to warm-restart from")
-    tiers = _tiers(engine)
     if not all(t.idle() for t in tiers):
         raise RuntimeError("warm_restart needs an idle engine: sequences in "
                            "flight hold KV of the old weights")
@@ -249,7 +266,10 @@ def engine_responder(engine: Any, path: str):
     (defrag migration, rolling update, spot reclaim) flushes the engine's
     params durably before its pods are drained; the relanded replica
     ``warm_restart``\\ s from the same directory. An exception propagates to
-    the reclaim controller's retry and backoff loop."""
+    the reclaim controller's retry and backoff loop. A tensor-parallel
+    engine is refused here, at registration, as ``save_engine`` refuses
+    it."""
+    _tiers(engine)
 
     def respond(_notice) -> None:
         save_engine(path, engine)

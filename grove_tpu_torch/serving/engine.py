@@ -40,8 +40,16 @@ worker.
   makes anyway (``_drain``, ``_finish_prefill``, ``sync``), so timing
   adds no device sync.
 
-Not ported yet, and raising when asked for (ROADMAP.md, queue 1): tensor
-parallelism (``mesh=``).
+Tensor parallelism (``mesh=``, parallel/mesh.py): the paged engine, spec
+and the disaggregated pair run as one rank of a tp group, each process
+driving its own engine over its rank's weight slices and n_kv / tp heads
+of the pools, with the model's collectives inside the captured graphs
+(models/llama.py ``tp=``). Every rank runs the same host schedule, so
+every rank runs the same collectives in the same order: nothing that
+decides what to dispatch reads a clock or a rank-local state (the
+scheduler, preemption and the prefix cache are deterministic in the
+traffic; the observatories time and count but dispatch nothing). The
+lanes engine runs on one device and ignores ``mesh``, as in JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +76,8 @@ from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_decode_attention,
                                        paged_decode_attention_q8)
 from grove_tpu_torch.ops.w8a16 import dense_matmul, w8a16_matmul
+from grove_tpu_torch.parallel import sharding as shardlib
+from grove_tpu_torch.parallel.mesh import single_device_mesh
 from grove_tpu_torch.serving import reqtrace as reqtrace_mod
 from grove_tpu_torch.serving import xprof as xprof_mod
 from grove_tpu_torch.serving.handoff import HandoffPayload
@@ -75,6 +85,7 @@ from grove_tpu_torch.serving.kvcache import (NULL_BLOCK, BlockAllocator,
                                              PagedKV, PrefixTree, SeqBlocks,
                                              pad_tables)
 from grove_tpu_torch.serving.metrics import GLOBAL_METRICS
+from grove_tpu_torch.serving.quant import QTensor
 from grove_tpu_torch.serving.schedule import (PagedScheduler, PagedSeq,
                                               pick_bucket)
 
@@ -287,6 +298,66 @@ def _quantized(params, quant: str | None):
         with torch.no_grad():
             return quantize_params(params)
     return params
+
+
+def _on_device(params, device: torch.device):
+    """``params`` with every leaf on ``device``: the tree itself where every
+    leaf is there already (an engine keeps the caller's tensors), else a
+    tree of the same kind whose leaves were moved one by one."""
+    moved = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            moved[name] = _on_device(leaf, device)
+        elif isinstance(leaf, QTensor):
+            q, scale = leaf.q.to(device), leaf.scale.to(device)
+            moved[name] = (leaf if q is leaf.q and scale is leaf.scale
+                           else QTensor(q=q, scale=scale))
+        else:
+            moved[name] = leaf.to(device)
+    if all(moved[k] is params[k] for k in params):
+        return params
+    if isinstance(params, shardlib.ShardedParams):
+        out = shardlib.ShardedParams(moved)
+        out.layout = params.layout
+        return out
+    return moved
+
+
+def _sharded(mesh, params, quant: str | None, device: torch.device):
+    """The engine's params on ``mesh``, on ``device``: ``_quantized`` (the
+    whole tree, so that a scale over an axis tp splits is the amax over all
+    of it), then this rank's slices under tp > 1 (parallel/sharding.py),
+    both where the caller's params are; only then are the leaves moved to
+    ``device``. So a model larger than one card is passed in host memory,
+    and each card receives its rank's slices alone. A tree that
+    ``shard_params`` made already is taken as it is, if it was cut for this
+    rank of this plan."""
+    if isinstance(params, shardlib.ShardedParams):
+        if params.layout != (mesh.plan, mesh.rank):
+            raise ValueError(f"params sharded for {params.layout}, not for "
+                             f"rank {mesh.rank} of {mesh.plan}")
+        return _on_device(params, device)
+    params = _quantized(params, quant)
+    if mesh.shape["tp"] > 1:
+        params = shardlib.shard_params(mesh, params)
+    return _on_device(params, device)
+
+
+def _tp_comm(mesh, device: torch.device):
+    """The mesh's tp group, checked against the engine's device: NCCL for
+    CUDA tensors, gloo for CPU ones, and none only on a mesh without a
+    group at tp = 1. Never a quiet tp = 1 in place of a missing group."""
+    comm = mesh.comm("tp")
+    if comm is None:
+        if mesh.shape["tp"] > 1:
+            raise ValueError(f"a mesh with tp={mesh.shape['tp']} needs its "
+                             "process group (parallel/mesh.py build_mesh)")
+        return None
+    want = "nccl" if device.type == "cuda" else "gloo"
+    if comm.backend != want:
+        raise ValueError(f"the tp group's backend is {comm.backend}, but "
+                         f"{device.type} tensors need {want}")
+    return comm
 
 
 class PrefillWorker:
@@ -870,6 +941,15 @@ class PagedDecodeEngine(_Observed):
       (``llama.paged_block_copy``/``_q`` over two id vectors of the fixed
       width ``max_blocks_per_seq``, one upload and one copy per request);
       the sequence joins the decode batch directly.
+    - **Tensor parallelism** (``mesh=``, parallel/mesh.py): this process is
+      one rank of the mesh's tp group. The params are quantized whole, then
+      cut to the rank's slices (parallel/sharding.py ``shard_params``); the
+      pools, and a tiny draft's, hold n_kv / tp heads; the model functions
+      run the group's collectives (models/llama.py ``tp=``), captured in
+      every graph, and every rank computes the full logits, so all ranks
+      choose the same tokens. ``n_kv_heads`` (and a tiny draft's) must
+      divide over tp. Without ``mesh`` (or with ``single_device_mesh()``)
+      no collective runs.
     - **Observatories** (``_Observed``): every graph capture (or, on the
       CPU, an eager step's first call) is a build under the JAX package's
       executable name: ``paged_step{_sampled}{_q8}[b{B},w{W}]``,
@@ -903,9 +983,6 @@ class PagedDecodeEngine(_Observed):
                  draft_params=None,
                  kv_quant: str | None = None,
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP.md, queue 1)")
         if spec_decode is None:
             spec_decode = os.environ.get("GROVE_SPEC_DECODE", "0") == "1"
         self.spec_decode = bool(spec_decode)
@@ -923,12 +1000,20 @@ class PagedDecodeEngine(_Observed):
             kv_quant = os.environ.get("GROVE_KV_QUANT", "off")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else single_device_mesh()
+        self._tp = _tp_comm(self.mesh, self.device)
+        tp = self.mesh.shape["tp"]
+        if cfg.n_kv_heads % tp:
+            raise ValueError(f"n_kv_heads {cfg.n_kv_heads} must divide over "
+                             f"tp={tp}")
         self._gen = torch.Generator(device=self.device).manual_seed(
             self._sampler.seed)
         if isinstance(key_or_params, torch.Generator):
+            # On the generator's device: a host generator makes the model
+            # in host memory, and the card receives the rank's slices.
             key_or_params = llama.init_params(cfg, key_or_params,
-                                              self.device)
-        self.params = _quantized(key_or_params, quant)
+                                              key_or_params.device)
+        self.params = _sharded(self.mesh, key_or_params, quant, self.device)
         self.quant = quant
         # The draft: none (spec off), the target itself ("self"), a derived
         # tiny draft (None) or a given (cfg, params) pair.
@@ -946,6 +1031,15 @@ class PagedDecodeEngine(_Observed):
                 self._draft_cfg, self._draft_params = draft_params
         self._self_draft = (self.spec_decode
                             and self._draft_params is self.params)
+        if self.spec_decode and not self._self_draft:
+            # The draft shards like the target: its pool holds its n_kv / tp
+            # heads (a self-draft drafts over the target's pool).
+            if self._draft_cfg.n_kv_heads % tp:
+                raise ValueError(f"draft n_kv_heads "
+                                 f"{self._draft_cfg.n_kv_heads} must divide "
+                                 f"over tp={tp}")
+            self._draft_params = _sharded(self.mesh, self._draft_params,
+                                          None, self.device)
         self._spec_stats = {"draft_tokens": 0, "accepted_tokens": 0,
                             "committed_tokens": 0, "dispatches": 0,
                             "rows": 0, "per_bucket": {}}
@@ -972,9 +1066,11 @@ class PagedDecodeEngine(_Observed):
             raise ValueError(f"{num_blocks} blocks cannot hold one "
                              f"{self.max_len}-token sequence")
         self.kv_quant = kv_quant
+        # Each rank's pools hold its n_kv / tp heads (and their scales).
         self.kv = PagedKV.create(cfg.n_layers, num_blocks, block_size,
-                                 cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
-                                 quant=kv_quant, device=self.device)
+                                 cfg.n_kv_heads // tp, cfg.head_dim,
+                                 cfg.dtype, quant=kv_quant,
+                                 device=self.device)
         self._alloc = BlockAllocator(num_blocks, block_size)
         # A tiny draft keeps its own pool (never quantized: it is small, and
         # int8 would cost draft accuracy), addressed by the target's block
@@ -983,7 +1079,7 @@ class PagedDecodeEngine(_Observed):
         if self.spec_decode and not self._self_draft:
             dcfg = self._draft_cfg
             self.draft_kv = PagedKV.create(dcfg.n_layers, num_blocks,
-                                           block_size, dcfg.n_kv_heads,
+                                           block_size, dcfg.n_kv_heads // tp,
                                            dcfg.head_dim, cfg.dtype,
                                            device=self.device)
         if prefill_chunk is None:
@@ -996,7 +1092,10 @@ class PagedDecodeEngine(_Observed):
             prefix_cache = os.environ.get("GROVE_PREFIX_CACHE", "1") != "0"
         self._prefix = PrefixTree(self._alloc) if prefix_cache else None
         from grove_tpu_torch.serving.quant import kv_block_bytes
-        self._block_bytes = kv_block_bytes(cfg, block_size, kv_quant)
+        # What one block costs this rank's pools.
+        self._block_bytes = kv_block_bytes(
+            dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp),
+            block_size, kv_quant)
         self.cow_copies = 0
         # The handoff copy (the decode tier of disaggregated serving) is
         # built on the first adoption or by ``warmup_handoff``; the stats
@@ -1109,12 +1208,12 @@ class PagedDecodeEngine(_Observed):
         cfg, params, kv = self.cfg, self.params, self.kv
         tokens, lengths = self._tok_buf[:B], self._len_buf[:B]
         tables = self._table_buf(W)[:B]
-        sampler, gen = self._sampler, self._gen
+        sampler, gen, tp = self._sampler, self._gen, self._tp
 
         def step() -> None:
             logits = llama.decode_step_paged(cfg, params, tokens, kv.k,
                                              kv.v, tables, lengths,
-                                             **kv.scales)
+                                             **kv.scales, tp=tp)
             tokens.copy_(sample_tokens(logits, gen, sampler))
             lengths.add_(1)
 
@@ -1139,14 +1238,14 @@ class PagedDecodeEngine(_Observed):
         tokens, lengths = self._tok_buf[:B], self._len_buf[:B]
         tables, limit = self._table_buf(W)[:B], self._limit_buf[:B]
         out = self._out_buf[:B]
-        self_draft = self._self_draft
+        self_draft, tp = self._self_draft, self._tp
 
         def spec() -> None:
             committed, nxt, new_lengths = llama.spec_step_paged(
                 cfg, dcfg, params, dparams, tokens, kv.k, kv.v,
                 None if draft is None else draft.k,
                 None if draft is None else draft.v, tables, lengths, limit,
-                K, **kv.scales, self_draft=self_draft)
+                K, **kv.scales, self_draft=self_draft, tp=tp)
             out.copy_(committed)
             tokens.copy_(nxt)
             lengths.copy_(new_lengths)
@@ -1173,15 +1272,16 @@ class PagedDecodeEngine(_Observed):
         buf = self._pf_buf
         tokens, table = buf[:c].view(1, c), buf[c + 3:c + 3 + W].view(1, W)
         scalars = (buf[c:c + 1], buf[c + 1:c + 2], buf[c + 2:c + 3])
+        tp = self._tp
 
         def chunk() -> torch.Tensor:
             logits = llama.prefill_chunk_paged(
                 cfg, params, tokens, kv.k, kv.v, table, *scalars,
-                **kv.scales)
+                **kv.scales, tp=tp)
             if draft is not None:
                 llama.prefill_chunk_paged(dcfg, dparams, tokens, draft.k,
                                           draft.v, table, *scalars,
-                                          logits=False)
+                                          logits=False, tp=tp)
             return logits
 
         also = () if draft is None else (self._names["draft"].format(W=W),)
@@ -1225,7 +1325,10 @@ class PagedDecodeEngine(_Observed):
 
         Kernel launch counts follow the device: the wrappers' counts taken
         while capturing (when nothing launches) move to the replay, which
-        adds them each time it launches the graph's kernels."""
+        adds them each time it launches the graph's kernels; so does the tp
+        group's count of collectives. The warm-up run launches the group's
+        first collectives, which create NCCL's communicator: never under
+        capture."""
         dev = self.device
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -1242,11 +1345,13 @@ class PagedDecodeEngine(_Observed):
         graph = torch.cuda.CUDAGraph()
         if self._sampling:
             graph.register_generator_state(self._gen)
-        counts = [w.launches for w in _KERNEL_WRAPPERS]
+        counters = _KERNEL_WRAPPERS + (
+            (self._tp,) if self._tp is not None else ())
+        counts = [w.launches for w in counters]
         with torch.cuda.graph(graph, pool=self._graph_pool):
             out = step()
         per_replay = []
-        for w, n in zip(_KERNEL_WRAPPERS, counts):
+        for w, n in zip(counters, counts):
             if w.launches != n:
                 per_replay.append((w, w.launches - n))
                 w.launches = n
@@ -2586,13 +2691,18 @@ def make_disagg(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
     with speculation is not wired (as in the JAX package). The telemetry
     and ONE request recorder are shared by both tiers, so SLO stamps and a
     request's trace span the seam; ``xprof`` goes to the decode tier, and
-    the prefill tier makes its own observatory (unless GROVE_XPROF=0)."""
+    the prefill tier makes its own observatory (unless GROVE_XPROF=0).
+    Under ``mesh`` both tiers are ranks of the same tp group, and each
+    rank's handoff copies its own heads from pool to pool."""
     dev = resolve_device(device)
     if isinstance(key_or_params, torch.Generator):
-        key_or_params = llama.init_params(cfg, key_or_params, dev)
+        key_or_params = llama.init_params(cfg, key_or_params,
+                                          key_or_params.device)
     # quantize_params passes int8 leaves through, so each tier's own
-    # _quantized keeps these tensors.
-    params = _quantized(key_or_params, quant)
+    # _quantized keeps these tensors; under tp > 1 the rank's slices are
+    # cut once too, and both tiers take them as they are.
+    params = _sharded(mesh if mesh is not None else single_device_mesh(),
+                      key_or_params, quant, dev)
     for knob in ("spec_decode", "spec_k", "draft_params"):
         common.pop(knob, None)
     if reqtrace is None:
@@ -2635,8 +2745,8 @@ def make_engine(cfg: LlamaConfig, key_or_params, *, batch: int = 8,
                   telemetry=telemetry, xprof=xprof, reqtrace=reqtrace,
                   device=device)
     if mode == "lanes":
-        if mesh is not None:
-            raise NotImplementedError("tensor parallelism is not ported yet")
+        # As in the JAX package, the lanes engine runs on one device and
+        # ignores ``mesh``.
         return DecodeEngine(cfg, key_or_params, **common)
     if mode != "paged":
         raise ValueError(f"unknown engine mode {mode!r}")

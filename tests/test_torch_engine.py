@@ -273,19 +273,27 @@ TRAINING_MODULES = ("train.py", "models/moe.py", "models/llama.py")
 BANNED_IMPORTS = ("jax", "jaxlib", "optax", "orbax", "grove_tpu")
 
 
+# ... its tensor-parallel modules, and the in-pod worker twin.
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/sharding.py")
+WORKER_TWINS = ("samples/workloads/allreduce_worker_torch.py",)
+
+
 def _port_modules():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / w for w in WORKER_TWINS]
 
 
 def test_port_sources_import_no_jax():
-    """AST scan: no file of the port (nor chip_smoke.py) imports jax,
-    optax, orbax or the JAX package; the scan covers the handoff module,
-    the observatories (the metrics sink, slo, metrics_push, reqtrace,
-    xprof), the checkpoints and the training modules."""
+    """AST scan: no file of the port (nor chip_smoke.py, nor the in-pod
+    worker twin) imports jax, optax, orbax or the JAX package; the scan
+    covers the handoff module, the observatories (the metrics sink, slo,
+    metrics_push, reqtrace, xprof), the checkpoints, the training modules
+    and the tensor-parallel package."""
     bad = []
     for name in OBSERVED_MODULES:
         assert PKG / "serving" / f"{name}.py" in _port_modules(), name
-    for name in TRAINING_MODULES:
+    for name in TRAINING_MODULES + PARALLEL_MODULES:
         assert PKG / name in _port_modules(), name
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -308,10 +316,15 @@ def test_importing_every_port_module_loads_no_jax():
     mods = [m.removesuffix(".__init__") for m in mods]
     for name in OBSERVED_MODULES:
         assert f"grove_tpu_torch.serving.{name}" in mods, name
+    for name in PARALLEL_MODULES:
+        assert "grove_tpu_torch." + name.removesuffix(".py").removesuffix(
+            "/__init__").replace("/", ".") in mods, name
     code = (
-        "import importlib, sys\n"
+        "import importlib, runpy, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for w in {WORKER_TWINS!r}:\n"
+        "    runpy.run_path(w, run_name='worker')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED_IMPORTS!r}]\n"
         "print(len(sys.modules))\n"

@@ -17,6 +17,7 @@ from grove_tpu.models import llama as jllama
 from grove_tpu.serving import engine as jengine
 from grove_tpu_torch.convert import params_from_numpy
 from grove_tpu_torch.models import llama as tllama
+from grove_tpu_torch.parallel.mesh import Mesh, MeshPlan, single_device_mesh
 from grove_tpu_torch.serving import engine as tengine
 from grove_tpu_torch.serving.kvcache import pad_tables
 
@@ -498,11 +499,43 @@ def test_make_engine_defaults_to_paged(params, monkeypatch):
     assert eng.decode._prefix is None and eng.prefill._prefix is None
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=Mesh(MeshPlan(tp=2)))])
 def test_unported_options_raise(params, kw):
+    """A mesh the engine cannot serve on raises: tp = 2 without its process
+    group (parallel/mesh.py ``build_mesh`` makes one) is never served as a
+    quiet tp = 1. (Tensor parallelism itself is ported:
+    tests/test_torch_tp_engine.py.)"""
     _, tp = params
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         tengine.PagedDecodeEngine(T_CFG, tp, device="cpu", **kw)
+
+
+def test_paged_engine_gspmd_mesh_argument(params):
+    """The twin of tests/test_paged_engine.py's: the engine takes an
+    explicit mesh, and a 1-device mesh gives the default engine's tokens
+    bitwise, running no collective."""
+    _, tp = params
+    rng = np.random.default_rng(12)
+    p = rng.integers(0, 256, size=7).astype(np.int32)
+    got = []
+    for mesh in (None, single_device_mesh()):
+        eng = tengine.PagedDecodeEngine(T_CFG, tp, batch=2, max_len=48,
+                                        block_size=8, prefill_chunk=8,
+                                        mesh=mesh, device="cpu")
+        eng.submit(p, max_new_tokens=6)
+        drive(eng, 1)
+        assert eng._tp is None
+        got.append(eng.completed[0].generated)
+    assert got[0] == got[1] and len(got[0]) == 6
+
+
+def test_make_engine_lanes_ignores_the_mesh(params):
+    """As in JAX, ``mode="lanes"`` builds the lanes engine and ignores
+    ``mesh``."""
+    _, tp = params
+    eng = tengine.make_engine(T_CFG, tp, batch=2, max_len=48, mode="lanes",
+                              mesh=single_device_mesh(), device="cpu")
+    assert isinstance(eng, tengine.DecodeEngine)
 
 
 def test_paged_engine_int8_weights_run(params):
