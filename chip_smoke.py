@@ -146,6 +146,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      timed beside its bound, the GEMMs' rows bitwise across M; and
      samples/workloads/allreduce_worker_torch.py as a world of one over
      NCCL (result 1.0).
+ 15. parallel training at one rank, over a one-rank NCCL group and
+     build_mesh(MeshPlan()), one JSON line per check: test-tiny and
+     moe-test-tiny in f32, each strategy on the card against the same
+     strategy on the CPU over a gloo group (llama's loss_fn(mesh=) plain,
+     ring and Ulysses, pipeline_forward at pp = 1 with 2 microbatches, the
+     MoE through _ep_moe_block; loss and every gradient); llama-1b in bf16
+     at full width and depth, one train step of each strategy against
+     mesh=None on 2 x 2,048 tokens (loss and gradient error, collectives
+     by axis, step ms, tokens/s, peak memory, NCCL kernel time; the ring's
+     hop at one rank is a local copy, no send/recv); the MoE at
+     Mixtral-8x7B's widths with 2 of its 32 layers through the
+     expert-parallel layer against the dense path (layer 0's block, the
+     loss; the logits and routing flips reported), the dropped share at
+     capacity factor 1.25, one train step; train.dryrun_multichip as a
+     world of one (its ok line); no kernel launched.
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -5200,6 +5215,443 @@ def check_worker_twin(card: str) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+# ---- parallel training at one rank (phase 15) ----
+
+# The training strategies phase 15 runs over the one-rank group: llama's
+# loss_fn(mesh=) plain, with the ring and with Ulysses, and the pipeline at
+# pp = 1 with two microbatches.
+STRATEGIES = ("plain", "ring", "ulysses", "pipeline")
+
+
+def emit15(check: str, **fields) -> None:
+    """One phase-15 result as a JSON line."""
+    print(json.dumps({"phase": 15, "check": check, **fields}), flush=True)
+
+
+def gloo_mesh():
+    """A mesh of this one process whose every axis runs over a gloo group
+    beside the default group: the strategies' collectives on CPU tensors,
+    the CPU side of the card-against-CPU checks."""
+    import torch.distributed as dist
+    from grove_tpu_torch.parallel.mesh import (MESH_AXES, AxisComm, Mesh,
+                                               MeshPlan)
+    group = dist.new_group([0], backend="gloo")
+    return Mesh(MeshPlan(), 0, {a: AxisComm(group, 1, 0, [0])
+                                for a in MESH_AXES})
+
+
+def strategy_loss(strategy: str, mesh):
+    """(params for the strategy, loss(cfg, params, tokens)): llama's
+    ``loss_fn`` under ``mesh`` with the strategy's ``sp``, or the next-token
+    loss of ``pipeline_forward`` (two microbatches) over the vocab-sharded
+    logits."""
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                   stage_params)
+    from grove_tpu_torch.parallel.sharding import shard_params
+    if strategy == "pipeline":
+        def loss(cfg, p, t):
+            return llama.next_token_loss(
+                pipeline_forward(cfg, p, t, mesh, n_microbatches=2), t,
+                tp=mesh.comm("tp"))
+        return (lambda p: stage_params(mesh, p)), loss
+    sp = None if strategy == "plain" else strategy
+
+    def loss(cfg, p, t):
+        return llama.loss_fn(cfg, p, t, mesh=mesh, sp=sp)
+    return (lambda p: shard_params(mesh, p)), loss
+
+
+def ep_loss(ep, capacity_factor: float, kept: list | None = None):
+    """The MoE loss through ``_ep_moe_block`` over the ep group ``ep`` (one
+    rank: ``ep_forward`` asserts ep > 1, as JAX's does), with the
+    load-balance auxiliary at 0.01."""
+    from grove_tpu_torch.models import llama, moe
+
+    def loss(cfg, p, t):
+        logits, aux = moe._decoder_stack(
+            cfg, p, t, lambda x, lp: moe._ep_moe_block(
+                cfg, x, lp, capacity_factor, ep, kept), 0.0)
+        return llama.next_token_loss(logits, t) + 0.01 * aux
+    return loss
+
+
+def grad_error(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-leaf error relative to the leaf's max norm, and its
+    leaf."""
+    worst, where = 0.0, ""
+    for k, g in want.items():
+        err = ((got[k].float() - g.float()).abs().max()
+               / g.float().abs().max().clamp_min(1e-30)).item()
+        if err >= worst:
+            worst, where = err, k
+    return worst, where
+
+
+def parallel_parity(seed: int, device: str, dev_mesh, cpu_mesh) -> None:
+    """test-tiny and moe-test-tiny in f32: each strategy on ``device`` over
+    ``dev_mesh`` against the same strategy on the CPU over ``cpu_mesh``, on
+    one numpy tree and one batch: the loss to 1e-5 relative, every
+    gradient leaf to 1e-4 of its max norm (phase 13's f32 bounds)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from grove_tpu_torch.convert import params_from_numpy
+    from grove_tpu_torch.models import llama, moe
+    from grove_tpu_torch.serving.quant import flatten_params
+
+    cases = []
+    for strategy in STRATEGIES:
+        cases.append(("llama", strategy, llama.CONFIGS["test-tiny"], llama,
+                      lambda m, s=strategy: strategy_loss(s, m)))
+    cases.append(("moe", "ep_block", moe.MOE_CONFIGS["moe-test-tiny"], moe,
+                  lambda m: ((lambda p: p),
+                             ep_loss(m.comm("ep"), 1.25))))
+    for family, strategy, cfg, mod, make in cases:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        host = mod.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device="cpu")
+        tree = {k: ({n: w.numpy() for n, w in v.items()}
+                    if isinstance(v, dict) else v.numpy())
+                for k, v in host.items()}
+        toks = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (2, 32)).astype(np.int32)
+        out = {}
+        for dev, mesh in ((device, dev_mesh), ("cpu", cpu_mesh)):
+            shard, loss = make(mesh)
+            params = shard(params_from_numpy(tree, device=dev))
+            leaves = flatten_params(params)[0]
+            for t in leaves.values():
+                t.requires_grad_(True)
+            value = loss(cfg, params, torch.from_numpy(toks).to(dev))
+            value.backward()
+            out[dev] = (float(value.detach()),
+                        {k: t.grad.detach().cpu() for k, t in leaves.items()})
+        (l_dev, g_dev), (l_cpu, g_cpu) = out[device], out["cpu"]
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        grad_rel, leaf = grad_error(g_dev, g_cpu)
+        fields = {"family": family, "strategy": strategy, "device": device,
+                  "dtype": "float32", "loss_device": l_dev,
+                  "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
+                  "loss_tol": 1e-5, "grad_max_rel_diff": grad_rel,
+                  "grad_worst_leaf": leaf, "grad_tol": 1e-4}
+        emit15("parallel_parity", **fields)
+        if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+            raise AssertionError(f"parallel parity {family} {strategy}: "
+                                 f"{fields}")
+
+
+def nccl_ms(label: str, fn, wall_ms: float, card: str) -> dict:
+    """One more step under the profiler: the device ms and kernels of NCCL
+    (all of them, and the send/recv ones alone), and the memory copies (at
+    one rank NCCL moves data by copies, where it moves any)."""
+    prof = profile_window(label, fn, wall_ms, card,
+                          ("nccl", "SendRecv", "Memcpy"), top=6)
+    return {"busy_ms": prof["busy_ms"], "kernels": prof["count"],
+            "nccl_ms": prof["nccl"], "nccl_kernels": prof["launches"]["nccl"],
+            "sendrecv_ms": prof["SendRecv"],
+            "sendrecv_kernels": prof["launches"]["SendRecv"],
+            "memcpy_ms": prof["Memcpy"],
+            "memcpys": prof["launches"]["Memcpy"]}
+
+
+def parallel_step(cfg, base: dict, toks, strategy: str, mesh, card: str,
+                  on_cuda: bool, ref=None) -> dict:
+    """One strategy's steps from a copy of ``base`` (see ``parallel_full``):
+    its fields, and with ``ref`` None its loss and gradients under
+    ``"ref"``."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch import train
+    from grove_tpu_torch.models import llama
+
+    if strategy == "mesh=None":
+        shard, loss = (lambda p: p), llama.loss_fn
+    else:
+        shard, loss = strategy_loss(strategy, mesh)
+    params = shard({k: ({n: w.clone() for n, w in v.items()}
+                        if isinstance(v, dict) else v.clone())
+                    for k, v in base.items()})
+    opt = train.make_optimizer(params)
+    before = {a: c.launches for a, c in mesh.comms.items()}
+    loss0 = float(train.train_step(cfg, params, opt, toks, loss=loss))
+    fields = {"strategy": strategy, "loss": loss0,
+              "collectives": {a: c.launches - before[a]
+                              for a, c in mesh.comms.items()
+                              if c.launches != before[a]}}
+    grads = {k: t.grad for k, t in _leaves(params)}
+    fields["finite"] = bool(np.isfinite(loss0)) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+    if ref is None:
+        fields["ref"] = (loss0, {k: g.clone() for k, g in grads.items()})
+    else:
+        err, leaf = grad_error(grads, ref[1])
+        fields.update(loss_rel_diff=abs(loss0 - ref[0]) / abs(ref[0]),
+                      loss_tol=1e-2, grad_max_rel_diff=err,
+                      grad_worst_leaf=leaf, grad_tol=5e-2)
+    del grads
+    if on_cuda:
+        tokens = toks.numel()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        train.train_step(cfg, params, opt, toks, loss=loss)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms = ev[0].elapsed_time(ev[1])
+        fields.update(
+            step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            profile=nccl_ms(f"llama-1b train step, {strategy}",
+                            lambda: train.train_step(cfg, params, opt, toks,
+                                                     loss=loss),
+                            step_ms, card))
+    return fields
+
+
+def parallel_full(cfg, seed: int, device: str, batch: int, seq: int,
+                  card: str, mesh) -> None:
+    """llama-1b (bf16) at full width and depth: one train step (AdamW) of
+    each strategy over the one-rank group and of ``mesh=None``, from the
+    same params on one batch of ``batch`` x ``seq`` tokens. Each strategy's
+    loss and first-step gradients against ``mesh=None``'s (the loss to
+    1e-2 relative and each leaf to 5e-2 of its max norm: bf16 products in
+    another order), the collectives of its first step by axis
+    (``AxisComm.launches``), a second step's ms from CUDA events, tokens/s
+    and peak memory, and on the card a third step under the profiler (its
+    NCCL kernels' device time; the ring's hop at sp = 1 is a local copy,
+    so no NCCL send/recv may run there). If the batch does not fit, every
+    strategy runs again at half of it, and the lines say so."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models import llama
+
+    on_cuda = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = llama.init_params(cfg, gen, device=device)
+    toks_all = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(device)
+    note = None
+    while True:
+        rows, ref = [], None
+        try:
+            for strategy in ("mesh=None",) + STRATEGIES:
+                row = parallel_step(cfg, base, toks_all[:batch], strategy,
+                                    mesh, card, on_cuda, ref)
+                ref = row.pop("ref", ref)
+                rows.append(row)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            torch.cuda.empty_cache()
+            note = (f"batch {toks_all.shape[0]} x {seq} did not fit in "
+                    f"device memory; batch {batch // 2} x {seq} instead")
+            log(f"parallel: {note}")
+            batch //= 2
+    for row in rows:
+        row.update(model="llama-1b", dtype=str(cfg.dtype),
+                   n_layers=cfg.n_layers, batch=batch, seq=seq, card=card)
+        if note:
+            row["note"] = note
+        if row["strategy"] == "ring" and on_cuda:
+            row["ring_hop"] = (
+                "at sp = 1 the ring's hop is a local copy: "
+                f"{row['profile']['sendrecv_kernels']} NCCL send/recv "
+                "kernels traced")
+        emit15("train_llama", **row)
+    for row in rows:
+        bad = not row["finite"] or (
+            "loss_rel_diff" in row
+            and not (row["loss_rel_diff"] <= 1e-2
+                     and row["grad_max_rel_diff"] <= 5e-2)) or (
+            row["strategy"] == "ring" and on_cuda
+            and row["profile"]["sendrecv_kernels"])
+        if bad:
+            raise AssertionError(f"parallel llama training: {row}")
+
+
+def routed(cfg, fn, picks: list):
+    """``fn`` as a ``_decoder_stack`` MoE function that first records each
+    layer's top-k experts per token in ``picks`` ([b, s, k], sorted), the
+    router's f32 logits taken as ``moe._moe_block`` takes them."""
+    import torch
+    from grove_tpu_torch.ops.norms import rms_norm_ref
+
+    def moe_fn(x, lp):
+        hm = rms_norm_ref(x, lp["mlp_norm"], cfg.norm_eps)
+        logits = torch.einsum("bsd,de->bse", hm.to(torch.float32),
+                              lp["router"].to(torch.float32))
+        top = torch.topk(logits, cfg.experts_per_token, dim=-1)[1]
+        picks.append(top.sort(dim=-1).values)
+        return fn(x, lp)
+    return moe_fn
+
+
+def parallel_moe(cfg, seed: int, device: str, seq: int, card: str,
+                 reduced: dict, mesh) -> None:
+    """The MoE at ``cfg`` (bf16), batch 1 x ``seq``, through the
+    expert-parallel layer over the one-rank ep group at a capacity factor
+    of n_experts (no assignment drops), against the dense path. Every
+    layer: the ep block's output, on the ep path's own input, within
+    bf16's 2e-2 of the largest MoE contribution of the dense block on the
+    same input. The logits: within the model-level bound (5e-2 max
+    |logit|) at every position whose top-k picks agree between the two
+    paths in all layers; a bf16 rounding in one layer can flip a later
+    layer's pick for a token whose two best experts are near tied, so the
+    positions over the bound must be a subset of the flipped ones. Layer
+    0 sees the same input on both paths, so it never flips, and the flips
+    of the last layer reach only their own token. The next-token loss
+    within 1e-2. The share of assignments dropped at the default 1.25;
+    one train step through the ep layer (AdamW): the loss and every
+    gradient finite, its time and the peak device memory."""
+    import numpy as np
+    import torch
+    from grove_tpu_torch import train
+    from grove_tpu_torch.models import llama, moe
+
+    on_cuda = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = moe.init_params(cfg, gen, device=device)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, seq)).astype(np.int32)).to(device)
+    ep = mesh.comm("ep")
+    roomy = float(cfg.n_experts)
+    block_diffs, block_bounds = [], []
+    picks_dense, picks_ep, kept_roomy, kept_default = [], [], [], []
+
+    def ep_checked(x, lp):
+        y, aux = moe._ep_moe_block(cfg, x, lp, roomy, ep, kept_roomy)
+        y_dense = moe._moe_block(cfg, x, lp)
+        block_diffs.append((y - y_dense).abs().max().item())
+        block_bounds.append(2e-2 * (y_dense - x).abs().max().item())
+        return y, aux
+
+    with torch.no_grad():
+        # The whole model, each path's routing recorded.
+        dense, _ = moe._decoder_stack(
+            cfg, params, toks,
+            routed(cfg, lambda x, lp: (moe._moe_block(cfg, x, lp), 0.0),
+                   picks_dense), 0.0)
+        ep_logits, _ = moe._decoder_stack(
+            cfg, params, toks, routed(cfg, ep_checked, picks_ep), 0.0)
+        moe._decoder_stack(cfg, params, toks, lambda x, lp: moe._ep_moe_block(
+            cfg, x, lp, 1.25, ep, kept_default), 0.0)
+        flipped = torch.stack([(a != b).any(dim=-1)
+                               for a, b in zip(picks_dense, picks_ep)])
+        flips = [int(f.sum()) for f in flipped]
+        diff = (ep_logits - dense).abs().amax(dim=-1)
+        bound = 5e-2 * dense.abs().max().item()
+        over = diff > bound
+        over_unflipped = int((over & ~flipped.any(dim=0)).sum())
+        l_dense = float(llama.next_token_loss(dense, toks))
+        l_ep = float(llama.next_token_loss(ep_logits, toks))
+        dropped_roomy = sum(int((~k).sum()) for k in kept_roomy)
+        dropped = sum(int((~k).sum()) for k in kept_default)
+        assigned = sum(k.numel() for k in kept_default)
+    del dense, ep_logits
+    opt = train.make_optimizer(params)
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(train.train_step(cfg, params, opt, toks,
+                                  loss=ep_loss(ep, roomy)))
+    step_s = time.perf_counter() - t0
+    finite = np.isfinite(loss) and all(
+        bool(torch.isfinite(p.grad).all()) for p in train.param_leaves(params))
+    fields = {"model": "mixtral-8x7b", "dtype": str(cfg.dtype),
+              "reduced": reduced, "batch": 1, "seq": seq,
+              "capacity_factor": roomy,
+              "block_max_abs_diff_by_layer": block_diffs,
+              "block_bound_by_layer": block_bounds,
+              "loss_dense": l_dense, "loss_ep": l_ep,
+              "logits_max_abs_diff": diff.max().item(),
+              "logits_max_abs_diff_unflipped": diff.masked_fill(
+                  flipped.any(dim=0), 0).max().item(),
+              "logits_model_bound": bound,
+              "positions_over_model_bound": int(over.sum()),
+              "positions_over_bound_unflipped": over_unflipped,
+              "positions": int(diff.numel()),
+              "routing_flips_by_layer": flips,
+              "dropped_at_capacity_factor": dropped_roomy,
+              "dropped_share_at_1.25": dropped / assigned,
+              "assignments": assigned, "step_loss": loss,
+              "grads_finite": finite, "step_s": step_s,
+              "ep_group_size": ep.size, "card": card}
+    if on_cuda:
+        fields["peak_bytes"] = torch.cuda.max_memory_allocated()
+    emit15("train_moe_ep", **fields)
+    del params, opt
+    if on_cuda:
+        torch.cuda.empty_cache()
+    if not (all(d <= b for d, b in zip(block_diffs, block_bounds))
+            and len(block_diffs) == cfg.n_layers
+            and over_unflipped == 0 and flips[0] == 0
+            and abs(l_ep - l_dense) <= 1e-2 * abs(l_dense)
+            and dropped_roomy == 0 and finite):
+        raise AssertionError(f"expert-parallel MoE: {fields}")
+
+
+def phase_parallel_train(seed: int, card: str, cfg=None, moe_cfg=None,
+                         device: str = "cuda", batch: int = 2,
+                         seq: int = 2048, moe_layers: int = 2,
+                         moe_seq: int = 1024) -> None:
+    """Parallel training at one rank, over a one-rank group (NCCL on the
+    card, gloo for the CPU rehearsal) and ``build_mesh(MeshPlan())``, whose
+    every axis runs its collectives over the default group. (1) test-tiny
+    and moe-test-tiny in f32, each strategy on the card against the same
+    strategy on the CPU over a gloo group (``parallel_parity``): llama's
+    ``loss_fn(mesh=)`` plain, ring and Ulysses, ``pipeline_forward`` at pp
+    = 1 with 2 microbatches, the MoE through ``_ep_moe_block``. (2)
+    llama-1b in bf16 at full width and depth, ``batch`` x ``seq`` tokens,
+    one train step of each strategy against ``mesh=None``
+    (``parallel_full``). (3) The MoE at Mixtral-8x7B's widths with
+    ``moe_layers`` of its 32 layers through the expert-parallel layer
+    (``parallel_moe``). (4) ``train.dryrun_multichip`` as a world of one:
+    its plain section, and its ok line. No hand-written kernel may launch
+    (counts read around the phase)."""
+    import dataclasses
+    import shutil
+    import torch.distributed as dist
+    from grove_tpu_torch import train
+    from grove_tpu_torch.models import llama, moe
+    from grove_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+
+    cfg = cfg or llama.CONFIGS["llama-1b"]
+    moe_cfg = moe_cfg or moe.MOE_CONFIGS["mixtral-8x7b"]
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    path = one_rank_group(device)
+    try:
+        mesh = build_mesh(MeshPlan())
+        emit15("group", backend=dist.get_backend(),
+               axes={a: c.size for a, c in mesh.comms.items()}, card=card)
+        parallel_parity(seed + 51, device, mesh, gloo_mesh())
+        parallel_full(cfg, seed + 52, device, batch, seq, card, mesh)
+        reduced = {"n_layers": f"{moe_cfg.n_layers} -> {moe_layers}"}
+        parallel_moe(dataclasses.replace(moe_cfg, n_layers=moe_layers),
+                     seed + 53, device, moe_seq, card, reduced, mesh)
+        t0 = time.perf_counter()
+        line = train.dryrun_multichip(device)
+        emit15("dryrun_multichip", line=line, backend=dist.get_backend(),
+               seconds=time.perf_counter() - t0, card=card)
+        if not line.startswith("dryrun_multichip ok: n=1 plan=(dp=1, sp=1, "
+                               "tp=1) ring=False loss="):
+            raise AssertionError(f"dryrun_multichip: {line}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(path, ignore_errors=True)
+    launched = {n: w.launches for n, w in wrappers.items() if w.launches}
+    emit15("train_kernel_launches", launches=launched)
+    if launched:
+        raise AssertionError(f"the parallel training path launched kernels: "
+                             f"{launched}")
+
+
 def decode_only(seed: int, card: str, batch: int = 32, bench_len: int = 512,
                 steps: int = 64, spec_k: int = 3,
                 spec_steps: int = 16) -> None:
@@ -5407,6 +5859,10 @@ def main() -> int:
     phase_tp_kernels(args.seed, card)
     check_worker_twin(card)
     phase_done("phase 14 (tensor-parallel serving)")
+    # 15. parallel training at one rank: every strategy over a one-rank NCCL
+    # group, the dry-run twin
+    phase_parallel_train(args.seed, card)
+    phase_done("phase 15 (parallel training at one rank)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

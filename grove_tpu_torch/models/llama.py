@@ -15,7 +15,9 @@ einsum). Each residual add runs inside the next norm (``add_rms_norm``).
 
 Training (``forward``, ``loss_fn``) takes none of that: the kernels have no
 backward (each wrapper raises on an input that requires grad), so its
-layers are the JAX package's in plain ops, as XLA runs them there.
+layers are the JAX package's in plain ops, as XLA runs them there; under a
+mesh (``mesh=``) each rank runs its block of them, with the collectives as
+autograd Functions (the training section below).
 """
 
 from __future__ import annotations
@@ -283,11 +285,10 @@ def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
     return h
 
 
-def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
-          tp=None) -> torch.Tensor:
-    """Token embedding. Under a tp group the table is this rank's slice of
-    the vocab: an id outside it reads a zero row, and the sum over the group
-    is exact, since each row has one non-zero term."""
+def _embed_rows(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """The rows of this rank's table: under a tp group the table is its
+    slice of the vocab, and an id outside it reads a zero row."""
     te = params["tok_embed"]
     if tp is not None:
         rows = te.shape[0]
@@ -301,7 +302,16 @@ def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         x = te[tokens].to(cfg.dtype)
     if tp is None:
         return x
-    return tp.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
+    return torch.where(hit[..., None], x, torch.zeros_like(x))
+
+
+def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+          tp=None) -> torch.Tensor:
+    """Token embedding. Under a tp group the table is this rank's slice of
+    the vocab: an id outside it reads a zero row, and the sum over the group
+    is exact, since each row has one non-zero term."""
+    x = _embed_rows(cfg, params, tokens, tp)
+    return x if tp is None else tp.all_reduce(x)
 
 
 def _logits(x: torch.Tensor, w, tp=None) -> torch.Tensor:
@@ -776,13 +786,22 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
 # no Pallas kernel and which autodiff differentiates. The port's hand-written
 # kernels have no backward, so nothing here reaches one: the projections
 # are ``torch.einsum``, the norms ``rms_norm_ref`` (JAX's ``rms_norm`` is an
-# XLA composition) and attention the plain ``causal_attention``. The layers
-# are a Python loop over ``layer_params``, so each layer's gradient lands in
-# the stacked [L, ...] leaf, as ``lax.scan``'s does.
+# XLA composition) and attention the plain ``causal_attention``, or ring or
+# Ulysses attention over the sp axis. The layers are a Python loop over
+# ``layer_params``, so each layer's gradient lands in the stacked [L, ...]
+# leaf, as ``lax.scan``'s does.
+#
+# Under a mesh (``mesh=``) each rank runs its block of the global function
+# that JAX's GSPMD partitions: the batch rows of its dp coordinate, the
+# positions of its sp coordinate (when an sp strategy cuts the sequence),
+# and its tp slices of the heads, the ff width and the vocab. The
+# collectives are written out where GSPMD and JAX's psums put them, as
+# autograd Functions (parallel/mesh.py's ``AxisComm``): the Megatron pair
+# around each head- and ff-sharded product, the vocab-sharded embedding's
+# sum, a vocab-parallel cross-entropy, and the sums over the ranks that saw
+# other tokens.
 
-PARALLEL_NOT_PORTED = ("the training path's tensor, pipeline, sequence and "
-                       "expert parallelism are not ported yet (ROADMAP.md, "
-                       "queue 1 item 6)")
+SP_STRATEGIES = ("ring", "ulysses")
 
 
 def _w(w) -> torch.Tensor:
@@ -798,73 +817,291 @@ def _einsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
 
 
 def qkv(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cos: torch.Tensor,
-        sin: torch.Tensor, positions: torch.Tensor):
-    """Pre-norm, the QKV projections and rope (JAX's ``_qkv``)."""
+        sin: torch.Tensor, positions: torch.Tensor, tp=None):
+    """Pre-norm, the QKV projections and rope (JAX's ``_qkv``). Under a tp
+    group (``tp``, an ``AxisComm``) the weights hold the rank's heads and
+    the normed rows enter them through ``copy_to``."""
     h = rms_norm_ref(x, lp["attn_norm"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.copy_to(h)
     q, k, v = (_einsum("bsd,dhk->bshk", h, lp[n]) for n in ("wq", "wk", "wv"))
     return (apply_rope(q, cos, sin, positions),
             apply_rope(k, cos, sin, positions), v)
 
 
-def attn_out(x: torch.Tensor, attn: torch.Tensor, lp: Params) -> torch.Tensor:
-    """The attention output's projection, added to the residual."""
-    return x + _einsum("bshk,hkd->bsd", attn, lp["wo"]).to(x.dtype)
+def attn_out(x: torch.Tensor, attn: torch.Tensor, lp: Params,
+             tp=None) -> torch.Tensor:
+    """The attention output's projection, added to the residual. Under a tp
+    group the rank's heads give a partial sum, summed by ``reduce_from``
+    (JAX's psum in ``_attn_out``)."""
+    out = _einsum("bshk,hkd->bsd", attn, lp["wo"])
+    if tp is not None:
+        out = tp.reduce_from(out)
+    return x + out.to(x.dtype)
 
 
-def mlp_block(cfg: LlamaConfig, x: torch.Tensor,
-              lp: Params) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP, added to the residual."""
+def mlp_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
+              tp=None) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP, added to the residual; under a tp group over the
+    rank's slice of the ff width (JAX's psum in ``_mlp_block``)."""
     hm = rms_norm_ref(x, lp["mlp_norm"], cfg.norm_eps)
+    if tp is not None:
+        hm = tp.copy_to(hm)
     gate = _einsum("bsd,df->bsf", hm, lp["w_gate"])
     up = _einsum("bsd,df->bsf", hm, lp["w_up"])
-    return x + _einsum("bsf,fd->bsd", F.silu(gate) * up,
-                       lp["w_down"]).to(x.dtype)
+    out = _einsum("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"])
+    if tp is not None:
+        out = tp.reduce_from(out)
+    return x + out.to(x.dtype)
 
 
-def head(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def head(cfg: LlamaConfig, params: Params, x: torch.Tensor,
+         tp=None) -> torch.Tensor:
     """Final norm and the LM head, an f32 result from the working-type
-    values upcast (JAX's ``preferred_element_type=f32``)."""
+    values upcast (JAX's ``preferred_element_type=f32``). Under a tp group
+    the head is the rank's vocab slice and so are the logits."""
     x = rms_norm_ref(x, params["final_norm"], cfg.norm_eps)
+    if tp is not None:
+        x = tp.copy_to(x)
     return torch.einsum("bsd,dv->bsv", x.to(torch.float32),
                         _w(params["lm_head"]).to(torch.float32))
+
+
+def embed_train(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """``embed`` for training: under a tp group the rank's rows are summed
+    by ``reduce_from``, so each rank's slice of the table gets its
+    gradient."""
+    x = _embed_rows(cfg, params, tokens, tp)
+    return x if tp is None else tp.reduce_from(x)
+
+
+def decoder_layers(cfg: LlamaConfig, layers: Params, x: torch.Tensor,
+                   cos: torch.Tensor, sin: torch.Tensor,
+                   positions: torch.Tensor, attn=causal_attention,
+                   tp=None) -> torch.Tensor:
+    """The stacked ``layers`` (all L of them, or a pipeline stage's) over
+    the embedded rows ``x``; ``attn(q, k, v)`` is the attention."""
+    for i in range(layers["attn_norm"].shape[0]):
+        lp = layer_params(layers, i)
+        q, k, v = qkv(cfg, x, lp, cos, sin, positions, tp)
+        x = attn_out(x, attn(q, k, v), lp, tp)
+        x = mlp_block(cfg, x, lp, tp)
+    return x
+
+
+def sp_strategy(mesh, ring: bool, sp: str | None,
+                positions: torch.Tensor | None) -> str | None:
+    """JAX's argument rules for sequence parallelism, with its exception
+    types: ``ring=True`` is the old spelling of ``sp="ring"`` and conflicts
+    with another strategy; ``sp`` needs the mesh; both strategies derive
+    causality from shard offsets, so custom positions are refused; an
+    unknown strategy is a ``ValueError``."""
+    if ring:
+        if sp not in (None, "ring"):
+            raise AssertionError(f"ring=True conflicts with sp={sp!r}")
+        sp = "ring"
+    if sp is not None:
+        if mesh is None:
+            raise AssertionError("sequence parallelism needs the mesh")
+        if positions is not None:
+            raise AssertionError(
+                "sequence parallelism does not support custom positions")
+        if sp not in SP_STRATEGIES:
+            raise ValueError(f"unknown sp strategy {sp!r} "
+                             "(expected 'ring' or 'ulysses')")
+    return sp
+
+
+def _sp_attention(mesh, sp: str | None):
+    if sp == "ring":
+        from grove_tpu_torch.ops.ringattention import ring_attention
+        return lambda q, k, v: ring_attention(mesh, q, k, v)
+    if sp == "ulysses":
+        from grove_tpu_torch.ops.ulysses import ulysses_attention
+        return lambda q, k, v: ulysses_attention(mesh, q, k, v)
+    return causal_attention
+
+
+def sum_leaf_grads(params: Params, comms, skip=(), only=None) -> Params:
+    """``params`` with each leaf that requires grad (those named in
+    ``only`` where given, but not those in ``skip``) summed over ``comms``
+    in the backward (``parallel/mesh.py``'s ``sum_grads``): the ranks of
+    those axes hold the same leaf and saw other tokens."""
+    from grove_tpu_torch.parallel.mesh import sum_grads
+    out = {k: (dict(v) if isinstance(v, dict) else v)
+           for k, v in params.items()}
+    nodes = [out, *(v for v in out.values() if isinstance(v, dict))]
+    slots = [(node, name) for node in nodes for name, leaf in node.items()
+             if isinstance(leaf, torch.Tensor) and leaf.requires_grad
+             and name not in skip and (only is None or name in only)]
+    views = sum_grads([node[name] for node, name in slots], comms)
+    for (node, name), view in zip(slots, views):
+        node[name] = view
+    return out
+
+
+def _mesh_block(mesh, tokens: torch.Tensor, cut_seq: bool):
+    """This rank's block of the global batch: (first row, rows, first
+    position, positions). Rows follow the dp coordinate; positions the sp
+    coordinate when ``cut_seq``, else the whole sequence."""
+    from grove_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP
+    B, S = tokens.shape
+    n_dp = mesh.shape[AXIS_DP]
+    n_sp = mesh.shape[AXIS_SP] if cut_seq else 1
+    if B % n_dp:
+        raise ValueError(f"dp={n_dp} must divide the batch {B}")
+    if S % n_sp:
+        raise ValueError(f"sp={n_sp} must divide the sequence {S}")
+    b, s = B // n_dp, S // n_sp
+    c0 = mesh.coord(AXIS_SP) * s if cut_seq else 0
+    return mesh.coord(AXIS_DP) * b, b, c0, s
+
+
+def _check_slices(cfg: LlamaConfig, params: Params, mesh) -> None:
+    """Refuse full-width params under tp > 1: summing every rank's full
+    product would give tp times the result without an error."""
+    from grove_tpu_torch.parallel.mesh import AXIS_TP
+    t = mesh.shape[AXIS_TP]
+    got = (params["layers"]["wq"].shape[2], params["tok_embed"].shape[0])
+    want = (cfg.n_heads // t, cfg.vocab_size // t)
+    if got != want:
+        raise ValueError(
+            f"under tp={t} the params are this rank's slices "
+            f"(parallel/sharding.py shard_params): wq heads and tok_embed "
+            f"rows {got}, want {want}")
+
+
+def _mesh_forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                  positions: torch.Tensor | None, mesh, sp: str | None):
+    """This rank's block of logits and (block, token axes, tp group)."""
+    from grove_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP
+    _check_slices(cfg, params, mesh)
+    block = r0, b, c0, s = _mesh_block(mesh, tokens, sp is not None)
+    tp = mesh.comm(AXIS_TP)
+    token_axes = [mesh.comm(AXIS_DP)]
+    if sp is not None:
+        token_axes.append(mesh.comm(AXIS_SP))
+    params = sum_leaf_grads(params, token_axes)
+    dev = tokens.device
+    toks = tokens[r0:r0 + b, c0:c0 + s]
+    if positions is None:
+        positions = torch.arange(c0, c0 + s, device=dev).expand(b, s)
+    else:
+        positions = positions[r0:r0 + b]
+    cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    x = embed_train(cfg, params, toks, tp)
+    x = decoder_layers(cfg, params["layers"], x, cos, sin, positions,
+                       _sp_attention(mesh, sp), tp)
+    return head(cfg, params, x, tp), block, token_axes, tp
 
 
 def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             positions: torch.Tensor | None = None, mesh=None,
             ring: bool = False, sp: str | None = None) -> torch.Tensor:
     """Full forward: logits [b, s, vocab] f32, differentiable (the training
-    path). ``positions`` [b, s] defaults to 0..s-1 in every row. ``mesh``,
-    ``ring`` and ``sp`` (sequence parallelism) raise: not ported yet."""
-    if mesh is not None or ring or sp is not None:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
+    path). ``positions`` [b, s] defaults to 0..s-1 in every row.
+
+    ``mesh`` (parallel/mesh.py's ``Mesh``) runs this rank's block of the
+    sharded forward: ``params`` are the rank's slices
+    (``parallel/sharding.py``'s ``shard_params``), ``tokens`` the global
+    batch, the same on every rank. The result is the rank's block of the
+    global logits, [B / dp, S / sp, vocab / tp]: the batch rows of its dp
+    coordinate, the positions of its sp coordinate (the whole sequence
+    without an sp strategy: the sp ranks then compute the same block) and
+    the vocab slice of its tp coordinate. ``sp`` selects the sequence
+    parallelism over the sp axis: ``"ring"`` (K/V blocks rotate, O(s / sp)
+    memory, any head count) or ``"ulysses"`` (two all-to-all exchanges,
+    heads must divide over sp); ``ring=True`` is the old spelling of
+    ``sp="ring"``. Other axes (pp, ep) replicate the computation, as in
+    JAX."""
+    sp = sp_strategy(mesh, ring, sp, positions)
+    if mesh is not None:
+        return _mesh_forward(cfg, params, tokens, positions, mesh, sp)[0]
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(s, device=dev).expand(b, s)
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
-    x = embed(cfg, params, tokens)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
-        q, k, v = qkv(cfg, x, lp, cos, sin, positions)
-        x = attn_out(x, causal_attention(q, k, v), lp)
-        x = mlp_block(cfg, x, lp)
+    x = decoder_layers(cfg, params["layers"], embed(cfg, params, tokens),
+                       cos, sin, positions)
     return head(cfg, params, x)
 
 
-def next_token_loss(logits: torch.Tensor,
-                    tokens: torch.Tensor) -> torch.Tensor:
+def nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+            valid: torch.Tensor | None = None, tp=None) -> torch.Tensor:
+    """The sum over positions (those ``valid`` marks, all by default) of
+    -log softmax(logits)[target], in f32. Under a tp group ``logits`` are
+    the rank's vocab slice (rank r holds ids [r V/tp, (r + 1) V/tp)): the
+    max, the exp-sum and the target's logit are summed over the group, so
+    every rank gets the same value and its slice's gradient, and the full
+    logits are never gathered. The max is detached, as JAX's
+    ``log_softmax`` takes it."""
+    from torch.distributed import ReduceOp
+    logits = logits.to(torch.float32)
+    top = logits.amax(dim=-1, keepdim=True).detach()
+    if tp is not None:
+        top = tp.all_reduce(top, op=ReduceOp.MAX)
+    shifted = logits - top
+    sumexp = torch.exp(shifted).sum(dim=-1)
+    rows = logits.shape[-1]
+    local = targets.to(torch.long) - (tp.rank * rows if tp is not None
+                                      else 0)
+    hit = (local >= 0) & (local < rows)
+    picked = torch.take_along_dim(
+        shifted, torch.where(hit, local, 0)[..., None], dim=-1)[..., 0]
+    picked = torch.where(hit, picked, 0.0)
+    if tp is not None:
+        sumexp, picked = tp.reduce_from(sumexp), tp.reduce_from(picked)
+    nll = torch.log(sumexp) - picked
+    if valid is not None:
+        nll = torch.where(valid, nll, 0.0)
+    return nll.sum()
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32 (every model family's): the
-    log-softmax of each position's logits, gathered at the next token."""
+    log-softmax of each position's logits, gathered at the next token.
+    Under a tp group ``logits`` are the rank's vocab slice (``nll_sum``)."""
     targets = tokens[:, 1:].to(torch.long)
-    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-    nll = -torch.take_along_dim(logp, targets[..., None], dim=-1)[..., 0]
-    return nll.mean()
+    return nll_sum(logits[:, :-1], targets, tp=tp) / targets.numel()
+
+
+def block_targets(tokens: torch.Tensor, block) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """The next-token targets of a rank's block (first row, rows, first
+    position, positions) of the global ``tokens`` and which positions have
+    one: a block's last position predicts the next block's first token,
+    and only the sequence's last position has no target."""
+    r0, b, c0, s = block
+    S = tokens.shape[1]
+    nxt = tokens[r0:r0 + b, c0 + 1:c0 + s + 1].to(torch.long)
+    if nxt.shape[1] < s:
+        nxt = torch.cat([nxt, torch.zeros_like(nxt[:, :1])], dim=1)
+    valid = torch.arange(c0, c0 + s, device=tokens.device) < S - 1
+    return nxt, valid
 
 
 def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             mesh=None, ring: bool = False,
             sp: str | None = None) -> torch.Tensor:
-    """Next-token cross-entropy of ``forward`` (the training loss)."""
-    return next_token_loss(forward(cfg, params, tokens, mesh=mesh, ring=ring,
-                                   sp=sp), tokens)
+    """Next-token cross-entropy of ``forward`` (the training loss). Under a
+    mesh it is the global loss, the same value on every rank: each rank's
+    block sums its positions' losses over the vocab-sharded logits, the
+    blocks are summed over the ranks that saw other tokens (dp, and sp when
+    an sp strategy cuts the sequence) and divided by B (S - 1). After
+    ``backward()`` each leaf's ``.grad`` is the rank's slice of the global
+    gradient."""
+    sp = sp_strategy(mesh, ring, sp, None)
+    if mesh is None:
+        return next_token_loss(forward(cfg, params, tokens), tokens)
+    logits, block, token_axes, tp = _mesh_forward(cfg, params, tokens, None,
+                                                  mesh, sp)
+    targets, valid = block_targets(tokens, block)
+    B, S = tokens.shape
+    loss = nll_sum(logits, targets, valid, tp) / (B * (S - 1))
+    for comm in token_axes:
+        if comm is not None:
+            loss = comm.reduce_from(loss)
+    return loss

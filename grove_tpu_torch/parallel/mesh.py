@@ -135,32 +135,228 @@ class AxisComm:
     ``launches`` counts the collectives launched, on the host, as each kernel
     wrapper counts its launches: a captured CUDA graph launches its
     collectives at each replay, and the engine moves the count taken while
-    capturing onto the replay."""
+    capturing onto the replay. A collective that autograd runs in a
+    backward pass counts there too.
 
-    def __init__(self, group, size: int, rank: int) -> None:
+    ``all_reduce`` is the plain sum (the serving path, under no grad). The
+    training path's collectives are ``torch.autograd.Function``s, each with
+    the backward its forward needs:
+
+    - ``copy_to`` (identity; the backward sums the cotangent over the axis)
+      and ``reduce_from`` (the sum; the backward is the identity): the
+      Megatron pair, put where a tp-replicated activation enters a head- or
+      ff-sharded product and where that product's partial sums meet. Every
+      tp rank computes the same loss, so the library's differentiable
+      all-reduce, whose backward sums the cotangent again, would make the
+      replicated leaves' gradients tp times too large;
+    - ``all_to_all`` (a contiguous split of the leading axis, one chunk per
+      rank; the exchange is its own inverse, so the backward is another);
+    - ``shift`` (the ring and pipeline hop; the backward hops back);
+    - ``all_gather`` (the backward takes this rank's slice)."""
+
+    def __init__(self, group, size: int, rank: int,
+                 ranks: list[int] | None = None) -> None:
         self.group = group
         self.size = size     # ranks on the axis
         self.rank = rank     # this process's coordinate on it
+        # the default group's rank of each coordinate (point-to-point peers)
+        self.ranks = list(ranks) if ranks is not None else list(range(size))
         self.launches = 0
 
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the axis (in place where ``x`` is
-        contiguous; the result is returned either way)."""
+    def all_reduce(self, x: torch.Tensor,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """The sum (or ``op``) of ``x`` over the axis (in place where ``x``
+        is contiguous; the result is returned either way). Not
+        differentiable."""
         x = x.contiguous()
         self.launches += 1
-        dist.all_reduce(x, group=self.group)
+        dist.all_reduce(x, op=op, group=self.group)
         return x
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``x`` joined on its last axis, in rank order."""
-        parts = [torch.empty_like(x) for _ in range(self.size)]
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' ``x`` joined on ``dim`` (the last axis by default), in
+        rank order. Its gradient is this rank's slice of the cotangent: the
+        ranks compute the same function of the joined tensor."""
+        return _AllGather.apply(self, dim, x)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; its gradient is the cotangent summed over the
+        axis."""
+        return _CopyTo.apply(self, x)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the axis; its gradient is the cotangent as
+        it is."""
+        return _ReduceFrom.apply(self, x)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [size, ...]: chunk i goes to coordinate i, and chunk i of
+        the result came from coordinate i."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all splits a leading axis of "
+                             f"{self.size}, got {tuple(x.shape)}")
+        return _AllToAll.apply(self, x)
+
+    def shift(self, x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """The ring hop: ``x`` goes to coordinate rank + offset and the
+        result is what coordinate rank - offset sent (``lax.ppermute`` with
+        the perm i -> i + offset). At axis size 1 it is a local copy: gloo
+        refuses a send to the process's own rank, and the hop of a ring of
+        one is the identity, as JAX's ``ppermute`` over perm [(0, 0)]."""
+        return _Shift.apply(self, offset, x)
+
+    # ---- the raw collectives under the Functions ----
+
+    def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self.size)]
         self.launches += 1
         dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=-1)
+        return torch.cat(parts, dim=dim)
+
+    def _exchange(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        self.launches += 1
+        dist.all_to_all_single(out, x, group=self.group)
+        return out
+
+    def _hop(self, x: torch.Tensor, offset: int) -> torch.Tensor:
+        if offset % self.size == 0:
+            return x.clone(memory_format=torch.contiguous_format)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dst = self.ranks[(self.rank + offset) % self.size]
+        src = self.ranks[(self.rank - offset) % self.size]
+        self.launches += 1
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, dst, self.group),
+                dist.P2POp(dist.irecv, out, src, self.group)]):
+            req.wait()
+        return out
+
+
+def _summed(comm: AxisComm, g: torch.Tensor) -> torch.Tensor:
+    """``g`` summed over the axis, into a copy: autograd may hand the same
+    cotangent tensor to more than one input."""
+    return comm.all_reduce(g.clone(memory_format=torch.contiguous_format))
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _summed(ctx.comm, g)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, x):
+        return _summed(comm, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return comm._exchange(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._exchange(g)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, offset, x):
+        ctx.comm, ctx.offset = comm, offset
+        return comm._hop(x, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.comm._hop(g, -ctx.offset)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, dim, x):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.comm.size
+        return None, None, g.narrow(ctx.dim, ctx.comm.rank * n, n)
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comms, *xs):
+        ctx.comms = comms
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = [None, *gs]
+        for i, g in enumerate(gs):
+            if not ctx.needs_input_grad[i + 1]:
+                out[i + 1] = None
+                continue
+            g = g.clone(memory_format=torch.contiguous_format)
+            for comm in ctx.comms:
+                comm.all_reduce(g)
+            out[i + 1] = g
+        return tuple(out)
+
+
+def sum_grads(tensors, comms) -> list[torch.Tensor]:
+    """``tensors``, each as a view of itself whose gradient is summed over
+    every axis of ``comms`` (None entries skipped): the gradient of a leaf
+    that every rank of those axes holds whole, each rank having computed
+    its part of the loss from other tokens. One autograd step runs all the
+    sums, in the order of ``tensors`` and then of ``comms``, after every
+    use of every tensor: the same order on every rank."""
+    comms = tuple(c for c in comms if c is not None)
+    tensors = list(tensors)
+    if not comms or not tensors:
+        return tensors
+    return list(_SumGrads.apply(comms, *tensors))
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dep):
+        ctx.dep_meta = (dep.shape, dep.dtype, dep.device)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.dep_meta
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def tie(x: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
+    """``x``, with ``dep`` made an input of it whose gradient is zero.
+    Autograd runs a node's backward only if its output reaches the loss on
+    this rank; where a rank skips work that another does (a ring block in
+    the causal future, a pipeline bubble), the tie keeps the skipped input
+    in the graph, so that the collective which made it (a shift) runs its
+    backward on every rank, as its peers expect."""
+    if not (torch.is_grad_enabled() and dep.requires_grad):
+        return x
+    return _Tie.apply(x, dep)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -217,34 +413,44 @@ def _axis_groups(plan: MeshPlan, axis: str) -> list[list[int]]:
     return [[s + i * stride for i in range(n)] for s in starts]
 
 
-def build_mesh(plan: MeshPlan | None = None) -> Mesh:
+def build_mesh(plan: MeshPlan | None = None,
+               ranks=None) -> Mesh | None:
     """A ``Mesh`` over torch.distributed's default process group, which must
     be initialised already (``torch.distributed.init_process_group``: NCCL
-    for CUDA tensors, gloo for CPU ones). When ``plan`` is None, a plan is
-    derived from the world size. Every process of the group calls this
-    with the same plan: each axis of size > 1 gets a process group per set
-    of ranks along it (the default group where the axis spans it), made by
-    all processes in one order. In a world of one, every axis runs over
-    the default group."""
+    for CUDA tensors, gloo for CPU ones). ``ranks`` are the default group's
+    ranks the mesh spans, in mesh order (all of them by default, JAX's
+    ``devices[:n]`` where fewer); a process outside them gets None. When
+    ``plan`` is None, a plan is derived from their count. Every process of
+    the default group calls this with the same arguments, members or not:
+    each axis of size > 1 gets a process group per set of ranks along it
+    (the default group where the axis spans it), made by all processes in
+    one order. In a world of one, every axis runs over the default
+    group."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs torch.distributed's default "
                            "process group: call init_process_group first")
     world, rank = dist.get_world_size(), dist.get_rank()
+    members = list(range(world)) if ranks is None else list(ranks)
     if plan is None:
-        plan = mesh_axes_for(world)
-    if plan.size != world:
+        plan = mesh_axes_for(len(members))
+    if plan.size != len(members):
         raise ValueError(
-            f"mesh plan {plan} needs {plan.size} processes, have {world}")
+            f"mesh plan {plan} needs {plan.size} processes, have "
+            f"{len(members)}")
     comms = {}
     for axis, n in plan.axis_sizes().items():
         if n == 1 and world > 1:
             continue
-        for ranks in _axis_groups(plan, axis):
-            group = (dist.group.WORLD if len(ranks) == world
-                     else dist.new_group(ranks))
-            if rank in ranks:
-                comms[axis] = AxisComm(group, len(ranks), ranks.index(rank))
-    return Mesh(plan, rank, comms)
+        for coords in _axis_groups(plan, axis):
+            group_ranks = [members[c] for c in coords]
+            group = (dist.group.WORLD if group_ranks == list(range(world))
+                     else dist.new_group(group_ranks))
+            if rank in group_ranks:
+                comms[axis] = AxisComm(group, len(group_ranks),
+                                       group_ranks.index(rank), group_ranks)
+    if rank not in members:
+        return None
+    return Mesh(plan, members.index(rank), comms)
 
 
 def single_device_mesh() -> Mesh:

@@ -273,9 +273,11 @@ TRAINING_MODULES = ("train.py", "models/moe.py", "models/llama.py")
 BANNED_IMPORTS = ("jax", "jaxlib", "optax", "orbax", "grove_tpu")
 
 
-# ... its tensor-parallel modules, and the in-pod worker twin.
+# ... its parallel modules (tensor, sequence, pipeline), and the in-pod
+# worker twin.
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
-                    "parallel/sharding.py")
+                    "parallel/sharding.py", "parallel/pipeline.py",
+                    "ops/ringattention.py", "ops/ulysses.py")
 WORKER_TWINS = ("samples/workloads/allreduce_worker_torch.py",)
 
 
@@ -289,7 +291,8 @@ def test_port_sources_import_no_jax():
     worker twin) imports jax, optax, orbax or the JAX package; the scan
     covers the handoff module, the observatories (the metrics sink, slo,
     metrics_push, reqtrace, xprof), the checkpoints, the training modules
-    and the tensor-parallel package."""
+    and the parallel modules (the mesh, sharding and pipeline, ring and
+    Ulysses attention)."""
     bad = []
     for name in OBSERVED_MODULES:
         assert PKG / "serving" / f"{name}.py" in _port_modules(), name

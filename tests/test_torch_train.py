@@ -4,7 +4,7 @@ and the dense MoE family's ``forward``, ``loss_fn`` and gradients
 (``jax.grad``), three AdamW steps against ``optax.adamw(1e-3)``, the MoE
 tests of tests/test_moe_checkpoint.py held against JAX, the load-balance
 loss, ``train.entry`` against ``__graft_entry__.entry``, the parallel
-options that raise, and every kernel wrapper refusing an input that
+argument rules that raise as JAX's, and every kernel wrapper refusing an input that
 requires grad.
 
 Tolerances, f32 at test-tiny and moe-test-tiny: logits 1e-4 (rtol and
@@ -30,12 +30,15 @@ import __graft_entry__ as graft
 from grove_tpu.models import llama as jllama
 from grove_tpu.models import moe as jmoe
 from grove_tpu.ops import attention as jattention
+from grove_tpu.parallel.mesh import MeshPlan as JMeshPlan
+from grove_tpu.parallel.mesh import build_mesh as jbuild_mesh
 from grove_tpu_torch import train
 from grove_tpu_torch.convert import params_from_numpy
 from grove_tpu_torch.models import llama as tllama
 from grove_tpu_torch.models import moe as tmoe
 from grove_tpu_torch.ops import attention as tattention
 from grove_tpu_torch.ops import flash, kvquant, norms, paged, w8a16
+from grove_tpu_torch.parallel.mesh import Mesh, MeshPlan
 
 # Small shapes: one intra-op thread keeps these tests from crowding the
 # timing-sensitive control-plane tests that run beside them in parallel.
@@ -319,19 +322,52 @@ def test_entry_forward_matches_graft_entry():
 
 
 def test_parallel_options_raise():
+    """The argument rules that still raise, as they raise in JAX (its
+    asserts, as AssertionError; an unknown strategy as ValueError): the ring
+    with Ulysses, sp without a mesh, an unknown sp, custom positions under
+    sp, and ``ep=True`` without an ep axis (or a mesh)."""
     jc, tc = _cfgs("llama")
-    mc = _cfgs("moe")[1]
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    lp = tllama.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    mp = tmoe.init_params(mc, torch.Generator().manual_seed(0), "cpu")
-    for call in (lambda: tllama.forward(tc, lp, toks, mesh=object()),
-                 lambda: tllama.forward(tc, lp, toks, ring=True),
-                 lambda: tllama.loss_fn(tc, lp, toks, sp="ulysses"),
-                 lambda: tllama.loss_fn(tc, lp, toks, sp="ring"),
-                 lambda: tmoe.forward(mc, mp, toks, ep=True),
-                 lambda: tmoe.loss_fn(mc, mp, toks, mesh=object(), ep=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            call()
+    jmc, mc = _cfgs("moe")
+    toks = np.zeros((1, 4), np.int32)
+    jp = jllama.init_params(jc, jax.random.PRNGKey(0))
+    jmp = jmoe.init_params(jmc, jax.random.PRNGKey(0))
+    lp, mp = _port(jp), _port(jmp)
+    pos = np.zeros((1, 4), np.int32)
+    mesh = object()
+    for exc, match, jcall, tcall in (
+            (AssertionError, "conflicts",
+             lambda t: jllama.forward(jc, jp, t, mesh=mesh, ring=True,
+                                      sp="ulysses"),
+             lambda t: tllama.forward(tc, lp, t, mesh=mesh, ring=True,
+                                      sp="ulysses")),
+            (AssertionError, "needs the mesh",
+             lambda t: jllama.loss_fn(jc, jp, t, sp="ring"),
+             lambda t: tllama.loss_fn(tc, lp, t, sp="ring")),
+            (AssertionError, "needs the mesh",
+             lambda t: jllama.forward(jc, jp, t, ring=True),
+             lambda t: tllama.forward(tc, lp, t, ring=True)),
+            (ValueError, "unknown sp strategy",
+             lambda t: jllama.loss_fn(jc, jp, t, mesh=mesh, sp="megatron"),
+             lambda t: tllama.loss_fn(tc, lp, t, mesh=mesh, sp="megatron")),
+            (AssertionError, "custom positions",
+             lambda t: jllama.forward(jc, jp, t, jnp.asarray(pos), mesh=mesh,
+                                      sp="ulysses"),
+             lambda t: tllama.forward(tc, lp, t, torch.from_numpy(pos),
+                                      mesh=mesh, sp="ulysses")),
+            (AssertionError, "ep path needs the mesh",
+             lambda t: jmoe.forward(jmc, jmp, t, ep=True),
+             lambda t: tmoe.forward(mc, mp, t, ep=True)),
+            (AssertionError, "no ep axis",
+             lambda t: jmoe.loss_fn(
+                 jmc, jmp, t, ep=True,
+                 mesh=jbuild_mesh(JMeshPlan(dp=2), jax.devices()[:2])),
+             lambda t: tmoe.loss_fn(mc, mp, t, ep=True,
+                                    mesh=Mesh(MeshPlan(dp=2))))):
+        with pytest.raises(exc, match=match) as jerr:
+            jcall(jnp.asarray(toks))
+        with pytest.raises(exc, match=match) as terr:
+            tcall(torch.from_numpy(toks))
+        assert str(terr.value) == str(jerr.value)
 
 
 def test_make_optimizer_has_optax_defaults():
