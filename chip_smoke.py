@@ -41,12 +41,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      of its sum, rows bitwise across row counts, timed at 32, 128 and
      4,096 rows beside its bound and x + delta then F.rms_norm;
   4. lanes serve: llama-1b at full width and depth (random weights from
-     --seed) through make_engine(mode="lanes") with int8 weights: queued
-     requests admitted through a PrefillWorker, then the bench posture
-     (admit_prompts + run(64)); the flash and W8A16 launch counts are read
-     from this phase alone; then a torch.profiler pass over one in-engine
-     prefill and one run(8) window gives the kernels by device time and the
-     device's busy share;
+     --seed) through make_engine(mode="lanes") with int8 weights, its
+     decode replaying CUDA graphs (warmup captures the single step and the
+     K-step block, and nothing is captured in traffic): queued requests
+     admitted through a PrefillWorker, then the bench posture
+     (admit_prompts + run(64)), whose tokens are bitwise those of an eager
+     loop of llama.prefill + decode_step + argmax; the flash and W8A16
+     launch counts are read from these two runs alone (through the
+     replays); the sampled lanes engine (top_k=1 equals greedy, a seed
+     repeats, two seeds differ); then a torch.profiler pass over one
+     in-engine prefill and one run(8) window gives the kernels by device
+     time and the device's busy share, and the bench posture again with
+     the graphs off (each step dispatched from the host) gives tokens/s,
+     busy share and kernels per step beside it;
   5. model: llama-1b prefill logits with int8 weights through the flash
      and W8A16 kernels vs the plain attention and the GEMM's plain version;
   6. paged parity: test-tiny f32 through the paged engine with the kernels
@@ -129,8 +136,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      training; the trained params through save_params / load_params
      bitwise; A -> B -> A warm restarts into live llama-1b engines (paged
      with bf16 and int8 weights and self-draft spec, and the lanes engine
-     with 128-token prompts through the flash kernel): tokens equal fresh
-     engines' tokens, no new build, the barrier responder's new step.
+     with 128-token prompts through the flash kernel and its decode
+     graphs): tokens equal fresh engines' tokens, no new build, the
+     barrier responder's new step.
  14. tensor-parallel serving: a one-rank NCCL group and build_mesh(
      MeshPlan()); llama-1b through make_engine(mesh=) with int8 weights
      over a bf16 pool and with bf16 weights over an int8 pool, 16 requests
@@ -145,7 +153,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      tp = 2, 4, 8 and llama-70b at tp = 8 against its plain version,
      timed beside its bound, the GEMMs' rows bitwise across M; and
      samples/workloads/allreduce_worker_torch.py as a world of one over
-     NCCL (result 1.0).
+     NCCL (result 1.0); the lanes model functions under tp: the flash
+     kernel at one rank's head counts of llama-1b (tp = 2, 4, 8; b = 32,
+     s = 128 and 2,048) against its plain version, timed beside its bound
+     and scaled_dot_product_attention, and llama-1b's lanes prefill + 16
+     decode steps with tp= the group, bitwise equal to tp=None (its flash
+     launches in the kernels line's flash row, "tp_launches").
  15. parallel training at one rank, over a one-rank NCCL group and
      build_mesh(MeshPlan()), one JSON line per check: test-tiny and
      moe-test-tiny in f32, each strategy on the card against the same
@@ -160,7 +173,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      expert-parallel layer against the dense path (layer 0's block, the
      loss; the logits and routing flips reported), the dropped share at
      capacity factor 1.25, one train step; train.dryrun_multichip as a
-     world of one (its ok line); no kernel launched.
+     world of one (its ok line, the disaggregated section skipped below 8
+     ranks as in JAX); no kernel launched.
+ 16. serving worker: samples/workloads/serving_worker_torch.py as a
+     subprocess on the card with llama-1b for 5 s: the ready file appears
+     only after the warm line, "served N decode steps" with N > 0, and the
+     same 2 graphs captured before ready and after serving.
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -377,9 +395,20 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
                 n_requests: int = 48, prompt_len: int = 128,
                 max_new_tokens: int = 32, batch: int = 32,
                 max_len: int = 512, bench_steps: int = 64,
-                count_launches: bool = True) -> dict[str, int]:
+                count_launches: bool = True,
+                sample_steps: int = 16) -> dict[str, int]:
     """Serve through the lanes engine; returns the flash and W8A16 launch
-    counts of this phase (the counts are zeroed at its start)."""
+    counts of its queued serve and bench posture (zeroed just before).
+
+    On the card the decode replays CUDA graphs: ``warmup`` captures the
+    single step and the K-step block (2 graphs), and nothing is captured
+    in traffic. The bench posture's tokens are held bitwise to an eager
+    loop of ``llama.prefill`` + ``decode_step`` + argmax on the same params
+    and prompts (``eager_lanes``); the sampled lanes (``sampled_lanes``):
+    ``top_k = 1`` equals greedy, a seed repeats, two seeds differ. Then the
+    bench posture again with the graphs off (each step dispatched from the
+    host, as before the graphs) beside it: tokens/s, and on the card the
+    profiled busy share and kernels per decode step of both."""
     import numpy as np
     import torch
     from grove_tpu_torch.models.llama import CONFIGS, init_params
@@ -426,6 +455,17 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     bench_prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
 
+    t0 = time.perf_counter()
+    built = eng.warmup()
+    log(f"serve: warmup built {built} decode executables in "
+        f"{time.perf_counter() - t0:.2f} s ({eng.graphs_captured} CUDA "
+        f"graphs captured, {eng.capture_seconds:.2f} s of capture) on "
+        f"{card}")
+    if on_cuda and eng.graphs_captured != 2:
+        raise AssertionError(f"warmup captured {eng.graphs_captured} "
+                             f"graphs, expected 2 (step, step_block)")
+    captured = eng.graphs_captured
+
     flash_causal_attention.launches = 0
     w8a16_matmul.launches = 0
     steps0 = eng.steps
@@ -468,6 +508,21 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
     if len(bench_done) != batch or any(
             len(r.generated) != bench_steps + 1 for r in bench_done):
         raise AssertionError("bench-posture requests not all answered")
+    log(f"serve: graphs captured during the queued serve and the bench "
+        f"posture: {eng.graphs_captured - captured}")
+    if eng.graphs_captured != captured:
+        raise AssertionError("a decode graph was captured in traffic")
+    bench_tokens = [r.generated for r in sorted(bench_done,
+                                                key=lambda r: r.rid)]
+    eager = eager_lanes(cfg, eng.params, bench_prompts, max_len,
+                        bench_steps)
+    same = sum(a == b for a, b in zip(bench_tokens, eager))
+    log(f"serve: bench posture vs an eager loop of llama.prefill + "
+        f"decode_step + argmax: {same}/{batch} lanes' {bench_steps + 1} "
+        f"tokens bitwise equal")
+    if same != batch:
+        raise AssertionError("the graphs' tokens differ from the eager "
+                             "model functions'")
     prefill_calls = len(prefill_ms) + 1
     want = cfg.n_layers * prefill_calls if count_launches else 0
     log(f"serve: flash launches {launches} over {prefill_calls} prefill "
@@ -495,20 +550,177 @@ def phase_serve(seed: int, card: str, cfg=None, device: str = "cuda",
         f"{bench_steps}) in {decode_s * 1e3:.1f} ms) on {card}")
     log(f"serve: peak torch.cuda.max_memory_allocated "
         f"{peak / 2**30:.3f} GiB on {card}")
+    sampled_lanes(cfg, eng.params, bench_prompts, bench_tokens, max_len,
+                  sample_steps, device, card)
+    graphs = {"tokens_per_s": tok_s}
     if on_cuda:
-        profile_path(eng, bench_prompts, card, admit_ms,
-                     decode_s * 1e3 / bench_steps)
+        graphs.update(profile_path(eng, bench_prompts, card, admit_ms,
+                                   decode_s * 1e3 / bench_steps))
+    # The same posture with each step dispatched from the host (the graphs
+    # off, this engine's decode as it ran before them).
+    live, capture = eng._graphs, eng._capture
+    eng._graphs, eng._capture = {}, (lambda step: step)
+    try:
+        eng.admit_prompts(bench_prompts, max_new_tokens=bench_steps + 1)
+        sync()
+        t = time.perf_counter()
+        eng.run(bench_steps)
+        sync()
+        eager_s = time.perf_counter() - t
+        eager_tokens = [r.generated for r in sorted(
+            eng.completed[-batch:], key=lambda r: r.rid)]
+        off = {"tokens_per_s": batch * bench_steps / eager_s}
+        log(f"serve: decode with the graphs off {off['tokens_per_s']:.1f} "
+            f"tokens/s (run({bench_steps}) in {eager_s * 1e3:.1f} ms) on "
+            f"{card}")
+        if eager_tokens != bench_tokens:
+            raise AssertionError("graphs off gives other tokens")
+        if on_cuda:
+            eng.admit_prompts(bench_prompts)
+            prof = profile_window("decode, graphs off", lambda: eng.run(8),
+                                  eager_s * 1e3 / bench_steps * 8, card,
+                                  ("w8a16",))
+            off.update(busy_ms=prof["busy_ms"], kernels=prof["count"],
+                       wall_ms=eager_s * 1e3 / bench_steps * 8)
+    finally:
+        eng._graphs, eng._capture = live, capture
+    if on_cuda:
+        # The step and its attention path timed the same way: replays
+        # queued behind a spin kernel.
+        step_ms = time_ms(eng.step)
+        attn_ms = lanes_attention_ms(cfg, batch, max_len,
+                                     prompt_len + bench_steps // 2)
+        log(f"serve: the lanes decode's plain rope + write_rows + "
+            f"decode_attention over {cfg.n_layers} layers, one graph "
+            f"replayed: {attn_ms:.4f} ms per step, "
+            f"{100 * attn_ms / step_ms:.1f}% of a graphed step's "
+            f"{step_ms:.4f} device ms (the profiled window: "
+            f"{graphs['busy_ms'] / 8:.4f} ms per step) on {card}")
+        log(f"serve: decode graphs on / off: {graphs['tokens_per_s']:.1f} / "
+            f"{off['tokens_per_s']:.1f} tokens/s "
+            f"({graphs['tokens_per_s'] / off['tokens_per_s']:.2f}x); busy "
+            f"share {100 * graphs['busy_ms'] / graphs['wall_ms']:.1f}% / "
+            f"{100 * off['busy_ms'] / off['wall_ms']:.1f}%; kernels per "
+            f"decode step {graphs['kernels'] / 8:.1f} / "
+            f"{off['kernels'] / 8:.1f} on {card}")
     return {"flash_causal_attention": launches, "w8a16_matmul": gemms}
 
 
+def lanes_attention_ms(cfg, batch: int, max_len: int, length: int) -> float:
+    """Device ms of one lanes decode step's attention path without the rest
+    of the step: for every layer, ``apply_rope`` on q and k, ``write_rows``
+    of k and v into that layer's cache and the plain ``decode_attention``
+    over all ``max_len`` rows, at lanes of ``length`` tokens, captured in
+    one CUDA graph and timed by its replays."""
+    import torch
+    from grove_tpu_torch.models.llama import _rope
+    from grove_tpu_torch.ops.attention import decode_attention
+    from grove_tpu_torch.ops.kvcache import KVCache, write_rows
+    from grove_tpu_torch.ops.rope import apply_rope
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h, n_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((batch, 1, h, d), generator=gen, device="cuda").to(
+        cfg.dtype)
+    k, v = (torch.randn((batch, 1, n_kv, d), generator=gen,
+                        device="cuda").to(cfg.dtype) for _ in range(2))
+    cache = KVCache.create(cfg.n_layers, batch, max_len, n_kv, d, cfg.dtype,
+                           "cuda")
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    lengths = torch.full((batch,), length, dtype=torch.int32, device="cuda")
+    positions = lengths[:, None]
+    cos, sin = _rope(cfg.max_seq_len, d, cfg.rope_theta,
+                     torch.device("cuda"))
+
+    def attend() -> None:
+        for i in range(cfg.n_layers):
+            qr = apply_rope(q, cos, sin, positions)
+            kr = apply_rope(k, cos, sin, positions)
+            kc = write_rows(cache.k[i], kr, lengths)
+            vc = write_rows(cache.v[i], v, lengths)
+            decode_attention(qr, kc, vc, lengths + 1)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        attend()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        attend()
+    ms = time_ms(graph.replay)
+    del graph, cache
+    torch.cuda.empty_cache()
+    return ms
+
+
+def eager_lanes(cfg, params, prompts, max_len: int, steps: int
+                ) -> list[list[int]]:
+    """Each lane's greedy tokens from the model functions called one by one
+    (no engine, no graph): ``llama.prefill`` into a fresh cache, then
+    ``steps`` of ``decode_step`` + argmax."""
+    import torch
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.ops.kvcache import KVCache
+    b = prompts.shape[0]
+    with torch.no_grad():
+        cache = KVCache.create(cfg.n_layers, b, max_len, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.dtype, prompts.device)
+        logits, cache = llama.prefill(cfg, params, prompts, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = [tok]
+        for _ in range(steps):
+            logits, cache = llama.decode_step(cfg, params, tok, cache)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+    return torch.stack(out).T.cpu().tolist()
+
+
+def sampled_lanes(cfg, params, prompts, greedy: list[list[int]],
+                  max_len: int, steps: int, device: str, card: str) -> None:
+    """The sampled lanes engine (its ``step_block_sampled`` graph, the
+    generator registered with it) on the bench prompts: ``top_k = 1``
+    gives the greedy tokens (their first ``steps + 1``), one seed repeats
+    its tokens, and two seeds differ."""
+    from grove_tpu_torch.serving.engine import DecodeEngine, SamplerConfig
+    b = prompts.shape[0]
+
+    def tokens(**sampler) -> list[list[int]]:
+        eng = DecodeEngine(cfg, params, batch=b, max_len=max_len,
+                           host_sync_interval=8, device=device,
+                           sampler=SamplerConfig(**sampler))
+        eng.admit_prompts(prompts, max_new_tokens=steps + 1)
+        eng.run(steps)
+        eng.sync()
+        if len(eng.completed) != b:
+            raise AssertionError(f"sampled lanes {sampler}: "
+                                 f"{len(eng.completed)} of {b} answered")
+        return [r.generated for r in sorted(eng.completed,
+                                            key=lambda r: r.rid)]
+
+    top1 = tokens(temperature=1.0, top_k=1, seed=3)
+    a = tokens(temperature=1.0, top_k=50, seed=3)
+    again = tokens(temperature=1.0, top_k=50, seed=3)
+    other = tokens(temperature=1.0, top_k=50, seed=4)
+    want = [g[:steps + 1] for g in greedy]
+    log(f"serve: sampled lanes: top_k=1 equals greedy "
+        f"{top1 == want}, seed 3 repeats {a == again}, seeds 3 and 4 "
+        f"differ {a != other} ({b} lanes x {steps + 1} tokens) on {card}")
+    if not (top1 == want and a == again and a != other):
+        raise AssertionError("the sampled lanes engine failed a check")
+
+
 def profile_path(eng, prompts, card: str, prefill_ms: float,
-                 step_ms: float, steps: int = 8) -> None:
+                 step_ms: float, steps: int = 8) -> dict:
     """Device time by kernel for one in-engine prefill and one decode window
-    of ``steps`` steps of the lanes engine."""
+    of ``steps`` steps of the lanes engine; returns the decode window's
+    busy ms, kernel count and unprofiled wall ms."""
     profile_window("prefill", lambda: eng.admit_prompts(prompts),
                    prefill_ms, card, ("flash_fwd", "w8a16"))
-    profile_window("decode", lambda: eng.run(steps), step_ms * steps, card,
-                   ("flash_fwd", "w8a16"))
+    prof = profile_window("decode", lambda: eng.run(steps), step_ms * steps,
+                          card, ("flash_fwd", "w8a16"))
+    return {"busy_ms": prof["busy_ms"], "kernels": prof["count"],
+            "wall_ms": step_ms * steps}
 
 
 def profile_window(name: str, fn, wall_ms: float, card: str,
@@ -4515,8 +4727,11 @@ def restart_case(label: str, cfg, a, b, device: str, card: str, rng,
     t0 = time.perf_counter()
     tok_a = serve(live)
     serve_s = time.perf_counter() - t0
-    # The lanes engine runs eagerly: its builds are the first serve's.
+    # The lanes engine captures each graph at its first dispatch: its
+    # builds are the first serve's.
     built = builds(live)
+    if lanes and device == "cuda" and not built["graphs"]:
+        raise AssertionError(f"{label}: the lanes decode captured no graph")
     if ckpt.latest_step(path_a) is None:
         ckpt.save_engine(path_a, live)                     # step 0
     t0 = time.perf_counter()
@@ -5176,6 +5391,121 @@ def phase_tp_kernels(seed: int, card: str) -> list[dict]:
     return records
 
 
+def phase_tp_lanes(seed: int, card: str, cfg=None, device: str = "cuda",
+                   batch: int = 8, prompt_len: int = 128,
+                   steps: int = 16) -> int:
+    """The lanes model functions under tp over a one-rank group (NCCL on
+    the card, gloo for the CPU rehearsal): llama-1b's ``llama.prefill`` of
+    ``batch`` ragged prompts right-padded to ``prompt_len`` (the flash path
+    at 128) and ``steps`` greedy ``decode_step``s with ``tp=`` the group's
+    tp comm, against ``tp=None`` on the same params and prompts: every
+    logit and token bitwise, 2 n_layers + 2 collectives per forward by the
+    group's count. Returns the flash launches of the tp run (zeroed just
+    before it, read just after)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.ops.flash import flash_causal_attention
+    from grove_tpu_torch.ops.kvcache import KVCache
+    from grove_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+
+    cfg = cfg or llama.CONFIGS["llama-1b"]
+    on_cuda = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed + 41)
+    params = llama.init_params(cfg, gen, device=device)
+    rng = np.random.default_rng(seed + 41)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
+    lengths = torch.from_numpy(rng.integers(
+        prompt_len // 2, prompt_len + 1, batch).astype(np.int32)).to(device)
+
+    def run(tp):
+        with torch.no_grad():
+            cache = KVCache.create(cfg.n_layers, batch, prompt_len + steps,
+                                   cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
+                                   device)
+            logits, cache = llama.prefill(cfg, params, prompts, cache,
+                                          lengths, tp=tp)
+            outs, toks = [logits], []
+            for _ in range(steps):
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                toks.append(tok)
+                logits, cache = llama.decode_step(cfg, params, tok, cache,
+                                                  tp=tp)
+                outs.append(logits)
+        return torch.stack(outs), torch.stack(toks)
+
+    path = one_rank_group(device)
+    try:
+        mesh = build_mesh(MeshPlan())
+        comm = mesh.comm("tp")
+        want_logits, want_toks = run(None)
+        flash_causal_attention.launches = 0
+        comm.launches = 0
+        t0 = time.perf_counter()
+        got_logits, got_toks = run(comm)
+        if on_cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flash = flash_causal_attention.launches
+        calls = comm.launches
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(path, ignore_errors=True)
+    per_forward = 2 * cfg.n_layers + 2
+    same = (torch.equal(got_logits, want_logits)
+            and torch.equal(got_toks, want_toks))
+    want_flash = cfg.n_layers if on_cuda else 0
+    log(f"tp: lanes prefill ({batch} x {prompt_len}, ragged) + {steps} "
+        f"decode steps with tp= the one-rank {backend} group: logits and "
+        f"tokens bitwise tp=None's {same}; {calls} collectives over "
+        f"{steps + 1} forwards (expected {per_forward * (steps + 1)}); flash "
+        f"launches {flash} (expected {want_flash}); {wall:.3f} s on {card}")
+    emit14("lanes_tp", batch=batch, prompt_len=prompt_len, steps=steps,
+           bitwise=same, collectives=calls, flash_launches=flash,
+           seconds=wall, card=card)
+    if not same or calls != per_forward * (steps + 1) or flash != want_flash:
+        raise AssertionError("the lanes functions under tp failed a check")
+    return flash
+
+
+# One rank's head counts of llama-1b's flash prefill: tp = 2, 4 and 8 at
+# b = 32 and s = 128 (the serving shape) and 2,048.
+TP_FLASH = (2, 4, 8)
+TP_FLASH_SEQ = (128, 2048)
+
+
+def phase_tp_flash(seed: int, card: str, b: int = 32) -> list[dict]:
+    """The flash kernel at one rank's head counts of llama-1b under tp
+    (h / n_kv = 8 / 4, 4 / 2, 2 / 1), against its plain version, timed
+    beside its bound and ``scaled_dot_product_attention``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    records = []
+    for tp in TP_FLASH:
+        w = shard_widths("llama-1b", tp)
+        for s in TP_FLASH_SEQ:
+            q, k, v = qkv(gen, b, s, w["h"], w["n_kv"], w["hd"],
+                          torch.bfloat16)
+            label = (f"llama-1b tp={tp} b={b} s={s} h={w['h']} "
+                     f"n_kv={w['n_kv']} d={w['hd']}")
+            err = check_flash(q, k, v, label, "bfloat16")
+            t = time_flash(q, k, v, f"flash {label}", card)
+            rec = {"model": "llama-1b", "tp": tp, "kernel": "flash",
+                   "shape": [b, s, w["h"], w["n_kv"], w["hd"]],
+                   "max_abs_err": err, **t, "card": card}
+            records.append(rec)
+            emit14("shard_flash", **rec)
+            del q, k, v
+            torch.cuda.empty_cache()
+    return records
+
+
 def check_worker_twin(card: str) -> None:
     """samples/workloads/allreduce_worker_torch.py as a world of one on the
     card: NCCL, result 1.0, published atomically."""
@@ -5211,6 +5541,107 @@ def check_worker_twin(card: str) -> None:
                                  f"{proc.stderr.strip()[-2000:]}")
         emit14("worker_twin", backend="nccl", result=float(result),
                seconds=wall, card=card)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+# ---- the in-pod serving worker twin (phase 16) ----
+
+WARM_LINE = "engine warm (llama-1b), signalling ready"
+
+
+def phase_serving_worker(card: str, model: str = "llama-1b",
+                         seconds: float = 5.0, poll_s: float = 0.05,
+                         slack_s: float = 1.0) -> None:
+    """samples/workloads/serving_worker_torch.py as a subprocess on the card
+    (``GROVE_SERVE_MODEL=model``, ``GROVE_SERVE_SECONDS=seconds``): the
+    ready file is absent at every poll until ``slack_s`` before the warm
+    line is read (the line reaches this process through a pipe and a
+    thread; the worker writes the file right after printing it), and it
+    appears after; ``served N decode steps`` with N > 0; the graphs
+    captured before ready equal those after serving (2: the single step and
+    the block), so nothing was captured in traffic."""
+    import queue
+    import re
+    import shutil
+    import tempfile
+    import threading
+    out = tempfile.mkdtemp(prefix="grove-serve-")
+    ready = os.path.join(out, "ready")
+    env = dict(os.environ, GROVE_SERVE_MODEL=model,
+               GROVE_SERVE_SECONDS=str(seconds), GROVE_READY_FILE=ready,
+               GROVE_POD_NAME="phase16")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "samples", "workloads", "serving_worker_torch.py")
+    lines: queue.Queue = queue.Queue()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, worker], env=env, cwd=out,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def read() -> None:
+        for line in proc.stdout:
+            lines.put((time.perf_counter(), line.rstrip("\n")))
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        got, polls, seen, warm_t, ready_t = [], 0, None, None, None
+        deadline = t0 + 300
+        while time.perf_counter() < deadline:
+            now, exists = time.perf_counter(), os.path.exists(ready)
+            if warm_t is None:
+                polls += 1
+                if exists and seen is None:
+                    seen = now
+            elif exists and ready_t is None:
+                ready_t = now
+            try:
+                item = lines.get(timeout=poll_s)
+            except queue.Empty:
+                continue
+            if item is None:
+                break
+            got.append(item[1])
+            if warm_t is None and WARM_LINE in item[1]:
+                warm_t = item[0]
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        reader.join(10)
+    try:
+        if ready_t is None and os.path.exists(ready):
+            ready_t = time.perf_counter()
+        if seen is not None and ready_t is None:
+            ready_t = seen
+        early = warm_t is not None and seen is not None and \
+            seen < warm_t - slack_s
+        wall = time.perf_counter() - t0
+        text = "\n".join(got)
+        served = re.search(r"^served (\d+) decode steps$", text, re.M)
+        before = re.search(r"(\d+) graphs captured before ready", text)
+        after = re.search(r"(\d+) graphs captured after serving", text)
+        n = int(served.group(1)) if served else 0
+        fields = {"rc": rc, "warm_after_s": None if warm_t is None
+                  else warm_t - t0, "polls_before_warm": polls,
+                  "ready_early": early,
+                  "ready_after_warm_s": None if None in (warm_t, ready_t)
+                  else ready_t - warm_t, "served_steps": n,
+                  "graphs_before_ready": before and int(before.group(1)),
+                  "graphs_after_serving": after and int(after.group(1)),
+                  "seconds": wall, "card": card}
+        print(json.dumps({"phase": 16, "check": "serving_worker", **fields}),
+              flush=True)
+        log(f"worker: stdout: {text[-600:]}")
+        if rc != 0 or warm_t is None or early or ready_t is None or n <= 0 \
+                or fields["graphs_before_ready"] != 2 \
+                or fields["graphs_after_serving"] != 2:
+            raise AssertionError(f"the serving worker twin failed: {fields}"
+                                 f"\n{err.strip()[-2000:]}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
@@ -5638,8 +6069,9 @@ def phase_parallel_train(seed: int, card: str, cfg=None, moe_cfg=None,
         line = train.dryrun_multichip(device)
         emit15("dryrun_multichip", line=line, backend=dist.get_backend(),
                seconds=time.perf_counter() - t0, card=card)
+        # n < 8: the disaggregated section is skipped, as in JAX.
         if not line.startswith("dryrun_multichip ok: n=1 plan=(dp=1, sp=1, "
-                               "tp=1) ring=False loss="):
+                               "tp=1) ring=False loss=") or "disagg" in line:
             raise AssertionError(f"dryrun_multichip: {line}")
     finally:
         if dist.is_initialized():
@@ -5857,12 +6289,19 @@ def main() -> int:
             raise AssertionError(f"{row['name']} never launched on the "
                                  f"tensor-parallel path")
     phase_tp_kernels(args.seed, card)
+    # The lanes functions under tp: each rank's flash at its head counts,
+    # then the path itself, its counts zeroed just before it.
+    phase_tp_flash(args.seed, card)
+    flash_row["tp_launches"] = phase_tp_lanes(args.seed, card)
     check_worker_twin(card)
     phase_done("phase 14 (tensor-parallel serving)")
     # 15. parallel training at one rank: every strategy over a one-rank NCCL
     # group, the dry-run twin
     phase_parallel_train(args.seed, card)
     phase_done("phase 15 (parallel training at one rank)")
+    # 16. the in-pod serving worker twin on the card
+    phase_serving_worker(card)
+    phase_done("phase 16 (serving worker twin)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

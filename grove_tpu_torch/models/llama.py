@@ -329,8 +329,8 @@ def _logits(x: torch.Tensor, w, tp=None) -> torch.Tensor:
 
 
 def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
-            cache: KVCache, lengths: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, KVCache]:
+            cache: KVCache, lengths: torch.Tensor | None = None,
+            tp=None) -> tuple[torch.Tensor, KVCache]:
     """Prefill: run the prompt, fill the cache, return last-token logits.
 
     tokens: [b, s], right-padded to a static s; ``lengths`` [b] gives the
@@ -340,6 +340,13 @@ def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     lengths; the logits are taken at each lane's last valid token.
 
     Returns (logits [b, vocab] f32, ``cache`` with lengths set per lane).
+
+    ``tp`` (parallel/mesh.py's ``AxisComm``) runs the prefill as one rank
+    of a tensor-parallel group, as ``decode_step_paged`` does: ``params``
+    are the rank's slices (parallel/sharding.py ``shard_params``), the
+    cache holds its n_kv / tp heads, and the logits are the full vocab on
+    every rank. ``prefill_chunk``, ``prefill_chunked`` and ``decode_step``
+    take it too; without it no collective runs.
     """
     b, s = tokens.shape
     dev = tokens.device
@@ -360,16 +367,17 @@ def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         return attn_fn(q, k, v)
 
     # b * s rows: the wide int8 kernel or torch.matmul past 256.
-    x = _decoder(cfg, params, embed(cfg, params, tokens), attend, wide=True)
+    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend,
+                 wide=True, tp=tp)
     # Last valid token per lane (ragged batches: pad rows carry garbage).
     last = (lengths.to(torch.long) - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]
     cache.lengths = lengths.to(device=dev, dtype=torch.int32)
-    return _logits(x_last, params["lm_head"]), cache
+    return _logits(x_last, params["lm_head"], tp), cache
 
 
 def prefill_chunk(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
-                  cache: KVCache, offset: int
+                  cache: KVCache, offset: int, tp=None
                   ) -> tuple[torch.Tensor, KVCache]:
     """One chunked-prefill window: tokens [b, c] at absolute positions
     [offset, offset + c) against a cache whose first ``offset`` rows are
@@ -404,14 +412,15 @@ def prefill_chunk(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         return causal_attention(q, kc[:, :end], vc[:, :end], q_offset=offset)
 
     # b * c rows: the wide int8 kernel or torch.matmul past 256.
-    x = _decoder(cfg, params, embed(cfg, params, tokens), attend, wide=True)
+    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend,
+                 wide=True, tp=tp)
     cache.lengths = torch.full((b,), end, dtype=torch.int32, device=dev)
     return x, cache
 
 
 def prefill_chunked(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                     cache: KVCache, chunk: int,
-                    lengths: torch.Tensor | None = None
+                    lengths: torch.Tensor | None = None, tp=None
                     ) -> tuple[torch.Tensor, KVCache]:
     """Bounded-memory prefill: the prompt runs in windows of ``chunk``
     positions (``prefill_chunk``), each attending over the cache filled so
@@ -435,18 +444,18 @@ def prefill_chunked(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     x_last = torch.zeros((b, cfg.d_model), dtype=cfg.dtype, device=dev)
     for off in range(0, s, chunk):
         x, cache = prefill_chunk(cfg, params, tokens[:, off:off + chunk],
-                                 cache, off)
+                                 cache, off, tp)
         c = x.shape[1]
         # Lanes whose last valid token lands in this window keep its row.
         rows = x[lanes, (last - off).clamp(0, c - 1)]
         in_window = (last >= off) & (last < off + c)
         x_last = torch.where(in_window[:, None], rows, x_last)
     cache.lengths = lengths
-    return _logits(x_last, params["lm_head"]), cache
+    return _logits(x_last, params["lm_head"], tp), cache
 
 
 def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
-                cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+                cache: KVCache, tp=None) -> tuple[torch.Tensor, KVCache]:
     """One decode step. tokens: [b] (last sampled token per lane).
 
     Returns (logits [b, vocab] f32, ``cache`` advanced by one in place).
@@ -467,9 +476,10 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         vc = write_rows(cache.v[i], v, cache.lengths)
         return decode_attention(q, kc, vc, new_lengths)
 
-    x = _decoder(cfg, params, embed(cfg, params, tokens[:, None]), attend)
+    x = _decoder(cfg, params, embed(cfg, params, tokens[:, None], tp),
+                 attend, tp=tp)
     cache.lengths = new_lengths
-    return _logits(x[:, 0], params["lm_head"]), cache
+    return _logits(x[:, 0], params["lm_head"], tp), cache
 
 
 # ---- paged (block-table) execution path ------------------------------

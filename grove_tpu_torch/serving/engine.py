@@ -15,7 +15,10 @@ worker.
   inactive lanes compute too, so every step has the same shapes; prefill
   and decode are separate calls so that they can run in separate pods:
   ``PrefillWorker`` returns the per-sequence KV slab (one-shot or chunked
-  prefill) and ``DecodeEngine.insert`` splices it into a free lane;
+  prefill) and ``DecodeEngine.insert`` splices it into a free lane; one
+  CUDA graph for the single decode step and one for a window of
+  ``host_sync_interval`` steps, where the JAX package compiles ``step``
+  and ``step_block`` (and their sampled twins);
 - ``DisaggServing`` (``GROVE_DISAGG=1``): a ``PrefillEngine`` (chunked
   prefill over its own block pool) hands each finished prompt to a
   ``PagedDecodeEngine`` through the block handoff (serving/handoff.py):
@@ -288,6 +291,89 @@ class _Observed:
         self._timer.resolve()
 
 
+class _Graphed(_Observed):
+    """The capture shared by both engines: on the card each dispatch of a
+    signature is one CUDA graph, captured at its first use (or at
+    ``warmup``) and replayed after; ``graphs_captured`` counts captures,
+    ``capture_seconds`` and ``capture_bytes`` their host wall and the
+    memory their pool reserved. Each engine names the static buffers its
+    graphs read and advance (``_state_bufs``) and its tp group (``_tp``,
+    None without one)."""
+
+    _tp = None
+
+    def _init_graphs(self) -> None:
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        self.graphs_captured = 0
+        self.capture_seconds = 0.0
+        self.capture_bytes = 0
+
+    @torch.no_grad()
+    def _capture(self, step: Callable[[], torch.Tensor | None]
+                 ) -> Callable[[], torch.Tensor | None]:
+        """Capture ``step`` into a CUDA graph; returns its replay, which
+        returns what the captured call returned (a static tensor of the
+        graph's pool, or None).
+
+        The step runs once eagerly on a side stream first (torch's
+        documented warm-up), so the kernel library's load, its function
+        attributes and every lazily built table happen outside the
+        capture. That run reads the live static buffers and writes the
+        next K/V rows (of the pools, or of the lanes) with the values the
+        next real step writes again; the engine's static buffers
+        (``_state_bufs``: tokens, lengths and the like) are restored before
+        the capture. All graphs share one memory pool: no tensor
+        allocated inside a capture outlives it, but the returned one. A
+        sampling engine registers its generator with the graph, so each
+        replay takes fresh random numbers.
+
+        Kernel launch counts follow the device: the wrappers' counts taken
+        while capturing (when nothing launches) move to the replay, which
+        adds them each time it launches the graph's kernels; so does the tp
+        group's count of collectives. The warm-up run launches the group's
+        first collectives, which create NCCL's communicator: never under
+        capture."""
+        dev = self.device
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        state = self._state_bufs()
+        saved = [t.clone() for t in state]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for t, keep in zip(state, saved):
+            t.copy_(keep)
+        graph = torch.cuda.CUDAGraph()
+        if self._sampling:
+            graph.register_generator_state(self._gen)
+        counters = _KERNEL_WRAPPERS + (
+            (self._tp,) if self._tp is not None else ())
+        counts = [w.launches for w in counters]
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            out = step()
+        per_replay = []
+        for w, n in zip(counters, counts):
+            if w.launches != n:
+                per_replay.append((w, w.launches - n))
+                w.launches = n
+        torch.cuda.empty_cache()
+        self.graphs_captured += 1
+        self.capture_seconds += time.perf_counter() - t0
+        self.capture_bytes += torch.cuda.memory_reserved(dev) - reserved
+
+        def replay() -> torch.Tensor | None:
+            graph.replay()
+            for w, n in per_replay:
+                w.launches += n
+            return out
+
+        return replay
+
+
 def _quantized(params, quant: str | None):
     """The engine's params: ``params`` itself (the caller's tensors), or
     their int8 quantization (new tensors, made with no autograd graph)."""
@@ -440,7 +526,7 @@ class PrefillWorker:
                 for i in range(len(prompts))]
 
 
-class DecodeEngine(_Observed):
+class DecodeEngine(_Graphed):
     """Continuous-batching decode over fixed lanes.
 
     Two operating modes:
@@ -448,10 +534,23 @@ class DecodeEngine(_Observed):
       also the bench path);
     - disaggregated: ``insert`` splices a PrefillResult produced elsewhere.
 
-    The lanes engine runs eagerly: the first dispatch of each shape is its
-    build (``prefill`` per prompt shape, ``step``/``step_sampled``,
-    ``step_block``/``step_block_sampled`` for ``run``'s windows, and a
-    worker's one-shot ``worker_prefill``), the JAX package's executables.
+    The decode is the JAX package's four executables: ``step`` /
+    ``step_sampled`` (one step) and ``step_block`` / ``step_block_sampled``
+    (``run``'s windows of K = ``host_sync_interval`` steps, a ``lax.scan``
+    there). On the card each is one CUDA graph per (batch, max_len,
+    sampled), captured at its first dispatch (the capture is the build, as
+    a jit's first call is) or by ``warmup``. The graphs hold their buffers
+    by address: the step reads and advances the token buffer ``_tokens``
+    and the cache's length buffer ``cache.lengths``, and the block also
+    writes each step's tokens into the window buffer ``_window`` [K,
+    batch]. So everything that changes the lanes between dispatches writes
+    those buffers in place (``admit_prompts``, ``insert``,
+    ``release_lane``, the drain), and what outlives a replay is copied on
+    the device first (each pending step's tokens, each block's window). On
+    the CPU the same functions run eagerly. The prefill stays eager on both
+    (device-bound, through the flash kernel): the first call of each prompt
+    shape is its build, and a worker's one-shot prefill of a new shape is
+    an external ``worker_prefill`` build.
     """
 
     def __init__(self, cfg: LlamaConfig, key_or_params, batch: int = 8,
@@ -504,6 +603,13 @@ class DecodeEngine(_Observed):
         # GROVE_TTFT_COMPAT=1 fuses admit_ts with first_token_ts (the
         # historical single stamp); by default admit is queue exit.
         self._ttft_compat = os.environ.get("GROVE_TTFT_COMPAT", "0") == "1"
+        # The block's tokens, one row per step (overwritten at each replay).
+        self._window = torch.zeros((self.host_sync_interval, batch),
+                                   dtype=torch.int32, device=self.device)
+        # "step" and "block": a captured graph's replay on the card, the
+        # eager function on the CPU.
+        self._graphs: dict[str, Callable[[], None]] = {}
+        self._init_graphs()
         self._init_observatories(telemetry, xprof, reqtrace)
         suffix = "_sampled" if self._sampling else ""
         self._step_name = "step" + suffix
@@ -525,16 +631,87 @@ class DecodeEngine(_Observed):
 
     # ---- the model calls ----
 
-    def _decode(self) -> None:
-        """One decode step on the device: advances the cache in place and
-        replaces ``self._tokens`` (never written in place: earlier token
-        tensors may still sit in the pending window)."""
-        logits, self.cache = llama.decode_step(self.cfg, self.params,
-                                               self._tokens, self.cache)
+    def _state_bufs(self) -> tuple[torch.Tensor, ...]:
+        """The static buffers the decode graphs read and advance."""
+        return (self._tokens, self.cache.lengths, self._window)
+
+    def _choose(self, logits: torch.Tensor) -> torch.Tensor:
         if self._sampling:
-            self._tokens = sample_tokens(logits, self._gen, self._sampler)
-        else:
-            self._tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            return sample_tokens(logits, self._gen, self._sampler)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _keep_lengths(self, call: Callable) -> torch.Tensor:
+        """``call(cache)``, a model function returning (logits, cache) with
+        the cache's lengths rebound (``llama.prefill``, ``decode_step``);
+        the new lengths are copied into the engine's own length buffer,
+        which the graphs hold, and the cache keeps that buffer. Returns the
+        logits."""
+        lengths = self.cache.lengths
+        logits, cache = call(self.cache)
+        lengths.copy_(cache.lengths)
+        cache.lengths = lengths
+        return logits
+
+    def _decode(self) -> None:
+        """One decode step on the device: the cache advanced in place and
+        the next tokens written into ``_tokens``."""
+        logits = self._keep_lengths(functools.partial(
+            llama.decode_step, self.cfg, self.params, self._tokens))
+        self._tokens.copy_(self._choose(logits))
+
+    def _block(self) -> None:
+        """K decode steps, each step's tokens into its row of ``_window``."""
+        for j in range(self.host_sync_interval):
+            self._decode()
+            self._window[j].copy_(self._tokens)
+
+    def _dispatch(self, kind: str) -> None:
+        """Run ``kind`` ("step" or "block"): on the card its graph's replay,
+        the graph captured at the first call; on the CPU the eager
+        function."""
+        fn = self._graphs.get(kind)
+        if fn is None:
+            fn = self._decode if kind == "step" else self._block
+            if self.device.type == "cuda":
+                fn = self._capture(fn)
+            self._graphs[kind] = fn
+        fn()
+
+    def _launch(self, kind: str, name: str, steps: int,
+                sampled: bool | None = None) -> None:
+        """``_dispatch(kind)`` under the observatory: its first call is the
+        build of ``name``; a sampled call (``sampled`` None: the recorder's
+        cadence decides) is timed."""
+        x = self.xprof
+        if x is None:
+            self._dispatch(kind)
+            return
+        if sampled is None:
+            sampled = x.should_sample()
+        self._observed(name, self._lanes_sig, sampled,
+                       functools.partial(self._dispatch, kind), self._phase,
+                       steps=steps, tokens=steps * self.batch)
+
+    @torch.no_grad()
+    def warmup(self) -> int:
+        """Build the single step and the K-step block before traffic (on the
+        card, capture both graphs) and run each once over the lanes as they
+        stand; the token, length and window buffers are restored, so the
+        lanes are as they were (K/V rows past each lane's length are
+        written, which the next steps write again). Returns the number
+        built."""
+        saved = [t.clone() for t in self._state_bufs()]
+        built = 0
+        for kind, name, steps in (
+                ("step", self._step_name, 1),
+                ("block", self._block_name, self.host_sync_interval)):
+            built += kind not in self._graphs
+            self._launch(kind, name, steps, sampled=False)
+        for t, keep in zip(self._state_bufs(), saved):
+            t.copy_(keep)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return built
 
     def _observed(self, name: str, sig: tuple, sampled: bool, fn: Callable,
                   phase: str, steps: int = 1, tokens: int = 0):
@@ -626,13 +803,10 @@ class DecodeEngine(_Observed):
         admit_wall = time.time()  # queue exit: prefill not yet started
 
         def prefill() -> None:
-            logits, self.cache = llama.prefill(self.cfg, self.params,
-                                               prompts, self.cache, lengths)
-            if self._sampling:
-                self._tokens = sample_tokens(logits, self._gen,
-                                             self._sampler)
-            else:
-                self._tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            logits = self._keep_lengths(functools.partial(
+                llama.prefill, self.cfg, self.params, prompts,
+                lengths=lengths))
+            self._tokens.copy_(self._choose(logits))
 
         if self.xprof is None:
             prefill()
@@ -697,9 +871,7 @@ class DecodeEngine(_Observed):
         self.cache.k[:, lane, :s] = result.k.to(self.cache.k.dtype)
         self.cache.v[:, lane, :s] = result.v.to(self.cache.v.dtype)
         self.cache.lengths[lane] = result.length
-        tokens = self._tokens.clone()  # the old tensor may be pending
-        tokens[lane] = result.next_token
-        self._tokens = tokens
+        self._tokens[lane] = result.next_token  # pending steps hold copies
         self._active[lane] = True
         self._requests[lane] = request
         self._lane_window_start[lane] = len(self._pending_tokens)
@@ -759,16 +931,11 @@ class DecodeEngine(_Observed):
         """One decode step across all lanes (inactive lanes compute too).
         Launches device work only: no host fetch unless a window of
         tracked tokens is full."""
-        x = self.xprof
-        if x is None:
-            self._decode()
-        else:
-            self._observed(self._step_name, self._lanes_sig,
-                           x.should_sample(), self._decode, self._phase,
-                           tokens=self.batch)
+        self._launch("step", self._step_name, 1)
         self.steps += 1
         if any(r is not None for r in self._requests):
-            self._pending_tokens.append(self._tokens)
+            # The next step overwrites ``_tokens``: keep a device copy.
+            self._pending_tokens.append(self._tokens.clone())
             if len(self._pending_tokens) >= self.host_sync_interval:
                 self._drain()
 
@@ -852,21 +1019,12 @@ class DecodeEngine(_Observed):
         steps -= (block_steps // K) * K
         windows: list[torch.Tensor] = []
         x = self.xprof
-
-        def block() -> list[torch.Tensor]:
-            window = []
-            for _ in range(K):
-                self._decode()
-                window.append(self._tokens)
-            return window
-
         for _ in range(block_steps // K):
-            window = block() if x is None else self._observed(
-                self._block_name, self._lanes_sig, x.should_sample(), block,
-                self._phase, steps=K, tokens=K * self.batch)
+            self._launch("block", self._block_name, K)
             self.steps += K
             if tracked:
-                windows.append(torch.stack(window))
+                # The next block overwrites ``_window``: keep a device copy.
+                windows.append(self._window.clone())
         fetched = False
         if windows:
             # One fetch of every window ([w, batch] rows); it is also the
@@ -885,7 +1043,7 @@ class DecodeEngine(_Observed):
             self.sync()
 
 
-class PagedDecodeEngine(_Observed):
+class PagedDecodeEngine(_Graphed):
     """Continuous-batching decode over a paged KV cache.
 
     The port of the JAX package's default engine (``GROVE_ENGINE=paged``):
@@ -1140,11 +1298,7 @@ class PagedDecodeEngine(_Observed):
             (self.prefill_chunk + 3 + max(self._sched.width_buckets),),
             dtype=torch.int32, device=self.device)
         self._prefills: dict[int, Callable[[], torch.Tensor]] = {}
-        self._graph_pool = (torch.cuda.graph_pool_handle()
-                            if self.device.type == "cuda" else None)
-        self.graphs_captured = 0
-        self.capture_seconds = 0.0
-        self.capture_bytes = 0
+        self._init_graphs()
 
         # Request flow state.
         self._queue: deque[Request] = deque()
@@ -1304,69 +1458,6 @@ class PagedDecodeEngine(_Observed):
                                also)
         table[key] = fn
         return fn
-
-    @torch.no_grad()
-    def _capture(self, step: Callable[[], torch.Tensor | None]
-                 ) -> Callable[[], torch.Tensor | None]:
-        """Capture ``step`` into a CUDA graph; returns its replay, which
-        returns what the captured call returned (a static tensor of the
-        graph's pool, or None).
-
-        The step runs once eagerly on a side stream first (torch's
-        documented warm-up), so the kernel library's load, its function
-        attributes and every lazily built table happen outside the
-        capture. That run reads the live static buffers and writes the
-        pools' next K/V rows with the values the next real step writes
-        again; the token, length, limit and out-token buffers are restored
-        before the capture. All graphs share one memory pool: no tensor
-        allocated inside a capture outlives it, but the returned one. A
-        sampling engine registers its generator with the graph, so each
-        replay takes fresh random numbers.
-
-        Kernel launch counts follow the device: the wrappers' counts taken
-        while capturing (when nothing launches) move to the replay, which
-        adds them each time it launches the graph's kernels; so does the tp
-        group's count of collectives. The warm-up run launches the group's
-        first collectives, which create NCCL's communicator: never under
-        capture."""
-        dev = self.device
-        t0 = time.perf_counter()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        state = self._state_bufs()
-        saved = [t.clone() for t in state]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for t, keep in zip(state, saved):
-            t.copy_(keep)
-        graph = torch.cuda.CUDAGraph()
-        if self._sampling:
-            graph.register_generator_state(self._gen)
-        counters = _KERNEL_WRAPPERS + (
-            (self._tp,) if self._tp is not None else ())
-        counts = [w.launches for w in counters]
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            out = step()
-        per_replay = []
-        for w, n in zip(counters, counts):
-            if w.launches != n:
-                per_replay.append((w, w.launches - n))
-                w.launches = n
-        torch.cuda.empty_cache()
-        self.graphs_captured += 1
-        self.capture_seconds += time.perf_counter() - t0
-        self.capture_bytes += torch.cuda.memory_reserved(dev) - reserved
-
-        def replay() -> torch.Tensor | None:
-            graph.replay()
-            for w, n in per_replay:
-                w.launches += n
-            return out
-
-        return replay
 
     def _state_bufs(self) -> tuple[torch.Tensor, ...]:
         """The static per-slot buffers a step reads or advances (tables

@@ -132,15 +132,15 @@ def dryrun_multichip(device: str | torch.device | None = None) -> str:
     - pp x tp (pp = 2 when n >= 2, tp = 2 when n >= 4) through
       ``pipeline_forward`` with 2 microbatches;
     - the dp x ep ``moe-test-tiny`` step with ``ep=True`` (ep = 4 when
-      n >= 8, else 2).
+      n >= 8, else 2);
+    - n >= 8 and ``n_kv_heads % 4 == 0``: disaggregated serving across two
+      tp = 4 groups (``_disagg_serve``).
 
-    Each section checks a finite loss and finite gradients; rank 0 prints
-    JAX's ``dryrun_multichip ok: ...`` line with the same fields. Each rank
-    returns the line as it saw it (rank 0's names every section; another
-    rank's only those of the meshes it is in). JAX's last section, disaggregated serving across two
-    tp = 4 mesh groups through the lanes ``prefill``/``decode_step``, is not
-    here: it needs the lanes model functions under tp and a KV reshard
-    across groups (ROADMAP.md, queue 1)."""
+    Each training section checks a finite loss and finite gradients, the
+    serving section bitwise tokens; rank 0 prints JAX's ``dryrun_multichip
+    ok: ...`` line with the same fields. Each rank returns the line as it
+    saw it (rank 0's names every section; another rank's only those of the
+    meshes it is in)."""
     import torch.distributed as dist
 
     from grove_tpu_torch.models import moe
@@ -225,6 +225,96 @@ def dryrun_multichip(device: str | torch.device | None = None) -> str:
             ep_loss = _section("ep", value, leaves)
             line += f" moe dp={ep_dp}xep={ep} ep_loss={ep_loss:.4f}"
 
+    if n >= 8 and cfg.n_kv_heads % 4 == 0 and _disagg_serve(
+            cfg, dev, init(cfg, llama, 8),
+            randint(cfg.vocab_size, (2, 16), 9)):
+        line += " disagg prefill-mesh=tp4 decode-mesh=tp4 tokens-match"
+
     if dist.get_rank() == 0:
         print(line, flush=True)
     return line
+
+
+def _p2p(peer: int, sends=(), recvs=()) -> None:
+    """Send ``sends`` to and receive ``recvs`` (in place) from the default
+    group's rank ``peer``, in one batch, in order."""
+    import torch.distributed as dist
+    ops = ([dist.P2POp(dist.isend, t.contiguous(), peer) for t in sends]
+           + [dist.P2POp(dist.irecv, t, peer) for t in recvs])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
+@torch.no_grad()
+def _disagg_serve(cfg, dev: torch.device, raw: Params,
+                  prompt: torch.Tensor, cache_len: int = 64,
+                  n_steps: int = 8) -> bool:
+    """``__graft_entry__.py``'s disaggregated serving (:202-278) on ranks
+    0-7: ranks 0-3 form the prefill group and ranks 4-7 the decode group,
+    each a tp = 4 mesh over ``shard_params`` of ``raw``. The prefill group
+    runs the lanes ``llama.prefill`` of ``prompt`` [b, s] into a
+    ``cache_len``-row cache; each of its ranks hands its K/V heads, the
+    lengths and the first token to the decode rank of the same tp
+    coordinate (rank + 4), whose group decodes ``n_steps`` greedy steps.
+    The prefill group's own prefill and decode is the single-mesh
+    reference: each pair of ranks swaps its tokens, and both compare them
+    on the host, bitwise. True on ranks 0-7 (False past them); raises if
+    the tokens differ. Every rank makes the two groups, in one order."""
+    import torch.distributed as dist
+
+    from grove_tpu_torch.ops.kvcache import KVCache
+    from grove_tpu_torch.parallel.mesh import AXIS_TP, MeshPlan, build_mesh
+    from grove_tpu_torch.parallel.sharding import shard_params
+
+    pf_mesh = build_mesh(MeshPlan(tp=4), ranks=range(4))
+    dec_mesh = build_mesh(MeshPlan(tp=4), ranks=range(4, 8))
+    mesh = pf_mesh or dec_mesh
+    if mesh is None:
+        return False
+    tp = mesh.comm(AXIS_TP)
+    params = shard_params(mesh, raw)
+    b, s = prompt.shape
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+
+    def empty_cache() -> KVCache:
+        return KVCache.create(cfg.n_layers, b, cache_len,
+                              cfg.n_kv_heads // tp.size, cfg.head_dim,
+                              cfg.dtype, dev)
+
+    def greedy(logits: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def prefill() -> tuple[torch.Tensor, KVCache]:
+        logits, cache = llama.prefill(cfg, params, prompt, empty_cache(),
+                                      lengths, tp=tp)
+        return greedy(logits), cache
+
+    def decode_n(tok: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        toks = []
+        for _ in range(n_steps):
+            logits, cache = llama.decode_step(cfg, params, tok, cache, tp=tp)
+            tok = greedy(logits)
+            toks.append(tok)
+        return torch.stack(toks)                          # [steps, b]
+
+    rank = dist.get_rank()
+    if pf_mesh is not None:
+        peer = rank + 4
+        tok0, cache = prefill()                           # the handoff
+        _p2p(peer, sends=(cache.k, cache.v, cache.lengths, tok0))
+        ref_tok0, ref_cache = prefill()                   # single-mesh
+        if not torch.equal(tok0, ref_tok0):
+            raise AssertionError("prefill tokens diverge")
+        mine = decode_n(ref_tok0, ref_cache)
+    else:
+        peer = rank - 4
+        cache, tok0 = empty_cache(), torch.empty_like(lengths)
+        _p2p(peer, recvs=(cache.k, cache.v, cache.lengths, tok0))
+        mine = decode_n(tok0, cache)
+    theirs = torch.empty_like(mine)
+    _p2p(peer, sends=(mine,), recvs=(theirs,))
+    a, r = mine.cpu().numpy(), theirs.cpu().numpy()
+    if not (a == r).all():
+        raise AssertionError(f"disagg decode diverges from the single-mesh "
+                             f"reference (rank {rank}):\n{a}\nvs\n{r}")
+    return True

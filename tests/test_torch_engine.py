@@ -274,11 +274,12 @@ BANNED_IMPORTS = ("jax", "jaxlib", "optax", "orbax", "grove_tpu")
 
 
 # ... its parallel modules (tensor, sequence, pipeline), and the in-pod
-# worker twin.
+# worker twins.
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
                     "parallel/sharding.py", "parallel/pipeline.py",
                     "ops/ringattention.py", "ops/ulysses.py")
-WORKER_TWINS = ("samples/workloads/allreduce_worker_torch.py",)
+WORKER_TWINS = ("samples/workloads/allreduce_worker_torch.py",
+                "samples/workloads/serving_worker_torch.py")
 
 
 def _port_modules():

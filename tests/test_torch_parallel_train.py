@@ -38,6 +38,7 @@ pytestmark = pytest.mark.timeout(300)
 
 J_CFG = dataclasses.replace(jllama.CONFIGS["test-tiny"], dtype=jnp.float32)
 CASES = sorted(worlds.TRAIN_CASES)
+DISAGG = " disagg prefill-mesh=tp4 decode-mesh=tp4 tokens-match"
 
 
 @pytest.fixture(scope="module")
@@ -239,15 +240,18 @@ def test_differentiable_collectives(runs, name, n):
     (4, ("plan=(dp=2, sp=1, tp=2) ring=False", "composed pp=2xtp=2",
          "moe dp=2xep=2")),
     (8, ("plan=(dp=2, sp=2, tp=2) ring=True", "ulysses dp=2xsp=2xtp=2",
-         "composed pp=2xtp=2", "moe dp=2xep=4")),
+         "composed pp=2xtp=2", "moe dp=2xep=4", DISAGG)),
 ])
 def test_dryrun_multichip_twin_prints_the_ok_line(runs, n, fields):
     """The twin of tests/test_graft_entry.py's dry-run checks: rank 0
     prints JAX's line with the same fields and finite losses (each section
-    asserts a finite loss and finite gradients); the other ranks print
-    nothing."""
+    asserts a finite loss and finite gradients), ending at n = 8 with the
+    disaggregated serving section's suffix (two tp = 4 groups, tokens
+    bitwise those of one group), which n = 2 and 4 do not run; the other
+    ranks print nothing."""
     out = [info["dryrun/stdout"] for _, info in runs[n]]
     assert out[0].startswith(f"dryrun_multichip ok: n={n} "), out[0]
     assert all(f in out[0] for f in fields), out[0]
+    assert out[0].rstrip().endswith(DISAGG) == (n >= 8), out[0]
     assert "nan" not in out[0] and "inf" not in out[0]
     assert not any(out[1:])

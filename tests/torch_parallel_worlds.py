@@ -1,5 +1,6 @@
-"""The ranks of the gloo worlds that the port's parallel-training tests read
-(tests/test_torch_{ringattention,ulysses,pipeline,moe_ep,parallel_train}.py).
+"""The ranks of the gloo worlds that the port's parallel tests read
+(tests/test_torch_{ringattention,ulysses,pipeline,moe_ep,parallel_train,
+lanes_tp}.py).
 
 ``shared_run`` starts one world per size in ``WORLDS`` (2, 4 and 8 ranks,
 ``spawn``) once per test session: the first test file to ask runs them
@@ -50,6 +51,15 @@ EP_TOKENS = (8, 16)
 # The single-block drop check: a tight capacity, top-1 and top-2 routing.
 EP_TIGHT = 0.5
 EP_BLOCK_ROWS = (2, 8)          # each rank's [rows, s] of the block input
+# The lanes model functions under tp (the flagship config in f32): a ragged
+# batch right-padded to LANES_TOKENS[1], prefilled one-shot and in chunks
+# into a LANES_CACHE-row cache, then LANES_STEPS greedy decode steps.
+LANES_WORLDS = (2, 4)
+LANES_TOKENS = (3, 16)
+LANES_LENGTHS = (16, 9, 13)
+LANES_CACHE = 32
+LANES_CHUNK = 8
+LANES_STEPS = 8
 
 
 # ---- inputs, from numpy seeds (the parent makes the same) ----
@@ -120,6 +130,20 @@ def np_qkv(shape: dict, seed: int):
 def config_fields(cfg) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
             if f.name != "dtype"}
+
+
+def lanes_config():
+    import torch
+
+    from grove_tpu_torch.train import flagship_config
+    return dataclasses.replace(flagship_config(), dtype=torch.float32)
+
+
+def lanes_inputs(seed: int = 0):
+    """The flagship config in f32, its numpy params and the prompts."""
+    cfg = lanes_config()
+    return (cfg, np_params(config_fields(cfg), seed),
+            np_tokens(LANES_TOKENS, cfg.vocab_size, 1))
 
 
 def llama_inputs(n_layers: int = 2, seed: int = 0):
@@ -359,6 +383,54 @@ def scenario_moe_ep(world: int, out: dict, info: dict) -> None:
         out[f"ep/block/k{k}/kept"] = kept[0].numpy()
 
 
+def scenario_lanes_tp(world: int, out: dict, info: dict) -> None:
+    """``llama.prefill`` (one-shot) and ``prefill_chunked`` under tp over
+    the whole world, each followed by greedy ``decode_step``s: every
+    step's logits, the tokens, this rank's K/V heads and the lengths, and
+    the collectives per call."""
+    if world not in LANES_WORLDS:
+        return
+    import torch
+
+    from grove_tpu_torch.convert import params_from_numpy
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.ops.kvcache import KVCache
+    from grove_tpu_torch.parallel.sharding import shard_params
+    mesh = _mesh((1, 1, world))
+    tp = mesh.comm("tp")
+    cfg, tree, toks = lanes_inputs()
+    tokens = torch.from_numpy(toks)
+    lengths = torch.tensor(LANES_LENGTHS, dtype=torch.int32)
+    with torch.no_grad():
+        p = shard_params(mesh, params_from_numpy(tree, device="cpu"))
+        for mode in ("oneshot", "chunked"):
+            cache = KVCache.create(cfg.n_layers, len(LANES_LENGTHS),
+                                   LANES_CACHE, cfg.n_kv_heads // world,
+                                   cfg.head_dim, cfg.dtype, "cpu")
+            before = tp.launches
+            if mode == "oneshot":
+                logits, cache = llama.prefill(cfg, p, tokens, cache, lengths,
+                                              tp=tp)
+            else:
+                logits, cache = llama.prefill_chunked(
+                    cfg, p, tokens, cache, LANES_CHUNK, lengths, tp=tp)
+            calls = [tp.launches - before]
+            steps, picked = [logits.numpy()], []
+            for _ in range(LANES_STEPS):
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                picked.append(tok.numpy())
+                before = tp.launches
+                logits, cache = llama.decode_step(cfg, p, tok, cache, tp=tp)
+                calls.append(tp.launches - before)
+                steps.append(logits.numpy())
+            out[f"lanes/{mode}/logits"] = np.stack(steps)
+            out[f"lanes/{mode}/tokens"] = np.stack(picked)
+            out[f"lanes/{mode}/k"] = cache.k.numpy()
+            out[f"lanes/{mode}/v"] = cache.v.numpy()
+            out[f"lanes/{mode}/lengths"] = cache.lengths.numpy()
+            info[f"lanes/{mode}/collectives"] = calls
+
+
 def scenario_dryrun(world: int, out: dict, info: dict) -> None:
     from grove_tpu_torch import train
     buf = io.StringIO()
@@ -407,7 +479,7 @@ def collective_input(world: int, rank: int) -> np.ndarray:
 
 SCENARIOS = (scenario_collectives, scenario_ring, scenario_ulysses,
              scenario_train, scenario_pipeline, scenario_moe_ep,
-             scenario_dryrun)
+             scenario_lanes_tp, scenario_dryrun)
 
 
 def _rank(rank: int, world: int, out_dir: str) -> None:
