@@ -158,7 +158,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      s = 128 and 2,048) against its plain version, timed beside its bound
      and scaled_dot_product_attention, and llama-1b's lanes prefill + 16
      decode steps with tp= the group, bitwise equal to tp=None (its flash
-     launches in the kernels line's flash row, "tp_launches").
+     launches in the kernels line's flash row, "tp_launches"); checkpoints
+     of a tp engine: a two-rank gloo world on the CPU writes an
+     int8-weight llama-1b step with save_engine (rank0.pt, rank1.pt),
+     whose whole tree is bitwise the params of an engine built here on
+     the same weights and which restores into a plain engine and a
+     one-rank mesh engine on other weights, both then serving the
+     reference's tokens bitwise ("tp_restart_launches"); A -> B -> A into
+     a live one-rank mesh engine; the save and load GB/s beside phase
+     13's.
  15. parallel training at one rank, over a one-rank NCCL group and
      build_mesh(MeshPlan()), one JSON line per check: test-tiny and
      moe-test-tiny in f32, each strategy on the card against the same
@@ -179,6 +187,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      subprocess on the card with llama-1b for 5 s: the ready file appears
      only after the warm line, "served N decode steps" with N > 0, and the
      same 2 graphs captured before ready and after serving.
+ 17. the data-plane gates over the port (grove_tpu_torch.serving.
+     decode_gate, grove_tpu_torch.chaos), at llama-1b's widths: the
+     decode smoke's four paged engines and the lanes engine in f32 (the
+     pinned build sets, none in the steady state, tokens equal to the
+     lanes engine's), the disaggregated pair in bf16 (each tier's pins,
+     tokens bitwise the mono engine's) and the prefill-replica kill;
+     their kernel launches counted from zero ("gate_launches"). The
+     twins that also drive the control plane (tools/*_torch.py) run on
+     their own: python3 tools/serving_smoke_torch.py --model llama-1b.
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -4613,6 +4630,10 @@ def train_moe(cfg, seed: int, device: str, seq: int, card: str,
         raise AssertionError(f"MoE training: {fields}")
 
 
+# Phase 13's one-card save and load rates, printed beside phase 14's.
+ROUNDTRIP_GB_PER_S: dict = {}
+
+
 def checkpoint_roundtrip(params, device: str, card: str) -> None:
     """``save_params`` then ``load_params(like=)`` of ``params`` in a fresh
     temporary directory: every leaf back bitwise on ``device``; the bytes,
@@ -4645,6 +4666,8 @@ def checkpoint_roundtrip(params, device: str, card: str) -> None:
               "save_gb_per_s": nbytes / save_s / 1e9,
               "load_gb_per_s": nbytes / load_s / 1e9,
               "device": str(back["lm_head"].device), "card": card}
+    ROUNDTRIP_GB_PER_S.update(save=fields["save_gb_per_s"],
+                              load=fields["load_gb_per_s"])
     emit("checkpoint_roundtrip", **fields)
     if not same:
         raise AssertionError(f"checkpoint round trip not bitwise: {fields}")
@@ -4653,7 +4676,7 @@ def checkpoint_roundtrip(params, device: str, card: str) -> None:
 def restart_case(label: str, cfg, a, b, device: str, card: str, rng,
                  kw: dict, root: str, n_requests: int, prompt_lo: int,
                  prompt_hi: int, new_tokens: int, lanes_prompt: int = 128,
-                 barrier: bool = False) -> None:
+                 barrier: bool = False) -> dict:
     """A -> B -> A into one live engine: an engine on params ``a`` serves
     the traffic (tokens T_A); B's checkpoint is copied in place by
     ``warm_restart`` and the engine serves the tokens of a fresh engine on
@@ -4663,7 +4686,8 @@ def restart_case(label: str, cfg, a, b, device: str, card: str, rng,
     weights (dense or int8), each written by ``save_engine`` (step 0) from
     the first engine of its kind and restored into the later ones. With
     ``barrier``, the responder's duck-typed call moves ``latest_step`` of
-    A's directory from 0 to 1."""
+    A's directory from 0 to 1. Returns the fields of the result line, which
+    the caller prints; raises with them if a check fails."""
     import numpy as np
     import torch
     from grove_tpu_torch.serving import checkpoint as ckpt
@@ -4763,11 +4787,11 @@ def restart_case(label: str, cfg, a, b, device: str, card: str, rng,
               "card": card}
     if steps is not None:
         fields["barrier_latest_step"] = steps
-    emit("warm_restart", **fields)
     if not (tok_b != tok_a and got_b == tok_b and got_a == tok_a
             and kept and after == built and (lanes or warm == built)
             and (steps is None or steps == [0, 1])):
         raise AssertionError(f"warm restart ({label}): {fields}")
+    return fields
 
 
 def phase_train_checkpoint(seed: int, card: str, cfg=None, moe_cfg=None,
@@ -4845,17 +4869,21 @@ def phase_train_checkpoint(seed: int, card: str, cfg=None, moe_cfg=None,
     for w in wrappers.values():
         w.launches = 0
     try:
-        restart_case("paged, bf16 weights", cfg, a, b, device, card, rng,
-                     paged, root, **traffic)
-        restart_case("paged, int8 weights", cfg, a, b, device, card, rng,
-                     dict(paged, quant="int8"), root, **traffic)
-        restart_case("paged, self-draft spec", cfg, a, b, device, card, rng,
-                     dict(paged, spec_decode=True, spec_k=3,
-                          draft_params="self"), root, **traffic)
-        restart_case("lanes, flash prefill", cfg, a, b, device, card, rng,
-                     dict(mode="lanes", batch=8,
-                          max_len=lanes_prompt + new_tokens + 8), root,
-                     lanes_prompt=lanes_prompt, barrier=True, **traffic)
+        emit("warm_restart", **restart_case(
+            "paged, bf16 weights", cfg, a, b, device, card, rng, paged,
+            root, **traffic))
+        emit("warm_restart", **restart_case(
+            "paged, int8 weights", cfg, a, b, device, card, rng,
+            dict(paged, quant="int8"), root, **traffic))
+        emit("warm_restart", **restart_case(
+            "paged, self-draft spec", cfg, a, b, device, card, rng,
+            dict(paged, spec_decode=True, spec_k=3, draft_params="self"),
+            root, **traffic))
+        emit("warm_restart", **restart_case(
+            "lanes, flash prefill", cfg, a, b, device, card, rng,
+            dict(mode="lanes", batch=8,
+                 max_len=lanes_prompt + new_tokens + 8), root,
+            lanes_prompt=lanes_prompt, barrier=True, **traffic))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {n: w.launches for n, w in wrappers.items()}
@@ -5545,6 +5573,254 @@ def check_worker_twin(card: str) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+# ---- checkpoints of a tensor-parallel engine (phase 14) ----
+
+# The kernels a restored int8-weight paged engine over a bf16 pool serves
+# through.
+TP_RESTART_KERNELS = ("paged_decode_attention", "paged_chunk_attention",
+                      "paged_rope_scatter", "w8a16_matmul", "rms_norm",
+                      "add_rms_norm")
+
+def tp_save_rank(rank: int, world: int, root: str, seed: int,
+                 model: str) -> None:
+    """One rank of the CPU gloo world that writes phase 14's tp step: the
+    model's params from a CPU generator seeded with ``seed``, a paged
+    engine on them with int8 weights under ``MeshPlan(tp=world)`` on the
+    CPU, and ``save_engine`` into ``root/ckpt``, collectively. Prints one
+    JSON line: the rank's save seconds and the bytes of its slices."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from grove_tpu_torch.serving import checkpoint as ckpt
+    from grove_tpu_torch.serving.engine import PagedDecodeEngine
+    from grove_tpu_torch.serving.quant import params_bytes
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (world + 1)))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(root, 'pg')}",
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = build_mesh(MeshPlan(tp=world))
+        cfg = CONFIGS[model]
+        params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        eng = PagedDecodeEngine(cfg, params, mesh=mesh, quant="int8",
+                                device="cpu", batch=1, max_len=256,
+                                xprof=False, reqtrace=False)
+        del params
+        t0 = time.perf_counter()
+        step = ckpt.save_engine(os.path.join(root, "ckpt"), eng)
+        print(json.dumps({"rank": rank, "step": step,
+                          "save_s": time.perf_counter() - t0,
+                          "bytes": params_bytes(eng.params)}), flush=True)
+        dist.barrier()      # no rank tears the group down under another
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_save_world(root: str, world: int, seed: int, model: str):
+    """Start ``tp_save_rank``'s ranks as processes on the CPU (no card
+    visible to them); returns a function that waits for them and returns
+    their JSON lines, raising with their errors if any rank failed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for r in range(world):
+        out = open(os.path.join(root, f"rank{r}.out"), "w+")
+        err = open(os.path.join(root, f"rank{r}.err"), "w+")
+        code = (f"import chip_smoke; chip_smoke.tp_save_rank({r}, {world}, "
+                f"{root!r}, {seed}, {model!r})")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       cwd=here, env=env, stdout=out,
+                                       stderr=err), out, err))
+
+    def wait(timeout: float = 600.0) -> list[dict]:
+        deadline = time.perf_counter() + timeout
+        lines, failed = [], []
+        try:
+            for r, (p, out, err) in enumerate(procs):
+                try:
+                    rc = p.wait(max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                out.seek(0)
+                err.seek(0)
+                text = out.read()
+                if rc != 0 or not text.strip():
+                    failed.append(f"rank {r}: rc {rc}\n"
+                                  f"{err.read()[-3000:]}")
+                else:
+                    lines.append(json.loads(text.strip().splitlines()[-1]))
+        finally:
+            for p, out, err in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+                out.close()
+                err.close()
+        if failed:
+            raise AssertionError("the CPU gloo world's save failed:\n"
+                                 + "\n".join(failed))
+        return lines
+
+    return wait
+
+
+def phase_tp_checkpoint(seed: int, card: str, cfg=None, model: str =
+                        "llama-1b", device: str = "cuda", world: int = 2,
+                        n_requests: int = 8, prompt_lo: int = 32,
+                        prompt_hi: int = 128, new_tokens: int = 16,
+                        max_len: int = 256) -> dict[str, int]:
+    """Checkpoints of a tensor-parallel engine. (1) A ``world``-rank gloo
+    world on the CPU (``tp_save_world``) writes an int8-weight step of
+    ``model`` (CPU-seeded weights) with ``save_engine``: ``rank{r}.pt`` per
+    rank. Meanwhile an engine is built here on the same weights, quantized
+    on the CPU as the ranks quantize them (the reference). The step's whole
+    tree (``load_params`` without ``like``) is bitwise the reference's
+    params, and restores (``warm_restart``) into a plain engine and a
+    one-rank mesh engine (NCCL) on other weights, whose tokens are then
+    the reference's, bitwise. (2) A -> B -> A into a live one-rank mesh
+    engine (``restart_case``). The save and load rates are printed beside
+    phase 13's. Returns the kernels' launches over the restored engines'
+    serves, the counts zeroed just before them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from grove_tpu_torch.models.llama import CONFIGS, init_params
+    from grove_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from grove_tpu_torch.serving import checkpoint as ckpt
+    from grove_tpu_torch.serving.engine import make_engine
+    from grove_tpu_torch.serving.quant import params_bytes
+
+    cfg = cfg or CONFIGS[model]
+    on_cuda = device == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    wrappers = kernel_wrappers()
+    root = tempfile.mkdtemp(prefix="grove-tpckpt-")
+    t0 = time.perf_counter()
+    wait = tp_save_world(root, world, seed + 61, model)
+    rng = np.random.default_rng(seed + 61)
+    traffic = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(prompt_lo, prompt_hi + 1,
+                                     size=n_requests)]
+    kw = dict(mode="paged", batch=8, max_len=max_len, quant="int8",
+              device=device)
+
+    def serve(eng) -> list[list[int]]:
+        n0 = len(eng.completed)
+        for p in traffic:
+            eng.submit(p, max_new_tokens=new_tokens)
+        drive_paged(eng, n0 + len(traffic))
+        return [list(r.generated)
+                for r in sorted(eng.completed[n0:], key=lambda r: r.rid)]
+
+    try:
+        host = init_params(cfg, torch.Generator().manual_seed(seed + 61),
+                           "cpu")
+        ref = make_engine(cfg, host, **kw)
+        del host
+        want = serve(ref)
+        ref_leaves = dict(_leaves(ref.params))
+        del ref
+        ranks = wait()
+        world_s = time.perf_counter() - t0
+        step_dir = ranks[0]["step"]
+        path, step = os.path.dirname(step_dir), int(os.path.basename(
+            step_dir))
+        files = sorted(os.listdir(step_dir))
+        nbytes = sum(r["bytes"] for r in ranks)
+        save_s = max(r["save_s"] for r in ranks)
+        t = time.perf_counter()
+        whole = ckpt.load_params(path, step, device=device)
+        sync()
+        load_s = time.perf_counter() - t
+        got = dict(_leaves(whole))
+        del whole
+        bitwise = list(got) == list(ref_leaves) and all(
+            got[k].dtype == v.dtype and torch.equal(got[k], v)
+            for k, v in ref_leaves.items())
+        del got
+        if not bitwise or files != sorted(
+                ["manifest.json"] + [f"rank{r}.pt" for r in range(world)]):
+            raise AssertionError(f"the tp step {step_dir} ({files}) is not "
+                                 "the reference's params bitwise")
+        other = init_params(cfg, torch.Generator(device).manual_seed(
+            seed + 62), device)
+        for w in wrappers.values():
+            w.launches = 0
+        restored, restart_s = {}, {}
+        eng = make_engine(cfg, other, **kw)
+        t = time.perf_counter()
+        ckpt.warm_restart(path, eng, step=step)
+        sync()
+        restart_s["plain"] = time.perf_counter() - t
+        restored["plain"] = serve(eng)
+        del eng
+        group = one_rank_group(device)
+        try:
+            mesh = build_mesh(MeshPlan())
+            eng = make_engine(cfg, other, mesh=mesh, **kw)
+            t = time.perf_counter()
+            ckpt.warm_restart(path, eng, step=step)
+            sync()
+            restart_s["mesh"] = time.perf_counter() - t
+            restored["mesh"] = serve(eng)
+            del eng
+            launches = {n: w.launches for n, w in wrappers.items()}
+            # A -> B -> A into a live mesh engine.
+            a = init_params(cfg, torch.Generator(device).manual_seed(
+                seed + 63), device)
+            emit14("warm_restart", **restart_case(
+                "paged, int8 weights, one-rank mesh", cfg, a, other, device,
+                card, rng, {k: v for k, v in kw.items() if k != "device"}
+                | {"mesh": mesh}, os.path.join(root, "aba"), n_requests,
+                prompt_lo, prompt_hi, new_tokens))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            shutil.rmtree(group, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fields = {"model": model, "world": world, "files": files,
+              "bytes": nbytes, "whole_tree_bitwise": bitwise,
+              "world_wall_s": world_s, "save_s": save_s,
+              "save_gb_per_s": nbytes / save_s / 1e9,
+              "load_whole_s": load_s,
+              "load_whole_gb_per_s": nbytes / load_s / 1e9,
+              "warm_restart_s": restart_s,
+              "warm_restart_gb_per_s": {k: nbytes / v / 1e9
+                                        for k, v in restart_s.items()},
+              "phase13_gb_per_s": dict(ROUNDTRIP_GB_PER_S),
+              "restored_equals_reference": {k: v == want
+                                            for k, v in restored.items()},
+              "card": card}
+    emit14("tp_checkpoint", **fields)
+    log(f"tp checkpoint: {world}-rank CPU save of {nbytes / 1e9:.3f} GB "
+        f"int8 {model} at {fields['save_gb_per_s']:.3f} GB/s (slowest "
+        f"rank), whole-tree load to {device} at "
+        f"{fields['load_whole_gb_per_s']:.3f} GB/s, warm restarts "
+        + ", ".join(f"{k} {v:.3f} GB/s" for k, v in
+                    fields["warm_restart_gb_per_s"].items())
+        + f"; phase 13's one-card save / load: "
+        + (f"{ROUNDTRIP_GB_PER_S['save']:.3f} / "
+           f"{ROUNDTRIP_GB_PER_S['load']:.3f} GB/s"
+           if ROUNDTRIP_GB_PER_S else "not run") + f" on {card}")
+    if not all(fields["restored_equals_reference"].values()):
+        raise AssertionError(f"a restored engine's tokens differ from the "
+                             f"reference's: {fields}")
+    missing = [n for n in TP_RESTART_KERNELS if on_cuda and not launches[n]]
+    if missing:
+        raise AssertionError(f"the restored engines never launched "
+                             f"{missing}")
+    return launches
+
+
 # ---- the in-pod serving worker twin (phase 16) ----
 
 WARM_LINE = "engine warm (llama-1b), signalling ready"
@@ -5644,6 +5920,82 @@ def phase_serving_worker(card: str, model: str = "llama-1b",
                                  f"\n{err.strip()[-2000:]}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
+
+
+# ---- the data-plane gates over the port (phase 17) ----
+
+# The kernels phase 17's engines must launch between them: the paged
+# path's attention and fused write (over both pools), the dense GEMM and
+# the norms. (Their prompts, of at most 19 tokens, never take the flash
+# kernel, which prefills lengths that are multiples of 128.)
+GATE_KERNELS = ("paged_decode_attention", "paged_chunk_attention",
+                "paged_decode_attention_q8", "paged_chunk_attention_q8",
+                "paged_rope_scatter", "paged_rope_scatter_q",
+                "dense_matmul", "rms_norm", "add_rms_norm")
+
+
+def emit17(check: str, **fields) -> None:
+    print(json.dumps({"phase": 17, "check": check, **fields}), flush=True)
+
+
+def phase_gates(seed: int, card: str, model: str = "llama-1b",
+                device: str = "cuda") -> dict[str, int]:
+    """The data-plane gates that tools/decode_smoke.py and
+    tools/chaos_soak.py hold the JAX engines to, over the port's engines
+    at ``model``'s widths (64-token context), as the twins
+    tools/decode_smoke_torch.py and tools/chaos_soak_torch.py run them,
+    without the control plane:
+
+    - the decode gate's four paged engines (prefix cache off and on,
+      self-draft spec, int8 KV) and the lanes engine in f32, the JAX
+      gate's precision (``decode_gate.run_mono``): the pinned build sets,
+      every bucket a CUDA graph captured once, none in the steady state,
+      greedy tokens equal to the lanes engine's, clean allocators;
+    - the disaggregated pair in the model's dtype
+      (``decode_gate.run_disagg``): each tier's pinned builds, tokens
+      bitwise the mono engine's;
+    - the prefill-replica kill (``chaos.run_prefill_replica_kill``): the
+      decode tier's allocator clean through the kill, the rescued requests
+      bitwise the mono engine's.
+
+    Every kernel wrapper's count is zeroed just before and read just
+    after. Returns the launches; raises if a kernel of ``GATE_KERNELS``
+    launched in none of them (on the card)."""
+    import dataclasses
+
+    import torch
+
+    from grove_tpu_torch.chaos import run_prefill_replica_kill
+    from grove_tpu_torch.models import llama
+    from grove_tpu_torch.serving import decode_gate
+
+    dev = torch.device(device)
+    base = dataclasses.replace(llama.CONFIGS[model], max_seq_len=64)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    for run, dtype in ((decode_gate.run_mono, torch.float32),
+                       (decode_gate.run_disagg, base.dtype)):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = llama.init_params(
+            cfg, torch.Generator(dev).manual_seed(seed), dev)
+        t0 = time.perf_counter()
+        numbers = run(cfg, params, dev)
+        emit17(run.__name__, model=model, dtype=str(dtype),
+               seconds=time.perf_counter() - t0, card=card, **numbers)
+        del params
+    t0 = time.perf_counter()
+    report = run_prefill_replica_kill(seed=seed, model=model, device=device)
+    emit17("prefill_replica_kill", model=model,
+           seconds=time.perf_counter() - t0, card=card, **report)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    emit17("gate_launches", launches={n: v for n, v in launches.items()
+                                      if v}, card=card)
+    missing = [n for n in GATE_KERNELS
+               if device == "cuda" and not launches.get(n)]
+    if missing:
+        raise AssertionError(f"the gates never launched {missing}")
+    return launches
 
 
 # ---- parallel training at one rank (phase 15) ----
@@ -6294,6 +6646,11 @@ def main() -> int:
     phase_tp_flash(args.seed, card)
     flash_row["tp_launches"] = phase_tp_lanes(args.seed, card)
     check_worker_twin(card)
+    # Checkpoints of a tp engine: a two-rank CPU step restored on the card,
+    # the restored engines' serves counted from zero.
+    tp_ckpt = phase_tp_checkpoint(args.seed, card)
+    for row in paged_rows:
+        row["tp_restart_launches"] = tp_ckpt[row["name"]]
     phase_done("phase 14 (tensor-parallel serving)")
     # 15. parallel training at one rank: every strategy over a one-rank NCCL
     # group, the dry-run twin
@@ -6302,6 +6659,11 @@ def main() -> int:
     # 16. the in-pod serving worker twin on the card
     phase_serving_worker(card)
     phase_done("phase 16 (serving worker twin)")
+    # 17. the data-plane gates over the port, counted from zero
+    gates = phase_gates(args.seed, card)
+    for row in [flash_row, *paged_rows]:
+        row["gate_launches"] = gates.get(row["name"], 0)
+    phase_done("phase 17 (data-plane gates)")
 
     print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit

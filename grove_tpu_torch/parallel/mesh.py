@@ -209,6 +209,28 @@ class AxisComm:
         one is the identity, as JAX's ``ppermute`` over perm [(0, 0)]."""
         return _Shift.apply(self, offset, x)
 
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``x`` (contiguous) overwritten in place with coordinate ``src``'s
+        ``x``. Not differentiable."""
+        self.launches += 1
+        dist.broadcast(x, self.ranks[src], group=self.group)
+        return x
+
+    def all_ok(self, ok: bool) -> bool:
+        """A barrier that also says whether every rank of the axis passed
+        ``ok``: True on every rank, or False on every rank."""
+        flag = torch.tensor([int(ok)], dtype=torch.int32,
+                            device=self.scalar_device)
+        return bool(self.all_reduce(flag, op=dist.ReduceOp.MIN).item())
+
+    @property
+    def scalar_device(self) -> torch.device:
+        """Where a small host-side exchange lives: the current card under
+        NCCL, which moves CUDA tensors only; the CPU under gloo."""
+        if self.backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
     # ---- the raw collectives under the Functions ----
 
     def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -404,7 +404,7 @@ def _on_device(params, device: torch.device):
         return params
     if isinstance(params, shardlib.ShardedParams):
         out = shardlib.ShardedParams(moved)
-        out.layout = params.layout
+        out.layout, out.shapes = params.layout, params.shapes
         return out
     return moved
 
@@ -742,7 +742,11 @@ class DecodeEngine(_Graphed):
             rt.note_enqueue(req.rid, ts=req.enqueue_ts,
                             prompt_len=len(req.prompt),
                             max_new_tokens=max_new_tokens)
-        self._report_metric()
+        # No memory snapshot here: on the card it queries the device (1-5
+        # ms under load on an H100), time that would land between the
+        # request's enqueue stamp and the caller's; the next drain takes
+        # it.
+        self._report_metric(memory=False)
         return req.rid
 
     @property
@@ -754,7 +758,9 @@ class DecodeEngine(_Graphed):
         """Fraction of decode lanes occupied (1.0 = no free lane)."""
         return float(np.count_nonzero(self._active)) / self.batch
 
-    def _report_metric(self) -> None:
+    def _report_metric(self, memory: bool = True) -> None:
+        """Refresh the gauges; ``memory=False`` leaves out the (rate-limited)
+        memory snapshot, as ``submit`` does (see there)."""
         if self.metric_hook is not None:
             self.metric_hook(len(self._queue))
         if self.telemetry is not None:
@@ -762,7 +768,7 @@ class DecodeEngine(_Graphed):
                                          self.kv_lane_utilization)
             if self.reqtrace is not None and self.reqtrace.finished_total:
                 self.telemetry.sample_phases(self.reqtrace.phase_stats())
-        if self.xprof is not None:
+        if self.xprof is not None and memory:
             self.xprof.observe_memory(self, self.telemetry)
 
     def _stamp_admit(self, req: Request, now: float,
@@ -1566,7 +1572,8 @@ class PagedDecodeEngine(_Graphed):
             rt.note_enqueue(req.rid, ts=req.enqueue_ts,
                             prompt_len=len(prompt),
                             max_new_tokens=max_new_tokens)
-        self._report_metric()
+        # No memory snapshot here, as in the lanes engine's submit.
+        self._report_metric(memory=False)
         return req.rid
 
     @property
@@ -1592,7 +1599,9 @@ class PagedDecodeEngine(_Graphed):
             n = 1
         return np.ones((n,), bool)
 
-    def _report_metric(self) -> None:
+    def _report_metric(self, memory: bool = True) -> None:
+        """Refresh the gauges; ``memory=False`` leaves out the (rate-limited)
+        memory snapshot, as ``submit`` does (see there)."""
         if self.metric_hook is not None:
             self.metric_hook(self.queue_depth)
         tel = self.telemetry
@@ -1607,7 +1616,8 @@ class PagedDecodeEngine(_Graphed):
             if self.reqtrace is not None and self.reqtrace.finished_total:
                 tel.sample_phases(self.reqtrace.phase_stats())
         if self.xprof is not None:
-            self.xprof.observe_memory(self, tel)
+            if memory:
+                self.xprof.observe_memory(self, tel)
             if self.spec_decode:
                 self.xprof.spec = self.spec_stats()
             if self.handoff_stats["requests"]:

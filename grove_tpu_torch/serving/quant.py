@@ -121,6 +121,26 @@ def flatten_params(tree: Any, prefix: str = ""
     return flat, qtensors
 
 
+def unflatten_params(flat: dict[str, torch.Tensor],
+                     qtensors: list[str]) -> dict:
+    """The params dict of ``flatten_params``' output: ``path/q`` and
+    ``path/scale`` of each path in ``qtensors`` become one ``QTensor``."""
+    q = set(qtensors)
+    tree: dict = {}
+    for key, t in flat.items():
+        head, _, last = key.rpartition("/")
+        if head in q:
+            if last != "q":
+                continue
+            key, t = head, QTensor(q=t, scale=flat[head + "/scale"])
+        node = tree
+        *dirs, name = key.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[name] = t
+    return tree
+
+
 def params_bytes(params: Any) -> int:
     """Actual bytes of a (possibly quantized) params dict."""
     return sum(t.numel() * t.element_size()

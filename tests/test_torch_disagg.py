@@ -7,9 +7,10 @@ PagedDecodeEngine pair over the KV block handoff.
   engine, bitwise greedy tokens): prefix cache on and off, int8 KV blocks,
   decode-tier preemption, one-token requests, handoff backpressure and the
   factory switch;
-- the twin of the chaos scenario ``run_prefill_replica_kill``
-  (grove_tpu/chaos/scenario.py): the prefill tier dies with a payload
-  stranded in its outbox, and ``replace_prefill`` recovers;
+- the port's chaos scenario ``run_prefill_replica_kill``
+  (grove_tpu_torch/chaos/scenario.py, the twin of grove_tpu/chaos/
+  scenario.py's): the prefill tier dies with a payload stranded in its
+  outbox, and ``replace_prefill`` recovers, as in JAX's run;
 - on the card only: pair == mono over a bf16 model.
 """
 
@@ -359,59 +360,32 @@ def test_payload_views(params):
 
 # ---- chaos: prefill-replica-kill ----
 
-def test_prefill_replica_kill_recovers(params):
-    """The twin of grove_tpu/chaos/scenario.py's run_prefill_replica_kill:
-    the decode tier holds live work, then the prefill tier ticks without the
-    pump until a payload is stranded in its outbox, then the tier is
-    replaced. The decode allocator is clean right after the kill and after
-    the drain, every stranded payload is rescued, and the tokens equal the
-    mono engine's."""
-    _, tp = params
-    rng = np.random.default_rng(0)
-    prompts, max_new = 6, 8
-    lens = sorted(rng.integers(3, 28, size=prompts).tolist())
-    toks = [rng.integers(1, T_CFG.vocab_size, size=n).astype(np.int32)
-            for n in lens]
+def test_prefill_replica_kill_recovers():
+    """The port's chaos scenario, ``grove_tpu_torch.chaos.scenario``'s
+    ``run_prefill_replica_kill``: the decode tier holds live work, then the
+    prefill tier ticks without the pump until a payload is stranded in its
+    outbox, then the tier is replaced. The scenario asserts inside that the
+    decode allocator is clean right after the kill and after the drain and
+    that the tokens equal the mono engine's by request id; its report
+    says every stranded payload was rescued. The report has the JAX
+    scenario's keys, and the scheduling counts (which depend on the prompt
+    lengths, not the weights) are JAX's."""
+    from grove_tpu.chaos.scenario import run_prefill_replica_kill as jrun
+    from grove_tpu_torch.chaos import run_prefill_replica_kill
 
-    def drain(eng, want: int, budget: int = 600) -> None:
-        while len(eng.completed) < want and budget > 0:
-            eng.admit_from_queue()
-            eng.step()
-            budget -= 1
-        eng.sync()
-        assert len(eng.completed) >= want
-
-    mono = _port_mono(tp)
-    for t in toks:
-        mono.submit(t, max_new_tokens=max_new)
-    drain(mono, prompts)
-
-    dis = _port_pair(tp)
-    for t in toks:
-        dis.submit(t, max_new_tokens=max_new)
-    guard = 200
-    while not dis.decode._sched.running and guard > 0:
-        dis.admit_from_queue()
-        dis.step()
-        guard -= 1
-    assert dis.decode._sched.running, "decode tier never went live"
-    guard = 200
-    while not dis.prefill.outbox and guard > 0:
-        dis.admit_from_queue()
-        dis.prefill.step()
-        guard -= 1
-    assert dis.prefill.outbox, "never reached a mid-handoff state"
-    stranded = len(dis.prefill.outbox)
-
-    rescued = dis.replace_prefill(
-        tengine.PrefillEngine(T_CFG, tp, device="cpu", **GEOM))
-    dis.decode._alloc.check()
-    assert rescued >= stranded
-    drain(dis, prompts)
-    dis.decode._alloc.check()
-    dis.prefill._alloc.check()
-    assert not dis.decode._alloc._refs and not dis.prefill._alloc._refs
-    assert_rid_parity(dis, mono)
+    report = run_prefill_replica_kill(device="cpu")
+    assert report["ok"] and report["tokens_bitwise_identical"]
+    assert report["rescued"] >= report["outbox_at_kill"] > 0
+    assert report["completed"] == report["prompts"] == 6
+    assert report["decode_allocator"]["used"] == 0
+    want = jrun()
+    assert set(report) == set(want)
+    for key in ("prompts", "max_new", "seed", "outbox_at_kill",
+                "blocks_in_flight", "prefilling_at_kill",
+                "decode_live_at_kill", "rescued", "completed"):
+        assert report[key] == want[key], key
+    assert {k: report["handoff"][k] for k in HANDOFF_COUNTS} == \
+        {k: want["handoff"][k] for k in HANDOFF_COUNTS}
 
 
 # ---- on the card ----

@@ -280,6 +280,8 @@ PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
                     "ops/ringattention.py", "ops/ulysses.py")
 WORKER_TWINS = ("samples/workloads/allreduce_worker_torch.py",
                 "samples/workloads/serving_worker_torch.py")
+# ... and the data-plane chaos scenario.
+CHAOS_MODULES = ("chaos/__init__.py", "chaos/scenario.py")
 
 
 def _port_modules():
@@ -291,13 +293,13 @@ def test_port_sources_import_no_jax():
     """AST scan: no file of the port (nor chip_smoke.py, nor the in-pod
     worker twin) imports jax, optax, orbax or the JAX package; the scan
     covers the handoff module, the observatories (the metrics sink, slo,
-    metrics_push, reqtrace, xprof), the checkpoints, the training modules
-    and the parallel modules (the mesh, sharding and pipeline, ring and
-    Ulysses attention)."""
+    metrics_push, reqtrace, xprof), the checkpoints, the training modules,
+    the parallel modules (the mesh, sharding and pipeline, ring and
+    Ulysses attention) and the chaos scenario."""
     bad = []
     for name in OBSERVED_MODULES:
         assert PKG / "serving" / f"{name}.py" in _port_modules(), name
-    for name in TRAINING_MODULES + PARALLEL_MODULES:
+    for name in TRAINING_MODULES + PARALLEL_MODULES + CHAOS_MODULES:
         assert PKG / name in _port_modules(), name
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -320,7 +322,7 @@ def test_importing_every_port_module_loads_no_jax():
     mods = [m.removesuffix(".__init__") for m in mods]
     for name in OBSERVED_MODULES:
         assert f"grove_tpu_torch.serving.{name}" in mods, name
-    for name in PARALLEL_MODULES:
+    for name in PARALLEL_MODULES + CHAOS_MODULES:
         assert "grove_tpu_torch." + name.removesuffix(".py").removesuffix(
             "/__init__").replace("/", ".") in mods, name
     code = (

@@ -284,3 +284,88 @@ def test_shard_params_refuses_an_uneven_split():
     w = {"lm_head": torch.zeros((4, 6))}
     with pytest.raises(ValueError, match="divide"):
         tsharding.shard_params(tmesh.Mesh(tmesh.MeshPlan(tp=4)), w)
+
+
+# ---- the inverse: unshard_params ----
+
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(tp=4),
+                                dict(dp=2, tp=2), dict(ep=2, tp=2)], ids=str)
+@pytest.mark.parametrize("tree", ["llama", "int8", "moe"])
+def test_unshard_params_inverts_shard_params(kw, tree):
+    """Every rank's slices give the whole tree back bitwise, int8 scales
+    included: a scale over a contracted axis is held whole by every rank,
+    and at tp = 4 ``wk``'s scale is cut into blocks of one head, which
+    only the recorded whole shapes tell from a contracted axis; MoE experts
+    are cut over ep x tp. The recorded shapes are the whole tree's."""
+    quant = tree == "int8"
+    full = _port_tree(_jax_tree(quant, moe=tree == "moe"))
+    plan = tmesh.MeshPlan(**kw)
+    ranks = [tsharding.shard_params(tmesh.Mesh(plan, rank=r), full)
+             for r in range(plan.size)]
+    fflat, fq = flatten_params(full)
+    assert ranks[0].shapes == {k: tuple(t.shape) for k, t in fflat.items()}
+    got = tsharding.unshard_params(plan, [flatten_params(r)[0]
+                                          for r in ranks], fq,
+                                   ranks[0].shapes)
+    assert list(got) == list(fflat)
+    for k, t in fflat.items():
+        assert got[k].dtype == t.dtype and torch.equal(got[k], t), k
+    cuts = tsharding.leaf_cuts(plan, fflat, fq, ranks[0].shapes)
+    assert cuts["layers/wq" + ("/q" if quant else "")] == [[2, plan.tp]]
+    if tree == "moe":
+        assert cuts["layers/we_up"] == [[1, plan.ep * plan.tp]]
+
+
+def test_unshard_params_refuses_copies_that_differ():
+    """A replicated leaf whose copies differ between ranks, a part of the
+    wrong shape and a missing rank raise."""
+    full = _port_tree(_jax_tree(True))
+    plan = tmesh.MeshPlan(tp=2)
+    parts = [flatten_params(tsharding.shard_params(
+        tmesh.Mesh(plan, rank=r), full))[0] for r in range(2)]
+    fq = flatten_params(full)[1]
+    shapes = {k: tuple(t.shape) for k, t in flatten_params(full)[0].items()}
+    bad = dict(parts[1])
+    bad["layers/wo/scale"] = bad["layers/wo/scale"] * 2
+    with pytest.raises(ValueError, match="rank 1's copy"):
+        tsharding.unshard_params(plan, [parts[0], bad], fq, shapes)
+    bad = dict(parts[1])
+    bad["layers/wq/q"] = bad["layers/wq/q"][:, :, :1]
+    with pytest.raises(ValueError, match="has shape"):
+        tsharding.unshard_params(plan, [parts[0], bad], fq, shapes)
+    with pytest.raises(ValueError, match="2 ranks"):
+        tsharding.unshard_params(plan, parts[:1], fq, shapes)
+
+
+# ---- another plan's slices: reshard_params ----
+
+@pytest.mark.parametrize("src,dst", [(dict(tp=2), dict(tp=4)),
+                                     (dict(tp=4), dict(tp=2)),
+                                     (dict(), dict(tp=4)),
+                                     (dict(tp=4), dict())], ids=str)
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_reshard_params_reads_only_the_overlapping_ranks(src, dst, quant):
+    """Each target rank's slices, built from another plan's, are bitwise
+    what ``shard_params`` cuts for it from the whole tree, int8 scales
+    included, and only the source ranks whose blocks overlap the target
+    rank's are read: from tp = 2 to tp = 4 one source rank each, from
+    tp = 4 to tp = 2 two, to one rank every source rank."""
+    full = _port_tree(_jax_tree(quant))
+    fflat, fq = flatten_params(full)
+    splan, tplan = tmesh.MeshPlan(**src), tmesh.MeshPlan(**dst)
+    parts = [flatten_params(tsharding.shard_params(
+        tmesh.Mesh(splan, rank=r), full))[0] for r in range(splan.size)]
+    shapes = {k: tuple(t.shape) for k, t in fflat.items()}
+    for rank in range(tplan.size):
+        read = []
+        got = tsharding.reshard_params(
+            splan, lambda r: read.append(r) or parts[r], list(fflat), fq,
+            shapes, tmesh.Mesh(tplan, rank=rank))
+        want = flatten_params(tsharding.shard_params(
+            tmesh.Mesh(tplan, rank=rank), full))[0]
+        assert list(got) == list(want)
+        for k, t in want.items():
+            assert got[k].dtype == t.dtype and torch.equal(got[k], t), k
+        per = max(1, splan.size // tplan.size)
+        first = rank * splan.size // tplan.size
+        assert sorted(set(read)) == list(range(first, first + per)), read

@@ -20,13 +20,22 @@ tools/decode_smoke.py's workload served twice.
   equals greedy bitwise; prefix cache off equals on; the pair equals mono;
   each rank's pools hold n_kv / tp heads;
 - test-tiny's tiny draft has one kv head, so it cannot shard: the port
-  raises at tp = 2 as JAX does (JAX by an assert).
+  raises at tp = 2 as JAX does (JAX by an assert);
+- checkpoints of tp engines and pairs: one step of rank files that loads
+  as the whole model, bitwise the unsharded params and what orbax
+  restores from JAX's tp engine; A -> B -> A restarts; steps of the other
+  world's plan and of one CPU restored, and the other way round; a save
+  that dies on one rank leaves no step; a restart into another shape
+  raises on every rank before anything is written.
 
 The two worlds run once, together, from a module fixture; a hung
 collective fails the fixture at its time limit instead of stalling the
 suite."""
 
 import dataclasses
+import json
+import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +52,7 @@ from grove_tpu.serving import quant as jquant
 from grove_tpu.serving.kvcache import PagedKV as JPagedKV
 from grove_tpu_torch.convert import params_from_numpy
 from grove_tpu_torch.models import llama as tllama
+from grove_tpu_torch.serving import checkpoint as ckpt
 from grove_tpu_torch.serving import engine as tengine
 
 torch.set_num_threads(1)
@@ -70,15 +80,24 @@ def tparams(jparams):
 
 
 @pytest.fixture(scope="module")
-def runs(jparams, tmp_path_factory):
-    """Both gloo worlds, run at once: {tp: [rank results]}."""
+def runs(jparams, tparams, tmp_path_factory):
+    """Both gloo worlds, run at once: {tp: [rank results], "dirs": {tp:
+    the world's directory}}. Each world's directory holds the params and
+    two steps saved on one CPU: ``one/`` (A in f32) and ``one_q/`` (B in
+    int8)."""
+    from grove_tpu_torch.serving.quant import quantize_params
     dirs = {}
     for t in TPS:
         d = tmp_path_factory.mktemp(f"tp{t}")
         worlds.save_params(str(d / "params.npz"),
                            jax.tree.map(np.asarray, jparams))
+        ckpt.save_params(str(d / "one"), tparams)
+        ckpt.save_params(str(d / "one_q"),
+                         quantize_params(worlds.other_params()))
         dirs[t] = str(d)
-    return worlds.run_worlds(dirs, timeout=240)
+    out = worlds.run_worlds(dirs, timeout=240)
+    out["dirs"] = dirs
+    return out
 
 
 def _knobs(name):
@@ -269,19 +288,240 @@ def test_mesh_axes_over_a_world_of_four(runs):
         assert m["tp_gather"] == [[lo + 1.0, lo + 1.0, lo + 2.0, lo + 2.0]]
 
 
+# ---- checkpoints of a tp engine ----
+
+def _flat(tree):
+    """Leaves by path; a ``QTensor`` (or the dict JAX's restore makes of
+    one) as ``path/q`` and ``path/scale``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{kk}": vv for kk, vv in _flat(v).items()})
+        elif hasattr(v, "q"):
+            out[f"{k}/q"], out[f"{k}/scale"] = v.q, v.scale
+        else:
+            out[k] = v
+    return out
+
+
+def _assert_bitwise(got, want):
+    got, want = _flat(got), _flat(want)
+    assert list(got) == list(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+
+
+def _step_dir(runs, t, name):
+    return os.path.join(runs["dirs"][t], "ckpt", name)
+
+
 @pytest.mark.parametrize("t", TPS)
-def test_checkpoints_refuse_a_tp_engine(runs, t):
-    """A tp engine's params are its rank's slices, and a checkpoint holds
-    the whole model: save_engine, warm_restart and engine_responder refuse
-    a tp engine and a tp pair on every rank, and nothing is written to the
-    directory the ranks share."""
+@pytest.mark.parametrize("name", ("mono", "pair", "int8"))
+def test_tp_step_holds_the_whole_model(runs, tparams, t, name):
+    """A tp engine, a tp pair (through its disruption responder) and an
+    int8 tp engine each save exactly one step, collectively: each rank's
+    slices in ``rank{r}.pt`` and the plan in the manifest. Loaded without
+    ``like``, it is bitwise the unsharded params (quantized where the
+    engine quantized them)."""
+    from grove_tpu_torch.serving.quant import quantize_params
     for r in runs[t]:
-        c = dict(r["checkpoints"])
-        assert c.pop("written") == []
-        assert c == {f"{kind}/{name}": "NotImplementedError"
-                     for kind in ("mono", "pair")
-                     for name in ("save_engine", "warm_restart",
-                                  "engine_responder")}
+        assert r["checkpoints"]["written"][name] == ["0"]
+    d = os.path.join(_step_dir(runs, t, name), "0")
+    assert sorted(os.listdir(d)) == sorted(
+        ["manifest.json"] + [f"rank{i}.pt" for i in range(t)])
+    with open(os.path.join(d, "manifest.json")) as f:
+        assert json.load(f)["plan"]["tp"] == t
+    want = quantize_params(tparams) if name == "int8" else tparams
+    _assert_bitwise(ckpt.load_params(_step_dir(runs, t, name), 0,
+                                     device="cpu"), want)
+
+
+@pytest.fixture(scope="module")
+def jax_restored(jparams, tmp_path_factory):
+    """What JAX's orbax round trip restores from its tp = t engine's
+    ``save_engine``, carried across with ``params_from_numpy``."""
+    from grove_tpu.serving import checkpoint as jckpt
+    out = {}
+    for t in TPS:
+        mesh = jbuild_mesh(JMeshPlan(tp=t), jax.devices()[:t])
+        for quant in (None, "int8"):
+            eng = jengine.PagedDecodeEngine(
+                J_CFG, jparams, mesh=mesh, quant=quant, xprof=False,
+                reqtrace=False, **worlds.GEOM)
+            path = str(tmp_path_factory.mktemp(f"jax{t}{quant}"))
+            step = int(os.path.basename(jckpt.save_engine(path, eng)))
+            back = jckpt.load_params(path, step)
+            out[t, quant] = params_from_numpy(jax.tree.map(np.asarray, back),
+                                              device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("t", TPS)
+@pytest.mark.parametrize("quant", (None, "int8"))
+def test_tp_step_equals_jax_orbax_restore(runs, jax_restored, t, quant):
+    """The port's whole tree from the tp world's step is, leaf for leaf and
+    bit for bit, what orbax restores from JAX's tp engine's save."""
+    name = "int8" if quant else "mono"
+    got = ckpt.load_params(_step_dir(runs, t, name), 0, device="cpu")
+    _assert_bitwise(got, jax_restored[t, quant])
+
+
+@pytest.mark.parametrize("t", TPS)
+@pytest.mark.parametrize("kind", ("mono", "pair"))
+def test_tp_warm_restart_a_b_a(runs, t, kind):
+    """A -> B -> A into a live tp engine (and a live tp pair): the tokens
+    after each restart are bitwise those of fresh tp engines on B and on
+    A, on every rank."""
+    for r in runs[t]:
+        c = r["checkpoints"]
+        fresh_a = c["fresh"]["a" if kind == "mono" else "pair_a"]
+        assert c["restarts"][kind] == [[0, c["fresh"]["b"]], [0, fresh_a]]
+        assert c["fresh"]["a"] != c["fresh"]["b"]
+
+
+@pytest.mark.parametrize("t", TPS)
+def test_tp_restores_the_other_plans_step(runs, t):
+    """A step saved by the other world's plan (tp = 2 or 4), f32 and int8,
+    restores into this world's live engines: the tokens are bitwise those
+    of fresh engines here on the same weights."""
+    (peer,) = [d for w, d in runs["dirs"].items() if w != t]
+    for r in runs[t]:
+        c = r["checkpoints"]
+        assert c["across"][peer] == [c["fresh"]["b"], c["fresh"]["q_a"]]
+
+
+@pytest.mark.parametrize("t", TPS)
+def test_tp_restores_a_one_card_step(runs, t):
+    """A step saved on one CPU (f32 weights A, int8 weights B) restores into
+    the tp engines bitwise."""
+    for r in runs[t]:
+        c = r["checkpoints"]
+        assert c["one_card"] == [c["fresh"]["a"], c["fresh"]["q_b"]]
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _one_cpu_tokens(params, quant=None):
+    eng = tengine.PagedDecodeEngine(T_CFG, params, quant=quant, device="cpu",
+                                    xprof=False, reqtrace=False,
+                                    **worlds.GEOM)
+    return eng, worlds.serve_once(eng)
+
+
+@pytest.mark.parametrize("t", TPS)
+def test_one_cpu_engine_restores_a_tp_step(runs, tparams, t):
+    """The other way round: the tp world's steps (weights B in f32, A in
+    int8) restore into one-CPU engines built on other weights, whose tokens
+    then equal one-CPU engines built on the same weights, and the tp
+    world's own."""
+    b = worlds.other_params()
+    # The engine keeps the caller's tensors, and a restart writes them.
+    eng, _ = _one_cpu_tokens(_clone(tparams))
+    assert ckpt.warm_restart(_step_dir(runs, t, "b"), eng) == 0
+    got = worlds.serve_once(eng)
+    assert got == _one_cpu_tokens(b)[1] == runs[t][0]["checkpoints"][
+        "fresh"]["b"]
+    eng, _ = _one_cpu_tokens(b, "int8")
+    ckpt.warm_restart(_step_dir(runs, t, "int8"), eng)
+    got = worlds.serve_once(eng)
+    assert got == _one_cpu_tokens(tparams, "int8")[1] == runs[t][0][
+        "checkpoints"]["fresh"]["q_a"]
+
+
+@pytest.mark.parametrize("t", TPS)
+def test_half_written_tp_step_is_not_counted(runs, t):
+    """A save whose file dies half way on rank 1 raises on every rank
+    (rank 1 its own error, the others that a rank failed) and leaves no
+    step; the collective retry commits step 0 and no temporary
+    directory is left."""
+    for r in runs[t]:
+        h = r["checkpoints"]["half"]
+        if r["rank"] == 1:
+            assert h["error"] == ["OSError", "disk full"]
+        else:
+            assert h["error"][0] == "RuntimeError"
+            assert "another rank could not write" in h["error"][1]
+        assert h["latest"] is None
+        assert h["retry"] == ["0"]
+
+
+@pytest.mark.parametrize("t", TPS)
+def test_tp_restart_into_another_shape_raises_on_every_rank(runs, t):
+    """A restart into engines of another shape raises on every rank before
+    anything is written: where every rank's engine differs (ValueError on
+    each), and where only rank 0's does (the others match, and raise
+    without writing)."""
+    for r in runs[t]:
+        s = r["checkpoints"]["another_shape"]
+        assert s["every"] == {"error": "ValueError", "unchanged": True}
+        want = "ValueError" if r["rank"] == 0 else "RuntimeError"
+        assert s["rank0"] == {"error": want, "unchanged": True}
+
+
+def test_same_plan_reads_only_its_rank_file(runs, tparams, tmp_path):
+    """``like=`` a rank's slices of the plan that wrote the step reads that
+    rank's file alone; another plan's slices that overlap the missing
+    rank's need its file."""
+    from grove_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from grove_tpu_torch.parallel.sharding import shard_params
+    src = os.path.join(_step_dir(runs, 2, "mono"), "0")
+    dst = tmp_path / "ck"
+    shutil.copytree(src, dst / "0")
+    os.remove(dst / "0" / "rank0.pt")
+    like = shard_params(Mesh(MeshPlan(tp=2), rank=1), tparams)
+    got = ckpt.load_params(str(dst), 0, like=like)
+    assert got.layout == like.layout
+    _assert_bitwise(got, like)
+    with pytest.raises(FileNotFoundError):
+        ckpt.load_params(str(dst), 0, like=shard_params(
+            Mesh(MeshPlan(tp=4), rank=0), tparams))
+
+
+@pytest.mark.parametrize("name", ("mono", "int8"))
+@pytest.mark.parametrize("rank", (0, 1, 2, 3))
+def test_another_plan_reads_only_the_overlapping_files(runs, tparams,
+                                                       tmp_path, name, rank):
+    """A tp = 4 rank restoring the tp = 2 world's step reads only the file
+    whose blocks overlap its own (ranks 0 and 1 rank0.pt, ranks 2 and 3
+    rank1.pt, replicated leaves included), and gets its slices bitwise; a
+    whole-tree load needs every file."""
+    from grove_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from grove_tpu_torch.parallel.sharding import shard_params
+    from grove_tpu_torch.serving.quant import quantize_params
+    src = os.path.join(_step_dir(runs, 2, name), "0")
+    dst = tmp_path / "ck"
+    shutil.copytree(src, dst / "0")
+    os.remove(dst / "0" / f"rank{1 - rank // 2}.pt")
+    whole = quantize_params(tparams) if name == "int8" else tparams
+    like = shard_params(Mesh(MeshPlan(tp=4), rank=rank), whole)
+    got = ckpt.load_params(str(dst), 0, like=like)
+    assert got.layout == like.layout
+    _assert_bitwise(got, like)
+    with pytest.raises(FileNotFoundError):
+        ckpt.load_params(str(dst), 0, device="cpu")
+
+
+@pytest.mark.parametrize("kw", (dict(dp=2, tp=2), dict(sp=2, tp=2),
+                                dict(pp=2), dict(dp=2)), ids=str)
+def test_only_a_tp_only_plan_is_checkpointed(tparams, tmp_path, kw):
+    """An engine cut for a plan with dp, pp, ep or sp above 1 is refused by
+    ``engine_responder`` at registration and by ``save_engine`` and
+    ``warm_restart``, before anything is written."""
+    import types
+
+    from grove_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from grove_tpu_torch.parallel.sharding import shard_params
+    eng = types.SimpleNamespace(params=shard_params(
+        Mesh(MeshPlan(**kw), rank=0), tparams))
+    for call in (lambda: ckpt.engine_responder(eng, str(tmp_path)),
+                 lambda: ckpt.save_engine(str(tmp_path), eng),
+                 lambda: ckpt.warm_restart(str(tmp_path), eng, step=0)):
+        with pytest.raises(ValueError, match="tp-only"):
+            call()
+    assert os.listdir(tmp_path) == []
 
 
 # ---- in process ----
@@ -336,3 +576,4 @@ def test_params_on_the_engine_device_are_the_callers(tparams):
     got = tengine._sharded(tengine.single_device_mesh(), tparams, None,
                            torch.device("cpu"))
     assert got is tparams
+

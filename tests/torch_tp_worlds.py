@@ -147,30 +147,132 @@ def _served(mesh, params) -> dict:
     return out
 
 
-def _checkpoints(mesh, params, ckpt_dir: str) -> dict:
-    """Each checkpoint entry point on a tp engine and on a tp pair, every
-    rank with the same directory: the exception each raised, and what the
-    directory holds afterwards."""
+def serve_once(eng) -> list[list[int]]:
+    """The prompts once more through ``eng``: each request's tokens, in
+    submission order."""
+    n0 = len(eng.completed)
+    for p in prompts():
+        eng.submit(p, max_new_tokens=MAX_NEW)
+    drive(eng, n0 + len(PROMPT_LENS))
+    done = sorted(eng.completed[n0:], key=lambda r: r.rid)
+    return [[int(t) for t in r.generated] for r in done]
+
+
+def other_params():
+    """Weights B, from a torch seed: the same on every process."""
+    import torch
+
+    from grove_tpu_torch.models import llama
+    return llama.init_params(_config(), torch.Generator().manual_seed(1),
+                             "cpu")
+
+
+# The steps each world saves under its ckpt/ directory, and those the
+# parent saves on one CPU under one/ (A, f32) and one_q/ (B, int8).
+STEPS = ("mono", "pair", "b", "int8")
+
+
+def _wait_for_step(path: str, timeout: float = 150.0) -> None:
+    """A peer world's step: a digit directory appears only whole."""
+    from grove_tpu_torch.serving import checkpoint as ckpt
+    deadline = time.monotonic() + timeout
+    while ckpt.latest_step(path) is None:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no step under {path!r}")
+        time.sleep(0.05)
+
+
+def _checkpoints(mesh, params, out_dir: str, peers: list[str]) -> dict:
+    """The checkpoint entry points on tp engines and a tp pair, every rank
+    with the same directory: fresh engines' tokens on weights A and B (f32
+    and int8), one step of each kind saved, A -> B -> A into live engines,
+    steps of the peer world's plan and of one CPU restored, a save that
+    dies on rank 1, and a restart into engines of another shape."""
+    import torch
+
     from grove_tpu_torch.serving import checkpoint as ckpt
     from grove_tpu_torch.serving import engine as tengine
+    from grove_tpu_torch.serving.quant import flatten_params
     cfg = _config()
     kw = dict(mesh=mesh, device="cpu", xprof=False, reqtrace=False, **GEOM)
-    out = {}
-    for kind, eng in (
-            ("mono", tengine.PagedDecodeEngine(cfg, params, **kw)),
-            ("pair", tengine.make_disagg(cfg, params, **kw))):
-        for name, call in (
-                ("save_engine", lambda: ckpt.save_engine(ckpt_dir, eng)),
-                ("warm_restart", lambda: ckpt.warm_restart(ckpt_dir, eng)),
-                ("engine_responder",
-                 lambda: ckpt.engine_responder(eng, ckpt_dir))):
-            try:
-                call()
-                out[f"{kind}/{name}"] = None
-            except Exception as e:
-                out[f"{kind}/{name}"] = type(e).__name__
-    out["written"] = (sorted(os.listdir(ckpt_dir))
-                      if os.path.isdir(ckpt_dir) else [])
+    d = lambda name: os.path.join(out_dir, "ckpt", name)   # noqa: E731
+    b = other_params()
+    mono_a = tengine.PagedDecodeEngine(cfg, params, **kw)
+    mono_b = tengine.PagedDecodeEngine(cfg, b, **kw)
+    pair_a = tengine.make_disagg(cfg, params, **kw)
+    q_a = tengine.PagedDecodeEngine(cfg, params, quant="int8", **kw)
+    q_b = tengine.PagedDecodeEngine(cfg, b, quant="int8", **kw)
+    out = {"fresh": {"a": serve_once(mono_a), "b": serve_once(mono_b),
+                     "pair_a": serve_once(pair_a), "q_a": serve_once(q_a),
+                     "q_b": serve_once(q_b)}}
+    ckpt.save_engine(d("mono"), mono_a)
+    ckpt.engine_responder(pair_a, d("pair"))(None)
+    ckpt.save_engine(d("b"), mono_b)
+    ckpt.save_engine(d("int8"), q_a)
+    out["written"] = {n: sorted(os.listdir(d(n))) for n in STEPS}
+    out["restarts"] = {}
+    for name, eng in (("mono", mono_a), ("pair", pair_a)):
+        got = []
+        for src in ("b", name):
+            got.append([ckpt.warm_restart(d(src), eng), serve_once(eng)])
+        out["restarts"][name] = got
+    across = {}
+    for peer in peers:
+        for name in ("b", "int8"):
+            _wait_for_step(os.path.join(peer, "ckpt", name))
+        across[peer] = [
+            (ckpt.warm_restart(os.path.join(peer, "ckpt", "b"), mono_a),
+             serve_once(mono_a))[1],
+            (ckpt.warm_restart(os.path.join(peer, "ckpt", "int8"), q_b),
+             serve_once(q_b))[1]]
+    out["across"] = across
+    out["one_card"] = [
+        (ckpt.warm_restart(os.path.join(out_dir, "one"), mono_a),
+         serve_once(mono_a))[1],
+        (ckpt.warm_restart(os.path.join(out_dir, "one_q"), q_b),
+         serve_once(q_b))[1]]
+
+    # A save that dies on rank 1 half way through its file.
+    def dies(obj, f, *args, **kwargs):
+        f.write(b"half")
+        raise OSError("disk full")
+
+    real = torch.save
+    if mesh.rank == 1:
+        torch.save = dies
+    try:
+        ckpt.save_engine(d("half"), mono_a)
+        err = None
+    except Exception as e:
+        err = [type(e).__name__, str(e)]
+    finally:
+        torch.save = real
+    out["half"] = {"error": err, "latest": ckpt.latest_step(d("half"))}
+    # The retry is collective: every rank lists after rank 0 removed the
+    # dead attempt's temporary directory and committed the new step.
+    ckpt.save_engine(d("half"), mono_a)
+    out["half"]["retry"] = sorted(os.listdir(d("half")))
+
+    # Engines of another shape: on every rank (one layer), then on rank 0
+    # alone, where the other ranks match and must not write either.
+    shapes = {}
+    for case in ("every", "rank0"):
+        other = (mesh.rank == 0 or case == "every")
+        ocfg = dataclasses.replace(cfg, n_layers=1) if other else cfg
+        from grove_tpu_torch.models import llama
+        op = llama.init_params(ocfg, torch.Generator().manual_seed(2), "cpu")
+        eng = tengine.PagedDecodeEngine(ocfg, op, **kw)
+        before = {k: t.clone() for k, t in
+                  flatten_params(eng.params)[0].items()}
+        try:
+            ckpt.warm_restart(d("b"), eng)
+            err = None
+        except Exception as e:
+            err = type(e).__name__
+        after = flatten_params(eng.params)[0]
+        shapes[case] = {"error": err, "unchanged": all(
+            torch.equal(before[k], t) for k, t in after.items())}
+    out["another_shape"] = shapes
     return out
 
 
@@ -226,7 +328,8 @@ def _mesh_axes(world: int) -> dict:
                       if m.comm(a) is not None}}
 
 
-def _rank(rank: int, world: int, out_dir: str, mesh_axes: bool) -> None:
+def _rank(rank: int, world: int, out_dir: str, mesh_axes: bool,
+          peers: list[str]) -> None:
     import torch
     import torch.distributed as dist
 
@@ -245,8 +348,8 @@ def _rank(rank: int, world: int, out_dir: str, mesh_axes: bool) -> None:
         with torch.no_grad():
             res = {"rank": mesh.rank, "tp_rank": mesh.comm("tp").rank,
                    "served": _served(mesh, params),
-                   "checkpoints": _checkpoints(
-                       mesh, params, os.path.join(out_dir, "ckpt")),
+                   "checkpoints": _checkpoints(mesh, params, out_dir,
+                                               peers),
                    "logits": _logits(mesh, params)}
             if mesh_axes:
                 res["mesh"] = _mesh_axes(world)
@@ -260,14 +363,16 @@ def _rank(rank: int, world: int, out_dir: str, mesh_axes: bool) -> None:
 
 def run_worlds(worlds: dict[int, str], timeout: float) -> dict[int, list]:
     """Run one gloo world per entry of ``worlds`` (size -> its directory,
-    which holds ``params.npz``), all at once; returns each world's rank
+    which holds ``params.npz`` and the one-CPU steps ``one/`` and
+    ``one_q/``), all at once; each world restores the others' steps as
+    they appear. Returns each world's rank
     results. A rank that fails, or a world that is not done within
     ``timeout`` seconds, raises (and every process still running is
     killed): a hung collective fails the test, it does not stall it."""
     ctx = multiprocessing.get_context("spawn")
-    procs = {w: [ctx.Process(target=_rank, args=(r, w, d, w >= 4),
-                             daemon=True) for r in range(w)]
-             for w, d in worlds.items()}
+    procs = {w: [ctx.Process(target=_rank, args=(
+        r, w, d, w >= 4, [p for v, p in worlds.items() if v != w]),
+        daemon=True) for r in range(w)] for w, d in worlds.items()}
     try:
         for ps in procs.values():
             for p in ps:
