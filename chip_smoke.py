@@ -4298,6 +4298,7 @@ def phase_observatories(seed: int, card: str, cfg=None, device: str = "cuda",
     payload = x.payload()
     for line in xprof.render_engine_profile(payload):
         log(f"observatories: profile: {line}")
+    log(f"observatories: host: {payload['host']}")
     rpay = rt.payload()
     worst = rpay["slowest"][0]["rid"]
     for line in reqtrace.render_request_trace(rpay, worst):

@@ -57,6 +57,7 @@ lanes engine runs on one device and ignores ``mesh``, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -66,6 +67,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from grove_tpu_torch.device import resolve_device
 from grove_tpu_torch.models import llama
@@ -150,6 +152,15 @@ class Request:
     admit_ts: float = 0.0
     first_token_ts: float = 0.0
     done_ts: float = 0.0
+    # The paged engine's phase stamps, same clock. prefill_start: the first
+    # prefill chunk's dispatch (a recompute replay leaves it), so that TTFT
+    # = (admit - due) + (prefill_start - admit) + (first_token -
+    # prefill_start). token_ts: one per generated token, when the device
+    # finished the step that produced it (the first token's is
+    # first_token_ts); empty with the observatory off and in the lanes
+    # engine.
+    prefill_start_ts: float = 0.0
+    token_ts: list[float] = dataclasses.field(default_factory=list)
     # Prompt tokens served from a prefix cache at first admission (0 =
     # cold; the lanes engine has no prefix cache).
     cached_tokens: int = 0
@@ -168,6 +179,20 @@ class PrefillResult:
     v: torch.Tensor        # [layers, s_pad, n_kv, d]
     length: int
     next_token: int
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _ranged(name: str) -> Callable:
+    """Run the decorated engine method inside ``_range(name)``."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def method(self, *args, **kwargs):
+            with self._range(name):
+                return fn(self, *args, **kwargs)
+        return method
+    return wrap
 
 
 def _stamp_admit_impl(req: Request, now: float, admit: float | None,
@@ -263,32 +288,47 @@ class _Observed:
 
         return first
 
+    def _range(self, name: str):
+        """The profiler range ``name`` while a profiler collects and the
+        observatory is on; a null context otherwise (one flag read)."""
+        if self.xprof is not None and autograd_profiler._is_profiler_enabled:
+            return torch.profiler.record_function(name)
+        return _NO_RANGE
+
     def _tic(self):
-        """Open the timing bracket of a sampled dispatch."""
+        """Open the timing bracket of a sampled dispatch (and note its wall
+        time)."""
         if self.xprof is not None:
             self.xprof.compile.last_call_compiled = False
-        return self._timer.start()
+        return time.time(), self._timer.start()
 
     def _toc(self, mark, phase: str | None, steps: int = 1, tokens: int = 0,
-             then: Callable[[float], None] | None = None) -> None:
+             then: Callable[[float], None] | None = None, rows: int = 0,
+             ctx: int = 0) -> None:
         """Close the bracket: when its time is known, ``phase`` (if any)
-        goes into the flight recorder, unless the dispatch built an
-        executable (its time is the build's), and ``then(seconds)`` runs."""
+        goes into the flight recorder at the dispatch's wall time (with the
+        live ``rows`` and their summed ``ctx``), unless the dispatch built
+        an executable (its time is the build's), and ``then(seconds)``
+        runs."""
         x = self.xprof
         built = x is not None and x.compile.last_call_compiled
+        wall, start = mark
 
         def done(seconds: float) -> None:
             if phase is not None and not built:
-                x.record(phase, seconds, steps=steps, tokens=tokens)
+                x.record(phase, seconds, steps=steps, tokens=tokens,
+                         ts=wall, rows=rows, ctx=ctx)
             if then is not None:
                 then(seconds)
 
-        self._timer.stop(mark, done)
+        self._timer.stop(start, done)
 
-    def _resolve_timings(self) -> None:
-        """Read the queued device timings. Called only right after a fetch
-        that waited for the stream."""
-        self._timer.resolve()
+    def _resolve_timings(self, anchor=None, at: float = 0.0) -> None:
+        """Read the queued device timings, and place the step stamps
+        against the fetch's ``anchor`` (``DeviceTimer.anchor``), recorded
+        before its copy, and ``at``, the host time the copy returned.
+        Called only right after a fetch that waited for the stream."""
+        self._timer.resolve(anchor, at)
 
 
 class _Graphed(_Observed):
@@ -1319,6 +1359,11 @@ class PagedDecodeEngine(_Graphed):
         self._composition_dirty = True
         self._pending: list[tuple[torch.Tensor, tuple]] = []
         self._finishing: list = []
+        # With the observatory on: the pending steps' end stamps
+        # (xprof.Stamp, one per ``_pending`` entry), and the open refill,
+        # the host clock at the last fetch's return (0.0: none).
+        self._stamps: list = []
+        self._refill_from = 0.0
 
         self._init_observatories(telemetry, xprof, reqtrace)
         if self.xprof is not None:
@@ -1599,6 +1644,7 @@ class PagedDecodeEngine(_Graphed):
             n = 1
         return np.ones((n,), bool)
 
+    @_ranged("grove.report")
     def _report_metric(self, memory: bool = True) -> None:
         """Refresh the gauges; ``memory=False`` leaves out the (rate-limited)
         memory snapshot, as ``submit`` does (see there)."""
@@ -1656,6 +1702,8 @@ class PagedDecodeEngine(_Graphed):
                 "spec_decode": self.spec_decode,
                 "spec": self.spec_stats(),
                 "handoff": self.handoff_view(),
+                "host": self.xprof.host() if self.xprof is not None
+                else None,
                 "schedule": self._sched.payload()}
 
     def idle(self) -> bool:
@@ -1840,6 +1888,7 @@ class PagedDecodeEngine(_Graphed):
     # ---- admission ----
 
     @torch.no_grad()
+    @_ranged("grove.admit")
     def admit_from_queue(self, prefiller=None) -> int:
         """Admit queued work into the scheduler: preempted sequences
         re-enter first (recompute), then fresh requests FIFO, each gated on
@@ -1903,6 +1952,9 @@ class PagedDecodeEngine(_Graphed):
                 raise RuntimeError(
                     "admit_prompts stalled: KV pool too small for the "
                     f"batch ({self._alloc.payload()})")
+        # The device waits for the caller's first tick, which may come
+        # after any set-up of its own: not a refill of this engine's.
+        self._refill_from = 0.0
 
     def _admit_progress(self) -> tuple:
         """Monotone progress signature for admit_prompts' stall guard."""
@@ -1917,6 +1969,7 @@ class PagedDecodeEngine(_Graphed):
         """One engine tick: at most one prefill chunk, then one decode
         step over the compacted batch. No device sync on this path:
         windows drain in ``_drain``."""
+        dispatched = self.steps + self.chunks
         if self._sched.has_prefill_work():
             self._prefill_tick()
         if self._sched.running:
@@ -1925,7 +1978,7 @@ class PagedDecodeEngine(_Graphed):
             # The decode set emptied with a window in flight: fold it in
             # now (the last completion must not wait for more traffic).
             self._drain()
-        self.ticks += 1
+        self._end_tick(dispatched)
 
     def _decode_or_spec_tick(self) -> None:
         if self.spec_decode:
@@ -1943,7 +1996,33 @@ class PagedDecodeEngine(_Graphed):
         self._drain()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._note_fetch()
         self._resolve_timings()
+
+    def _launch(self, fn: Callable):
+        """Put one prefill chunk or decode step on the stream (a graph's
+        replay on the card, the eager call on the CPU) and return what it
+        returns. Its return closes the open refill."""
+        with self._range("grove.launch"):
+            out = fn()
+        if self._refill_from:
+            self.xprof.note_refill(time.perf_counter() - self._refill_from)
+            self._refill_from = 0.0
+        return out
+
+    def _note_fetch(self) -> None:
+        """A blocking fetch returned: the stream is empty, and the device
+        idles until the next launch (a refill)."""
+        if self.xprof is not None:
+            self._refill_from = time.perf_counter()
+
+    def _end_tick(self, dispatched: int) -> None:
+        """Count the tick; a refill still open after a tick that dispatched
+        nothing (``dispatched`` is the count before it) is dropped: the
+        engine waited for traffic, not for its host."""
+        if self._refill_from and self.steps + self.chunks == dispatched:
+            self._refill_from = 0.0
+        self.ticks += 1
 
     # ---- copy-on-write ----
 
@@ -1994,6 +2073,7 @@ class PagedDecodeEngine(_Graphed):
 
     # ---- chunked prefill ----
 
+    @_ranged("grove.prefill_tick")
     def _prefill_tick(self) -> None:
         seq = self._sched.next_prefill()
         if seq is None:
@@ -2030,10 +2110,12 @@ class PagedDecodeEngine(_Graphed):
         sampled = x is not None and x.should_sample()
         rt = self.reqtrace
         traced = rt is not None and rt.should_sample()
+        if not seq.req.prefill_start_ts:
+            seq.req.prefill_start_ts = time.time()
         if sampled or traced:
             wall = time.time()
             mark = self._tic()
-        logits = fn()
+        logits = self._launch(fn)
         if sampled or traced:
             # The chunk span is decoration only (not accumulated): phase
             # seconds come from the admit -> prefill-done boundaries.
@@ -2069,16 +2151,22 @@ class PagedDecodeEngine(_Graphed):
         the queued timings are read, before the prefill-done stamp) and fold
         it into the request: a first token is stamped (TTFT), a recompute
         replay's is the next decode token and the stamps stay."""
-        tok = self._sample_first(logits)
-        self._resolve_timings()
+        anchor = self._timer.anchor()
+        with self._range("grove.first_token"):
+            tok = self._sample_first(logits)
+        now = time.time()
+        self._note_fetch()
+        self._resolve_timings(anchor, now)
         req = seq.req
         if seq.recompute:
             req.generated.append(tok)
             if self.telemetry is not None:
                 self.telemetry.add_tokens(1)
         else:
-            self._stamp_admit(req, time.time(), admit=req.admit_ts or None)
+            self._stamp_admit(req, now, admit=req.admit_ts or None)
             req.generated.append(tok)
+        if self.xprof is not None:
+            req.token_ts.append(now)
         seq.n_generated = len(req.generated)
         seq.last_token = tok
         return tok
@@ -2106,6 +2194,7 @@ class PagedDecodeEngine(_Graphed):
 
     # ---- decode ----
 
+    @_ranged("grove.decode_tick")
     def _decode_tick(self) -> None:
         sched = self._sched
         # Cache-full truncation: a sequence whose next write would land
@@ -2143,10 +2232,12 @@ class PagedDecodeEngine(_Graphed):
         sampled = x is not None and x.should_sample()
         if sampled:
             mark = self._tic()
-        fn()
+        self._launch(fn)
         if sampled:
             self._toc(mark, "sample" if self._sampling else "step",
-                      tokens=len(self._run_order))
+                      tokens=len(self._run_order), **self._rows_ctx())
+        if x is not None:
+            self._stamps.append(self._timer.mark())
         # Each pending window keeps its own token copy (the next step
         # overwrites the static buffer) and its composition, so joins and
         # leaves between windows need no drain.
@@ -2166,6 +2257,14 @@ class PagedDecodeEngine(_Graphed):
         if len(self._pending) >= self.host_sync_interval:
             self._drain()
 
+    def _rows_ctx(self) -> dict:
+        """The live rows of the dispatch just made and the context they
+        attended over, summed (a sampled dispatch's FLOPs and bytes)."""
+        order = self._run_order
+        return {"rows": len(order),
+                "ctx": sum(s.pos + s.inflight + 1 for s in order)}
+
+    @_ranged("grove.decode_tick")
     def _spec_tick(self) -> None:
         """The speculative decode tick: one spec step advances every
         running sequence by 1..spec_k + 1 tokens. The committed count
@@ -2218,9 +2317,12 @@ class PagedDecodeEngine(_Graphed):
         sampled = x is not None and x.should_sample()
         if sampled:
             mark = self._tic()
-        fn()
+        self._launch(fn)
         if sampled:
-            self._toc(mark, "step", tokens=len(self._run_order))
+            self._toc(mark, "step", tokens=len(self._run_order),
+                      **self._rows_ctx())
+        if x is not None:
+            self._stamps.append(self._timer.mark())
         # Each pending window keeps its own copy of the committed tokens
         # (the next dispatch overwrites the static buffer).
         self._pending.append((self._out_buf[:B].clone(), self._run_order,
@@ -2311,30 +2413,39 @@ class PagedDecodeEngine(_Graphed):
                 for n in self._tables_sig]
             self._upload(self._limit_buf[:B], limit)
 
+    @_ranged("grove.drain")
     def _drain(self) -> None:
         """Fold pending window tokens into their requests with one host
         fetch. Every pending step has the same batch bucket (it changes
         only in ``_recompose``, which drains first), so the window stacks
         into one [steps, B] tensor ([steps, B, spec_k + 1] for spec
-        steps)."""
+        steps). With the observatory on, each token takes its step's end
+        stamp, placed against an anchor recorded just before the copy."""
         if not self._pending:
             return
         x = self.xprof
         if x is not None:
             t0 = time.perf_counter()
-        toks = torch.stack([e[0] for e in self._pending]).cpu().numpy()
+        stacked = torch.stack([e[0] for e in self._pending])
+        anchor = self._timer.anchor()
+        toks = stacked.cpu().numpy()
+        at = time.time()
         if x is not None:
             x.record("host_transfer", time.perf_counter() - t0)
-        self._resolve_timings()
+        self._note_fetch()
+        self._resolve_timings(anchor, at)
         entries = [e[1:] for e in self._pending]
+        stamps = self._stamps or [None] * len(entries)
         self._pending.clear()
+        self._stamps = []
         rt = self.reqtrace
         # Per-window acceptance decoration, thinned by the sampling gate
         # (aggregated per sequence over this drain's windows).
         spec_note = {} if rt is not None and rt.should_sample() else None
         spec_seqs: dict = {}   # insertion-ordered dedupe
         appended = accepted = drafted = 0
-        for arr, entry in zip(toks, entries):
+        for arr, entry, stamp in zip(toks, entries, stamps):
+            ts = None if stamp is None else stamp.ts
             if len(entry) == 1:
                 for i, seq in enumerate(entry[0]):
                     req = seq.req
@@ -2342,10 +2453,12 @@ class PagedDecodeEngine(_Graphed):
                         continue
                     tok = int(arr[i])
                     req.generated.append(tok)
+                    if ts is not None:
+                        req.token_ts.append(ts)
                     seq.last_token = tok
                     appended += 1
                 continue
-            counts = self._fold_spec(arr, *entry, spec_seqs, spec_note)
+            counts = self._fold_spec(arr, *entry, spec_seqs, spec_note, ts)
             appended += counts[0]
             accepted += counts[1]
             drafted += counts[2]
@@ -2378,15 +2491,16 @@ class PagedDecodeEngine(_Graphed):
             self._report_metric()
 
     def _fold_spec(self, arr: np.ndarray, order: tuple, bucket: tuple,
-                   spec_seqs: dict, spec_note: dict | None
-                   ) -> tuple[int, int, int]:
+                   spec_seqs: dict, spec_note: dict | None,
+                   ts: float | None = None) -> tuple[int, int, int]:
         """Fold one spec window ([B, spec_k + 1]: each row's committed
         tokens, then -1) into its sequences: the count advances ``pos``
         (the device's length), the tokens join ``generated`` up to
         max_new_tokens (an overshoot's rows are real K/V, but the request
-        is done and its extra tokens drop), and the acceptance counters
-        move (per sequence into ``spec_note`` too, when given). Returns
-        the tokens appended, accepted and drafted."""
+        is done and its extra tokens drop), each stamped ``ts`` (the
+        step's end) when given, and the acceptance counters move (per
+        sequence into ``spec_note`` too, when given). Returns the tokens
+        appended, accepted and drafted."""
         appended = accepted = drafted = 0
         st = self._spec_stats
         pb = st["per_bucket"].setdefault(
@@ -2418,6 +2532,8 @@ class PagedDecodeEngine(_Graphed):
                 if len(req.generated) >= req.max_new_tokens:
                     break
                 req.generated.append(int(t))
+                if ts is not None:
+                    req.token_ts.append(ts)
                 appended += 1
             seq.n_generated = len(req.generated)
             if n:
@@ -2480,9 +2596,10 @@ class PrefillEngine(PagedDecodeEngine):
         """One prefill tick. No decode leg: this engine's running set is
         empty by construction (sequences detach at promotion time), so the
         decode tier's steps never wait on a prompt chunk."""
+        dispatched = self.steps + self.chunks
         if self._sched.has_prefill_work():
             self._prefill_tick()
-        self.ticks += 1
+        self._end_tick(dispatched)
 
     @torch.no_grad()
     def warmup(self, batches: list[int] | None = None,
@@ -2733,8 +2850,10 @@ class DisaggServing:
             # Replay from scratch: the stamps and first tokens belonged to
             # work the dead tier never shipped.
             req.generated = []
+            req.token_ts = []
             req.done = False
             req.admit_ts = req.first_token_ts = req.done_ts = 0.0
+            req.prefill_start_ts = 0.0
             req.cached_tokens = 0
             prefill._queue.append(req)
         carriers.extend(old._sched.preempted)

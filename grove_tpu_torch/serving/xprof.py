@@ -1,10 +1,12 @@
 """Data-plane observatory — build/step/memory telemetry for the serving
-engine (docs/design/data-plane-observability.md).
+engine (docs/design/data-plane-observability.md; the paged engine's own
+step stamps and host refills: docs/design/port-engine-tracing.md).
 
 The port's copy of ``grove_tpu/serving/xprof.py``. The cost model, the
 flight recorder's ring and ``phase_stats``, ``Observatory``, the registry
-and ``render_engine_profile`` are the JAX module's; four parts differ,
-because JAX's mechanisms have no torch counterpart:
+and ``render_engine_profile`` are the JAX module's; five parts differ,
+because JAX's mechanisms have no torch counterpart or the port's engine
+has no JAX twin:
 
 - **CompileTracker** watches no jit cache. The engine calls
   ``note_build(name, seconds, signature)`` whenever it builds an
@@ -22,20 +24,32 @@ because JAX's mechanisms have no torch counterpart:
   anyway (the window drain's, the first token's, ``sync``). On the CPU
   the bracket is ``perf_counter`` around the eager call, as the JAX
   package times on its CPU backend. ``should_sample`` still counts
-  dispatches when they are dispatched, so the cadence is JAX's.
+  dispatches when they are dispatched, so the cadence is JAX's. A sample
+  is stamped with its dispatch's wall time, and the paged engine's carry
+  their live rows and summed context, which ``throughput_estimate`` reads.
+  The same timer stamps each decode step's end on the host clock
+  (``mark``): an event after the step, placed by ``resolve`` against an
+  anchor, an event that a fetch records just before its copy, at the host
+  time the copy returned (on the CPU, the stamp is the host time after the
+  eager step).
 - **Memory accounting** reads ``torch.cuda.memory_stats`` (in use:
   ``allocated_bytes.all.current``, which counts the CUDA graphs' private
-  pool too) and ``torch.cuda.mem_get_info`` (the card's total) on the
-  card, source ``"device"``; on the CPU the model-derived byte counts,
-  source ``"model-estimate"``.
+  pool too) and the card's total from its device properties (which torch
+  reads once; no device call) on the card, source ``"device"``; on the CPU
+  the model-derived byte counts, source ``"model-estimate"``.
 - **The roofline** is the H100 SXM datasheet's (989e12 bf16 FLOP/s,
   3.35e12 B/s; ``GROVE_PEAK_FLOPS`` / ``GROVE_PEAK_HBM_BW`` override),
   and ``backend()`` names the CUDA device.
+- **The host's refills** (``host`` in the payload): the paged engine counts
+  each stretch from the return of a blocking device-to-host fetch to the
+  return of its next chunk or step launch, in which the device can only
+  idle for the host, as ``refills`` and ``refill_s``.
 
 Surfaces follow the house pattern: ``payload()`` is the
 ``/debug/xprof`` shape that ``render_engine_profile`` (and the JAX
 package's renderer) renders. ``GROVE_XPROF=0`` disables the observatory:
-the engine then builds none and takes no sampling branch.
+the engine then builds none, takes no sampling branch, stamps no step and
+counts no refill.
 """
 
 from __future__ import annotations
@@ -262,6 +276,16 @@ class CompileTracker:
 
 # ---- device timing without a sync ----
 
+class Stamp:
+    """The end of a decode step on the host clock: ``ts`` is 0.0 until the
+    timer places it."""
+
+    __slots__ = ("ts", "event")
+
+    def __init__(self, ts: float = 0.0, event=None) -> None:
+        self.ts, self.event = ts, event
+
+
 class DeviceTimer:
     """Times sampled dispatches without waiting for the device.
 
@@ -275,7 +299,14 @@ class DeviceTimer:
     and counted in ``dropped``. On the CPU the bracket is ``perf_counter``
     and ``stop`` runs the callback at once, unless ``defer`` holds the
     reading until ``resolve`` (which the tests use to rehearse the card's
-    order of events on the CPU)."""
+    order of events on the CPU).
+
+    ``mark`` stamps the end of the work enqueued so far. On the card it
+    records an event from the same pool and queues it; a ``resolve`` that
+    brings an anchor (from ``anchor``, which a fetch records just before
+    its copy) and the host time the copy returned places it at that time
+    less the device time from the mark to the anchor. On the CPU the stamp
+    is the host time at once."""
 
     def __init__(self, device: torch.device, capacity: int = 128,
                  defer: bool = False) -> None:
@@ -283,17 +314,39 @@ class DeviceTimer:
         self.capacity = max(1, capacity)
         self.defer = defer
         self._pending: collections.deque = collections.deque()
+        self._marks: collections.deque[Stamp] = collections.deque()
         self._free: list = []
         self.dropped = 0
         self.resolved = 0
 
-    def start(self):
-        if not self.cuda:
-            return time.perf_counter()
+    def _event(self):
         ev = self._free.pop() if self._free else \
             torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
+
+    def start(self):
+        if not self.cuda:
+            return time.perf_counter()
+        return self._event()
+
+    def mark(self) -> Stamp:
+        """Stamp the end of the work enqueued so far."""
+        if not self.cuda:
+            return Stamp(time.time())
+        stamp = Stamp(event=self._event())
+        self._marks.append(stamp)
+        return stamp
+
+    def anchor(self):
+        """Where marks wait to be placed (only on the card): record an
+        event after the work enqueued so far and return it; None otherwise.
+        A fetch records it just before its copy and reads the host clock
+        when the copy has returned: the stamps are then late by the copy
+        and the host's wake, a few microseconds."""
+        if not self._marks:
+            return None
+        return self._event()
 
     def stop(self, start, done: Callable[[float], None]) -> None:
         """Close the bracket opened by ``start``; ``done(seconds)`` runs
@@ -304,9 +357,7 @@ class DeviceTimer:
                 return
             end = time.perf_counter()
         else:
-            end = self._free.pop() if self._free else \
-                torch.cuda.Event(enable_timing=True)
-            end.record()
+            end = self._event()
         if len(self._pending) >= self.capacity:
             s, e, _ = self._pending.popleft()
             if self.cuda:
@@ -314,12 +365,21 @@ class DeviceTimer:
             self.dropped += 1
         self._pending.append((start, end, done))
 
-    def resolve(self) -> None:
+    def resolve(self, anchor=None, at: float = 0.0) -> None:
         """Read the queued pairs, oldest first, and run their callbacks.
         Called after a fetch has waited for the stream, so the pairs
         recorded before it are complete; a pair recorded after the fetch
         (work the caller enqueued since) stays queued, unread, for the next
-        call: ``query`` tells without waiting."""
+        call: ``query`` tells without waiting. With the fetch's
+        ``anchor`` and ``at``, the host time its copy returned, the marks
+        recorded before the anchor are placed first."""
+        if anchor is not None:
+            while self._marks and self._marks[0].event.query():
+                stamp = self._marks.popleft()
+                stamp.ts = at - stamp.event.elapsed_time(anchor) / 1e3
+                self._free.append(stamp.event)
+                stamp.event = None
+            self._free.append(anchor)
         while self._pending:
             s, e, done = self._pending[0]
             if self.cuda and not e.query():
@@ -341,11 +401,13 @@ class DeviceTimer:
 
 @dataclasses.dataclass
 class StepSample:
-    ts: float
+    ts: float          # the dispatch's wall time
     phase: str
     seconds: float     # the dispatch's device time
     steps: int         # decode steps covered (blocks: K)
     tokens: int        # tokens the dispatch produced
+    rows: int = 0      # live rows of a paged decode dispatch (0: unknown)
+    ctx: int = 0       # their summed context
 
 
 class FlightRecorder:
@@ -374,11 +436,15 @@ class FlightRecorder:
         return (self._dispatches - 1) % self.sample_every == 0
 
     def record(self, phase: str, seconds: float, steps: int = 1,
-               tokens: int = 0) -> None:
+               tokens: int = 0, ts: float | None = None, rows: int = 0,
+               ctx: int = 0) -> None:
+        """One sample; ``ts`` is the dispatch's wall time (now when the
+        time was read at the dispatch)."""
         per_step = seconds / max(1, steps)
         with self._lock:
-            self._ring.append(StepSample(time.time(), phase, seconds,
-                                         steps, tokens))
+            self._ring.append(StepSample(time.time() if ts is None else ts,
+                                         phase, seconds, steps, tokens,
+                                         rows, ctx))
             self.samples_total += 1
         if self._metrics is not None:
             self._metrics.observe("grove_device_step_seconds", per_step,
@@ -420,7 +486,7 @@ class FlightRecorder:
 # What "in use" counts on the card.
 DEVICE_MEMORY_BASIS = ("torch.cuda.memory_stats allocated_bytes.all.current "
                        "(CUDA graph pools included) of "
-                       "torch.cuda.mem_get_info total")
+                       "torch.cuda.get_device_properties total_memory")
 
 
 def memory_snapshot(engine) -> dict:
@@ -446,7 +512,9 @@ def memory_snapshot(engine) -> dict:
     if on_card:
         in_use = int(torch.cuda.memory_stats(dev)[
             "allocated_bytes.all.current"])
-        limit = int(torch.cuda.mem_get_info(dev)[1])
+        # torch reads the properties once per device: no call reaches the
+        # card here (mem_get_info would, on the tick path).
+        limit = int(torch.cuda.get_device_properties(dev).total_memory)
     total = in_use if on_card else kv_bytes + weight_bytes
     workspace = max(0, total - kv_bytes - weight_bytes)
     # KV headroom: on the card the device's free fraction; model-derived,
@@ -510,6 +578,10 @@ class Observatory:
         # The engine's DeviceTimer (its pending and dropped counts ride
         # the payload); None until an engine attaches one.
         self.timer: DeviceTimer | None = None
+        # The paged engine's refills: host seconds from a blocking fetch's
+        # return to the return of the next chunk or step launch.
+        self.refills = 0
+        self.refill_s = 0.0
         register(self)
 
     # -- hooks the engine calls --
@@ -518,8 +590,18 @@ class Observatory:
         return self.recorder.should_sample()
 
     def record(self, phase: str, seconds: float, steps: int = 1,
-               tokens: int = 0) -> None:
-        self.recorder.record(phase, seconds, steps=steps, tokens=tokens)
+               tokens: int = 0, ts: float | None = None, rows: int = 0,
+               ctx: int = 0) -> None:
+        self.recorder.record(phase, seconds, steps=steps, tokens=tokens,
+                             ts=ts, rows=rows, ctx=ctx)
+
+    def note_refill(self, seconds: float) -> None:
+        self.refills += 1
+        self.refill_s += seconds
+
+    def host(self) -> dict:
+        """The refill counters (``host`` of the payloads)."""
+        return {"refills": self.refills, "refill_s": self.refill_s}
 
     def observe_memory(self, engine, telemetry=None) -> None:
         """Refresh the memory gauges from the engine's live state
@@ -554,33 +636,41 @@ class Observatory:
                     "estimated": False}
         return {"platform": "cpu", "device_kind": "cpu", "estimated": True}
 
-    def throughput_estimate(self, stats: dict | None = None,
-                            ) -> dict | None:
+    def throughput_estimate(self) -> dict | None:
         """Tokens/sec over the ring's decode samples placed against the
         H100 roofline; off the card the block is stamped a model-derived
-        estimate. ``stats`` lets payload() reuse one phase_stats()
-        snapshot."""
+        estimate. A sample's FLOPs and bytes are its live rows at their
+        summed context where it carries them (the paged engine's), else
+        its tokens at half the allocated length in a full batch (the lanes
+        engine's steps read the whole padded cache)."""
         if self.cfg is None:
             return None
-        if stats is None:
-            stats = self.recorder.phase_stats()
-        decode = [stats[p] for p in ("step", "sample") if p in stats]
-        tokens = sum(d["tokens"] for d in decode)
-        secs = sum(d["total_s"] for d in decode)
+        decode = [s for s in self.recorder.snapshot()
+                  if s.phase in ("step", "sample")]
+        tokens = sum(s.tokens for s in decode)
+        secs = sum(s.seconds for s in decode)
         if not tokens or secs <= 0:
             return None
-        tps = tokens / secs
-        ctx = max(1, self.max_len // 2)
-        flops_tok = decode_flops_per_token(self.cfg, ctx)
-        bytes_tok = decode_hbm_bytes_per_token(
-            self.cfg, self.max_len or self.cfg.max_seq_len,
-            max(1, self.batch), weight_bytes=self._weight_bytes,
-            kv_quant=self.kv_quant)
+        flops = nbytes = 0.0
+        for s in decode:
+            if s.rows:
+                # Both costs are linear in the context: the rows at their
+                # mean context cost what the rows at their own do.
+                n, batch = s.rows, s.rows
+                attended = cached = s.ctx / s.rows
+            else:
+                n, batch = s.tokens, max(1, self.batch)
+                attended = max(1, self.max_len // 2)
+                cached = self.max_len or self.cfg.max_seq_len
+            flops += n * decode_flops_per_token(self.cfg, attended)
+            nbytes += n * decode_hbm_bytes_per_token(
+                self.cfg, cached, batch, weight_bytes=self._weight_bytes,
+                kv_quant=self.kv_quant)
         backend = self.backend()
         return {
-            "tokens_per_sec_est": round(tps, 1),
-            "mfu_est": round(tps * flops_tok / PEAK_FLOPS, 6),
-            "hbm_util_est": round(tps * bytes_tok / PEAK_HBM_BW, 6),
+            "tokens_per_sec_est": round(tokens / secs, 1),
+            "mfu_est": round(flops / secs / PEAK_FLOPS, 6),
+            "hbm_util_est": round(nbytes / secs / PEAK_HBM_BW, 6),
             "basis": (f"device-sampled (CUDA events) vs {ROOFLINE}"
                       if not backend["estimated"]
                       else f"model-estimate (CPU backend; {ROOFLINE} "
@@ -608,7 +698,8 @@ class Observatory:
             "kv_quant": self.kv_quant,
             "spec": self.spec,
             "handoff": self.handoff,
-            "throughput": self.throughput_estimate(phases),
+            "throughput": self.throughput_estimate(),
+            "host": self.host(),
         }
         if self.timer is not None:
             out["timer"] = {"pending": len(self.timer),
