@@ -1779,6 +1779,15 @@ def phase_w8a16_kernels(seed: int, card: str) -> dict:
 
 DENSE_M = (8, 32, 128, 256)               # small and full decode; the k = 3
 # and k = 7 verifies at b = 32 (one to four token tiles of the dense kernel)
+YI_LAUNCHES = [                           # Yi-1.5-9B's (benchmark/configs/):
+    ("wq, wk, wv", 4096, (4096, 512, 512)),  # name, K, N of each weight
+    ("wo", 4096, (4096,)),
+    ("w_gate, w_up", 4096, (11008, 11008)),
+    ("w_down", 11008, (4096,)),
+    ("lm_head", 4096, (64000,)),
+]
+YI_M = (256, 128, 32)                     # the chat cell's prefill chunk
+# (its head runs on one row), a 128-row chunk, and decode
 SLAB_M = 512                              # a verify of batch 64 at k = 7
 
 
@@ -1936,11 +1945,16 @@ def dense_build_info() -> None:
                                  f"not dense_geometry's {geo}")
     if bad:
         raise AssertionError("a w8a16 or dense GEMM build spills")
-    log("kernels: dense CTAs per launch at every M <= 256 (column tiles x "
+    log("kernels: dense CTAs per launch at every M <= 192 (column tiles x "
         "split): " + ", ".join(
             f"{name} {g['ctas']} (split {g['split']})"
             for name, K, ns, _ in W8A16_LAUNCHES
             for g in (dense_geometry(32, K, ns),)))
+    log("kernels: dense CTAs per launch at M 193..256 (whole column tiles "
+        "+ 2 x halved, x split): " + ", ".join(
+            f"{name} {g['ctas']} ({g['whole']} whole, split {g['split']})"
+            for name, K, ns, *_ in W8A16_LAUNCHES + YI_LAUNCHES
+            for g in (dense_geometry(256, K, ns),)))
 
 
 def phase_dense_kernels(seed: int, card: str) -> dict:
@@ -1992,6 +2006,9 @@ def phase_dense_kernels(seed: int, card: str) -> dict:
     dense_rows_and_slabs(gen, 2048, (2048, 1024, 1024), torch.bfloat16,
                          "wq, wk, wv")
     dense_rows_and_slabs(gen, 2048, (32000,), torch.float32, "lm_head")
+    yi = time_dense_yi(gen, card)
+    for name, K, ns, *_ in YI_LAUNCHES[:4]:
+        dense_rows_and_slabs(gen, K, ns, torch.bfloat16, f"Yi {name}")
     row = per_m[W8A16_M]
     return {"name": "dense_matmul", "route": "cuda",
             "source": "grove_tpu_torch/csrc/w8a16_gemm.cu",
@@ -2002,7 +2019,42 @@ def phase_dense_kernels(seed: int, card: str) -> dict:
             **{f"ms_m{M}": per_m[M]["ms"] for M in DENSE_M if M != W8A16_M},
             **{f"library_ms_m{M}": per_m[M]["library_ms"]
                for M in DENSE_M if M != W8A16_M},
+            **yi,
             "per": f"one llama-1b forward at M={W8A16_M}: 65 launches"}
+
+
+def time_dense_yi(gen, card: str) -> dict:
+    """The dense kernel at Yi-1.5-9B's launches: its four projections at
+    M = 256 (the chat cell's prefill chunk: the four-tile build) and 128,
+    and all five at M = 32 (decode), each beside its bound and
+    torch.matmul's time; the layer's projections summed at each M (ms,
+    bound, library)."""
+    import torch
+    out = {}
+    for M in YI_M:
+        tot = dict.fromkeys(("ms", "bound_ms", "library_ms"), 0.0)
+        for name, K, ns in YI_LAUNCHES if M <= 64 else YI_LAUNCHES[:4]:
+            dt = torch.float32 if name == "lm_head" else torch.bfloat16
+            t = time_dense(gen, M, K, ns, dt, f"Yi {name}", plain=False)
+            log(f"kernels: dense Yi {name} M={M} K={K} N={list(ns)}: ms="
+                f"{t['ms']} bound_ms={t['bound_ms']} ({t['bound_by']}) "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound, "
+                f"library_ms={t['library_ms']} "
+                f"({t['library_ms'] / t['ms']:.3f}x torch.matmul's speed) "
+                f"on {card}")
+            if name != "lm_head":
+                for key in tot:
+                    tot[key] += t[key]
+        log(f"kernels: dense Yi one layer's projections at M={M}: "
+            f"ms={tot['ms']} bound_ms={tot['bound_ms']} "
+            f"library_ms={tot['library_ms']}; "
+            f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of its bound, "
+            f"{tot['library_ms'] / tot['ms']:.3f}x torch.matmul's speed on "
+            f"{card}")
+        out |= {f"yi_layer_ms_m{M}": tot["ms"],
+                f"yi_layer_bound_ms_m{M}": tot["bound_ms"],
+                f"yi_layer_library_ms_m{M}": tot["library_ms"]}
+    return out
 
 
 def check_scatter(gen, card: str) -> None:
@@ -2978,6 +3030,8 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             dense_counts["w8a16_matmul"]:
         raise AssertionError("bf16 weights: projections off the dense GEMM")
     del dense
+    dense_builds_in_serve(cfg, device, batch, max_len, seed, prompts,
+                          on_cuda)
     return {**{k: v for k, v in counts.items() if not k.endswith("_q")
                and not k.endswith("_q8")},
             **{k: v for k, v in q8_counts.items() if k.endswith("_q")
@@ -2985,6 +3039,57 @@ def phase_paged_serve(seed: int, card: str, cfg=None, device: str = "cuda",
             "dense_matmul": dense_counts["dense_matmul"],
             # the default pool's profiled decode, per step (phase 12)
             "step_device_ms": profiled["busy_ms"] / 8 if profiled else None}
+
+
+def dense_builds_in_serve(cfg, device: str, batch: int, max_len: int,
+                          seed: int, prompts, on_cuda: bool,
+                          n: int = 8, new_tokens: int = 8) -> dict:
+    """The default engine (bf16 weights) with 256-row prefill chunks, as
+    the benchmark's cells run it, serving ``n`` of ``prompts``: every
+    chunk's projections take the four-tile build (``dense4``: 4 per layer
+    per chunk) and every decode step's the one-tile build (``dense1``,
+    the head too; a chunk's head runs on one row). Counted by
+    ``dense_matmul.launches_by_build``, which graph replays advance."""
+    import torch
+    from grove_tpu_torch.models.llama import init_params
+    from grove_tpu_torch.ops import w8a16
+    from grove_tpu_torch.serving.engine import make_engine
+
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    eng = make_engine(cfg, init_params(cfg, gen, device=device),
+                      batch=batch, max_len=max_len, prefill_chunk=256,
+                      device=device)
+    # A capture's eager warm-up run launches too: capture every graph the
+    # traffic uses before counting.
+    lens = [len(p) for p in prompts[:n]]
+    longest = max(lens) + new_tokens
+    eng.warmup(widths=eng.decode_width_buckets(min(lens), longest),
+               prefill_widths=eng.decode_width_buckets(1, longest))
+    before = dict(w8a16.dense_matmul.launches_by_build)
+    steps0, chunks0 = eng.steps, eng.chunks
+    captured0 = eng.graphs_captured
+    for p in prompts[:n]:
+        eng.submit(p, max_new_tokens=new_tokens)
+    drive_paged(eng, n)
+    moved = {k: v - before[k]
+             for k, v in w8a16.dense_matmul.launches_by_build.items()}
+    steps, chunks = eng.steps - steps0, eng.chunks - chunks0
+    per_chunk = GEMMS_PER_LAYER * cfg.n_layers
+    per_step = per_chunk + 1
+    log(f"paged: bf16 weights, 256-row chunks: dense launches by build "
+        f"{moved} over {steps} decode steps and {chunks} prefill chunks "
+        f"(dense4 expected {per_chunk * chunks}: {per_chunk} per chunk; "
+        f"dense1 {per_step} per step and at most one head per chunk)")
+    if eng.graphs_captured != captured0:
+        raise AssertionError("256-row chunks: graphs captured mid-traffic")
+    if on_cuda and not (
+            chunks > 0 and moved["dense4"] == per_chunk * chunks
+            and moved["dense2"] == moved["dense3"] == moved["fma"] == 0
+            and 0 <= moved["dense1"] - per_step * steps <= chunks):
+        raise AssertionError("256-row chunks off the four-tile build, or "
+                             "decode steps off the one-tile build")
+    del eng
+    return moved
 
 
 def phase_paged_model(seed: int, card: str, cfg=None, device: str = "cuda",

@@ -96,6 +96,31 @@
 //     each owner reads its columns of every rank's tile, 16 bytes at a time
 //     (ld.shared::cluster), sums them in rank order and writes them, four
 //     adjacent columns a store.
+//   - Four token tiles (M 193..256: the prefill chunk, the verify above 192
+//     rows), w8a16_dense4_kernel. There the launch is near the card's ridge
+//     (2 M K N operations take ~80% of the weight bytes' time), so idle SMs
+//     cost directly. Measured on an H100 at Yi-1.5-9B's launches, one CTA
+//     per 128 columns and all 256 rows fills 0.61 of a wave for QKV (80
+//     CTAs), 0.48 for wo and w_down (64) and 1.30 for gate/up (172, a second
+//     wave of 40 CTAs). Its main loop runs each SM's tensor cores near their
+//     peak, so the time is waves x one CTA's work, plus ~11 us per CTA of
+//     fill and epilogue (about half of it the epilogue) that no other work
+//     hides. The rows of a column tile may run as two CTAs of 128 rows each
+//     (wgmma n = 128, a ring of 6 stages), side by side, so the second read
+//     of the weight tile comes from L2: launches whose whole tiles leave
+//     half the card idle run every tile halved (wo, w_down: 128 CTAs, one
+//     wave), and gate/up runs half its tiles whole and halves the rest (258
+//     CTAs: the halves fill what the whole tiles leave, 1.5 tiles' time
+//     instead of 2). The split, the k order and the rank-order sum stay the
+//     one-tile build's, so a row's bits do not depend on M; the choice
+//     (ops/w8a16.py::dense_whole) follows the weights alone. What bounds it
+//     then: the bytes the SMs take in from L2 (the weight tiles, and x
+//     again for every column tile; ~7 TB/s in all on this card), not the
+//     HBM weight stream; TMA multicast of x to a pair of column-neighbour
+//     CTAs, a deeper weight ring with fewer x stages, and 192-column CTAs
+//     (three consumer warpgroups: 128 accumulators a thread do not fit the
+//     registers of 416 or 512 threads) measured no better or could not be
+//     built.
 //
 // The C entry points return cudaGetLastError() after a launch (or the
 // error that kept it from launching); they launch on the given stream and
@@ -1070,6 +1095,196 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
   }
 }
 
+// ---- dense bf16 weights at four token tiles (M 193..256) ----
+
+// The four-tile build's ring, the same 192 KB for both kinds of CTA: 4
+// stages of [two weight boxes | four x boxes] for a whole column tile (256
+// tokens), or 6 of [two weight boxes | two x boxes] for half of one (128
+// tokens). Its barriers are sized for the larger count.
+constexpr int kDense4Ring = 192 * 1024;
+constexpr int kDense4MaxStages = 6;
+constexpr int kDense4Smem = kDense4Ring + 16 * kDense4MaxStages + 1024;
+constexpr int kDense4PartRow = kBN + 4;
+
+template <int kTT>
+struct Dense4Part {
+  static constexpr int kStageBytes = 2 * kWBoxBytes + kTT * kXBoxBytes;
+  static constexpr int kStages = kDense4Ring / kStageBytes;
+  static_assert(kStages <= kDense4MaxStages, "barriers for every stage");
+  static_assert(kTT * kDenseN * kDense4PartRow * 4 <= kDense4Ring,
+                "the partial tile fits the ring");
+};
+
+// One CTA's part of a column tile: tokens tok0 .. tok0 + 64 kTT - 1 of the
+// launch, k-steps [k0, k0 + n_k) (split part `rank`), with
+// w8a16_dense_kernel's main loop, partial tile and epilogue.
+template <typename OutT, int kTT>
+__device__ __forceinline__ void dense4_part(const CUtensorMap* x_map,
+                                            const CUtensorMap* wm,
+                                            const Target& tg, int M,
+                                            int tok0, int k0, int n_k,
+                                            int split, int rank,
+                                            uint32_t base, float* part) {
+  using P = Dense4Part<kTT>;
+  const uint32_t bar0 = base + kDense4Ring;
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kDense4MaxStages + s); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == kDenseConsumers / 32) {
+    if (lane == 0) {
+      prefetch_map(wm);
+      prefetch_map(x_map);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % P::kStages, use = i / P::kStages;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        const uint32_t st = base + s * P::kStageBytes;
+        const int k = (k0 + i) * kBK;
+        mbar_expect_tx(full(s), P::kStageBytes);
+        tma_load_2d(st, wm, full(s), tg.n0, k);
+        tma_load_2d(st + kWBoxBytes, wm, full(s), tg.n0 + 64, k);
+#pragma unroll
+        for (int j = 0; j < kTT; ++j)
+          tma_load_2d(st + 2 * kWBoxBytes + j * kXBoxBytes, x_map, full(s),
+                      k, tok0 + kDenseN * j);
+      }
+    }
+    __syncwarp();
+    if (split > 1) {
+      cluster_arrive();
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  float acc[kTT * 32];
+#pragma unroll
+  for (int e = 0; e < kTT * 32; ++e) acc[e] = 0.f;
+  fence_regs(acc);
+  for (int i = 0; i < n_k; ++i) {
+    const int s = i % P::kStages;
+    mbar_wait(full(s), (i / P::kStages) & 1);
+    const uint32_t st = base + s * P::kStageBytes;
+    const uint32_t wbox = st + wg * kWBoxBytes, xs = st + 2 * kWBoxBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_ss_ta<kDenseN * kTT>(
+          acc, sw128_desc(wbox + kk * 16 * 128, kWBoxBytes, 1024),
+          sw128_desc(xs + 32 * kk, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty((i - 1) % P::kStages));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  auto consumers_sync = [] {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kDenseConsumers) : "memory");
+  };
+  consumers_sync();
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lc0 = 64 * wg + 16 * (warp & 3) + gid;
+#pragma unroll
+  for (int jj = 0; jj < 8 * kTT; ++jj)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        part[(8 * jj + 2 * tig + c) * kDense4PartRow + lc0 + 8 * i] =
+            acc[4 * jj + 2 * i + c];
+  if (split > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    consumers_sync();
+  }
+  OutT* const out = static_cast<OutT*>(tg.out);
+  const int N = tg.N, slice = kBN / split, per_row = slice / 4;
+  const int items = min(kDenseN * kTT, M - tok0) * per_row;
+  for (int it = threadIdx.x; it < items; it += kDenseConsumers) {
+    const int tok = it / per_row, c = rank * slice + (it % per_row) * 4;
+    const int n = tg.n0 + c;
+    if (n >= N) continue;
+    const int at = tok * kDense4PartRow + c;
+    float4 sum;
+    if (split == 1) {
+      sum = *reinterpret_cast<const float4*>(part + at);
+    } else {
+      const uint32_t addr = base + (uint32_t)at * 4;
+      float4 v[kMaxSplit];
+#pragma unroll
+      for (int src = 0; src < kMaxSplit; ++src)
+        if (src < split) v[src] = ld_cluster_f32x4(map_rank(addr, src));
+      sum = v[0];
+#pragma unroll
+      for (int src = 1; src < kMaxSplit; ++src)
+        if (src < split) {
+          sum.x += v[src].x;
+          sum.y += v[src].y;
+          sum.z += v[src].z;
+          sum.w += v[src].w;
+        }
+    }
+    store_quad(out + (size_t)(tok0 + tok) * N + n, sum);
+  }
+  if (split > 1) {  // no rank exits while another may read its tile
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// Grid: (units, split), clusters of (1, split, 1): rank = blockIdx.y. Unit
+// u < whole is column tile u with all 64 kTT <= 256 rows of the launch
+// (wgmma n = 256); the other units are the halves of the tiles after them,
+// u = whole + 2 t' + h: tile whole + t', rows 128 h .. 128 h + 127 (n =
+// 128). Each CTA reads its weight tile once for the rows it serves; both
+// halves of a tile run side by side (adjacent units), so the second read
+// comes from L2. Whether a tile runs whole or halved changes only which
+// CTA holds an element: each element's sum is the same split parts in the
+// same k order and rank order (ops/w8a16.py::dense_geometry picks
+// `whole`).
+template <typename OutT>
+__global__ void __launch_bounds__(kDenseThreads, 1)
+    w8a16_dense4_kernel(__grid_constant__ const CUtensorMap x_map,
+                        __grid_constant__ const CUtensorMap w_map0,
+                        __grid_constant__ const CUtensorMap w_map1,
+                        __grid_constant__ const CUtensorMap w_map2,
+                        const Weights ws, int M, int K, int split,
+                        int whole) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar0 = base + kDense4Ring;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDense4MaxStages; ++s) {
+      mbar_init(bar0 + 8 * s, 1);
+      mbar_init(bar0 + 8 * (kDense4MaxStages + s), kDenseConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int u = blockIdx.x, half = u - whole;
+  const Target tg = target_of(ws, half < 0 ? u : whole + half / 2, kBN);
+  const CUtensorMap* wm = tg.j == 0 ? &w_map0 : tg.j == 1 ? &w_map1 : &w_map2;
+  const int rank = blockIdx.y;
+  int k0, k1;  // a last k-step past K reads zeros (TMA's fill)
+  split_range((K + kBK - 1) / kBK, split, rank, &k0, &k1);
+  float* const part = reinterpret_cast<float*>(smem_raw + (base - raw));
+  if (half < 0)
+    dense4_part<OutT, 4>(&x_map, wm, tg, M, 0, k0, k1 - k0, split, rank,
+                         base, part);
+  else
+    dense4_part<OutT, 2>(&x_map, wm, tg, M, 2 * kDenseN * (half & 1), k0,
+                         k1 - k0, split, rank, base, part);
+}
+
 // ---- f32 activations: CUDA cores ----
 
 constexpr int kFmaThreads = 256;
@@ -1176,6 +1391,7 @@ struct alignas(64) Plan {
   Weights ws;                        // out[] set at each launch
   long long out_off[kMaxWeights];    // output i at out + M * out_off[i]
   int K, x_dtype, w_dtype, out_dtype, wide, split;
+  int whole;  // the dense kernel's whole column tiles at four token tiles
 };
 
 template <class Kernel>
@@ -1231,6 +1447,35 @@ cudaError_t launch_dense(const CUtensorMap& x_map, Plan& p, int M,
                       &ready, kDenseThreads, 1, x_map, p, M, st);
 }
 
+// The four-tile build (ops/w8a16.py::dense_geometry): p.whole column tiles
+// whole, then two halves of each other tile, each split in a cluster.
+template <typename OutT>
+cudaError_t launch_dense4(const CUtensorMap& x_map, Plan& p, int M,
+                          cudaStream_t st) {
+  auto kernel = w8a16_dense4_kernel<OutT>;
+  static bool ready = false;
+  cudaError_t err = raise_smem(kernel, kDense4Smem, &ready);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * p.ws.tile0[p.ws.count] - p.whole, p.split, 1);
+  cfg.blockDim = dim3(kDenseThreads);
+  cfg.dynamicSmemBytes = kDense4Smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.split > 1 ? 1 : 0;
+  void* args[] = {const_cast<CUtensorMap*>(&x_map), &p.w_map[0],
+                  &p.w_map[1], &p.w_map[2], &p.ws, &M, &p.K, &p.split,
+                  &p.whole};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
+                            args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // The dense kernel built for ceil(M / 64) token tiles (M <= 256).
 template <typename OutT>
 cudaError_t launch_dense_rows(const CUtensorMap& x_map, Plan& p, int M,
@@ -1243,7 +1488,7 @@ cudaError_t launch_dense_rows(const CUtensorMap& x_map, Plan& p, int M,
     case 3:
       return launch_dense<OutT, 3>(x_map, p, M, st);
     case 4:
-      return launch_dense<OutT, 4>(x_map, p, M, st);
+      return launch_dense4<OutT>(x_map, p, M, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1301,14 +1546,15 @@ extern "C" int grove_w8a16_plan_bytes() { return (int)sizeof(Plan); }
 // f32 output). wide = 1: the wgmma kernel (bf16 x, int8 weights, split 1);
 // else bf16 x takes the small (int8) or dense (bf16) kernel with `split` in
 // 1, 2, 4, 8 (at most the k-steps, ceil(K / 64)) and f32 x the FMA kernel
-// (split 1). int8:
-// K % 64 == 0, n_i % 16 == 0; bf16: K % 8 == 0, n_i % 8 == 0. Writes
+// (split 1). `whole`: the dense kernel's column tiles that run whole at
+// four token tiles (0 .. all of them; the others run in halves).
+// int8: K % 64 == 0, n_i % 16 == 0; bf16: K % 8 == 0, n_i % 8 == 0. Writes
 // grove_w8a16_plan_bytes() bytes to `plan`.
 extern "C" int grove_w8a16_plan(const void* const* w,
                                 const void* const* scale, const int* n,
                                 int count, int K, int x_dtype, int w_dtype,
                                 int out_dtype, int wide, int split,
-                                void* plan) {
+                                int whole, void* plan) {
   const bool pow2 = split == 1 || split == 2 || split == 4 || split == 8;
   const bool pair_ok = (w_dtype == 0) || (w_dtype == 1 && x_dtype == 1 &&
                                           !wide) ||
@@ -1351,6 +1597,9 @@ extern "C" int grove_w8a16_plan(const void* const* w,
       if (err != cudaSuccess) return (int)err;
     }
   }
+  if (whole < 0 || whole > p.ws.tile0[count])
+    return (int)cudaErrorInvalidValue;
+  p.whole = whole;
   memcpy(plan, &p, sizeof(p));
   return 0;
 }
@@ -1404,6 +1653,14 @@ cudaError_t dense_info(const void** fn, int* smem, int* stages) {
   return info_of(w8a16_dense_kernel<__nv_bfloat16, kT>, G::kSmem, &ready, fn);
 }
 
+// The four-tile build: its ring's stages for a whole column tile.
+cudaError_t dense4_info(const void** fn, int* smem, int* stages) {
+  static bool ready = false;
+  *smem = kDense4Smem, *stages = Dense4Part<4>::kStages;
+  return info_of(w8a16_dense4_kernel<__nv_bfloat16>, kDense4Smem, &ready,
+                 fn);
+}
+
 extern "C" int grove_w8a16_info(int which, int* out) {
   const void* fn = nullptr;
   int bm, bn = kBN, smem = 0, threads, cluster = 1, stages = 0;
@@ -1418,7 +1675,7 @@ extern "C" int grove_w8a16_info(int which, int* out) {
     err = t == 1   ? dense_info<1>(&fn, &smem, &stages)
           : t == 2 ? dense_info<2>(&fn, &smem, &stages)
           : t == 3 ? dense_info<3>(&fn, &smem, &stages)
-                   : dense_info<4>(&fn, &smem, &stages);
+                   : dense4_info(&fn, &smem, &stages);
     bm = kDenseN * t, threads = kDenseThreads, cluster = kMaxSplit;
   } else if (which == 1) {
     static bool ready = false;

@@ -29,15 +29,17 @@ Dense weights. A model served without weight quantization (the engine's
 default) multiplies by its bf16 weights as stored: ``dense_matmul_group``
 runs the dense kernel on CUDA tensors (``wgmma`` with the weight tile as A,
 read as stored, and the tokens as n, 64 per token tile of the launch;
-every CTA reads its weight tile once for all the launch's rows,
-``dense_geometry``; one grouped launch for QKV and for gate/up, the LM head
-with an f32 output) and
+every CTA reads its weight tile once for all the rows it serves,
+``dense_geometry``: above 192 rows a column tile runs whole or as two
+halves of 128 rows, whichever fills the card's waves; one grouped launch
+for QKV and for gate/up, the LM head with an f32 output) and
 ``dense_matmul_ref`` (``x.to(ct) @ w.to(ct)``, bitwise the model's einsum
 on the CPU, which the model keeps there) on CPU tensors. It replaces the
 einsum on dense weights (``_w`` + einsum, ``grove_tpu/models/llama.py:157``)
 and the LM head's ``preferred_element_type=f32`` product. An f32 model's
 dense f32 weights take the CUDA-core kernel. ``dense_matmul.launches``
-counts its launches.
+counts its launches, ``dense_matmul.launches_by_build`` each build's
+(``dense1`` .. ``dense4`` by token tiles, ``fma`` for f32).
 
 Row invariance. For every M up to ``ROW_INVARIANT_M`` (256: decode, the
 prefill chunk, the lanes decode and the verify chunk of speculative
@@ -87,6 +89,7 @@ RESIDENT_CTAS = 3 * SMS  # small-kernel CTAs resident at once (3 per SM)
 # the head 1), between 64 and 250 CTAs a launch (PERF.md section 6).
 RESIDENT = {"int8": RESIDENT_CTAS, "bf16": 96}
 DENSE_RING = 200 * 1024  # the dense kernel's ring, at most (one CTA per SM)
+DENSE4_RING = 192 * 1024  # ... and its ring at four token tiles, exactly
 MAX_SPLIT = 8           # the split's CTAs are one cluster: 8 is portable
 MIN_SPLIT_STEPS = 2     # k-steps per split at least
 MAX_WEIGHTS = 3         # weights sharing x in one launch
@@ -177,28 +180,63 @@ def partition(M: int, K: int, ns, x_dtype: torch.dtype,
     return True, 1, WIDE_TILE
 
 
+def dense_whole(K: int, ns) -> int:
+    """The column tiles a four-tile dense launch (193 to 256 rows) runs
+    whole, one CTA for all its rows; every other tile runs as two CTAs of
+    128 rows each, side by side. From the weights alone, to fill the card's
+    waves (``SMS`` CTAs, one per SM): every tile halved where the halves fit
+    one wave and their clusters of ``split`` fit beside each other (split
+    <= 2: at one CTA per SM not every cluster of 4 is co-resident); every
+    tile whole where those fit one wave, or need more than half a wave
+    beyond it; between, half the tiles whole, so that the halves fill what
+    the whole tiles leave. Only which CTA computes an element follows from
+    it, never the element's sum."""
+    tiles, split = column_tiles(ns), split_count(K, ns, "bf16")
+    ctas = tiles * split
+    if 2 * ctas <= SMS and split <= 2:
+        return 0
+    if ctas <= SMS or 2 * ctas > 3 * SMS:
+        return tiles
+    return tiles // 2
+
+
 def dense_geometry(M: int, K: int, ns) -> dict:
     """The dense kernel's launch of ``M`` <= 256 rows over weights of
     ``ns`` columns, as ``csrc/w8a16_gemm.cu`` (``DenseGeom``,
-    ``launch_dense_rows``) runs it: the build (``kernel_info``'s name), the
-    token tiles of 64 rows each CTA serves (ceil(M / 64)) and the wgmma's n
-    (64 per tile), the columns per CTA, the split of K and the CTAs (column
-    tiles x split: no M axis, so each weight tile is read once), the ring's
-    stages, the dynamic shared memory and the CTAs per SM (one). Only the
-    split and the k order enter a row's sums, and they never follow M; n
-    and the ring follow the token tiles alone."""
+    ``launch_dense_rows``; four token tiles: ``Dense4Part``,
+    ``launch_dense4``) runs it: the build (``kernel_info``'s name), the
+    token tiles of 64 rows (ceil(M / 64)) and the wgmma's n (64 per tile
+    a CTA serves), the columns per CTA, the split of K, the CTAs, the
+    ring's stages (four tiles: of a whole tile, and ``half_stages`` of a
+    half), the dynamic shared memory and the CTAs per SM (one). Up to
+    three tiles a CTA serves every row (column tiles x split CTAs: no M
+    axis, so each weight tile is read once); at four, ``whole`` tiles
+    (``dense_whole``) do and the others run as two halves of 128 rows.
+    Only the split and the k order enter a row's sums, and they never
+    follow M; n, the ring and the CTAs follow the token tiles alone."""
     if not 1 <= M <= ROW_INVARIANT_M:
         raise ValueError(f"the dense kernel takes 1 to {ROW_INVARIANT_M} "
                          f"rows a launch, got {M}")
     tiles = -(-M // DENSE_N)
     split = split_count(K, ns, "bf16")
-    stage_bytes = DENSE_TILE[1] * BK * 2 + tiles * DENSE_N * BK * 2
-    stages = DENSE_RING // stage_bytes
-    return {"build": f"dense{tiles}", "token_tiles": tiles,
-            "n": DENSE_N * tiles, "columns": DENSE_TILE[1], "split": split,
-            "ctas": column_tiles(ns, DENSE_TILE[1]) * split,
-            "stages": stages, "smem_bytes": stages * (stage_bytes + 16) + 1024,
-            "per_sm": 1}
+    n_tiles = column_tiles(ns, DENSE_TILE[1])
+
+    def stage(t):
+        return DENSE_TILE[1] * BK * 2 + t * DENSE_N * BK * 2
+
+    geo = {"build": f"dense{tiles}", "token_tiles": tiles,
+           "n": DENSE_N * tiles, "columns": DENSE_TILE[1], "split": split,
+           "ctas": n_tiles * split, "per_sm": 1}
+    if tiles < 4:
+        stages = DENSE_RING // stage(tiles)
+        return geo | {"stages": stages,
+                      "smem_bytes": stages * (stage(tiles) + 16) + 1024}
+    whole = dense_whole(K, ns)
+    return geo | {"whole": whole, "ctas": (2 * n_tiles - whole) * split,
+                  "stages": DENSE4_RING // stage(4),
+                  "half_stages": DENSE4_RING // stage(2),
+                  "smem_bytes": DENSE4_RING + 16 * (DENSE4_RING // stage(2))
+                  + 1024}
 
 
 def slabs(M: int) -> list[tuple[int, int]]:
@@ -213,7 +251,7 @@ def slabs(M: int) -> list[tuple[int, int]]:
 def _kernel():
     lib = _build.load("w8a16_gemm")
     plan = lib.grove_w8a16_plan
-    plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+    plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     plan.restype = ctypes.c_int
     run = lib.grove_w8a16_run
@@ -330,6 +368,7 @@ def _make_plan(x, ws, scales, out_dtype, build: str, wide: bool) -> tuple:
             raise ValueError("the weight and its scales must start 16-byte "
                              "aligned")
     _, split, _ = partition(M, K, ns, x.dtype, build, slabbed=not wide)
+    whole = dense_whole(K, ns) if build == "bf16" else 0
     plan, _, nbytes, err_str, _ = _kernel()
     count = len(ws)
     ptrs = ctypes.c_void_p * count
@@ -339,7 +378,7 @@ def _make_plan(x, ws, scales, out_dtype, build: str, wide: bool) -> tuple:
                     [None] * count),
                (ctypes.c_int * count)(*ns), count, K, _X_CODES[x.dtype],
                _BUILD_CODES[build], _OUT_CODES[out_dtype], int(wide), split,
-               buf)
+               whole, buf)
     if err != 0:
         raise RuntimeError(f"GEMM launch plan failed: "
                            f"{err_str(err).decode()} ({err})")
@@ -457,6 +496,16 @@ def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return (x.to(ct) @ w.to(ct)).to(out_dtype)
 
 
+def dense_builds(M: int, build: str) -> list[str]:
+    """The kernel build of each launch of a dense call of ``M`` rows on
+    the card (``kernel_info``'s names): the f32 build one ``fma`` launch,
+    the bf16 build one launch per slab of ``slabs(M)``, ``dense1`` ..
+    ``dense4`` by its token tiles."""
+    if build == "f32":
+        return ["fma"]
+    return [f"dense{-(-rows // DENSE_N)}" for _, rows in slabs(M)]
+
+
 def dense_matmul_group(x: torch.Tensor, weights,
                        out_dtype: torch.dtype | None = None
                        ) -> list[torch.Tensor]:
@@ -487,6 +536,8 @@ def dense_matmul_group(x: torch.Tensor, weights,
                             device=x.device) for w in weights]
     outs, n = _launch(x, weights, None, out_dtype, build, True)
     dense_matmul.launches += n
+    for name in dense_builds(x.shape[0], build):
+        dense_matmul.launches_by_build[name] += 1
     return outs
 
 
@@ -499,3 +550,5 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 dense_matmul.launches = 0
+dense_matmul.launches_by_build = dict.fromkeys(
+    ("dense1", "dense2", "dense3", "dense4", "fma"), 0)

@@ -392,14 +392,10 @@ class _Graphed(_Observed):
             graph.register_generator_state(self._gen)
         counters = _KERNEL_WRAPPERS + (
             (self._tp,) if self._tp is not None else ())
-        counts = [w.launches for w in counters]
+        counts = launch_counts(counters)
         with torch.cuda.graph(graph, pool=self._graph_pool):
             out = step()
-        per_replay = []
-        for w, n in zip(counters, counts):
-            if w.launches != n:
-                per_replay.append((w, w.launches - n))
-                w.launches = n
+        per_replay = take_captured(counters, counts)
         torch.cuda.empty_cache()
         self.graphs_captured += 1
         self.capture_seconds += time.perf_counter() - t0
@@ -407,11 +403,41 @@ class _Graphed(_Observed):
 
         def replay() -> torch.Tensor | None:
             graph.replay()
-            for w, n in per_replay:
-                w.launches += n
+            add_replayed(per_replay)
             return out
 
         return replay
+
+
+def launch_counts(counters) -> list[tuple[int, dict]]:
+    """Each counter's launches, and its launches by build where it keeps
+    them (``dense_matmul.launches_by_build``)."""
+    return [(w.launches, dict(getattr(w, "launches_by_build", {})))
+            for w in counters]
+
+
+def take_captured(counters, before) -> list[tuple]:
+    """What a graph capture added to each counter since ``before``
+    (``launch_counts``), taken back off the counters, since a capture
+    launches nothing: (counter, launches, {build: launches}) for each
+    counter that moved, for ``add_replayed`` to add at each replay."""
+    moved = []
+    for w, (n, by) in zip(counters, before):
+        now = getattr(w, "launches_by_build", {})
+        by_moved = {k: v - by[k] for k, v in now.items() if v != by[k]}
+        if w.launches != n or by_moved:
+            moved.append((w, w.launches - n, by_moved))
+            w.launches = n
+            now.update(by)
+    return moved
+
+
+def add_replayed(moved) -> None:
+    """A replay launches what its capture took back (``take_captured``)."""
+    for w, n, by in moved:
+        w.launches += n
+        for k, v in by.items():
+            w.launches_by_build[k] += v
 
 
 def _quantized(params, quant: str | None):

@@ -60,7 +60,8 @@ WRAPPERS = {
                              "dense_matmul_ref", "_check_dense",
                              "_dense_build", "_launch", "partition",
                              "split_count", "column_tiles", "slabs",
-                             "_make_plan", "_plan_key")),
+                             "_make_plan", "_plan_key", "dense_builds",
+                             "dense_whole")),
     "paged_scatter": (kvquant, ("paged_scatter", "_check_rows", "_route",
                                 "_launch", "_make_plan", "_aligned")),
     "paged_scatter_q": (kvquant, ("paged_scatter_q", "_check_scales",

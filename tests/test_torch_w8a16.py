@@ -27,6 +27,7 @@ from grove_tpu.models import llama as jllama
 from grove_tpu.serving import quant as jquant
 from grove_tpu_torch.models import llama as tllama
 from grove_tpu_torch.ops import w8a16
+from grove_tpu_torch.serving import engine
 from grove_tpu_torch.serving.quant import QTensor
 
 # Without the repo's conftest (on the machine with the card) JAX would take
@@ -399,19 +400,21 @@ DRAFT_LAUNCHES = [  # the tiny draft's: QKV, wo, gate/up, w_down, the head
 @pytest.mark.parametrize("K,ns", LLAMA_1B_LAUNCHES + DRAFT_LAUNCHES
                          + [(32, (16, 8, 8))])
 def test_dense_geometry_follows_m_only_in_its_tile_count(K, ns):
-    """The dense kernel's launch at M <= 256: the columns per CTA, the
-    split (with the k order, all that enters a row's sums) and the CTAs
-    are the same at every M; only the token tiles (ceil(M / 64)) follow M,
-    and with them the wgmma's n (64 a tile) and the ring. The epilogue's
-    partial tile fits the ring it reuses."""
+    """The dense kernel's launch at M <= 256: the columns per CTA and the
+    split (with the k order, all that enters a row's sums) are the same at
+    every M; the token tiles (ceil(M / 64)) follow M, and with them the
+    wgmma's n (64 a tile), the ring and, at four token tiles only, which
+    CTA serves which rows (whole column tiles and halves, so the CTAs).
+    The epilogue's partial tile fits the ring it reuses."""
     geos = [w8a16.dense_geometry(M, K, ns)
             for M in range(1, w8a16.ROW_INVARIANT_M + 1)]
-    fixed = ("columns", "split", "ctas", "per_sm")
+    fixed = ("columns", "split", "per_sm")
     assert len({tuple(g[k] for k in fixed) for g in geos}) == 1
     g = geos[0]
     assert (g["columns"], g["split"], g["per_sm"]) == (
         128, w8a16.split_count(K, ns, "bf16"), 1)
     assert g["ctas"] == w8a16.column_tiles(ns) * g["split"]
+    assert len({g["ctas"] for g in geos[:192]}) == 1
     by_tiles = {}
     for M, g in enumerate(geos, 1):
         assert g["token_tiles"] == -(-M // 64), M
@@ -419,18 +422,78 @@ def test_dense_geometry_follows_m_only_in_its_tile_count(K, ns):
         assert g["build"] == f"dense{g['token_tiles']}", M
         assert by_tiles.setdefault(g["token_tiles"], g) == g, M
         stage = 128 * 64 * 2 + g["token_tiles"] * 64 * 64 * 2
-        assert g["stages"] == 200 * 1024 // stage
         # the epilogue's f32 partial tile, rows of 132 floats
-        assert 64 * g["token_tiles"] * 132 * 4 <= g["stages"] * stage
+        if g["token_tiles"] < 4:
+            assert g["stages"] == 200 * 1024 // stage
+            assert 64 * g["token_tiles"] * 132 * 4 <= g["stages"] * stage
+        else:
+            assert g["stages"] == w8a16.DENSE4_RING // stage
+            assert g["half_stages"] == w8a16.DENSE4_RING // (
+                128 * 64 * 2 + 2 * 64 * 64 * 2)
+            assert 256 * 132 * 4 <= w8a16.DENSE4_RING
     assert sorted(by_tiles) == [1, 2, 3, 4]
-    # One CTA per SM, a ring of ~200 KB: 8 stages at one token tile, 4 at
-    # four.
+    # One CTA per SM, a ring of ~200 KB: 8 stages at one token tile; at
+    # four, 192 KB: 4 stages of a whole column tile, 6 of a half.
     assert [(r["stages"], r["smem_bytes"])
             for _, r in sorted(by_tiles.items())] == [
-        (8, 197760), (6, 197728), (5, 205904), (4, 197696)]
+        (8, 197760), (6, 197728), (5, 205904), (4, 197728)]
+    four = by_tiles[4]
+    tiles = w8a16.column_tiles(ns)
+    assert four["whole"] == w8a16.dense_whole(K, ns)
+    assert 0 <= four["whole"] <= tiles
+    assert four["ctas"] == (2 * tiles - four["whole"]) * four["split"]
     for M in (0, 257):
         with pytest.raises(ValueError, match="1 to 256 rows"):
             w8a16.dense_geometry(M, K, ns)
+
+
+def _published(d, h, kv, ff, vocab):
+    """(K, N of each weight) of a Llama-shaped model's five launches (head
+    size 128), and the name of each."""
+    return [("qkv", d, (h * 128, kv * 128, kv * 128)),
+            ("wo", h * 128, (d,)), ("gate_up", d, (ff, ff)),
+            ("w_down", ff, (d,)), ("lm_head", d, (vocab,))]
+
+
+# Yi-1.5-9B and Mistral-7B-v0.3 (benchmark/configs/), with the whole column
+# tiles the four-tile build runs at each launch.
+PUBLISHED_LAUNCHES = [
+    pytest.param(K, ns, whole, id=f"{model}-{name}")
+    for model, dims, wholes in (
+        ("yi-1.5-9b", (4096, 32, 4, 11008, 64000), (40, 0, 86, 0, 500)),
+        ("mistral-7b", (4096, 32, 8, 14336, 32768), (48, 0, 224, 0, 256)))
+    for (name, K, ns), whole in zip(_published(*dims), wholes)]
+
+
+@pytest.mark.parametrize("K,ns,whole", PUBLISHED_LAUNCHES)
+def test_four_tile_build_at_published_launches(K, ns, whole):
+    """At the benchmark's models' launches the four-tile build fits one
+    CTA's shared memory (232,448 bytes on an H100), its partial tile of a
+    whole column tile (256 rows) and of a half (128 rows) fits the ring it
+    is staged over, and its split is the one-tile build's: a row's sums at
+    M = 256 are its sums at M = 1. Whole tiles where they fill the card
+    (QKV, the head), halves where the whole tiles leave half of it idle
+    (wo, w_down), half the tiles whole where the whole tiles take 1.3
+    waves (Yi's gate/up: 172 tiles, 258 CTAs)."""
+    g4, g1 = (w8a16.dense_geometry(M, K, ns) for M in (256, 1))
+    assert g4["smem_bytes"] <= 232448
+    for rows in (256, 128):
+        assert rows * (g4["columns"] + 4) * 4 <= w8a16.DENSE4_RING
+    assert g4["split"] == g1["split"]
+    assert g4["whole"] == whole
+    assert g4["ctas"] == (2 * w8a16.column_tiles(ns) - whole) * g4["split"]
+
+
+def test_dense_whole_fills_the_card_waves():
+    """Halves where they fit one wave and their clusters are at most 2;
+    whole tiles where those fit one wave or need over 1.5; between, half
+    the tiles whole."""
+    assert w8a16.dense_whole(4096, (4096,)) == 0           # 32 tiles x 2
+    assert w8a16.dense_whole(2048, (2048,)) == 16          # split 4: whole
+    assert w8a16.dense_whole(4096, (4096, 512, 512)) == 40  # 80 CTAs
+    assert w8a16.dense_whole(4096, (11008, 11008)) == 86   # 172 CTAs
+    assert w8a16.dense_whole(4096, (14336, 14336)) == 224  # 224 CTAs
+    assert w8a16.dense_whole(32, (16, 8, 8)) == 0
 
 
 def test_dense_launches_fill_the_card_with_few_long_ctas():
@@ -449,6 +512,49 @@ def test_dense_launches_fill_the_card_with_few_long_ctas():
             for K, ns in DRAFT_LAUNCHES] == [4, 4, 4, 8, 1]
     assert [w8a16.dense_geometry(256, K, ns)["ctas"]
             for K, ns in DRAFT_LAUNCHES] == [32, 16, 88, 32, 250]
+
+
+def test_dense_launch_counter_counts_each_build():
+    """Each launch of a dense call is counted under its build
+    (``dense_builds``): by the token tiles of its slab, ``fma`` for f32. A
+    graph capture's counts move to each replay, by build too
+    (``serving/engine.py``: ``take_captured``, ``add_replayed``)."""
+    b = w8a16.dense_builds
+    assert [b(M, "bf16") for M in (1, 64, 65, 128, 129, 192, 193, 256)] == [
+        ["dense1"], ["dense1"], ["dense2"], ["dense2"], ["dense3"],
+        ["dense3"], ["dense4"], ["dense4"]]
+    assert b(257, "bf16") == ["dense4", "dense1"]
+    assert b(700, "bf16") == ["dense4", "dense4", "dense3"]
+    assert b(700, "f32") == ["fma"]
+    assert set(w8a16.dense_matmul.launches_by_build) == {
+        "dense1", "dense2", "dense3", "dense4", "fma"}
+
+    def wrapper(by_build=True):
+        def w():
+            pass
+        w.launches = 5
+        if by_build:
+            w.launches_by_build = {"dense1": 3, "dense4": 2}
+        return w
+
+    dense, plain, idle = wrapper(), wrapper(False), wrapper()
+    counters = (dense, plain, idle)
+    before = engine.launch_counts(counters)
+    dense.launches += 3           # what a capture of one chunk counts
+    dense.launches_by_build["dense4"] += 2
+    dense.launches_by_build["dense1"] += 1
+    plain.launches += 4
+    moved = engine.take_captured(counters, before)
+    assert [(w.launches, getattr(w, "launches_by_build", None))
+            for w in counters] == [(5, {"dense1": 3, "dense4": 2}),
+                                   (5, None),
+                                   (5, {"dense1": 3, "dense4": 2})]
+    for _ in range(2):            # two replays
+        engine.add_replayed(moved)
+    assert dense.launches == 11 and plain.launches == 13
+    assert dense.launches_by_build == {"dense1": 5, "dense4": 6}
+    assert idle.launches == 5 and idle.launches_by_build == {
+        "dense1": 3, "dense4": 2}
 
 
 def test_slab_boundaries():
@@ -547,6 +653,10 @@ def _cuda_or_skip():
     (256, 2048, (2048, 1024, 1024), torch.bfloat16, torch.bfloat16),
     (256, 2048, (32000,), torch.bfloat16, torch.float32),
     (256, 512, (1408, 1408), torch.bfloat16, torch.bfloat16),
+    (256, 4096, (4096, 512, 512), torch.bfloat16, torch.bfloat16),
+    (256, 4096, (4096,), torch.bfloat16, torch.bfloat16),
+    (200, 4096, (11008, 11008), torch.bfloat16, torch.bfloat16),
+    (129, 11008, (4096,), torch.bfloat16, torch.bfloat16),
     (7, 32, (16, 8, 8), torch.bfloat16, torch.bfloat16),
     (130, 32, (16, 8, 8), torch.bfloat16, torch.float32),
     (5, 64, (40,), torch.bfloat16, torch.float32),
@@ -556,17 +666,22 @@ def _cuda_or_skip():
 def test_dense_kernel_matches_plain_on_cuda(M, K, N, xt, out):
     """The dense build (bf16: the wgmma dense kernel, one to four token
     tiles, in slabs above 256 rows; f32: the CUDA-core kernel) against
-    ``dense_matmul_ref``."""
+    ``dense_matmul_ref``; each launch counted under its build."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(M + K + sum(N))
     x = torch.randn((M, K), generator=gen, device="cuda").to(xt)
     ws = [(torch.randn((K, n), generator=gen, device="cuda")
            * K ** -0.5).to(xt) for n in N]
     before = w8a16.dense_matmul.launches
+    by_build = dict(w8a16.dense_matmul.launches_by_build)
     outs = w8a16.dense_matmul_group(x, ws, out)
     torch.cuda.synchronize()
     slabs = len(w8a16.slabs(M)) if xt == torch.bfloat16 else 1
     assert w8a16.dense_matmul.launches == before + slabs
+    builds = w8a16.dense_builds(M, "bf16" if xt == torch.bfloat16 else "f32")
+    assert {k: v - by_build[k] for k, v in
+            w8a16.dense_matmul.launches_by_build.items()} == {
+        k: builds.count(k) for k in by_build}
     for got, w in zip(outs, ws):
         want = w8a16.dense_matmul_ref(x, w, out)
         assert got.dtype == out
@@ -582,11 +697,14 @@ def test_dense_kernel_matches_plain_on_cuda(M, K, N, xt, out):
 @pytest.mark.parametrize("K,ns,out", [
     (2048, (2048, 1024, 1024), torch.bfloat16), (2048, (2048,), torch.bfloat16),
     (2048, (32000,), torch.float32), (2048, (5632, 5632), torch.bfloat16),
-    (5632, (2048,), torch.bfloat16), (32, (16, 8, 8), torch.bfloat16)])
+    (5632, (2048,), torch.bfloat16), (32, (16, 8, 8), torch.bfloat16),
+    (4096, (4096, 512, 512), torch.bfloat16), (4096, (4096,), torch.bfloat16),
+    (4096, (11008, 11008), torch.bfloat16), (11008, (4096,), torch.bfloat16)])
 def test_dense_rows_do_not_depend_on_m_on_cuda(K, ns, out):
     """Each row of a dense launch with M rows equals, bit for bit, the same
-    row inside a launch with 256 rows (every token-tile count, 1 to 4), and
-    inside a slabbed one of 700."""
+    row inside a launch with 256 rows (every token-tile count, 1 to 4; at
+    four, whole column tiles and halves), and inside a slabbed one of 700.
+    The last four: Yi-1.5-9B's projections."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(K + sum(ns))
     ws = [torch.randn((K, n), generator=gen, device="cuda").to(
@@ -594,7 +712,8 @@ def test_dense_rows_do_not_depend_on_m_on_cuda(K, ns, out):
     x = torch.randn((700, K), generator=gen, device="cuda").to(
         torch.bfloat16)
     whole = w8a16.dense_matmul_group(x[:256], ws, out)
-    for M in (1, 2, 7, 8, 31, 32, 33, 64, 65, 128, 129, 192, 193, 255, 256):
+    for M in (1, 2, 7, 8, 31, 32, 33, 64, 65, 128, 129, 192, 193, 200, 255,
+              256):
         for a, w in zip(w8a16.dense_matmul_group(x[:M], ws, out), whole):
             assert torch.equal(a, w[:M]), M
     slabbed = w8a16.dense_matmul_group(x, ws, out)
