@@ -39,7 +39,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      rows at M <= 256; rms_norm, and add_rms_norm (the residual add fused
      into the norm) against its plain version, bitwise against rms_norm
      of its sum, rows bitwise across row counts, timed at 32, 128 and
-     4,096 rows beside its bound and x + delta then F.rms_norm;
+     4,096 rows beside its bound and x + delta then F.rms_norm; the routed
+     expert layer's kernels (csrc/moe_gemm.cu) at Mixtral-8x7B's widths:
+     their builds' registers, spills and shared memory, the route, grouped
+     expert GEMM and combine against their plain versions at M = 1, 16, 64
+     and 256, every token on one expert and experts left empty, the
+     layer's rows bitwise across M and under a CUDA graph with its
+     counters, and the expert GEMM timed at the chat cell's decode (64
+     rows) and chunk (256) launches beside its bound, its plain version, a
+     per-expert torch.matmul loop and torch._grouped_mm, with the route's,
+     the combine's and the layer's times, counters on and off;
   4. lanes serve: llama-1b at full width and depth (random weights from
      --seed) through make_engine(mode="lanes") with int8 weights, its
      decode replaying CUDA graphs (warmup captures the single step and the
@@ -196,6 +205,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      their kernel launches counted from zero ("gate_launches"). The
      twins that also drive the control plane (tools/*_torch.py) run on
      their own: python3 tools/serving_smoke_torch.py --model llama-1b.
+ 18. MoE serve: a MoeConfig at Mixtral-8x7B's widths cut to 2 layers
+     (random weights from --seed) through the default make_engine (the
+     paged engine: chunked prefill, the prefix cache, CUDA graphs captured
+     in warm-up): mixed prompts with a shared prefix; the route, expert
+     GEMM and combine launches counted from zero through the replays
+     (the kernels line's expert row: "launches", "route_launches",
+     "combine_launches"), against the dispatches and the engine's own
+     device counters; each served token's gap below the best logit of the
+     plain expert path (moe.forward: every expert for every token) on the
+     same inputs, within its limits.
 Each phase's seconds are printed.
 Usage: python3 chip_smoke.py [--seed N]
        python3 chip_smoke.py --decode-only [--root CHECKOUT]: only the
@@ -2055,6 +2074,399 @@ def time_dense_yi(gen, card: str) -> dict:
                 f"yi_layer_bound_ms_m{M}": tot["bound_ms"],
                 f"yi_layer_library_ms_m{M}": tot["library_ms"]}
     return out
+
+
+# ---- the routed expert layer (Mixtral-8x7B's widths) ----
+
+MIXTRAL = (4096, 14336, 8, 2)             # d, expert d_ff, experts, k
+EXPERT_M = (64, 256)                      # the chat cell's decode batch and
+# its prefill chunk (benchmark/cells/mixtral-8x7b.chat.json)
+EXPERT_ROW_M = (1, 16, 64, 256)
+
+
+def expert_weights(gen, E: int, d: int, F: int):
+    """One layer's stacked experts at ``fan_in ** -0.5``: gate, up [E, d,
+    F], down [E, F, d], bf16."""
+    import torch
+
+    def w(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * fan_in ** -0.5).to(torch.bfloat16)
+    return w((E, d, F), d), w((E, d, F), d), w((E, F, d), F)
+
+
+def expert_bound_ms(offsets, A: int, d: int, F: int) -> tuple[float, str]:
+    """Least time for one layer's expert GEMM (gate/up and down): the
+    weights of the experts that got a row read once, the permuted rows read
+    and the outputs written once, against 2 A 3 d F operations."""
+    touched = int((offsets[1:] > offsets[:-1]).sum())
+    nbytes = 2 * (3 * touched * d * F + A * (d + 2 * F) + A * (F + d))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * A * 3 * d * F / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def expert_build_info() -> dict:
+    """Registers, spills and shared memory of the route, expert and combine
+    kernels; fails on any spill."""
+    from grove_tpu_torch.ops.moe import kernel_info
+    info = {}
+    for which in ("route", "expert1", "expert2", "combine"):
+        i = kernel_info(which)
+        log(f"kernels: build moe {which}: {i['registers']} registers, "
+            f"{i['local_bytes']} bytes local (spill) per thread, "
+            f"{i['smem_bytes']} bytes dynamic shared memory, "
+            f"{i['stages']} stages, {i['per_sm']} CTAs per SM")
+        if i["local_bytes"]:
+            raise AssertionError(f"moe {which} spills")
+        info[which] = i
+    return info
+
+
+def check_expert_layer(gen, ws, router, M: int, label: str,
+                       logits=None) -> None:
+    """The route, the expert GEMM and the combine against their plain
+    versions on the card, at M rows (``logits`` forced, else the router's):
+    offsets, slots and the permuted rows bitwise, the weights within 1e-6,
+    the expert GEMM within W8A16_TOL of ``dense_matmul_ref`` per expert,
+    the combine bitwise on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops import moe
+    from grove_tpu_torch.ops.w8a16 import dense_matmul
+    d, k = router.shape[0], MIXTRAL[3]
+    h = torch.randn((M, d), generator=gen, device="cuda").to(torch.bfloat16)
+    if logits is None:
+        logits = dense_matmul(h, router, torch.float32)
+    got = moe.moe_route(logits, h, k)
+    want = moe.moe_route_ref(logits, h, k)
+    route_ok = all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])) \
+        and torch.allclose(got[3], want[3], rtol=1e-6, atol=1e-7)
+    x, offsets, slot, w = got
+    gate, up = moe.expert_matmul_group(x, offsets, ws[:2], M)
+    act = F.silu(gate) * up
+    y = moe.expert_matmul(act, offsets, ws[2], M)
+    err, ok = 0.0, True
+    for g, ref in ((gate, moe.expert_matmul_ref(x, offsets, ws[:1])[0]),
+                   (up, moe.expert_matmul_ref(x, offsets, ws[1:2])[0]),
+                   (y, moe.expert_matmul_ref(act, offsets, ws[2:])[0])):
+        tol = W8A16_TOL["bfloat16"] * ref.float().abs().max().item()
+        err = max(err, (g.float() - ref.float()).abs().max().item())
+        ok = ok and torch.allclose(g.float(), ref.float(), rtol=1e-2,
+                                   atol=tol)
+    comb_ok = torch.equal(moe.moe_combine(y, slot, w, k),
+                          moe.moe_combine_ref(y, slot, w, k))
+    torch.cuda.synchronize()
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    log(f"kernels: moe {label} M={M}: rows per expert {counts}; route "
+        f"{'equal' if route_ok else 'DIFFERS'}; expert GEMM max_abs_err="
+        f"{err:.3e} {'ok' if ok else 'FAIL'}; combine "
+        f"{'equal' if comb_ok else 'DIFFERS'}")
+    if not (route_ok and ok and comb_ok):
+        raise AssertionError(f"moe kernels disagree at {label} M={M}")
+
+
+def expert_rows_and_graph(gen, ws, router, stats) -> None:
+    """Bitwise: each row of the whole layer at M in EXPERT_ROW_M equals the
+    same row at M = 256 (the routing, the expert GEMM's passes and the
+    combine never enter a row's bits); the layer captured in a CUDA graph
+    at M = 64 and replayed on new rows (a new routing) equals the eager
+    layer on them; the counters moved by the captured launches' count."""
+    import torch
+    from grove_tpu_torch.ops.moe import expert_layer
+    d, k = router.shape[0], MIXTRAL[3]
+    h = torch.randn((256, d), generator=gen, device="cuda").to(torch.bfloat16)
+    whole = expert_layer(h, router, *ws, k)
+    rows = {M: torch.equal(expert_layer(h[:M], router, *ws, k), whole[:M])
+            for M in EXPERT_ROW_M}
+    static = h[:64].clone()
+    expert_layer(static, router, *ws, k, stats)  # warm the plans
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = stats.clone()
+    with torch.cuda.graph(graph):
+        out = expert_layer(static, router, *ws, k, stats)
+    fresh = torch.randn((64, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    static.copy_(fresh)
+    graph.replay()
+    graph.replay()
+    eager = expert_layer(fresh, router, *ws, k)
+    torch.cuda.synchronize()
+    replayed = torch.equal(out, eager)
+    moved = (stats - before).tolist()
+    E = ws[0].shape[0]
+    counted = moved[E + 1] == 2 and sum(moved[:E]) == 2 * 64 * k
+    log("kernels: moe layer rows of M in "
+        f"{list(EXPERT_ROW_M)} vs the same rows at M=256: "
+        + ", ".join(f"{M} {'equal' if v else 'DIFFER'}"
+                    for M, v in rows.items())
+        + f"; CUDA graph at M=64 replayed on new rows "
+        f"{'equal' if replayed else 'DIFFERS'} to eager; counters after two "
+        f"replays {moved} {'ok' if counted else 'WRONG'}")
+    if not (all(rows.values()) and replayed and counted):
+        raise AssertionError("moe layer rows depend on M, or its graph or "
+                             "counters are wrong")
+
+
+def time_experts(gen, ws, router, M: int, card: str) -> dict:
+    """The expert GEMM of one layer (the gate/up launch and the down launch)
+    at M tokens routed by the router, beside its bound, its plain version,
+    a per-expert torch.matmul loop over host-known ranges and
+    torch._grouped_mm (bf16); the route and combine launches; the whole
+    layer with its counters on and off."""
+    import torch
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops import moe
+    from grove_tpu_torch.ops.w8a16 import dense_matmul
+    d, k = router.shape[0], MIXTRAL[3]
+    E = ws[0].shape[0]
+    h = torch.randn((M, d), generator=gen, device="cuda").to(torch.bfloat16)
+    logits = dense_matmul(h, router, torch.float32)
+    x, offsets, slot, w = moe.moe_route(logits, h, k)
+    gate, up = moe.expert_matmul_group(x, offsets, ws[:2], M)
+    act = F.silu(gate) * up
+    bounds = offsets.tolist()
+
+    def kernel():
+        moe.expert_matmul_group(x, offsets, ws[:2], M)
+        moe.expert_matmul(act, offsets, ws[2], M)
+
+    def loop():
+        for e in range(E):
+            a, b = bounds[e], bounds[e + 1]
+            if b > a:
+                torch.matmul(x[a:b], ws[0][e])
+                torch.matmul(x[a:b], ws[1][e])
+                torch.matmul(act[a:b], ws[2][e])
+
+    def plain():
+        moe.expert_matmul_ref(x, offsets, ws[:2])
+        moe.expert_matmul_ref(act, offsets, ws[2:])
+
+    ends = offsets[1:].contiguous()
+
+    def grouped():
+        torch._grouped_mm(x, ws[0], offs=ends, out_dtype=torch.bfloat16)
+        torch._grouped_mm(x, ws[1], offs=ends, out_dtype=torch.bfloat16)
+        torch._grouped_mm(act, ws[2], offs=ends, out_dtype=torch.bfloat16)
+
+    t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5),
+         "loop_ms": time_ms(loop)}
+    try:
+        grouped()
+        t["grouped_mm_ms"] = time_ms(grouped)
+    except (RuntimeError, AttributeError, TypeError) as exc:
+        t["grouped_mm_ms"] = None
+        log(f"kernels: torch._grouped_mm not run: {str(exc)[:200]}")
+    t["bound_ms"], t["bound_by"] = expert_bound_ms(offsets, M * k, d,
+                                                   MIXTRAL[1])
+    t["route_ms"] = time_ms(lambda: moe.moe_route(logits, h, k))
+    y = moe.expert_matmul(act, offsets, ws[2], M)
+    t["combine_ms"] = time_ms(lambda: moe.moe_combine(y, slot, w, k))
+    stats = torch.zeros(E + 2, dtype=torch.int64, device="cuda")
+    t["layer_ms"] = time_ms(lambda: moe.expert_layer(h, router, *ws, k))
+    t["layer_stats_ms"] = time_ms(
+        lambda: moe.expert_layer(h, router, *ws, k, stats))
+    yard = min(v for v in (t["loop_ms"], t["grouped_mm_ms"]) if v)
+    log(f"kernels: moe expert GEMM M={M} ({M * k} rows, per expert "
+        f"{[bounds[e + 1] - bounds[e] for e in range(E)]}): ms={t['ms']} "
+        f"bound_ms={t['bound_ms']} ({t['bound_by']}) "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound; plain_ms="
+        f"{t['plain_ms']} loop_ms={t['loop_ms']} grouped_mm_ms="
+        f"{t['grouped_mm_ms']}: {yard / t['ms']:.3f}x the faster yardstick's "
+        f"speed; route_ms={t['route_ms']} combine_ms={t['combine_ms']}; "
+        f"layer_ms={t['layer_ms']} with counters {t['layer_stats_ms']} "
+        f"({100 * (t['layer_stats_ms'] / t['layer_ms'] - 1):+.2f}%) on "
+        f"{card}")
+    return t
+
+
+def phase_expert_kernels(seed: int, card: str) -> dict:
+    """The routed expert layer's kernels (csrc/moe_gemm.cu) at Mixtral-8x7B's
+    widths: their builds; the route, expert GEMM and combine against their
+    plain versions at the decode and chunk launches, at M = 1, with every
+    token on one expert and with experts left empty; the layer's rows
+    bitwise across M and under a CUDA graph; times at the chat cell's
+    decode (64 rows) and chunk (256) launches. Returns the kernel-table
+    row."""
+    import torch
+    d, F, E, k = MIXTRAL
+    info = expert_build_info()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    ws = expert_weights(gen, E, d, F)
+    router = (torch.randn((d, E), generator=gen, device="cuda")
+              * d ** -0.5).to(torch.bfloat16)
+    for M in (1, 16, 64, 256):
+        check_expert_layer(gen, ws, router, M, "router")
+    one = torch.randn((256, E), generator=gen, device="cuda")
+    one[:, 3] += 100.0  # every token's first choice is expert 3
+    check_expert_layer(gen, ws, router, 256, "all on expert 3", one)
+    two = torch.full((64, E), -5.0, device="cuda")
+    two[:, 1], two[:, 6] = 1.0, 0.5  # experts 1 and 6 alone, 6 empty
+    check_expert_layer(gen, ws, router, 64, "experts 1 and 6 only", two)
+    stats = torch.zeros(E + 2, dtype=torch.int64, device="cuda")
+    expert_rows_and_graph(gen, ws, router, stats)
+    t = {M: time_experts(gen, ws, router, M, card) for M in EXPERT_M}
+    dec, ch = t[EXPERT_M[0]], t[EXPERT_M[1]]
+    return {"name": "expert_matmul", "route": "cuda",
+            "source": "grove_tpu_torch/csrc/moe_gemm.cu",
+            "replaces": "grove_tpu/models/moe.py:97",
+            "launches": 0, "ms": dec["ms"], "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"], "plain_ms": dec["plain_ms"],
+            "library_ms": dec["grouped_mm_ms"], "loop_ms": dec["loop_ms"],
+            "ms_m256": ch["ms"], "bound_ms_m256": ch["bound_ms"],
+            "library_ms_m256": ch["grouped_mm_ms"],
+            "loop_ms_m256": ch["loop_ms"],
+            "registers": {w: i["registers"] for w, i in info.items()},
+            "per": "one Mixtral-8x7B layer's experts (gate/up + down) at "
+                   "M=64 (decode) and 256 (a chunk)"}
+
+
+MOE_SERVE_LAYERS = 2          # Mixtral-8x7B's widths, cut in depth to
+# the phase's time
+# Limits of the served tokens' gaps below the plain expert path: sound
+# serves read a mean gap of 0.005-0.022 and 3.5-5.3% of tokens off the best
+# (routing near-ties swapped by rounding) over seeds 0-5 on an H100; with a
+# planted fault (the second expert dropped, a softmax over all experts)
+# 0.69-1.12 and 81-90%.
+MOE_SERVE_GAP = {"mean_gap": 0.1, "off_best": 0.2}
+
+
+def served_gaps(cfg, params, done, prompts: dict) -> dict:
+    """Each served token of ``done`` (``prompts`` maps their rids to their
+    prompts) against the plain expert path on the same inputs: the prompt
+    and the served tokens through ``moe.forward`` (every expert for every token,
+    combined by its routing weight; no kernel of ops/moe.py) in the
+    model's type on the card, and each served token's gap below that
+    forward's best logit at its position. Returns the mean gap, the share
+    of served tokens that are not the forward's best, the widest gap and
+    the logits' spread (their standard deviation, the scale of a gap)."""
+    import torch
+    from grove_tpu_torch.models import moe
+    gaps, spread = [], []
+    with torch.no_grad():
+        for r in done:
+            p = prompts[r.rid]
+            seq = torch.as_tensor(list(p) + list(r.generated[:-1]),
+                                  dtype=torch.long, device="cuda")[None]
+            logits = moe.forward(cfg, params, seq)[0, len(p) - 1:]
+            got = torch.as_tensor(r.generated, device="cuda")
+            gaps.append(logits.max(-1).values
+                        - logits.gather(1, got[:, None])[:, 0])
+            spread.append(logits.std(-1))
+    gaps = torch.cat(gaps)
+    return {"tokens": gaps.numel(), "mean_gap": gaps.mean().item(),
+            "off_best": (gaps > 0).float().mean().item(),
+            "widest_gap": gaps.max().item(),
+            "logit_std": torch.cat(spread).mean().item()}
+
+
+def phase_moe_serve(seed: int, card: str, n_requests: int = 16,
+                    batch: int = 16, max_len: int = 2048,
+                    new_tokens: int = 32, prompt_lo: int = 64,
+                    prompt_hi: int = 1024, shared: int = 264,
+                    prefill_chunk: int = 256) -> dict[str, int]:
+    """A MoeConfig at Mixtral-8x7B's widths (MOE_SERVE_LAYERS layers,
+    random weights from ``seed``) through the default ``make_engine`` (the
+    paged engine: chunked prefill in the chat cell's 256-token chunks, the
+    prefix cache, every decode and chunk graph captured in warm-up):
+    ``n_requests`` mixed prompts with a shared prefix, ``new_tokens`` each.
+    The route, expert GEMM and combine counters are zeroed just before the
+    traffic and must read, through the graphs' replays, one route and one
+    combine launch per layer for each decode step and chunk and two expert
+    launches (gate/up, down), both of the expert GEMM's builds launched
+    (decode rows take ``expert1``, a chunk's ``expert2``), as the engine's
+    device counters (``payload()["moe"]``) count the dispatches; no graph
+    is captured in traffic. The served tokens are held against the plain
+    expert path (``served_gaps``) within MOE_SERVE_GAP. Returns the three
+    kernels' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from grove_tpu_torch.models.moe import MOE_CONFIGS, init_params
+    from grove_tpu_torch.ops.moe import expert_matmul, moe_combine, moe_route
+    from grove_tpu_torch.serving.engine import PagedDecodeEngine, make_engine
+
+    cfg = dataclasses.replace(MOE_CONFIGS["mixtral-8x7b"],
+                              n_layers=MOE_SERVE_LAYERS, max_seq_len=max_len)
+    rng = np.random.default_rng(seed + 43)
+    prompts = mixed_prompts(rng, cfg, n_requests, prompt_lo, prompt_hi,
+                            shared)
+    longest = max(len(p) for p in prompts) + new_tokens
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device="cuda")
+    eng = make_engine(cfg, params, batch=batch, max_len=max_len,
+                      prefill_chunk=prefill_chunk, device="cuda")
+    if not isinstance(eng, PagedDecodeEngine):
+        raise AssertionError(f"make_engine built {type(eng).__name__}")
+    built = eng.warmup(widths=eng.decode_width_buckets(prompt_lo, longest),
+                       prefill_widths=eng.decode_width_buckets(1, longest))
+    log(f"moe serve: {cfg.n_layers} layers at Mixtral-8x7B's widths, batch "
+        f"{batch}, chunk {eng.prefill_chunk}, prefix cache "
+        f"{'on' if eng._prefix else 'off'}: warm-up built {built} graphs in "
+        f"{time.perf_counter() - t0:.2f} s with the weights on {card}")
+    wrappers = (moe_route, expert_matmul, moe_combine)
+    for w in wrappers:
+        w.launches = 0
+    builds = expert_matmul.launches_by_build
+    builds.update(dict.fromkeys(builds, 0))
+    steps0, chunks0 = eng.steps, eng.chunks
+    captured0 = eng.graphs_captured
+    eng.sync()
+    moe0 = eng.payload()["moe"]
+    t = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    drive_paged(eng, n_requests)
+    eng.sync()
+    wall = time.perf_counter() - t
+    moe1 = eng.payload()["moe"]
+    counts = {w.__name__: w.launches for w in wrappers}
+    fwd = (eng.steps - steps0) + (eng.chunks - chunks0)
+    want = {"moe_route": cfg.n_layers * fwd,
+            "expert_matmul": 2 * cfg.n_layers * fwd,
+            "moe_combine": cfg.n_layers * fwd}
+    dispatches = moe1["dispatches"] - moe0["dispatches"]
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    log(f"moe serve: {len(done)} requests, {fwd} dispatches "
+        f"({eng.steps - steps0} decode steps, {eng.chunks - chunks0} "
+        f"chunks) in {wall:.3f} s; prefix hits "
+        f"{eng._prefix.hits if eng._prefix else 0}; launches {counts} "
+        f"(want {want}), the expert GEMM's by build {builds}; the engine's "
+        f"counters: {dispatches} expert-layer dispatches, assignments by "
+        f"expert "
+        f"{[b - a for a, b in zip(moe0['assignments'], moe1['assignments'])]}"
+        f"; graphs captured in traffic {eng.graphs_captured - captured0}")
+    gaps = served_gaps(cfg, params, done, dict(zip(rids, prompts)))
+    log(f"moe serve: {gaps['tokens']} served tokens against the plain "
+        f"expert path (moe.forward, every expert): mean gap "
+        f"{gaps['mean_gap']:.5f} (limit {MOE_SERVE_GAP['mean_gap']}), "
+        f"{100 * gaps['off_best']:.2f}% not its best (limit "
+        f"{100 * MOE_SERVE_GAP['off_best']:.2f}%), widest gap "
+        f"{gaps['widest_gap']:.4f}, logits' spread {gaps['logit_std']:.3f} "
+        f"on {card}")
+    if [r.rid for r in done] != rids or any(
+            len(r.generated) != new_tokens for r in done):
+        raise AssertionError("moe serve: requests lost or cut short")
+    if counts != want or not all(counts.values()) \
+            or not all(builds.values()):
+        raise AssertionError(f"moe serve: expert-layer launches {counts} "
+                             f"(by build {builds}), want {want}")
+    if dispatches != counts["moe_route"]:
+        raise AssertionError(f"moe serve: the engine counted {dispatches} "
+                             f"expert-layer dispatches, the route launched "
+                             f"{counts['moe_route']} times")
+    if eng.graphs_captured != captured0:
+        raise AssertionError("moe serve: graphs captured in traffic")
+    if gaps["mean_gap"] > MOE_SERVE_GAP["mean_gap"] \
+            or gaps["off_best"] > MOE_SERVE_GAP["off_best"]:
+        raise AssertionError("moe serve: the served tokens leave the plain "
+                             "expert path")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def check_scatter(gen, card: str) -> None:
@@ -6689,6 +7101,7 @@ def main() -> int:
     paged_rows.append(check_add_rms_norm(write_gen, card))
     paged_rows.append(phase_w8a16_kernels(args.seed, card))
     paged_rows.append(phase_dense_kernels(args.seed, card))
+    expert_row = phase_expert_kernels(args.seed, card)
     phase_done("phase 3 (kernels)")
     # 4. the lanes path; 5. the flash and W8A16 kernels through the model
     lanes = phase_serve(args.seed, card)
@@ -6770,8 +7183,16 @@ def main() -> int:
     for row in [flash_row, *paged_rows]:
         row["gate_launches"] = gates.get(row["name"], 0)
     phase_done("phase 17 (data-plane gates)")
+    # 18. the routed expert layer through the paged engine, counted from
+    # zero
+    moe = phase_moe_serve(args.seed, card)
+    expert_row["launches"] = moe["expert_matmul"]
+    expert_row["route_launches"] = moe["moe_route"]
+    expert_row["combine_launches"] = moe["moe_combine"]
+    phase_done("phase 18 (MoE serve)")
 
-    print(json.dumps({"kernels": [flash_row, *paged_rows]}), flush=True)
+    print(json.dumps({"kernels": [flash_row, *paged_rows, expert_row]}),
+          flush=True)
     print(card_line(), flush=True)  # nvidia-smi name, power.limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

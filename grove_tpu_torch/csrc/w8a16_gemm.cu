@@ -1383,6 +1383,13 @@ cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elt,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A source that includes this file with GROVE_GEMM_DEVICE_ONLY defined
+// (csrc/moe_gemm.cu) takes the device code and the map helpers above, and
+// none of this file's launches or entry points.
+#ifdef GROVE_GEMM_DEVICE_ONLY
+}  // namespace
+#else
+
 // What a launch over a set of weights needs besides x, M and the output:
 // made once per set (ops/w8a16.py caches it by the weights' pointers and
 // shapes) and copied by value at each launch.
@@ -1727,3 +1734,5 @@ extern "C" int grove_w8a16_info(int which, int* out) {
 extern "C" const char* grove_w8a16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // GROVE_GEMM_DEVICE_ONLY

@@ -35,6 +35,7 @@ from grove_tpu_torch.ops.attention import (causal_attention, decode_attention,
 from grove_tpu_torch.ops.kvcache import KVCache, write_rows
 from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
                                          paged_rope_scatter_q)
+from grove_tpu_torch.ops.moe import expert_layer
 from grove_tpu_torch.ops.norms import add_rms_norm, rms_norm, rms_norm_ref
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
@@ -63,13 +64,24 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
 
     @property
+    def mlp_params(self) -> int:
+        """Weights one token passes through in a layer's feed-forward
+        block (the SwiGLU MLP's three)."""
+        return 3 * self.d_model * self.d_ff
+
+    @property
+    def stored_mlp_params(self) -> int:
+        """Weights a layer's feed-forward block stores."""
+        return self.mlp_params
+
+    @property
     def params_bytes(self) -> int:
         c = self
         per_layer = (2 * c.d_model
                      + c.d_model * c.n_heads * c.head_dim
                      + 2 * c.d_model * c.n_kv_heads * c.head_dim
                      + c.n_heads * c.head_dim * c.d_model
-                     + 3 * c.d_model * c.d_ff)
+                     + c.stored_mlp_params)
         total = (2 * c.vocab_size * c.d_model + c.d_model
                  + c.n_layers * per_layer)
         return total * c.dtype.itemsize
@@ -253,8 +265,25 @@ def _mlp_block(h, lp, dtype: torch.dtype, wide: bool = False, tp=None):
                          wide), tp).to(dtype)
 
 
+def _ffn(cfg: LlamaConfig, h, lp, dtype: torch.dtype, wide: bool = False,
+         tp=None, moe_stats=None):
+    """A layer's feed-forward block of the normed rows ``h``, chosen by the
+    layer's leaves: the routed experts (``router``, ``we_gate``, ``we_up``,
+    ``we_down``: a Mixtral-shaped ``MoeConfig``'s layer, ops/moe.py's
+    ``expert_layer``, which adds to ``moe_stats``) or the dense SwiGLU
+    MLP."""
+    if "router" not in lp:
+        return _mlp_block(h, lp, dtype, wide, tp)
+    if tp is not None:
+        raise NotImplementedError("the routed expert layer runs on one "
+                                  "device (no tp group)")
+    return expert_layer(h, lp["router"], lp["we_gate"], lp["we_up"],
+                        lp["we_down"], cfg.experts_per_token,
+                        moe_stats).to(dtype)
+
+
 def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
-             wide: bool = False, tp=None) -> torch.Tensor:
+             wide: bool = False, tp=None, moe_stats=None) -> torch.Tensor:
     """The decoder layers over the embedded rows ``x`` [b, s, d]:
     ``attend(i, q, k, v)`` is layer i's attention over the unroped
     projections (rope, the cache write and attention). Returns the final
@@ -270,7 +299,10 @@ def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
     are its rank's slices) the attention output's and the MLP's partial
     projections are summed over the group before the fused add: the JAX
     package's psum sites in ``_attn_out`` and ``_mlp_block``, and where
-    GSPMD reduces the head- and mlp-sharded products."""
+    GSPMD reduces the head- and mlp-sharded products.
+
+    A layer that holds a router runs the routed experts in the MLP's place
+    (``_ffn``); ``moe_stats`` takes their counters."""
     layers, eps = params["layers"], cfg.norm_eps
     h = rms_norm(x, layers["attn_norm"][0], eps)
     for i in range(cfg.n_layers):
@@ -280,8 +312,8 @@ def _decoder(cfg: LlamaConfig, params: Params, x: torch.Tensor, attend,
                             lp["mlp_norm"], eps)
         nxt = (layers["attn_norm"][i + 1] if i + 1 < cfg.n_layers
                else params["final_norm"])
-        x, h = add_rms_norm(x, _mlp_block(h, lp, x.dtype, wide, tp), nxt,
-                            eps)
+        x, h = add_rms_norm(
+            x, _ffn(cfg, h, lp, x.dtype, wide, tp, moe_stats), nxt, eps)
     return h
 
 
@@ -554,7 +586,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                       k_scale: torch.Tensor | None = None,
                       v_scale: torch.Tensor | None = None,
                       limit: torch.Tensor | None = None,
-                      tp=None) -> torch.Tensor:
+                      tp=None, moe_stats=None) -> torch.Tensor:
     """One decode step over block tables. tokens: [b]; pools:
     [layers, num_blocks, bs, n_kv, d]; tables: [b, w] int32; lengths: [b]
     int32 = tokens already in cache (the new token writes at that
@@ -577,7 +609,11 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     (parallel/sharding.py ``shard_params``), the pools hold its n_kv / tp
     heads, and each forward runs 2 n_layers + 2 collectives (the
     embedding's sum, two sums per layer, the logits' gather), the same on
-    every rank. The prefill, verify and spec functions take it too."""
+    every rank. The prefill, verify and spec functions take it too.
+
+    ``moe_stats`` (int64 [E + 2] on the device), for a model with routed
+    experts, takes the expert layers' counters (ops/moe.py); so do the
+    prefill, verify and spec functions'."""
     positions = lengths[:, None]  # [b, 1]
     valid = None if limit is None else positions < limit[:, None]
     cos, sin = _rope(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
@@ -592,7 +628,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             new_lengths, valid, decode=True)
 
     x = _decoder(cfg, params, embed(cfg, params, tokens[:, None], tp),
-                 attend, tp=tp)
+                 attend, tp=tp, moe_stats=moe_stats)
     return _logits(x[:, 0], params["lm_head"], tp)
 
 
@@ -611,7 +647,7 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
                         k_scale: torch.Tensor | None = None,
                         v_scale: torch.Tensor | None = None,
                         logits: bool = True,
-                        tp=None) -> torch.Tensor | None:
+                        tp=None, moe_stats=None) -> torch.Tensor | None:
     """One chunked-prefill window over block tables, the pools written in
     place (int8 pools with ``k_scale``/``v_scale``, as in
     ``decode_step_paged``).
@@ -650,7 +686,8 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params,
             None if v_scale is None else v_scale[i], tables, positions,
             offsets, valid, decode=False)
 
-    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend, tp=tp)
+    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend, tp=tp,
+                 moe_stats=moe_stats)
     if not logits:
         return None
     row = x.index_select(1, logit_idx.clamp(0, c - 1))[:, 0]  # [b, d]
@@ -680,7 +717,7 @@ def verify_chunk_paged(cfg: LlamaConfig, params: Params,
                        k_scale: torch.Tensor | None = None,
                        v_scale: torch.Tensor | None = None,
                        logits: bool = True,
-                       tp=None) -> torch.Tensor | None:
+                       tp=None, moe_stats=None) -> torch.Tensor | None:
     """The target's verification chunk. tokens: [b, c] int32, row 0 the
     last committed token and rows 1..c-1 the draft; row i writes its K/V at
     position lengths[b] + i (into the pools, in place; int8 pools with
@@ -706,7 +743,8 @@ def verify_chunk_paged(cfg: LlamaConfig, params: Params,
             None if v_scale is None else v_scale[i], tables, positions,
             lengths, valid, decode=False)
 
-    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend, tp=tp)
+    x = _decoder(cfg, params, embed(cfg, params, tokens, tp), attend, tp=tp,
+                 moe_stats=moe_stats)
     if not logits:
         return None
     return _logits(x, params["lm_head"], tp)
@@ -726,7 +764,7 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
                     lengths: torch.Tensor, limit: torch.Tensor, spec_k: int,
                     k_scale: torch.Tensor | None = None,
                     v_scale: torch.Tensor | None = None,
-                    self_draft: bool = False, tp=None
+                    self_draft: bool = False, tp=None, moe_stats=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One speculative decode step: draft ``spec_k`` tokens greedily with
     the draft model (its own pool ``draft_k``/``draft_v``, addressed by the
@@ -772,7 +810,8 @@ def spec_step_paged(cfg: LlamaConfig, dcfg: LlamaConfig, params: Params,
                            lengths, limit=limit, logits=False, tp=tp)
     tgt = greedy_tokens(verify_chunk_paged(
         cfg, params, chunk, kv_k, kv_v, tables, lengths, limit=limit,
-        k_scale=k_scale, v_scale=v_scale, tp=tp))            # [b, k + 1]
+        k_scale=k_scale, v_scale=v_scale, tp=tp,
+        moe_stats=moe_stats))                                # [b, k + 1]
     agree = (drafts == tgt[:, :-1]).to(torch.int32)
     m = torch.cumprod(agree, dim=1).sum(dim=1, dtype=torch.int32)
     # Committed token i's K/V lives at lengths + i, which must be < limit;

@@ -1,10 +1,18 @@
 """Mixture-of-Experts decoder (Mixtral-shaped): the second model family.
 
 The JAX package's ``grove_tpu/models/moe.py``: the Llama attention stack
-with the MLP replaced by a top-k token-choice router over E experts, in
-training only (no serving engine builds a MoE model). Two paths share one
-decoder skeleton (``_decoder_stack``), whose only difference is the MoE
-function of each layer:
+with the MLP replaced by a top-k token-choice router over E experts.
+
+Serving: the paged engine (``make_engine(cfg, params, mode="paged")``)
+serves a ``MoeConfig`` and its params through ``models/llama.py``'s paged
+functions, whose decoder runs a layer's routed experts in the MLP's place
+wherever the layer holds a ``router`` (``llama._ffn``): the hand-written
+route, grouped expert GEMM and combine of ``ops/moe.py`` on the card,
+inside the engine's CUDA graphs, their plain versions on the CPU. The
+training paths below stay plain PyTorch.
+
+Training: two paths share one decoder skeleton (``_decoder_stack``), whose
+only difference is the MoE function of each layer:
 
 - dense (the default): every expert evaluated for every token, combined by
   router weight (static shapes, no gather or scatter);
@@ -43,6 +51,20 @@ Params = dict[str, Any]
 class MoeConfig(LlamaConfig):
     n_experts: int = 8
     experts_per_token: int = 2
+
+    @property
+    def mlp_params(self) -> int:
+        """Weights one token passes through in a layer's expert block: its
+        k experts' SwiGLU and the router."""
+        return (self.experts_per_token * 3 * self.d_model * self.d_ff
+                + self.d_model * self.n_experts)
+
+    @property
+    def stored_mlp_params(self) -> int:
+        """Weights a layer's expert block stores: every expert and the
+        router (``params_bytes`` counts these)."""
+        return (self.n_experts * 3 * self.d_model * self.d_ff
+                + self.d_model * self.n_experts)
 
 
 MOE_CONFIGS: dict[str, MoeConfig] = {

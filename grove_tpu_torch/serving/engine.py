@@ -60,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import os
 import time
 from collections import deque
@@ -70,11 +71,12 @@ import torch
 from torch.autograd import profiler as autograd_profiler
 
 from grove_tpu_torch.device import resolve_device
-from grove_tpu_torch.models import llama
+from grove_tpu_torch.models import llama, moe
 from grove_tpu_torch.models.llama import LlamaConfig
 from grove_tpu_torch.ops.kvcache import KVCache
 from grove_tpu_torch.ops.kvquant import (paged_rope_scatter,
                                          paged_rope_scatter_q)
+from grove_tpu_torch.ops.moe import expert_matmul, moe_combine, moe_route
 from grove_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from grove_tpu_torch.ops.paged import (paged_chunk_attention,
                                        paged_chunk_attention_q8,
@@ -100,7 +102,8 @@ from grove_tpu_torch.serving.schedule import (PagedScheduler, PagedSeq,
 _KERNEL_WRAPPERS = (paged_decode_attention, paged_chunk_attention,
                     paged_decode_attention_q8, paged_chunk_attention_q8,
                     paged_rope_scatter_q, paged_rope_scatter, w8a16_matmul,
-                    dense_matmul, rms_norm, add_rms_norm)
+                    dense_matmul, rms_norm, add_rms_norm, moe_route,
+                    expert_matmul, moe_combine)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,8 +396,18 @@ class _Graphed(_Observed):
         counters = _KERNEL_WRAPPERS + (
             (self._tp,) if self._tp is not None else ())
         counts = launch_counts(counters)
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            out = step()
+        # No automatic collection inside the capture: torch.cuda.graph no
+        # longer collects on entry, and a collection there can free another
+        # engine's graphs (cyclic garbage), whose destruction a capture
+        # forbids; the capture then fails. The garbage waits until after.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                out = step()
+        finally:
+            if collecting:
+                gc.enable()
         per_replay = take_captured(counters, counts)
         torch.cuda.empty_cache()
         self.graphs_captured += 1
@@ -1238,11 +1251,15 @@ class PagedDecodeEngine(_Graphed):
                              f"tp={tp}")
         self._gen = torch.Generator(device=self.device).manual_seed(
             self._sampler.seed)
+        experts = getattr(cfg, "n_experts", 0)
+        if experts and tp > 1:
+            raise ValueError("the routed expert layer runs on one device: "
+                             "no tp group for a MoeConfig")
         if isinstance(key_or_params, torch.Generator):
             # On the generator's device: a host generator makes the model
             # in host memory, and the card receives the rank's slices.
-            key_or_params = llama.init_params(cfg, key_or_params,
-                                              key_or_params.device)
+            init = moe.init_params if experts else llama.init_params
+            key_or_params = init(cfg, key_or_params, key_or_params.device)
         self.params = _sharded(self.mesh, key_or_params, quant, self.device)
         self.quant = quant
         # The draft: none (spec off), the target itself ("self"), a derived
@@ -1395,6 +1412,14 @@ class PagedDecodeEngine(_Graphed):
         if self.xprof is not None:
             # The roofline's KV byte basis: what this engine moves.
             self.xprof.kv_quant = self.kv_quant
+        # A model with routed experts: their counters (ops/moe.py), added on
+        # the device inside every step and chunk while the observatory is
+        # on, and copied to the host after each of the engine's fetches.
+        self._moe_stats = self._moe_seen = None
+        if experts and self.xprof is not None:
+            self._moe_stats = torch.zeros(experts + 2, dtype=torch.int64,
+                                          device=self.device)
+            self._moe_seen = [0] * (experts + 2)
         # The scheduler stamps preemption and prefix boundaries itself.
         self._sched.reqtrace = self.reqtrace
         q8 = "_q8" if self.kv.quantized else ""
@@ -1440,11 +1465,13 @@ class PagedDecodeEngine(_Graphed):
         tokens, lengths = self._tok_buf[:B], self._len_buf[:B]
         tables = self._table_buf(W)[:B]
         sampler, gen, tp = self._sampler, self._gen, self._tp
+        moe_stats = self._moe_stats
 
         def step() -> None:
             logits = llama.decode_step_paged(cfg, params, tokens, kv.k,
                                              kv.v, tables, lengths,
-                                             **kv.scales, tp=tp)
+                                             **kv.scales, tp=tp,
+                                             moe_stats=moe_stats)
             tokens.copy_(sample_tokens(logits, gen, sampler))
             lengths.add_(1)
 
@@ -1470,13 +1497,15 @@ class PagedDecodeEngine(_Graphed):
         tables, limit = self._table_buf(W)[:B], self._limit_buf[:B]
         out = self._out_buf[:B]
         self_draft, tp = self._self_draft, self._tp
+        moe_stats = self._moe_stats
 
         def spec() -> None:
             committed, nxt, new_lengths = llama.spec_step_paged(
                 cfg, dcfg, params, dparams, tokens, kv.k, kv.v,
                 None if draft is None else draft.k,
                 None if draft is None else draft.v, tables, lengths, limit,
-                K, **kv.scales, self_draft=self_draft, tp=tp)
+                K, **kv.scales, self_draft=self_draft, tp=tp,
+                moe_stats=moe_stats)
             out.copy_(committed)
             tokens.copy_(nxt)
             lengths.copy_(new_lengths)
@@ -1503,12 +1532,12 @@ class PagedDecodeEngine(_Graphed):
         buf = self._pf_buf
         tokens, table = buf[:c].view(1, c), buf[c + 3:c + 3 + W].view(1, W)
         scalars = (buf[c:c + 1], buf[c + 1:c + 2], buf[c + 2:c + 3])
-        tp = self._tp
+        tp, moe_stats = self._tp, self._moe_stats
 
         def chunk() -> torch.Tensor:
             logits = llama.prefill_chunk_paged(
                 cfg, params, tokens, kv.k, kv.v, table, *scalars,
-                **kv.scales, tp=tp)
+                **kv.scales, tp=tp, moe_stats=moe_stats)
             if draft is not None:
                 llama.prefill_chunk_paged(dcfg, dparams, tokens, draft.k,
                                           draft.v, table, *scalars,
@@ -1730,7 +1759,22 @@ class PagedDecodeEngine(_Graphed):
                 "handoff": self.handoff_view(),
                 "host": self.xprof.host() if self.xprof is not None
                 else None,
+                "moe": self.moe_view(),
                 "schedule": self._sched.payload()}
+
+    def moe_view(self) -> dict | None:
+        """The routed experts' counters as of the engine's last fetch
+        (None for a model without experts, or with the observatory off):
+        each expert's assignments (k per token of every step and chunk,
+        padded rows too), the experts that got any row summed over (layer,
+        dispatch), and the expert-layer dispatches (layers times steps and
+        chunks), all since the engine was built, warm-up included."""
+        seen = self._moe_seen
+        if seen is None:
+            return None
+        E = len(seen) - 2
+        return {"experts": E, "assignments": list(seen[:E]),
+                "experts_touched": seen[E], "dispatches": seen[E + 1]}
 
     def idle(self) -> bool:
         """No sequence live or preempted (whose KV the current weights
@@ -2038,9 +2082,12 @@ class PagedDecodeEngine(_Graphed):
 
     def _note_fetch(self) -> None:
         """A blocking fetch returned: the stream is empty, and the device
-        idles until the next launch (a refill)."""
+        idles until the next launch (a refill). The experts' counters come
+        over now, inside the refill: E + 2 numbers from an idle stream."""
         if self.xprof is not None:
             self._refill_from = time.perf_counter()
+        if self._moe_stats is not None:
+            self._moe_seen = self._moe_stats.tolist()
 
     def _end_tick(self, dispatched: int) -> None:
         """Count the tick; a refill still open after a tick that dispatched

@@ -62,7 +62,8 @@ def quantize_tensor(w: torch.Tensor, axes: tuple[int, ...]) -> QTensor:
 
 def quantize_params(params: Any) -> Any:
     """Quantize every known matmul leaf of a Llama params dict; norms and
-    unknown leaves pass through untouched."""
+    unknown leaves pass through untouched. A MoE's router and experts are
+    unknown here (no kernel reads int8 experts): they stay as they are."""
     def walk(tree):
         out = {}
         for name, w in tree.items():

@@ -105,7 +105,7 @@ def decode_flops_per_token(cfg, ctx: int) -> float:
     w_matmul = (c.n_layers * (c.d_model * c.n_heads * c.head_dim       # wq
                               + 2 * c.d_model * c.n_kv_heads * c.head_dim
                               + c.n_heads * c.head_dim * c.d_model     # wo
-                              + 3 * c.d_model * c.d_ff)                # mlp
+                              + c.mlp_params)                          # mlp
                 + c.d_model * c.vocab_size)                            # head
     attn = 4 * ctx * c.n_layers * c.n_heads * c.head_dim
     return 2.0 * w_matmul + attn
@@ -118,7 +118,7 @@ def prefill_flops_per_token(cfg, prompt_len: int) -> float:
     w_matmul = (c.n_layers * (c.d_model * c.n_heads * c.head_dim
                               + 2 * c.d_model * c.n_kv_heads * c.head_dim
                               + c.n_heads * c.head_dim * c.d_model
-                              + 3 * c.d_model * c.d_ff)
+                              + c.mlp_params)
                 + c.d_model * c.vocab_size)
     attn = 4 * (prompt_len / 2) * c.n_layers * c.n_heads * c.head_dim
     return 2.0 * w_matmul + attn

@@ -33,7 +33,7 @@ import textwrap
 import pytest
 
 from grove_tpu_torch.models import llama
-from grove_tpu_torch.ops import kvquant, norms, paged, w8a16
+from grove_tpu_torch.ops import kvquant, moe, norms, paged, w8a16
 from grove_tpu_torch.serving import engine, reqtrace, schedule, slo, xprof
 
 STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick", "_spec_tick",
@@ -43,8 +43,8 @@ STEP_FUNCS = ("step", "run", "_decode_tick", "_prefill_tick", "_spec_tick",
 SPEC_FUNCS = ("spec_step_paged", "verify_chunk_paged", "decode_step_paged",
               "prefill_chunk_paged", "greedy_tokens", "_write_and_attend",
               "_decoder", "_logits", "embed", "_qkv_proj", "_projs",
-              "_proj", "_matmul", "_attn_out", "_mlp_block", "layer_params",
-              "_device_scalar")
+              "_proj", "_matmul", "_attn_out", "_mlp_block", "_ffn",
+              "layer_params", "_device_scalar")
 # The disaggregated path: method names by class, and the copy's model
 # functions.
 DISAGG_METHODS = {"PagedDecodeEngine": ("adopt", "_get_handoff"),
@@ -75,6 +75,12 @@ WRAPPERS = {
     "rms_norm": (norms, ("rms_norm", "_check", "_route", "_launch")),
     "add_rms_norm": (norms, ("add_rms_norm", "add_rms_norm_ref", "_check",
                              "_route", "_launch")),
+    "moe_route": (moe, ("moe_route", "_device_only", "_stream", "_raise")),
+    "expert_matmul": (moe, ("expert_matmul", "expert_matmul_group",
+                            "expert_build", "_plan", "_device_only",
+                            "_stream", "_raise")),
+    "moe_combine": (moe, ("moe_combine", "_device_only", "_stream",
+                          "_raise")),
     "paged_attention": (paged, ("paged_decode_attention",
                                 "paged_chunk_attention",
                                 "paged_decode_attention_q8",
